@@ -1,0 +1,113 @@
+"""Model and optimizer configs: the fields of the reference's
+`repro/configs/base.py` that this port reads, as its own copy.
+
+`reduced()` derives the CPU-scale variant of the same family exactly as the
+reference does, so a reduced config here and there describes the same model.
+"""
+from __future__ import annotations
+
+import importlib
+from dataclasses import dataclass, replace
+from typing import Optional
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    arch_type: str               # dense | encoder
+    source: str                  # citation for the numbers
+    num_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None       # default d_model // n_heads
+    max_seq_len: int = 8192
+    attention: str = "gqa"
+    norm: str = "rmsnorm"                # rmsnorm | layernorm
+    act: str = "silu"                    # silu (gated MLP) | gelu (plain MLP)
+    pos_emb: str = "rope"                # rope | sinusoidal (added at embed)
+    rope_theta: float = 10000.0
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim is not None:
+            return self.head_dim
+        return self.d_model // self.n_heads
+
+    def padded_vocab(self, tp: int = 1) -> int:
+        mult = 128 * max(tp, 1)
+        return ((self.vocab_size + mult - 1) // mult) * mult
+
+    def reduced(self) -> "ModelConfig":
+        """CPU-smoke variant of the same family (<=2 layers, d_model<=256)."""
+        d_model = min(self.d_model, 256)
+        n_heads = max(2, min(self.n_heads, 4))
+        ratio = max(1, self.n_heads // max(self.n_kv_heads, 1))
+        n_kv = max(1, n_heads // min(ratio, n_heads))
+        return replace(
+            self,
+            num_layers=min(self.num_layers, 2),
+            d_model=d_model,
+            n_heads=n_heads,
+            n_kv_heads=n_kv,
+            head_dim=32,
+            d_ff=min(self.d_ff, 448),
+            vocab_size=min(self.vocab_size, 512),
+            max_seq_len=min(self.max_seq_len, 256),
+            name=self.name + "-reduced",
+        )
+
+
+ACCUM_ENGINES = ("ga", "adama")
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    """The arena path of the reference's OptimizerConfig (use_pallas=True,
+    arena=True, fp32 m/v codecs, fp32 gradient wire, no guard)."""
+    lr: float = 1e-3
+    beta1: float = 0.9
+    beta2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    accumulation: str = "adama"          # ga | adama
+    micro_batches: int = 8
+    grad_clip: Optional[float] = None
+    state_codec: str = "fp32"            # second-moment codec
+    m_codec: str = "fp32"                # first-moment codec
+
+    def __post_init__(self):
+        if self.accumulation not in ACCUM_ENGINES:
+            raise ValueError(f"unknown accumulation engine "
+                             f"{self.accumulation!r}; expected one of "
+                             f"{ACCUM_ENGINES}")
+        if self.micro_batches < 1:
+            raise ValueError(f"micro_batches must be >= 1, got "
+                             f"{self.micro_batches}")
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    optimizer: OptimizerConfig = OptimizerConfig()
+    seq_len: int = 128
+    global_batch: int = 16
+    seed: int = 0
+    steps: int = 100
+    log_every: int = 10
+
+
+ARCH_IDS = ["stablelm_1_6b", "bert_large"]
+
+_ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
+
+
+def get_config(arch: str) -> ModelConfig:
+    arch = _ALIASES.get(arch, arch).replace("-", "_").replace(".", "_")
+    if arch not in ARCH_IDS:
+        raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
+    return importlib.import_module(f"repro_torch.configs.{arch}").CONFIG

@@ -1,0 +1,249 @@
+"""Flat optimizer-state arena: every leaf of a param tree packed once into
+one contiguous (rows, LANES) fp32 buffer with a static layout table, so the
+AdamA fold and apply each run as ONE kernel over the whole model.
+
+The layout is the reference's (`repro/core/arena.py::build_layout`) row for
+row, so an arena packed here and one packed there hold the same values at
+the same rows:
+
+  [ stack "blocks":   layer 0 | layer 1 | ... | layer L-1 ]
+  [ rest: embed | final_norm_* | lm_head | ... ]
+  [ tail padding to a BLOCK_ROWS multiple ]
+
+- Leaves are visited in sorted-key order at every level of the dict tree
+  (the order `jax.tree.flatten` gives a dict).
+- Stacked subtrees (leading layer axis) are packed LAYER-MAJOR: layer j of
+  a stack lives at rows `row + j * layer_rows`.
+- Each leaf starts on a fresh row; the tail lanes of its last row are zero.
+- Every region is padded to `region_grain()` rows, and the total to a
+  BLOCK_ROWS multiple once it exceeds BLOCK_ROWS.
+
+A tree is a nested dict of tensors; a bare tensor is a tree of one leaf.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from repro_torch.kernels.fused_step import BLOCK_ROWS, LANES
+
+# top-level keys holding per-layer stacked subtrees (leading dim = layer)
+STACK_KEYS = ("blocks", "dense_blocks", "enc_blocks")
+
+ROW_ALIGN = 8        # every region is 8-row aligned
+MIN_SLICE_BLOCK = 64  # minimum row block of the per-layer slice fold
+
+Path = Tuple[str, ...]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _align(n: int, mult: int) -> int:
+    return _cdiv(n, mult) * mult
+
+
+def region_grain() -> int:
+    """Row granularity of every region boundary and stride: the lcm of the
+    slice-fold block minimum and the row alignment (the reference's
+    `region_grain(n_shards=1)`; one device, no shards)."""
+    return MIN_SLICE_BLOCK * ROW_ALIGN // math.gcd(MIN_SLICE_BLOCK, ROW_ALIGN)
+
+
+# ---------------------------------------------------------------------------
+# Dict trees
+# ---------------------------------------------------------------------------
+
+
+def tree_flatten(tree) -> Tuple[List[torch.Tensor], Tuple[Path, ...]]:
+    """(leaves, paths) in sorted-key order at every level."""
+    if not isinstance(tree, dict):
+        return [tree], ((),)
+    leaves, paths = [], []
+    for k in sorted(tree):
+        sub_leaves, sub_paths = tree_flatten(tree[k])
+        leaves += sub_leaves
+        paths += [(k,) + p for p in sub_paths]
+    return leaves, tuple(paths)
+
+
+def tree_unflatten(paths: Tuple[Path, ...], leaves):
+    if paths == ((),):
+        return leaves[0]
+    out: Dict[str, Any] = {}
+    for path, leaf in zip(paths, leaves):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
+
+
+def _flatten_up_to(tree, paths: Tuple[Path, ...]) -> List[torch.Tensor]:
+    leaves, got = tree_flatten(tree)
+    if got != paths:
+        raise ValueError(f"tree structure {got} does not match the layout's "
+                         f"{paths}")
+    return leaves
+
+
+# ---------------------------------------------------------------------------
+# Layout
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class LeafSpec:
+    """One leaf's slot inside its region (per-layer shape for stacked leaves)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype           # restored on unpack
+    row: int                     # row offset inside the region
+    rows: int                    # whole rows occupied (= ceil(size/LANES))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+
+@dataclass(frozen=True)
+class StackSpec:
+    name: str
+    paths: Tuple[Path, ...]      # leaf paths of the stacked subtree
+    n_layers: int
+    leaves: Tuple[LeafSpec, ...]
+    layer_rows: int              # region_grain-aligned rows per layer
+    row: int                     # arena row of layer 0
+
+    @property
+    def rows(self) -> int:
+        return self.n_layers * self.layer_rows
+
+
+@dataclass(frozen=True)
+class RestSpec:
+    paths: Tuple[Path, ...]      # leaf paths of the non-stacked remainder
+    leaves: Tuple[LeafSpec, ...]
+    row: int
+    rows: int                    # region_grain-aligned
+
+
+@dataclass(frozen=True)
+class ArenaLayout:
+    stacks: Tuple[StackSpec, ...]
+    rest: RestSpec
+    rows: int                    # total, padded
+
+
+def _leaf_specs(shapes_dtypes) -> Tuple[Tuple[LeafSpec, ...], int]:
+    specs = []
+    row = 0
+    for shape, dtype in shapes_dtypes:
+        rows = max(1, _cdiv(math.prod(shape), LANES))
+        specs.append(LeafSpec(tuple(shape), dtype, row, rows))
+        row += rows
+    return tuple(specs), row
+
+
+def split_tree(tree):
+    """(stack_items, rest_tree): the STACK_KEYS subtrees of a dict tree and
+    the remainder; any other tree is entirely rest."""
+    if isinstance(tree, dict):
+        stack_items = [(k, tree[k]) for k in STACK_KEYS if k in tree]
+        rest = {k: v for k, v in tree.items() if k not in STACK_KEYS}
+        return stack_items, rest
+    return [], tree
+
+
+def build_layout(tree) -> ArenaLayout:
+    grain = region_grain()
+    stack_items, rest_tree = split_tree(tree)
+    row = 0
+    stacks = []
+    for name, sub in stack_items:
+        leaves, paths = tree_flatten(sub)
+        n_layers = int(leaves[0].shape[0])
+        for p, x in zip(paths, leaves):
+            if x.shape[0] != n_layers:
+                raise ValueError(f"stacked leaf {name}/{'/'.join(p)} has "
+                                 f"leading dim {x.shape[0]} != {n_layers}")
+        specs, used = _leaf_specs([(tuple(x.shape[1:]), x.dtype)
+                                   for x in leaves])
+        layer_rows = max(grain, _align(used, grain))
+        stacks.append(StackSpec(name, paths, n_layers, specs, layer_rows, row))
+        row += n_layers * layer_rows
+    rleaves, rpaths = tree_flatten(rest_tree)
+    rspecs, rused = _leaf_specs([(tuple(x.shape), x.dtype) for x in rleaves])
+    rest_rows = _align(rused, grain)
+    rest = RestSpec(rpaths, rspecs, row, rest_rows)
+    row += rest_rows
+    total = _align(row, BLOCK_ROWS) if row > BLOCK_ROWS else max(row, ROW_ALIGN)
+    return ArenaLayout(tuple(stacks), rest, total)
+
+
+# ---------------------------------------------------------------------------
+# Pack / unpack
+# ---------------------------------------------------------------------------
+
+
+def _device_of(tree) -> torch.device:
+    return tree_flatten(tree)[0][0].device
+
+
+def pack(tree, layout: ArenaLayout) -> torch.Tensor:
+    """Whole tree -> new (layout.rows, LANES) fp32 arena on the tree's
+    device (leaves cast to fp32, layer-major stacks, zero padding)."""
+    stack_items, rest_tree = split_tree(tree)
+    arena = torch.zeros((layout.rows, LANES), dtype=torch.float32,
+                        device=_device_of(tree))
+    for (name, sub), spec in zip(stack_items, layout.stacks):
+        assert name == spec.name, (name, spec.name)
+        region = arena[spec.row:spec.row + spec.rows].view(
+            spec.n_layers, spec.layer_rows * LANES)
+        for x, ls in zip(_flatten_up_to(sub, spec.paths), spec.leaves):
+            region[:, ls.row * LANES:ls.row * LANES + ls.size].copy_(
+                x.reshape(spec.n_layers, -1))
+    rest = layout.rest
+    if rest.rows:
+        region = arena[rest.row:rest.row + rest.rows].view(-1)
+        for x, ls in zip(_flatten_up_to(rest_tree, rest.paths), rest.leaves):
+            region[ls.row * LANES:ls.row * LANES + ls.size].copy_(
+                x.reshape(-1))
+    return arena
+
+
+def unpack(arena: torch.Tensor, layout: ArenaLayout, dtype=None):
+    """Arena -> tree. Leaves take their recorded dtypes (or a forced
+    `dtype`); a leaf whose dtype is the arena's is a VIEW of `arena`."""
+    out: Dict[str, Any] = {}
+    for spec in layout.stacks:
+        region = arena[spec.row:spec.row + spec.rows].reshape(
+            spec.n_layers, spec.layer_rows * LANES)
+        leaves = [region[:, ls.row * LANES:ls.row * LANES + ls.size]
+                  .reshape((spec.n_layers,) + ls.shape)
+                  .to(dtype or ls.dtype) for ls in spec.leaves]
+        out[spec.name] = tree_unflatten(spec.paths, leaves)
+    rest = layout.rest
+    region = arena[rest.row:rest.row + rest.rows].reshape(-1)
+    leaves = [region[ls.row * LANES:ls.row * LANES + ls.size]
+              .reshape(ls.shape).to(dtype or ls.dtype) for ls in rest.leaves]
+    rest_tree = tree_unflatten(rest.paths, leaves)
+    if not layout.stacks:
+        return rest_tree
+    out.update(rest_tree)
+    return out
+
+
+@dataclass
+class Arena:
+    """A (rows, LANES) fp32 buffer and its static layout."""
+    data: torch.Tensor
+    layout: ArenaLayout
+
+    @classmethod
+    def zeros(cls, layout: ArenaLayout, device) -> "Arena":
+        return cls(torch.zeros((layout.rows, LANES), dtype=torch.float32,
+                               device=device), layout)

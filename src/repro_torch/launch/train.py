@@ -1,0 +1,64 @@
+"""Training launcher for the PyTorch port. Runs on CUDA unless
+`--device cpu` is given, and fails on a machine without CUDA otherwise.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch bert-large \
+      --steps 5 --global-batch 256 --micro-batches 8 --accumulation adama
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \
+      --reduced --steps 4 --global-batch 8 --micro-batches 2 --seq-len 32 \
+      --log-every 1 --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from repro_torch.configs.base import (ACCUM_ENGINES, OptimizerConfig,
+                                      RunConfig, get_config)
+from repro_torch.optim import schedule as sched
+from repro_torch.train.loop import train
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true",
+                    help="CPU-scale variant of the arch family")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--global-batch", type=int, default=16)
+    ap.add_argument("--micro-batches", type=int, default=4)
+    ap.add_argument("--accumulation", default="adama",
+                    choices=list(ACCUM_ENGINES))
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--warmup", type=int, default=20)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default cuda; 'cpu' runs the plain "
+                         "kernel versions on the CPU)")
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    run = RunConfig(
+        model=cfg,
+        optimizer=OptimizerConfig(accumulation=args.accumulation,
+                                  micro_batches=args.micro_batches,
+                                  lr=args.lr),
+        seq_len=args.seq_len, global_batch=args.global_batch, seed=args.seed,
+        steps=args.steps, log_every=args.log_every)
+    lr_fn = sched.warmup_cosine(args.lr, args.warmup, args.steps)
+    out = train(run, lr_schedule=lr_fn, device=args.device)
+    peak = ""
+    if out["params"]["embed"].is_cuda:
+        peak = (f"; peak device memory {torch.cuda.max_memory_allocated()} B "
+                f"on {torch.cuda.get_device_name(0)}")
+    print(f"[train] done; final loss {out['losses'][-1]:.4f} "
+          f"(first {out['losses'][0]:.4f}){peak}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,173 @@
+"""Model building blocks (dense and encoder families), plain functions on
+tensors with the reference's layouts and operation order
+(`repro/models/modules.py`).
+
+Params are dicts of tensors. Attention is the blockwise online-softmax
+formulation over 1024-key blocks in plain torch (einsum), as the reference
+leaves it to XLA; it never calls a fused attention operator.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+NORM_EPS = 1e-6
+_INT32_MAX = 2 ** 31 - 1
+
+
+# ---------------------------------------------------------------------------
+# Norms & activations
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm(x, w, eps=NORM_EPS):
+    dtype = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * w).to(dtype)
+
+
+def layernorm(x, w, b, eps=NORM_EPS):
+    dtype = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    return ((x - mu) * torch.rsqrt(var + eps) * w + b).to(dtype)
+
+
+def apply_norm(cfg, p, x, prefix=""):
+    if cfg.norm == "layernorm":
+        return layernorm(x, p[prefix + "scale"], p[prefix + "bias"])
+    return rmsnorm(x, p[prefix + "scale"])
+
+
+def _gelu_tanh(x):
+    # the reference's jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(x, approximate="tanh")
+
+
+def act_fn(name):
+    return {"silu": F.silu, "gelu": _gelu_tanh}[name]
+
+
+# ---------------------------------------------------------------------------
+# Positions
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim, theta, device=None):
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x, positions, theta=10000.0):
+    """x: (..., S, H, hd) or (..., S, hd); positions: (..., S)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                # (hd/2,)
+    ang = positions[..., None].float() * freqs             # (..., S, hd/2)
+    if x.dim() == ang.dim() + 1:                           # head axis present
+        ang = ang[..., None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_positions(positions, d_model):
+    """Sinusoidal absolute embeddings, computed on the fly."""
+    half = d_model // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=positions.device) / (half - 1))
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Blockwise attention (online softmax over KV blocks)
+# ---------------------------------------------------------------------------
+
+
+def blockwise_attention(q, k, v, *, causal, q_positions, kv_positions,
+                        kv_block=1024):
+    """Online-softmax attention; never materializes (Sq, Sk) for large Sk.
+
+    q: (B, Hq, Sq, hd); k: (B, Hkv, Sk, hd); v: (B, Hkv, Sk, hv)
+    q_positions: (B, Sq); kv_positions: (B, Sk). Returns (B, Hq, Sq, hv).
+    """
+    b, hq, sq, hd = q.shape
+    _, hkv, sk, hv = v.shape
+    scale = 1.0 / math.sqrt(hd)
+    if hkv != hq:
+        k = torch.repeat_interleave(k, hq // hkv, dim=1)
+        v = torch.repeat_interleave(v, hq // hkv, dim=1)
+    # eager PyTorch keeps every masked score for the backward, so a sequence
+    # shorter than one block gets a block of its own length instead of
+    # being padded to kv_block keys (padded keys add exact zeros either way)
+    kv_block = min(kv_block, sk)
+    nblk = max(1, -(-sk // kv_block))
+    pad = nblk * kv_block - sk
+    if pad:
+        k = F.pad(k, (0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, pad))
+        kv_positions = F.pad(kv_positions, (0, pad), value=_INT32_MAX)
+    qf = q.float()
+    m = torch.full((b, hq, sq), -math.inf, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, hq, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hq, sq, hv), dtype=torch.float32, device=q.device)
+    for j in range(nblk):
+        sl = slice(j * kv_block, (j + 1) * kv_block)
+        kc, vc, pc = k[:, :, sl], v[:, :, sl], kv_positions[:, sl]
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kc.float()) * scale
+        valid = (pc[:, None, :] < _INT32_MAX).expand(b, sq, pc.shape[1])
+        if causal:
+            valid = valid & (pc[:, None, :] <= q_positions[:, :, None])
+        mask = valid[:, None]                               # (B,1,Sq,kb)
+        s = torch.where(mask, s, -math.inf)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        m_safe = torch.where(torch.isinf(m_new), 0.0, m_new)
+        p = torch.exp(s - m_safe[..., None])
+        p = torch.where(mask, p, 0.0)
+        corr = torch.exp(torch.where(torch.isinf(m), 0.0, m) - m_safe)
+        corr = torch.where(torch.isinf(m), 0.0, corr)
+        l = l * corr + torch.sum(p, dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhqk,bhkv->bhqv", p,
+                                                   vc.float())
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention sublayer (train / prefill path)
+# ---------------------------------------------------------------------------
+
+
+def gqa_attention(cfg, p, x, positions, *, causal=True):
+    """p: wq (D,Hq,hd), wk/wv (D,Hkv,hd), wo (Hq,hd,D). RoPE is applied to
+    q and k for every config (bert adds sinusoidal embeddings as well)."""
+    q = torch.einsum("bsd,dhk->bhsk", x, p["wq"].to(x.dtype))
+    k = torch.einsum("bsd,dhk->bhsk", x, p["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dhk->bhsk", x, p["wv"].to(x.dtype))
+    q = apply_rope(q.transpose(1, 2), positions, cfg.rope_theta).transpose(1, 2)
+    k = apply_rope(k.transpose(1, 2), positions, cfg.rope_theta).transpose(1, 2)
+    out = blockwise_attention(q, k, v, causal=causal, q_positions=positions,
+                              kv_positions=positions)
+    return torch.einsum("bhsk,hkd->bsd", out, p["wo"].to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+
+def mlp(cfg, p, x):
+    a = act_fn(cfg.act)
+    if "w_gate" in p:                                       # gated (silu) FFN
+        h = a(x @ p["w_gate"].to(x.dtype)) * (x @ p["w_up"].to(x.dtype))
+    else:                                                   # plain (gelu) FFN
+        h = a(x @ p["w_up"].to(x.dtype))
+    return h @ p["w_down"].to(x.dtype)

@@ -1,0 +1,87 @@
+"""The port's own copies of the configs, the synthetic data pipeline and
+the learning-rate schedules against the reference's: field for field,
+batch for batch, bit for bit."""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from repro.configs import OptimizerConfig as JaxOptimizerConfig
+from repro.configs import get_config as jax_get_config
+from repro.configs.base import InputShape
+from repro.data import make_data as jax_make_data
+from repro.optim import schedule as jsched
+from repro_torch.configs.base import (ARCH_IDS, ModelConfig, OptimizerConfig,
+                                      get_config)
+from repro_torch.data import make_data
+from repro_torch.optim import schedule as tsched
+
+
+def _fields(cfg):
+    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("reduced", [False, True])
+def test_model_config_fields_match_reference(arch, reduced):
+    t, j = get_config(arch), jax_get_config(arch)
+    if reduced:
+        t, j = t.reduced(), j.reduced()
+    for name, value in _fields(t).items():
+        assert getattr(j, name) == value, name
+    assert t.padded_vocab() == j.padded_vocab()
+    assert t.resolved_head_dim == j.resolved_head_dim
+
+
+def test_bert_large_is_the_papers_workload():
+    cfg = get_config("bert-large")
+    assert (cfg.num_layers, cfg.d_model, cfg.n_heads, cfg.d_ff,
+            cfg.vocab_size, cfg.padded_vocab()) == (24, 1024, 16, 4096, 30522,
+                                                    30592)
+    assert (cfg.arch_type, cfg.norm, cfg.act, cfg.pos_emb) == \
+        ("encoder", "layernorm", "gelu", "sinusoidal")
+    with pytest.raises(KeyError):
+        get_config("rwkv6_7b")
+
+
+def test_optimizer_config_defaults_match_reference():
+    t, j = OptimizerConfig(), JaxOptimizerConfig()
+    for name, value in _fields(t).items():
+        assert getattr(j, name) == value, name
+    with pytest.raises(ValueError):
+        OptimizerConfig(accumulation="adama_layerwise")
+    assert isinstance(get_config("stablelm-1.6b"), ModelConfig)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("seq_len", [16, 100])
+def test_synthetic_batches_are_bit_identical(arch, seq_len):
+    cfg = get_config(arch).reduced()
+    ours = make_data(cfg, seq_len, 6, seed=7)
+    ref = jax_make_data(jax_get_config(arch).reduced(),
+                        InputShape("t", seq_len, 6, "train"), seed=7)
+    for i in (0, 1, 5):
+        a, b = ours.batch(i), ref.batch(i)
+        assert sorted(a) == sorted(b)
+        for k in a:
+            assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), k
+    if cfg.arch_type == "encoder":
+        assert (a["tokens"] == cfg.vocab_size - 1).any()
+        assert ((a["labels"] == -1) | (a["tokens"] == cfg.vocab_size - 1)).all()
+
+
+def test_schedules_match_reference():
+    for step in range(0, 30):
+        for t, j in ((tsched.warmup_cosine(1e-3, 5, 20),
+                      jsched.warmup_cosine(1e-3, 5, 20)),
+                     (tsched.warmup_cosine(3e-4, 0, 7, min_lr=1e-5),
+                      jsched.warmup_cosine(3e-4, 0, 7, min_lr=1e-5))):
+            got = t(step)
+            want = np.float32(j(jnp.asarray(step, jnp.int32)))
+            assert got.dtype == np.float32
+            # same float32 operation order; numpy's and XLA's float32 cos
+            # differ by a few ulp
+            np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+        assert tsched.constant(1e-3)(step) == np.float32(
+            jsched.constant(1e-3)(step))

@@ -1,0 +1,164 @@
+"""The port's fused fold/apply (repro_torch.kernels.fused_step) against the
+reference's Pallas kernels (repro.kernels.fused_step, interpret mode on the
+CPU), bit for bit, plus the wrappers' input checks and CPU dispatch. The
+CUDA kernels themselves are held against these plain versions on the card
+by chip_smoke.py."""
+import ctypes
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import fused_step as jfs
+from repro_torch.core import adama, state_store
+from repro_torch.kernels import build
+from repro_torch.kernels import fused_step as tfs
+
+torch.set_num_threads(1)
+
+B1, B2 = 0.9, 0.999
+
+
+def _arenas(rows, seed=0):
+    rng = np.random.default_rng(seed)
+    shape = (rows, tfs.LANES)
+    m = rng.standard_normal(shape).astype(np.float32) * 1e-3
+    v = np.abs(rng.standard_normal(shape).astype(np.float32)) * 1e-6
+    v[0, :7] = 0.0                                  # sqrt(0) + eps path
+    g = rng.standard_normal(shape).astype(np.float32)
+    g[0, 7:11] = 0.0
+    p = rng.standard_normal(shape).astype(np.float32) * 0.02
+    return m, v, g, p
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x, np.float32))
+
+
+@pytest.mark.parametrize("rows", [8, 256, 1280])
+def test_fold_plain_version_bitwise_vs_reference(rows):
+    """First fold of a mini-batch (decay fused in) and a later fold with
+    scale 1/4, chained, against the Pallas kernel."""
+    m, v, g, _ = _arenas(rows)
+    g2 = np.flip(g, 0).copy()
+    jm, jv = jnp.asarray(m), jnp.asarray(v)
+    tm, tv = _t(m), _t(v)
+    for grad, kw in ((g, dict(scale=1.0, decay=(B1, B2))),
+                     (g2, dict(scale=1.0 / 4, decay=None))):
+        jm, jv = jfs.arena_fold(jm, jv, jnp.asarray(grad), beta1=B1,
+                                beta2=B2, **kw)
+        out = tfs.arena_fold(tm, tv, _t(grad), beta1=B1, beta2=B2, **kw)
+        assert out[0] is tm and out[1] is tv          # in place
+        assert np.array_equal(np.asarray(jm), tm.numpy())
+        assert np.array_equal(np.asarray(jv), tv.numpy())
+
+
+@pytest.mark.parametrize("rows", [8, 256, 1280])
+@pytest.mark.parametrize("wd", [0.0, 0.01])
+def test_apply_plain_version_bitwise_vs_reference(rows, wd):
+    m, v, _, p = _arenas(rows, seed=1)
+    t = np.float32(3)
+    lr = np.float32(1e-3)
+    bc1 = np.float32(1) - np.float32(B1) ** t
+    bc2 = np.float32(1) - np.float32(B2) ** t
+    jp = jfs.arena_apply(jnp.asarray(p), jnp.asarray(m), jnp.asarray(v),
+                         lr=lr, bc1=bc1, bc2=bc2, eps=1e-8, weight_decay=wd)
+    tp = _t(p)
+    assert tfs.arena_apply(tp, _t(m), _t(v), lr=lr, bc1=bc1, bc2=bc2,
+                           eps=1e-8, weight_decay=wd) is tp
+    assert np.array_equal(np.asarray(jp), tp.numpy())
+
+
+def _round_to_f32(r):
+    """Exact rational -> nearest float32, ties to even."""
+    from fractions import Fraction
+    f = np.float32(float(r))
+    cands = [np.nextafter(f, np.float32(-np.inf)), f,
+             np.nextafter(f, np.float32(np.inf))]
+    return min(cands, key=lambda x: (abs(Fraction(float(x)) - r),
+                                     int(np.array(x).view(np.int32)) & 1))
+
+
+def test_fma32_is_a_correctly_rounded_fused_multiply_add():
+    from fractions import Fraction
+    rng = np.random.default_rng(2)
+    a = rng.standard_normal(2048).astype(np.float32)
+    b = (rng.standard_normal(2048) * 1e-3).astype(np.float32)
+    c = (rng.standard_normal(2048) * 1e-4).astype(np.float32)
+    # hard cases: exact cancellation, near-ties, tiny addends, subnormals
+    a[:6] = [1.0, 1.0 + 2 ** -23, 3.0, 1e-20, -2.0, 1.5]
+    b[:6] = [1.0, 1.0 - 2 ** -23, 1.0 / 3, 1e-20, 2.0 ** -24, 2.0 ** -130]
+    c[:6] = [-1.0, -1.0, 2 ** -40, 1e-45, 1.0, 0.0]
+    got = tfs._fma32(_t(a), _t(b), _t(c)).numpy()
+    want = np.array([_round_to_f32(Fraction(float(x)) * Fraction(float(y))
+                                   + Fraction(float(z)))
+                     for x, y, z in zip(a, b, c)], dtype=np.float32)
+    assert np.array_equal(got, want)
+    # and it is not the twice-rounded a*b + c
+    assert not np.array_equal(got, a * b + c)
+
+
+@pytest.mark.parametrize("bad, err", [
+    (lambda m: m.double(), TypeError),
+    (lambda m: m[:, :512], ValueError),
+    (lambda m: m.reshape(-1), ValueError),
+    (lambda m: m.t().contiguous().t(), ValueError),
+    (lambda m: m[:4], ValueError),
+])
+def test_wrappers_reject_malformed_operands(bad, err):
+    m, v, g, p = (_t(x) for x in _arenas(8))
+    with pytest.raises(err):
+        tfs.arena_fold(bad(m), v, g, beta1=B1, beta2=B2)
+    with pytest.raises(err):
+        tfs.arena_apply(p, m, bad(v), lr=1e-3, bc1=0.1, bc2=0.001)
+
+
+def test_cpu_wrappers_run_the_plain_version_and_count_no_launch(monkeypatch):
+    """On CPU tensors the wrapper never touches the CUDA library."""
+    def no_build(name):
+        raise AssertionError("the CUDA library was loaded for CPU tensors")
+    monkeypatch.setattr(build, "load", no_build)
+    folds, applies = tfs.arena_fold.launches, tfs.arena_apply.launches
+    m, v, g, p = (_t(x) for x in _arenas(8))
+    tfs.arena_fold(m, v, g, beta1=B1, beta2=B2, decay=(B1, B2))
+    tfs.arena_apply(p, m, v, lr=1e-3, bc1=0.1, bc2=0.001)
+    assert (tfs.arena_fold.launches, tfs.arena_apply.launches) == \
+        (folds, applies)
+
+
+@pytest.mark.parametrize("name", sorted(tfs.SIGNATURES))
+def test_launch_arguments_match_the_declared_c_signatures(name):
+    """ctypes converts every argument the wrappers pass (pointers as
+    c_void_p, the count as int64, scalars as float32)."""
+    x = torch.zeros(8, tfs.LANES)
+    args = (tfs.fold_args(x, x, x, B1, B2, 0.125, (B1, B2))
+            if name == "arena_fold_launch"
+            else tfs.apply_args(x, x, x, 1e-3, 0.1, 0.001, 1e-8, 0.01))
+    got = []
+    proto = ctypes.CFUNCTYPE(ctypes.c_int, *tfs.SIGNATURES[name])
+    assert proto(lambda *a: got.append(a) or 0)(*args, 0) == 0
+    assert got[0][0] == x.data_ptr() and got[0][3] == x.numel()
+    assert got[0][4:9] == tuple(float(np.float32(s)) for s in args[4:])
+
+
+def test_first_moment_coefficient_is_rounded_from_double():
+    """1 - 0.9 is formed in double then rounded (JAX's weak-typed float),
+    not as 1.0f - 0.9f."""
+    _, c1, c2, _, _ = tfs._fold_scalars(B1, B2, 1.0, None)
+    assert c1 == float(np.float32(0.1))
+    assert c1 != float(np.float32(1.0) - np.float32(0.9))
+    assert c2 == float(np.float32(1.0 - 0.999))
+
+
+def test_queued_codecs_raise_not_implemented():
+    params = {"w": torch.zeros(3, 5)}
+    for name in ("int8", "factored", "rowcol"):
+        with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+            adama.init_arena(params, codec=name)
+        with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+            adama.init_arena(params, m_codec=name)
+    with pytest.raises(KeyError):
+        state_store.check_codecs("nope", "fp32")
+    state = adama.init_arena(params)
+    assert state["m"].data.shape == state["v"].data.shape == (64, tfs.LANES)
