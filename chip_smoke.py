@@ -11,20 +11,34 @@ Phases, in order; the first failure ends the run with a non-zero exit:
 2. Build every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
    (one nvcc per source, started together).
 3. Each kernel against its plain PyTorch version on the card, bit for bit,
-   at the full bert-large arena (357,888 x 1024) and at a ragged 8-row
-   arena; the median time of each over CUDA-event-timed runs, beside the
-   least time the card could take for the same work.
+   with the median time of each over CUDA-event-timed runs beside the least
+   time the card could take for the same work:
+   - arena_fold / arena_apply at the full bert-large arena (357,888 x 1024)
+     and at a ragged 8-row arena;
+   - arena_fold_slice on the full arena, for layer 0, layer 23 and the rest
+     region, with and without the fused decay; every row outside the slice
+     must be unchanged;
+   - adama_accum_2d / adam_apply_2d at the bert-large embedding leaf, one
+     layer's wq (a view into a stacked leaf; the stacked wq for the apply),
+     a 1024-element norm view inside a stacked leaf, and a ragged odd size
+     at a pointer that is not 16-byte aligned; the apply with and without
+     weight decay.
 4. A small-input check: reduced bert-large trained 2 steps on the card
-   (kernels) and on the CPU (plain versions) from the same params agree.
-5. The main path: bert-large at full width and depth, bf16 compute, fp32
-   params and state, seq 128, global batch 256, 8 micro-batches, 5 steps of
-   the `adama` engine and 5 of the `ga` baseline, with per-step loss, step
-   time and peak device memory. Every fold and apply must have gone
-   through the kernels (launch counts).
+   (kernels) and on the CPU (plain versions) from the same params agree,
+   for adama, adama_layerwise (arena and per-leaf state) and per-leaf
+   adama.
+5. The main paths: bert-large at full width and depth, bf16 compute, fp32
+   params and state, seq 128, global batch 256, 8 micro-batches: 5 steps of
+   `adama`, of the `ga` baseline and of `adama_layerwise` (Algorithm 2,
+   arena state), and 3 steps each of the per-leaf forms of
+   `adama_layerwise` and `adama`, with per-step loss, step time and peak
+   device memory. Each path runs with every launch count set to 0 just
+   before it and read just after: every fold and apply must have gone
+   through the kernels, as many times as the path's schedule says.
 
-The last two lines are a JSON object with every kernel's numbers and the
-JSON result line `{"ok": true, "device": {...}}`; the line before them is
-the card's name and power limit.
+The last three lines are a JSON object with every kernel's numbers, the
+card's name and power limit, and the JSON result line
+`{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
@@ -39,10 +53,38 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12           # H100 SXM data sheet, non-tensor fp32
 FULL_ROWS = 357_888              # bert-large arena rows
+LANES = 1024                     # arena row width
 SMALL_ROWS = 8
 TIMED_RUNS = 25
+KERNEL_REPS = 20                 # back-to-back launches per timed kernel run
 MAIN = dict(arch="bert_large", seq_len=128, global_batch=256,
-            micro_batches=8, steps=5, seed=0)
+            micro_batches=8, seed=0)
+# main paths: name -> (engine, arena state, steps)
+PATHS = {"adama": ("adama", True, 5),
+         "ga": ("ga", True, 5),
+         "adama_layerwise": ("adama_layerwise", True, 5),
+         "adama_layerwise_per_leaf": ("adama_layerwise", False, 3),
+         "adama_per_leaf": ("adama", False, 3)}
+# each kernel: (module, source, the TPU kernel it replaces, its main path)
+KERNELS = {
+    "arena_fold": ("fused_step", "src/repro_torch/kernels/csrc/fused_step.cu",
+                   "src/repro/kernels/fused_step.py:406", "adama"),
+    "arena_apply": ("fused_step",
+                    "src/repro_torch/kernels/csrc/fused_step.cu",
+                    "src/repro/kernels/fused_step.py:552", "adama"),
+    "arena_fold_slice": ("fused_step",
+                         "src/repro_torch/kernels/csrc/fused_step.cu",
+                         "src/repro/kernels/fused_step.py:467",
+                         "adama_layerwise"),
+    "adama_accum_2d": ("adama_accum",
+                       "src/repro_torch/kernels/csrc/adama_accum.cu",
+                       "src/repro/kernels/adama_accum.py:177",
+                       "adama_layerwise_per_leaf"),
+    "adam_apply_2d": ("adam_apply",
+                      "src/repro_torch/kernels/csrc/adam_apply.cu",
+                      "src/repro/kernels/adam_apply.py:36",
+                      "adama_layerwise_per_leaf"),
+}
 
 
 def log(msg) -> None:
@@ -56,8 +98,13 @@ def gpu_name_and_power() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def timed_ms(torch, fn, runs=TIMED_RUNS, warmup=2):
-    """Median milliseconds of `fn()` over `runs` CUDA-event-timed calls."""
+def timed_ms(torch, fn, runs=TIMED_RUNS, warmup=2, reps=1):
+    """Median milliseconds per call of `fn()` over `runs` CUDA-event-timed
+    runs of `reps` calls each. A kernel is timed over KERNEL_REPS
+    back-to-back launches, so the host's time between the start event and
+    the first launch is spread over many calls; where one launch takes
+    longer on the host than on the card, the figure is the host's launch
+    interval."""
     for _ in range(warmup):
         fn()
     times = []
@@ -65,10 +112,11 @@ def timed_ms(torch, fn, runs=TIMED_RUNS, warmup=2):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -124,14 +172,16 @@ def check_kernels(torch, fused_step, dev="cuda", sizes=(SMALL_ROWS, FULL_ROWS)):
         timings = {
             "arena_fold": (
                 timed_ms(torch, lambda: fused_step.arena_fold(m, v, g,
-                                                              **fold_kw)),
+                                                              **fold_kw),
+                         reps=KERNEL_REPS),
                 timed_ms(torch, lambda: fused_step.arena_fold_ref(
                     m, v, g, **fold_kw)),
                 # m, v, g read once, m, v written once; 8 fp32 ops each
                 bound_ms(5 * 4 * n, 8 * n)),
             "arena_apply": (
                 timed_ms(torch, lambda: fused_step.arena_apply(p, m, v,
-                                                               **apply_kw)),
+                                                               **apply_kw),
+                         reps=KERNEL_REPS),
                 timed_ms(torch, lambda: fused_step.arena_apply_ref(
                     p, m, v, **apply_kw)),
                 # p, m, v read once, p written once; 7 fp32 ops each
@@ -155,9 +205,222 @@ def check_kernels(torch, fused_step, dev="cuda", sizes=(SMALL_ROWS, FULL_ROWS)):
     return result
 
 
+def _compare(name, label, pairs):
+    """Raise unless each (kernel result, plain result) pair is equal bit
+    for bit; return the largest |difference| (0.0)."""
+    for a, b in pairs:
+        if not a.equal(b):
+            raise AssertionError(
+                f"{name} {label}: kernel != plain at {int((a != b).sum())} "
+                f"elements, max |d| {float((a - b).abs().max())}")
+    return max(float((a - b).abs().max()) for a, b in pairs)
+
+
+def _kernel_entry(name, label, ms, plain_ms, bound, shape_info):
+    bnd, by = bound
+    line = {"phase": "kernel", "name": name, "case": label, **shape_info,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "library_call": "none"}
+    log(json.dumps(line))
+    return {"case": label, **shape_info, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd, "bound_by": by}
+
+
+def full_layout(torch):
+    """The bert-large arena layout, built from a param tree on the card."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.arena import build_layout
+    from repro_torch.models.model import init_params
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = init_params(get_config(MAIN["arch"]), gen)
+    layout = build_layout(params)
+    del params
+    torch.cuda.empty_cache()
+    return layout
+
+
+def check_slice_fold(torch, fused_step, layout):
+    """Phase 3, arena_fold_slice: on the full arena, slices for layer 0,
+    the last layer and the rest region, with and without the fused decay,
+    bitwise against the plain version; rows outside the slice unchanged.
+    Timed on a layer slice (24 of the 25 launches per micro-batch) and on
+    the rest slice."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    lanes = fused_step.LANES
+    m = torch.randn((layout.rows, lanes), generator=gen, device="cuda") * 1e-3
+    v = (torch.randn((layout.rows, lanes), generator=gen, device="cuda")
+         * 1e-6).abs()
+    spec, rest = layout.stack("blocks"), layout.rest
+    last = spec.n_layers - 1
+    slices = {
+        "layer 0": (spec.row, spec.layer_rows, layout.slice_block(spec)),
+        f"layer {last}": (spec.row + last * spec.layer_rows, spec.layer_rows,
+                          layout.slice_block(spec)),
+        "rest": (rest.row, rest.rows, layout.slice_block(rest)),
+    }
+    err = 0.0
+    slabs = {}
+    for label, (off, rows_g, block) in slices.items():
+        g = torch.randn((rows_g, lanes), generator=gen, device="cuda")
+        slabs[label] = g
+        for decay in ((0.9, 0.999), None):
+            kw = dict(beta1=0.9, beta2=0.999, block=block, scale=1.0 / 8,
+                      decay=decay)
+            mk, vk, mr, vr = m.clone(), v.clone(), m.clone(), v.clone()
+            fused_step.arena_fold_slice(mk, vk, g, off, **kw)
+            fused_step.arena_fold_slice_ref(mr, vr, g, off, **kw)
+            torch.cuda.synchronize()
+            err = max(err, _compare("arena_fold_slice",
+                                    f"{label} decay={decay}",
+                                    [(mk, mr), (vk, vr)]))
+            hi = off + rows_g
+            for k, x in (("m", mk), ("v", vk)):
+                x0 = m if k == "m" else v
+                if not (torch.equal(x[:off], x0[:off])
+                        and torch.equal(x[hi:], x0[hi:])):
+                    raise AssertionError(f"arena_fold_slice {label}: {k} "
+                                         f"changed outside rows "
+                                         f"[{off}, {hi})")
+                if torch.equal(x[off:hi], x0[off:hi]):
+                    raise AssertionError(f"arena_fold_slice {label}: {k} "
+                                         f"unchanged inside the slice")
+            del mk, vk, mr, vr
+    cases = []
+    for label in ("layer 0", "rest"):
+        off, rows_g, block = slices[label]
+        g = slabs[label]
+        kw = dict(beta1=0.9, beta2=0.999, block=block, scale=1.0 / 8)
+        n = rows_g * lanes
+        cases.append(_kernel_entry(
+            "arena_fold_slice", label,
+            timed_ms(torch, lambda: fused_step.arena_fold_slice(
+                m, v, g, off, **kw), reps=KERNEL_REPS),
+            timed_ms(torch, lambda: fused_step.arena_fold_slice_ref(
+                m, v, g, off, **kw)),
+            # slab g read once, the slice's m, v read and written once
+            bound_ms(5 * 4 * n, 8 * n),
+            {"rows": rows_g, "row_offset": off}))
+    if not (torch.isfinite(m).all() and torch.isfinite(v).all()):
+        raise AssertionError("arena_fold_slice: non-finite state after the "
+                             "timed runs")
+    del m, v, slabs
+    torch.cuda.empty_cache()
+    return dict(cases[0], max_abs_err=err, library_ms=None, by_case=cases)
+
+
+def _leaf_cases(cfg):
+    """name -> (whole tensor shape, which part the kernel gets): None is
+    the whole tensor, an int j the view [j] (a layer's row of a stacked
+    leaf), "offset1" the view [1:] (a pointer 4 bytes off 16-byte
+    alignment, so the kernel's one-float path runs)."""
+    L, d, h = cfg.num_layers, cfg.d_model, cfg.n_heads
+    hd = cfg.resolved_head_dim
+    return {"accum": {"embed leaf": ((cfg.padded_vocab(), d), None),
+                      "wq of one layer": ((L, d, h, hd), L // 2),
+                      "norm view": ((L, d), L - 1),
+                      "ragged odd size, unaligned": ((1_000_004,),
+                                                     "offset1")},
+            "apply": {"embed leaf": ((cfg.padded_vocab(), d), None),
+                      "stacked wq": ((L, d, h, hd), None),
+                      "norm view": ((L, d), L - 1),
+                      "ragged odd size, unaligned": ((1_000_004,),
+                                                     "offset1")}}
+
+
+def _part(x, which):
+    if which is None:
+        return x
+    return x[1:] if which == "offset1" else x[which]
+
+
+def check_leaf_kernels(torch, adama_accum, adam_apply):
+    """Phase 3, adama_accum_2d and adam_apply_2d at the main path's leaf
+    shapes: bitwise against the plain version (over the whole tensor, so
+    a view's neighbours must be untouched too), then timed."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(MAIN["arch"])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+
+    def rand(shape, scale, positive=False):
+        x = torch.randn(shape, generator=gen, device="cuda") * scale
+        return x.abs() if positive else x
+    out = {}
+    cases = _leaf_cases(cfg)
+    acc_kw = dict(beta1=0.9, beta2=0.999, scale=1.0)
+    err, timed = 0.0, []
+    for label, (shape, which) in cases["accum"].items():
+        m, v = rand(shape, 1e-3), rand(shape, 1e-6, True)
+        g = rand(_part(m, which).shape, 1.0 / 8)
+        mk, vk, mr, vr = m.clone(), v.clone(), m.clone(), v.clone()
+        adama_accum.adama_accum_2d(_part(mk, which), _part(vk, which), g,
+                                   **acc_kw)
+        adama_accum.adama_accum_2d_ref(_part(mr, which), _part(vr, which), g,
+                                       **acc_kw)
+        torch.cuda.synchronize()
+        err = max(err, _compare("adama_accum_2d", label,
+                                [(mk, mr), (vk, vr)]))
+        mp, vp = _part(m, which), _part(v, which)
+        n = mp.numel()
+        timed.append(_kernel_entry(
+            "adama_accum_2d", label,
+            timed_ms(torch, lambda: adama_accum.adama_accum_2d(
+                mp, vp, g, **acc_kw), reps=KERNEL_REPS),
+            timed_ms(torch, lambda: adama_accum.adama_accum_2d_ref(
+                mp, vp, g, **acc_kw)),
+            # g read once, m and v read and written once; 5 fp32 ops each
+            bound_ms(5 * 4 * n, 5 * n),
+            {"elements": n, "aligned16": mp.data_ptr() % 16 == 0}))
+        del m, v, g, mk, vk, mr, vr, mp, vp
+    out["adama_accum_2d"] = dict(timed[0], max_abs_err=err, library_ms=None,
+                                 by_case=timed)
+    err, timed = 0.0, []
+    for label, (shape, which) in cases["apply"].items():
+        p, m, v = rand(shape, 0.02), rand(shape, 1e-3), rand(shape, 1e-6,
+                                                            True)
+        mp, vp = _part(m, which), _part(v, which)
+        for wd in (0.0, 0.01):
+            kw = dict(lr=1e-3, bc1=0.1, bc2=0.001, eps=1e-8, weight_decay=wd)
+            pk, pr = p.clone(), p.clone()
+            adam_apply.adam_apply_2d(_part(pk, which), mp, vp, **kw)
+            adam_apply.adam_apply_2d_ref(_part(pr, which), mp, vp, **kw)
+            torch.cuda.synchronize()
+            err = max(err, _compare("adam_apply_2d", f"{label} wd={wd}",
+                                    [(pk, pr)]))
+            del pk, pr
+        pp = _part(p, which)
+        kw = dict(lr=1e-3, bc1=0.1, bc2=0.001, eps=1e-8)
+        n = pp.numel()
+        timed.append(_kernel_entry(
+            "adam_apply_2d", label,
+            timed_ms(torch, lambda: adam_apply.adam_apply_2d(pp, mp, vp,
+                                                             **kw),
+                     reps=KERNEL_REPS),
+            timed_ms(torch, lambda: adam_apply.adam_apply_2d_ref(pp, mp, vp,
+                                                                 **kw)),
+            # p, m, v read once, p written once; 7 fp32 ops each
+            bound_ms(4 * 4 * n, 7 * n),
+            {"elements": n, "aligned16": pp.data_ptr() % 16 == 0}))
+        if not torch.isfinite(p).all():
+            raise AssertionError(f"adam_apply_2d {label}: non-finite params "
+                                 f"after the timed runs")
+        del p, m, v, mp, vp, pp
+    out["adam_apply_2d"] = dict(timed[0], max_abs_err=err, library_ms=None,
+                                by_case=timed)
+    torch.cuda.empty_cache()
+    return out
+
+
+SMALL_PATHS = (("adama", True), ("adama_layerwise", True),
+               ("adama_layerwise", False), ("adama", False))
+
+
 def check_small_input(torch):
     """Phase 4: the CUDA path agrees with the CPU path (plain versions) on
-    a reduced bert-large run from identical params and data."""
+    a reduced bert-large run from identical params and data, for each
+    engine and state form the kernels serve."""
     import dataclasses
 
     from repro_torch.configs.base import OptimizerConfig, RunConfig, get_config
@@ -166,8 +429,6 @@ def check_small_input(torch):
 
     cfg = dataclasses.replace(get_config("bert_large").reduced(),
                               compute_dtype="float32")
-    run = RunConfig(model=cfg, optimizer=OptimizerConfig(micro_batches=2),
-                    seq_len=32, global_batch=4, steps=2, log_every=10**9)
     gen = torch.Generator()
     gen.manual_seed(0)
     base = init_params(cfg, gen)
@@ -176,72 +437,123 @@ def check_small_input(torch):
         return {k: copy_to(x, device) if isinstance(x, dict)
                 else x.clone().to(device) for k, x in tree.items()}
 
-    outs = {dev: train(run, params=copy_to(base, dev), device=dev,
-                       log_fn=lambda s: None) for dev in ("cuda", "cpu")}
-    lc, lg = outs["cpu"]["losses"], outs["cuda"]["losses"]
-    for a, b in zip(lc, lg):
-        if not (math.isfinite(b) and abs(a - b) <= 1e-5 * abs(a)):
-            raise AssertionError(f"small-input losses differ: cpu {lc} "
-                                 f"cuda {lg}")
-    worst = 0.0
-    pc = dict(outs["cpu"]["model"].named_parameters())
-    for name, x in outs["cuda"]["model"].named_parameters():
-        worst = max(worst, float((x.detach().cpu() - pc[name].detach())
-                                 .abs().max()))
-    log(json.dumps({"phase": "small_input", "losses_cpu": lc,
-                    "losses_cuda": lg, "max_param_abs_diff": worst}))
-    if worst > 2e-5:
-        raise AssertionError(f"small-input params differ by {worst}")
+    for engine, arena in SMALL_PATHS:
+        run = RunConfig(model=cfg, optimizer=OptimizerConfig(
+            accumulation=engine, micro_batches=2, arena=arena),
+            seq_len=32, global_batch=4, steps=2, log_every=10**9)
+        outs = {dev: train(run, params=copy_to(base, dev), device=dev,
+                           log_fn=lambda s: None) for dev in ("cuda", "cpu")}
+        lc, lg = outs["cpu"]["losses"], outs["cuda"]["losses"]
+        label = f"{engine} {'arena' if arena else 'per-leaf'}"
+        for a, b in zip(lc, lg):
+            if not (math.isfinite(b) and abs(a - b) <= 1e-5 * abs(a)):
+                raise AssertionError(f"small-input {label}: losses differ: "
+                                     f"cpu {lc} cuda {lg}")
+        worst = 0.0
+        pc = dict(outs["cpu"]["model"].named_parameters())
+        for name, x in outs["cuda"]["model"].named_parameters():
+            worst = max(worst, float((x.detach().cpu() - pc[name].detach())
+                                     .abs().max()))
+        log(json.dumps({"phase": "small_input", "engine": engine,
+                        "arena": arena, "losses_cpu": lc, "losses_cuda": lg,
+                        "max_param_abs_diff": worst}))
+        if worst > 2e-5:
+            raise AssertionError(f"small-input {label}: params differ by "
+                                 f"{worst}")
 
 
-def run_main_path(torch, fused_step):
-    """Phase 5: bert-large, full width, both engines; returns the launch
-    counts of the adama run (the main path) and of the ga run."""
+def _expected_launches(path, tree):
+    """Launches per step that a path's schedule makes, derived from the
+    param tree: N micro-batches, L layers, the stacked block leaves and
+    the rest leaves (the layer-wise arena path folds L layer slices and
+    one rest slice per micro-batch)."""
+    engine, arena, _ = PATHS[path]
+    n = MAIN["micro_batches"]
+    blocks = tree["blocks"]
+    n_layers = next(iter(blocks.values())).shape[0]
+    n_block, n_leaves = len(blocks), len(tree) - 1 + len(blocks)
+    n_rest = n_leaves - n_block
+    want = {k: 0 for k in KERNELS}
+    if arena:
+        want["arena_apply"] = 1
+        if engine == "adama":
+            want["arena_fold"] = n
+        elif engine == "ga":
+            want["arena_fold"] = 1
+        else:
+            want["arena_fold_slice"] = n * (n_layers + 1)
+    else:
+        want["adam_apply_2d"] = n_leaves
+        want["adama_accum_2d"] = n * (n_leaves if engine == "adama" else
+                                      n_block * n_layers + n_rest)
+    return want
+
+
+def run_main_path(torch, wrappers):
+    """Phase 5: bert-large, full width, every main path; returns each
+    path's launch counts per kernel."""
     from repro_torch.configs.base import OptimizerConfig, RunConfig, get_config
     from repro_torch.train.loop import train
 
     cfg = get_config(MAIN["arch"])
     ln_v = math.log(cfg.padded_vocab())
-    counts = {}
-    for engine in ("adama", "ga"):
+    counts, first_loss, peaks = {}, {}, {}
+    arena_bytes = FULL_ROWS * LANES * 4
+    for path, (engine, arena, steps) in PATHS.items():
         run = RunConfig(model=cfg,
                         optimizer=OptimizerConfig(
-                            accumulation=engine,
+                            accumulation=engine, arena=arena,
                             micro_batches=MAIN["micro_batches"]),
                         seq_len=MAIN["seq_len"],
                         global_batch=MAIN["global_batch"],
-                        seed=MAIN["seed"], steps=MAIN["steps"], log_every=1)
+                        seed=MAIN["seed"], steps=steps, log_every=1)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        fused_step.arena_fold.launches = 0
-        fused_step.arena_apply.launches = 0
+        for fn in wrappers.values():
+            fn.launches = 0
         out = train(run, device="cuda", log_fn=log)
-        counts[engine] = {"arena_fold": fused_step.arena_fold.launches,
-                          "arena_apply": fused_step.arena_apply.launches}
-        peak = torch.cuda.max_memory_allocated()
+        counts[path] = {k: fn.launches for k, fn in wrappers.items()}
+        peaks[path] = torch.cuda.max_memory_allocated()
         n_params = sum(x.numel() for x in out["model"].parameters())
-        rows = out["opt_state"]["m"].layout.rows
-        log(json.dumps({"phase": "main_path", "engine": engine,
-                        "arch": cfg.name, "params": n_params,
-                        "arena_rows": rows, "losses": out["losses"],
+        state = out["opt_state"]
+        rows = state["m"].layout.rows if arena else None
+        want = _expected_launches(path, out["params"])
+        log(json.dumps({"phase": "main_path", "path": path, "engine": engine,
+                        "arena": arena, "arch": cfg.name, "params": n_params,
+                        "arena_rows": rows, "steps": steps,
+                        "losses": out["losses"],
                         "step_seconds": out["step_seconds"],
-                        "max_memory_allocated_bytes": peak,
-                        "launches": counts[engine], **MAIN}))
+                        "max_memory_allocated_bytes": peaks[path],
+                        "launches": counts[path],
+                        "launches_per_step": want, **MAIN}))
         losses = out["losses"]
+        first_loss[path] = losses[0]
         if not all(math.isfinite(x) for x in losses):
-            raise AssertionError(f"{engine}: non-finite loss {losses}")
+            raise AssertionError(f"{path}: non-finite loss {losses}")
         if abs(losses[0] - ln_v) > 0.1 * ln_v:
-            raise AssertionError(f"{engine}: step-1 loss {losses[0]} is not "
+            raise AssertionError(f"{path}: step-1 loss {losses[0]} is not "
                                  f"within 10% of ln(V)={ln_v:.4f}")
-        want_folds = MAIN["steps"] * (MAIN["micro_batches"]
-                                      if engine == "adama" else 1)
-        want = {"arena_fold": want_folds, "arena_apply": MAIN["steps"]}
-        if counts[engine] != want:
-            raise AssertionError(f"{engine}: kernel launches "
-                                 f"{counts[engine]} != {want}")
-        if rows != FULL_ROWS:
+        if abs(losses[0] - first_loss["adama"]) > 1e-4 * first_loss["adama"]:
+            raise AssertionError(f"{path}: step-1 loss {losses[0]} differs "
+                                 f"from adama's {first_loss['adama']}")
+        want = {k: c * steps for k, c in want.items()}
+        if counts[path] != want:
+            raise AssertionError(f"{path}: kernel launches {counts[path]} "
+                                 f"!= {want}")
+        if arena and rows != FULL_ROWS:
             raise AssertionError(f"arena rows {rows} != {FULL_ROWS}")
-        del out
+        del out, state
+    saving = peaks["adama"] - peaks["adama_layerwise"]
+    log(json.dumps({"phase": "memory", "peaks": peaks,
+                    "adama_minus_adama_layerwise": saving,
+                    "ga_minus_adama": peaks["ga"] - peaks["adama"],
+                    "arena_bytes": arena_bytes}))
+    if saving < 2 * arena_bytes:
+        raise AssertionError(f"adama_layerwise's peak "
+                             f"{peaks['adama_layerwise']} is only {saving} "
+                             f"B below adama's "
+                             f"{peaks['adama']}; expected at least two fp32 "
+                             f"arenas ({2 * arena_bytes} B)")
     return counts
 
 
@@ -257,7 +569,7 @@ def main() -> int:
               f"checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
-    from repro_torch.kernels import build, fused_step
+    from repro_torch.kernels import adam_apply, adama_accum, build, fused_step
     from repro_torch.train.loop import resolve_device
 
     t_start = time.perf_counter()
@@ -279,19 +591,26 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[ptxas {name}] {line.strip()}")
 
+    modules = {"fused_step": fused_step, "adama_accum": adama_accum,
+               "adam_apply": adam_apply}
+    wrappers = {k: getattr(modules[mod], k)
+                for k, (mod, _, _, _) in KERNELS.items()}
     kernels = check_kernels(torch, fused_step)
+    kernels["arena_fold_slice"] = check_slice_fold(torch, fused_step,
+                                                   full_layout(torch))
+    kernels.update(check_leaf_kernels(torch, adama_accum, adam_apply))
+    log(json.dumps({"phase": "kernels_checked",
+                    "seconds": time.perf_counter() - t_start}))
     check_small_input(torch)
-    counts = run_main_path(torch, fused_step)
+    counts = run_main_path(torch, wrappers)
 
-    replaces = {"arena_fold": "src/repro/kernels/fused_step.py:406",
-                "arena_apply": "src/repro/kernels/fused_step.py:552"}
     line = {"kernels": [
-        {"name": name, "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/fused_step.cu",
-         "replaces": replaces[name],
-         "launches": counts["adama"][name],
-         "launches_by_path": {e: c[name] for e, c in counts.items()},
-         **kernels[name]} for name in ("arena_fold", "arena_apply")],
+        {"name": name, "route": "cuda", "source": source,
+         "replaces": replaces, "launches": counts[path][name],
+         "main_path": path,
+         "launches_by_path": {p: c[name] for p, c in counts.items()},
+         **kernels[name]}
+        for name, (_, source, replaces, path) in KERNELS.items()],
         "seconds": time.perf_counter() - t_start}
     print(json.dumps(line))
     print(gpu_name_and_power())

@@ -62,23 +62,31 @@ class ModelConfig:
         )
 
 
-ACCUM_ENGINES = ("ga", "adama")
+ACCUM_ENGINES = ("ga", "adama", "adama_layerwise")
 
 
 @dataclass(frozen=True)
 class OptimizerConfig:
-    """The arena path of the reference's OptimizerConfig (use_pallas=True,
-    arena=True, fp32 m/v codecs, fp32 gradient wire, no guard)."""
+    """The kernel paths of the reference's OptimizerConfig (use_pallas=True,
+    fp32 m/v codecs, fp32 gradient wire, no guard).
+
+    `arena` selects the state form, as in the reference: True (the default
+    here, the reference's `arena=True`) keeps m and v in flat arenas folded
+    by the fused arena kernels; False keeps them as per-leaf trees folded
+    and applied leaf by leaf (the reference's `arena=False`). The reference
+    defaults to `use_pallas=False, arena=False`; the port has only kernel
+    paths, and its main path is the arena."""
     lr: float = 1e-3
     beta1: float = 0.9
     beta2: float = 0.999
     eps: float = 1e-8
     weight_decay: float = 0.0
-    accumulation: str = "adama"          # ga | adama
+    accumulation: str = "adama"          # ga | adama | adama_layerwise
     micro_batches: int = 8
     grad_clip: Optional[float] = None
     state_codec: str = "fp32"            # second-moment codec
     m_codec: str = "fp32"                # first-moment codec
+    arena: bool = True                   # False: per-leaf state
 
     def __post_init__(self):
         if self.accumulation not in ACCUM_ENGINES:
@@ -88,6 +96,11 @@ class OptimizerConfig:
         if self.micro_batches < 1:
             raise ValueError(f"micro_batches must be >= 1, got "
                              f"{self.micro_batches}")
+        if self.accumulation == "ga" and not self.arena:
+            raise NotImplementedError(
+                "ga with arena=False runs the reference's plain optim/adam.py "
+                "(no kernel), which is not ported (ROADMAP queue 1, item 12: "
+                "the optim/ baselines); use arena=True")
 
 
 @dataclass(frozen=True)

@@ -1,19 +1,24 @@
-"""Micro-batch accumulation engines over the state arena — where AdamA
-meets the training loop (`repro/core/accumulation.py`, arena paths).
+"""Micro-batch accumulation engines — where AdamA meets the training loop
+(`repro/core/accumulation.py`, the kernel paths).
 
-  ga     baseline gradient accumulation: a param-sized fp32 accumulator
-         slab sums pack(g)/N over the micro-batches, then one fold (with
-         the begin-minibatch decay) and one apply. The paper's comparison
-         point.
-  adama  Algorithm 1: each micro-batch's gradient is packed and folded into
-         (m, v) at once (scale 1/N in-kernel, the decay fused into fold 0),
-         then dropped before the next micro-batch's backward. No param-sized
-         gradient accumulator exists.
+  ga               baseline gradient accumulation: a param-sized fp32
+                   accumulator slab sums pack(g)/N over the micro-batches,
+                   then one fold (with the begin-minibatch decay) and one
+                   apply. The paper's comparison point. Arena state only.
+  adama            Algorithm 1: each micro-batch's gradient is folded into
+                   (m, v) at once, then dropped before the next
+                   micro-batch's backward. No param-sized gradient
+                   accumulator exists. Arena state: packed and folded by one
+                   kernel (scale 1/N in-kernel, the decay fused into fold
+                   0). Per-leaf state: g/N folded leaf by leaf after a
+                   begin-minibatch decay pass.
+  adama_layerwise  Algorithm 2 (core/layerwise.py): each LAYER's gradient
+                   is folded inside the backward, so only one layer's
+                   gradient is ever live.
 
-Both consume a global batch (GB, ...) split into N micro-batches of GB/N.
-Each micro-batch's gradients come from `torch.autograd.grad` over the
-param leaves. Params and state are updated in place; `step` returns them
-for symmetry with the reference.
+All consume a global batch (GB, ...) split into N micro-batches of GB/N.
+`OptimizerConfig.arena` selects the state form. Params and state are
+updated in place; `step` returns them for symmetry with the reference.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ from repro_torch.configs.base import ModelConfig, OptimizerConfig
 from repro_torch.core import adama
 from repro_torch.core import arena as arena_mod
 from repro_torch.core import state_store
+from repro_torch.core.layerwise import layerwise_loss_and_fold
 from repro_torch.models.model import loss_fn
 
 
@@ -94,12 +100,24 @@ def make_adama_step(cfg: ModelConfig, opt: OptimizerConfig, *,
 
     def step(params, opt_state, batch):
         leaves, _ = arena_mod.tree_flatten(params)
-        state = dict(opt_state, step=opt_state["step"] + 1)
+        if opt.arena:
+            state = dict(opt_state, step=opt_state["step"] + 1)
+        else:
+            state = adama.begin_minibatch(opt_state, b1, b2)
         lsum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
         for i, mb in enumerate(_split_micro(batch, n)):
             loss, g = _grads(cfg, params, leaves, mb)
-            state = adama.accumulate(state, g, b1, b2, scale=1.0 / n,
-                                     decay=_fold_decay(i, b1, b2))
+            if opt.arena:
+                state = adama.accumulate(state, g, b1, b2, scale=1.0 / n,
+                                         decay=_fold_decay(i, b1, b2))
+            else:
+                # Algorithm 1 line 6 as the reference's per-leaf path does
+                # it: a true division by N (a device scalar, so CUDA divides
+                # too rather than multiplying by 1/N), then a fold at scale 1
+                n_t = torch.tensor(float(n), device=loss.device)
+                for x in arena_mod.tree_flatten(g)[0]:
+                    x.div_(n_t)
+                state = adama.accumulate(state, g, b1, b2)
             del g
             lsum = lsum + loss
         lr = _lr(lr_schedule, opt, state["step"])
@@ -111,12 +129,43 @@ def make_adama_step(cfg: ModelConfig, opt: OptimizerConfig, *,
     return step, _init(opt)
 
 
+def make_adama_layerwise_step(cfg: ModelConfig, opt: OptimizerConfig, *,
+                              lr_schedule=None):
+    n = opt.micro_batches
+    b1, b2 = opt.beta1, opt.beta2
+
+    def step(params, opt_state, batch):
+        if opt.arena:
+            # each arena row is folded exactly once per micro-batch (each
+            # layer's slice in the backward, the rest region after it), so
+            # the begin-minibatch decay fuses into micro-batch 0's folds
+            state = dict(opt_state, step=opt_state["step"] + 1)
+        else:
+            state = adama.begin_minibatch(opt_state, b1, b2)
+        lsum = torch.zeros((), dtype=torch.float32,
+                           device=batch["tokens"].device)
+        for i, mb in enumerate(_split_micro(batch, n)):
+            loss, state = layerwise_loss_and_fold(
+                cfg, params, mb, state, beta1=b1, beta2=b2, scale=1.0 / n,
+                decay=_fold_decay(i, b1, b2) if opt.arena else None)
+            lsum = lsum + loss
+        lr = _lr(lr_schedule, opt, state["step"])
+        params, state = adama.finalize(
+            params, state, lr=lr, beta1=b1, beta2=b2, eps=opt.eps,
+            weight_decay=opt.weight_decay)
+        return params, state, {"loss": lsum / n}
+
+    return step, _init(opt)
+
+
 def _init(opt: OptimizerConfig):
-    return lambda params: adama.init_arena(params, codec=opt.state_codec,
-                                           m_codec=opt.m_codec)
+    init = adama.init_arena if opt.arena else adama.init
+    return lambda params: init(params, codec=opt.state_codec,
+                               m_codec=opt.m_codec)
 
 
-ENGINES = {"ga": make_ga_step, "adama": make_adama_step}
+ENGINES = {"ga": make_ga_step, "adama": make_adama_step,
+           "adama_layerwise": make_adama_layerwise_step}
 
 
 def make_train_step(cfg: ModelConfig, opt: OptimizerConfig, **kw):

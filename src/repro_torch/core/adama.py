@@ -1,7 +1,7 @@
-"""AdamA — Adam Accumulation (the paper's contribution) over the state
-arena, the arena branches of `repro/core/adama.py`.
+"""AdamA — Adam Accumulation (the paper's contribution), the arena and
+per-leaf branches of `repro/core/adama.py`.
 
-The mini-batch lifecycle (Algorithm 1):
+The mini-batch lifecycle (Algorithm 1), arena state:
 
     state = init_arena(params)
     for each micro-batch i:
@@ -9,14 +9,21 @@ The mini-batch lifecycle (Algorithm 1):
                            decay=(beta1, beta2) if i == 0 else None)
     params, state = finalize(params, state, lr=..., ...)
 
-`accumulate` is where gradients die: after the fold the packed gradient
-has no further reader, and the caller drops it before the next
-micro-batch's backward. The begin-minibatch decay (m *= b1, v *= b2) rides
-in the first fold.
+and per-leaf state (m and v are trees shaped like the params):
+
+    state = init(params)
+    state = begin_minibatch(state, beta1, beta2)     # m *= b1, v *= b2
+    for each micro-batch i:
+        state = accumulate(state, grads_i / N, beta1, beta2)
+    params, state = finalize(params, state, lr=..., ...)
+
+`accumulate` is where gradients die: after the fold the gradient has no
+further reader, and the caller drops it before the next micro-batch's
+backward. On arena state the begin-minibatch decay rides in the first fold.
 
 Unlike the reference, whose arrays are immutable and whose kernels alias
-input to output, the port updates the m/v arenas and the params IN PLACE:
-a "new" state returned here shares its tensors with the old one.
+input to output, the port updates the moments and the params IN PLACE: a
+"new" state returned here shares its tensors with the old one.
 """
 from __future__ import annotations
 
@@ -27,8 +34,22 @@ import torch
 
 from repro_torch.core import arena as arena_mod
 from repro_torch.core import state_store
+from repro_torch.kernels import ops
 
 State = Dict[str, Any]
+
+
+def init(params, codec: str = "fp32", m_codec: str = "fp32") -> State:
+    """Per-leaf state: m and v are zeroed fp32 trees shaped like the params;
+    `step` is a host int. Any codec but fp32 raises (not ported yet)."""
+    state_store.check_codecs(m_codec, codec)
+    leaves, paths = arena_mod.tree_flatten(params)
+
+    def zeros():
+        return arena_mod.tree_unflatten(paths, [
+            torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+            for x in leaves])
+    return {"m": zeros(), "v": zeros(), "step": 0}
 
 
 def init_arena(params, codec: str = "fp32", m_codec: str = "fp32") -> State:
@@ -42,15 +63,50 @@ def init_arena(params, codec: str = "fp32", m_codec: str = "fp32") -> State:
             "v": arena_mod.Arena.zeros(layout, device), "step": 0}
 
 
+def is_arena_state(state: State) -> bool:
+    return isinstance(state["m"], arena_mod.Arena)
+
+
+def _scale_tree_(tree, factor: float) -> None:
+    for x in arena_mod.tree_flatten(tree)[0]:
+        x.mul_(factor)
+
+
+@torch.no_grad()
+def begin_minibatch(state: State, beta1: float, beta2: float) -> State:
+    """Per-leaf state: m *= beta1, v *= beta2 (in place) and count the
+    mini-batch. The arena engines skip this pass: their decay rides in the
+    mini-batch's first fold."""
+    _scale_tree_(state["m"], beta1)
+    _scale_tree_(state["v"], beta2)
+    return dict(state, step=state["step"] + 1)
+
+
+@torch.no_grad()
 def accumulate(state: State, grads, beta1: float, beta2: float,
                scale: float = 1.0, decay=None) -> State:
-    """Fold one micro-batch's gradient tree into (m, v): pack it into one
-    fp32 slab and run one fused fold. `scale` multiplies g in-kernel
-    (Algorithm 1's 1/N); `decay=(dm, dv)` fuses the begin-minibatch decay
-    (pass it on the first micro-batch only)."""
-    g = arena_mod.pack(grads, state["m"].layout)
-    return state_store.fold_state(state, g, beta1=beta1, beta2=beta2,
-                                  scale=scale, decay=decay)
+    """Fold one micro-batch's gradient tree into (m, v). Arena state: pack
+    it into one fp32 slab and run one fused fold. Per-leaf state: one
+    adama_accum_2d launch per leaf. `scale` multiplies g in-kernel
+    (Algorithm 1's 1/N); `decay=(dm, dv)` applies the begin-minibatch decay
+    first (fused into the fold on arena state; pass it on the first
+    micro-batch only)."""
+    if is_arena_state(state):
+        g = arena_mod.pack(grads, state["m"].layout)
+        return state_store.fold_state(state, g, beta1=beta1, beta2=beta2,
+                                      scale=scale, decay=decay)
+    if decay is not None:
+        _scale_tree_(state["m"], decay[0])
+        _scale_tree_(state["v"], decay[1])
+    ops.adama_accumulate_tree(state["m"], state["v"], grads, beta1=beta1,
+                              beta2=beta2, scale=scale)
+    return state
+
+
+@torch.no_grad()
+def accumulate_leaf(m, v, g, beta1: float, beta2: float):
+    """Single-leaf fold, in place (the layer-wise backward, Algorithm 2)."""
+    return ops.adama_accumulate(m, v, g, beta1=beta1, beta2=beta2)
 
 
 def bias_corrections(step: int, beta1: float, beta2: float):
@@ -65,9 +121,14 @@ def bias_corrections(step: int, beta1: float, beta2: float):
 def finalize(params, state: State, *, lr, beta1: float, beta2: float,
              eps: float = 1e-8, weight_decay: float = 0.0):
     """Bias-correct and apply (Algorithm 1's update). `state['step']` must
-    already count this mini-batch. Packs the params, runs one fused apply,
-    and copies the result back into the param leaves in place."""
+    already count this mini-batch. Arena state: packs the params, runs one
+    fused apply, and copies the result back into the param leaves in place.
+    Per-leaf state: one adam_apply_2d launch per param leaf, in place."""
     bc1, bc2 = bias_corrections(state["step"], beta1, beta2)
+    if not is_arena_state(state):
+        ops.adam_apply_tree(params, state["m"], state["v"], lr=lr, bc1=bc1,
+                            bc2=bc2, eps=eps, weight_decay=weight_decay)
+        return params, state
     layout = state["m"].layout
     p = state_store.apply_state(arena_mod.pack(params, layout), state, lr=lr,
                                 bc1=bc1, bc2=bc2, eps=eps,

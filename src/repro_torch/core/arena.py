@@ -23,6 +23,7 @@ A tree is a nested dict of tensors; a bare tensor is a tree of one leaf.
 from __future__ import annotations
 
 import math
+import warnings
 from dataclasses import dataclass
 from typing import Any, Dict, List, Tuple
 
@@ -83,7 +84,7 @@ def tree_unflatten(paths: Tuple[Path, ...], leaves):
     return out
 
 
-def _flatten_up_to(tree, paths: Tuple[Path, ...]) -> List[torch.Tensor]:
+def flatten_up_to(tree, paths: Tuple[Path, ...]) -> List[torch.Tensor]:
     leaves, got = tree_flatten(tree)
     if got != paths:
         raise ValueError(f"tree structure {got} does not match the layout's "
@@ -136,6 +137,28 @@ class ArenaLayout:
     stacks: Tuple[StackSpec, ...]
     rest: RestSpec
     rows: int                    # total, padded
+
+    def stack(self, name: str) -> StackSpec:
+        for s in self.stacks:
+            if s.name == name:
+                return s
+        raise KeyError(name)
+
+    def slice_block(self, spec) -> int:
+        """Row block of the slice fold over `spec` (a StackSpec or the
+        RestSpec): it divides the region's stride and every row offset in
+        it, so each slice fold's offset and row count are multiples of it.
+        Layouts from build_layout pad every region to a region_grain()
+        multiple, which keeps it >= MIN_SLICE_BLOCK; a hand-made layout may
+        fall below, which is correct but warned about, as the reference
+        does."""
+        stride = spec.layer_rows if isinstance(spec, StackSpec) else spec.rows
+        blk = math.gcd(math.gcd(stride, spec.row), BLOCK_ROWS)
+        if blk < MIN_SLICE_BLOCK:
+            warnings.warn(f"slice_block={blk} < MIN_SLICE_BLOCK="
+                          f"{MIN_SLICE_BLOCK} for the region at row "
+                          f"{spec.row} (stride {stride})", stacklevel=2)
+        return blk
 
 
 def _leaf_specs(shapes_dtypes) -> Tuple[Tuple[LeafSpec, ...], int]:
@@ -193,6 +216,15 @@ def _device_of(tree) -> torch.device:
     return tree_flatten(tree)[0][0].device
 
 
+def _fill_region(region: torch.Tensor, leaves, specs) -> None:
+    """Copy each leaf (cast to fp32) to its slot of a zeroed region,
+    flattened to (..., region_rows * LANES); a leading dim is the layer."""
+    lead = region.shape[:-1]
+    for x, ls in zip(leaves, specs):
+        region[..., ls.row * LANES:ls.row * LANES + ls.size].copy_(
+            x.reshape(lead + (-1,)))
+
+
 def pack(tree, layout: ArenaLayout) -> torch.Tensor:
     """Whole tree -> new (layout.rows, LANES) fp32 arena on the tree's
     device (leaves cast to fp32, layer-major stacks, zero padding)."""
@@ -201,18 +233,36 @@ def pack(tree, layout: ArenaLayout) -> torch.Tensor:
                         device=_device_of(tree))
     for (name, sub), spec in zip(stack_items, layout.stacks):
         assert name == spec.name, (name, spec.name)
-        region = arena[spec.row:spec.row + spec.rows].view(
-            spec.n_layers, spec.layer_rows * LANES)
-        for x, ls in zip(_flatten_up_to(sub, spec.paths), spec.leaves):
-            region[:, ls.row * LANES:ls.row * LANES + ls.size].copy_(
-                x.reshape(spec.n_layers, -1))
+        _fill_region(arena[spec.row:spec.row + spec.rows].view(
+            spec.n_layers, spec.layer_rows * LANES),
+            flatten_up_to(sub, spec.paths), spec.leaves)
     rest = layout.rest
     if rest.rows:
-        region = arena[rest.row:rest.row + rest.rows].view(-1)
-        for x, ls in zip(_flatten_up_to(rest_tree, rest.paths), rest.leaves):
-            region[ls.row * LANES:ls.row * LANES + ls.size].copy_(
-                x.reshape(-1))
+        _fill_region(arena[rest.row:rest.row + rest.rows].view(-1),
+                     flatten_up_to(rest_tree, rest.paths), rest.leaves)
     return arena
+
+
+def _pack_region(leaves, specs, rows: int) -> torch.Tensor:
+    region = torch.zeros((rows, LANES), dtype=torch.float32,
+                         device=leaves[0].device)
+    _fill_region(region.view(-1), leaves, specs)
+    return region
+
+
+def pack_layer(layer_tree, spec: StackSpec) -> torch.Tensor:
+    """One layer's (un-stacked) subtree -> new (layer_rows, LANES) fp32
+    slab: rows [spec.row + j*layer_rows, ...) of `pack` for that layer j."""
+    return _pack_region(flatten_up_to(layer_tree, spec.paths), spec.leaves,
+                        spec.layer_rows)
+
+
+def pack_rest(rest_tree, layout: ArenaLayout) -> torch.Tensor:
+    """The non-stacked remainder -> new (rest.rows, LANES) fp32 slab: rows
+    [rest.row, rest.row + rest.rows) of `pack`."""
+    rest = layout.rest
+    return _pack_region(flatten_up_to(rest_tree, rest.paths), rest.leaves,
+                        rest.rows)
 
 
 def unpack(arena: torch.Tensor, layout: ArenaLayout, dtype=None):

@@ -1,0 +1,160 @@
+"""Algorithm 2: interleave the per-LAYER backward with the AdamA fold
+(`repro/core/layerwise.py`, dense and encoder families, one device, fp32
+wire, no guard).
+
+The port's block params are stacked: each leaf is one (L, ...) tensor. A
+gradient hook on such a leaf fires only once autograd has written the
+whole stack's gradient, so hooks cannot free one layer's gradient at a
+time. The schedule is written out instead, as the reference's reverse scan
+does:
+
+  1. the forward runs under `torch.no_grad()`, saving each layer's INPUT;
+  2. the head (final norm, lm_head, cross entropy) runs with autograd and
+     its backward is seeded with `scale` (= 1/N), so every gradient below
+     arrives pre-scaled;
+  3. for j = L-1 ... 0, layer j is recomputed from its saved input on
+     detached views of its slice of the stacked params, and
+     `torch.autograd.grad` gives that layer's param gradients and the
+     gradient of its input; the layer gradients are folded into (m, v) and
+     dropped before layer j-1;
+  4. last, the embedding's backward, and the fold of the rest region.
+
+Peak gradient memory is therefore one layer's (plus the head's and the
+embedding's), which is the paper's 1/M claim; the recompute in step 3 makes
+the engine activation checkpointing as well.
+
+Arena state: each layer's gradient tree is packed into one
+(layer_rows, LANES) slab and folded into the layer's row range with ONE
+`arena_fold_slice` launch; the rest region likewise, once per micro-batch.
+`decay` (micro-batch 0 only) rides in every one of those folds: each arena
+row belongs to exactly one slice. Per-leaf state: each gradient leaf is
+folded into the matching view of the m/v trees (layer j's row of a stacked
+moment) with one `adama_accum_2d` launch.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import arena as arena_mod
+from repro_torch.core import state_store
+from repro_torch.core.adama import accumulate_leaf, is_arena_state
+from repro_torch.core.arena import STACK_KEYS
+from repro_torch.models import modules as md
+from repro_torch.models.model import apply_block, cross_entropy, embed_tokens
+
+
+def _fold_tree(m, v, g, beta1, beta2) -> None:
+    """Per-leaf fold of a gradient tree into matching m/v trees (or leaf
+    views), in place."""
+    ms, paths = arena_mod.tree_flatten(m)
+    vs, _ = arena_mod.tree_flatten(v)
+    gs = arena_mod.flatten_up_to(g, paths)
+    for mx, vx, gx in zip(ms, vs, gs):
+        accumulate_leaf(mx, vx, gx, beta1, beta2)
+
+
+def _fold_layer(state, dlp, j: int, name: str, beta1, beta2, decay) -> None:
+    """Fold layer j's gradient tree. Arena state: pack it into one slab and
+    fold it into the layer's arena rows with one slice fold. Per-leaf
+    state: fold each leaf into row j of the stacked moments."""
+    if is_arena_state(state):
+        lay = state["m"].layout
+        spec = lay.stack(name)
+        g2 = arena_mod.pack_layer(dlp, spec)
+        state_store.fold_slice(state["m"].data, state["v"].data, g2,
+                               spec.row + j * spec.layer_rows, beta1=beta1,
+                               beta2=beta2, block=lay.slice_block(spec),
+                               decay=decay)
+        return
+    m_j = {k: x[j] for k, x in state["m"][name].items()}
+    v_j = {k: x[j] for k, x in state["v"][name].items()}
+    _fold_tree(m_j, v_j, dlp, beta1, beta2)
+
+
+def _fold_rest(state, d_rest, beta1, beta2, decay) -> None:
+    """Fold the non-stacked leaves' gradients. Arena state: one slice fold
+    over the contiguous rest region. Per-leaf state: leaf by leaf."""
+    if is_arena_state(state):
+        lay = state["m"].layout
+        if not lay.rest.rows:
+            return
+        g2 = arena_mod.pack_rest(d_rest, lay)
+        state_store.fold_slice(state["m"].data, state["v"].data, g2,
+                               lay.rest.row, beta1=beta1, beta2=beta2,
+                               block=lay.slice_block(lay.rest), decay=decay)
+        return
+    for k, g in d_rest.items():
+        _fold_tree(state["m"][k], state["v"][k], g, beta1, beta2)
+
+
+def _requires_grad(tree):
+    """Detached leaves (views of the same memory) that autograd tracks."""
+    return {k: x.detach().requires_grad_(True) for k, x in tree.items()}
+
+
+def layerwise_loss_and_fold(cfg: ModelConfig, params, batch, state, *,
+                            beta1: float, beta2: float, scale: float,
+                            decay=None):
+    """One micro-batch: forward, then layer-by-layer backward folding each
+    layer's gradients into (m, v) in place. Gradients are scaled by `scale`
+    (1/N, Algorithm 1 line 6) through the backward's seed. `decay` (arena
+    state only) fuses the begin-minibatch decay into this micro-batch's
+    folds. Returns (loss, state)."""
+    if decay is not None and not is_arena_state(state):
+        raise ValueError("a fused decay requires arena state")
+    causal = cfg.arch_type != "encoder"
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=tokens.device).expand(b, s)
+    stack = params["blocks"]
+    keys = sorted(stack)
+    n_layers = stack[keys[0]].shape[0]
+
+    # ---- forward, saving layer inputs ----
+    rest = _requires_grad({k: x for k, x in params.items()
+                           if k not in STACK_KEYS})
+    x0 = embed_tokens(cfg, rest, tokens, positions)
+    saved: List[torch.Tensor] = []
+    with torch.no_grad():
+        x = x0.detach()
+        for j in range(n_layers):
+            saved.append(x)
+            x = apply_block(cfg, {k: stack[k][j] for k in keys}, x,
+                            positions, causal=causal)
+
+    # ---- head, backward seeded with `scale` ----
+    x = x.requires_grad_(True)
+    h = md.apply_norm(cfg, rest, x, "final_norm_")
+    logits = (h @ rest["lm_head"].to(h.dtype)).float()
+    loss = cross_entropy(logits, batch["labels"])
+    post_keys = [k for k in rest if k != "embed"]
+    grads = torch.autograd.grad(
+        loss, [rest[k] for k in post_keys] + [x],
+        grad_outputs=torch.tensor(scale, dtype=torch.float32,
+                                  device=loss.device))
+    d_rest: Dict[str, Any] = dict(zip(post_keys, grads[:-1]))
+    dx = grads[-1]
+    del h, logits, grads, x
+
+    # ---- backward, one layer at a time, folding as it goes ----
+    for j in reversed(range(n_layers)):
+        lp = _requires_grad({k: stack[k][j] for k in keys})
+        xin = saved.pop().requires_grad_(True)
+        y = apply_block(cfg, lp, xin, positions, causal=causal)
+        *dl, dx = torch.autograd.grad(y, [lp[k] for k in keys] + [xin],
+                                      grad_outputs=dx)
+        del y, xin
+        _fold_layer(state, dict(zip(keys, dl)), j, "blocks", beta1, beta2,
+                    decay)
+        del dl
+
+    # ---- embedding backward, rest-region fold ----
+    (d_rest["embed"],) = torch.autograd.grad(x0, [rest["embed"]],
+                                             grad_outputs=dx)
+    del x0, dx
+    _fold_rest(state, d_rest, beta1, beta2, decay)
+    return loss.detach(), state

@@ -34,6 +34,16 @@ def fold_state(state, g, *, beta1, beta2, scale=1.0, decay=None):
     return state
 
 
+def fold_slice(m, v, g, row_offset, *, beta1, beta2, block, scale=1.0,
+               decay=None):
+    """Fold a packed gradient slab into arena rows
+    [row_offset, row_offset + rows_g) of the m/v arena tensors, in place
+    (one slice-fold kernel). Returns (m, v)."""
+    return fused_step.arena_fold_slice(m, v, g, row_offset, beta1=beta1,
+                                       beta2=beta2, block=block, scale=scale,
+                                       decay=decay)
+
+
 def apply_state(p, state, *, lr, bc1, bc2, eps=1e-8, weight_decay=0.0):
     """One fused bias-corrected apply of the state dict onto a param arena,
     p updated in place."""

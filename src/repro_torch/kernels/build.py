@@ -16,7 +16,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Mapping, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -29,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-fPIC")
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_bound: Dict[str, ctypes.CDLL] = {}
 
 
 def nvcc_path() -> str:
@@ -95,3 +98,28 @@ def load(name: str) -> ctypes.CDLL:
         _finish(name, _start(name))
         lib = _libs[name] = ctypes.CDLL(str(_target(name)))
     return lib
+
+
+def bind(name: str, signatures: Mapping[str, Sequence]) -> ctypes.CDLL:
+    """The library of csrc/<name>.cu with each launcher's C signature set
+    (`signatures`: launcher name -> argtypes; every launcher returns the
+    CUDA error code as an int)."""
+    lib = _bound.get(name)
+    if lib is None:
+        lib = load(name)
+        for fn_name, argtypes in signatures.items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        _bound[name] = lib
+    return lib
+
+
+def launch(fn: str, launcher, lead: torch.Tensor, *args) -> None:
+    """Call a launcher on the current stream of `lead`'s device; raise if
+    the launch was refused."""
+    with torch.cuda.device(lead.device):
+        err = launcher(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn}: kernel launch failed with CUDA error "
+                           f"{err}")

@@ -9,6 +9,11 @@
 //             The first fold of a mini-batch passes (dm, dv) = (b1, b2),
 //             which fuses the begin-minibatch decay into it; later folds
 //             pass (1, 1).
+// arena_fold_slice replaces repro/kernels/fused_step.py::arena_fold_slice
+//             (_slice_fold_body, same form): the arena_fold arithmetic on
+//             arena rows [off, off + rows_g) only, g being a (rows_g, 1024)
+//             slab; no other row is read or written. Algorithm 2 launches
+//             it once per layer and once for the rest region.
 // arena_apply replaces repro/kernels/fused_step.py::arena_apply (_apply_body,
 //             fp32/fp32, no master params, unguarded):
 //               p = p - lr*(m/bc1 / (sqrt(v/bc2) + eps) + wd*p)   in place
@@ -18,7 +23,10 @@
 // (5 x 4 B per element), the apply reads p, m, v and writes p (4 x 4 B).
 // At the bert-large arena (357,888 x 1024 = 366,477,312 elements, 1.466 GB
 // per operand) that is 7.33 GB for the fold, >= 2.19 ms, and 5.86 GB for
-// the apply, >= 1.75 ms, at the data sheet's 3.35 TB/s. Each arithmetic
+// the apply, >= 1.75 ms, at the data sheet's 3.35 TB/s. The slice fold
+// moves the same 20 B per element of its slab: 253 MB (>= 0.0755 ms) for a
+// bert-large layer of 12,352 rows, 1.25 GB (>= 0.374 ms) for the rest
+// region of 61,248 rows. Each arithmetic
 // step is a handful of fp32 operations per 20 B moved, far below the
 // card's fp32 rate, so the design only has to keep HBM busy: every thread
 // moves 16 B per operand per iteration (float4 loads and stores,
@@ -43,6 +51,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int64_t kLanes = 1024;       // arena row width
 constexpr int kWavesPerSm = 8;
 
 __device__ __forceinline__ void fold1(float& m, float& v, float g, float s,
@@ -56,6 +65,30 @@ __global__ void __launch_bounds__(kThreads)
 arena_fold_kernel(float4* __restrict__ m, float4* __restrict__ v,
                   const float4* __restrict__ g, int64_t n4, float s,
                   float c1, float c2, float dm, float dv) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+       i += stride) {
+    const float4 gg = g[i];
+    float4 mm = m[i];
+    float4 vv = v[i];
+    fold1(mm.x, vv.x, gg.x, s, c1, c2, dm, dv);
+    fold1(mm.y, vv.y, gg.y, s, c1, c2, dm, dv);
+    fold1(mm.z, vv.z, gg.z, s, c1, c2, dm, dv);
+    fold1(mm.w, vv.w, gg.w, s, c1, c2, dm, dv);
+    m[i] = mm;
+    v[i] = vv;
+  }
+}
+
+// The slab's row r folds into arena row off + r: m and v are the whole
+// arenas, offset here, so one kernel serves every layer.
+__global__ void __launch_bounds__(kThreads)
+arena_fold_slice_kernel(float4* __restrict__ m, float4* __restrict__ v,
+                        const float4* __restrict__ g, int64_t off4,
+                        int64_t n4, float s, float c1, float c2, float dm,
+                        float dv) {
+  m += off4;
+  v += off4;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
        i += stride) {
@@ -118,6 +151,21 @@ extern "C" int arena_fold_launch(void* m, void* v, const void* g, int64_t n,
   const int64_t n4 = n / 4;
   arena_fold_kernel<<<grid_for(n4), kThreads, 0, (cudaStream_t)stream>>>(
       (float4*)m, (float4*)v, (const float4*)g, n4, s, c1, c2, dm, dv);
+  return (int)cudaGetLastError();
+}
+
+// m, v: the whole arenas; g: the (rows_g, 1024) slab for arena rows
+// [row_offset, row_offset + rows_g), inside the arena (checked by the
+// wrapper).
+extern "C" int arena_fold_slice_launch(void* m, void* v, const void* g,
+                                       int64_t row_offset, int64_t rows_g,
+                                       float s, float c1, float c2, float dm,
+                                       float dv, void* stream) {
+  const int64_t n4 = rows_g * (kLanes / 4);
+  arena_fold_slice_kernel<<<grid_for(n4), kThreads, 0,
+                            (cudaStream_t)stream>>>(
+      (float4*)m, (float4*)v, (const float4*)g, row_offset * (kLanes / 4),
+      n4, s, c1, c2, dm, dv);
   return (int)cudaGetLastError();
 }
 

@@ -1,15 +1,17 @@
 """Arena-wide fused AdamA kernels: the whole-arena m/v fold (one launch per
-micro-batch) and the bias-corrected apply (one launch per mini-batch).
+micro-batch), the slice fold of Algorithm 2 (one launch per layer and one
+for the rest region, per micro-batch) and the bias-corrected apply (one
+launch per mini-batch).
 
 Each function has two forms, side by side:
 
-  arena_fold / arena_apply          the wrappers. On CUDA tensors they launch
-                                    the hand-written kernel in
+  arena_fold / arena_fold_slice /   the wrappers. On CUDA tensors they launch
+  arena_apply                       the hand-written kernel in
                                     csrc/fused_step.cu (or raise); on CPU
                                     tensors they run the plain version.
-  arena_fold_ref / arena_apply_ref  the plain PyTorch versions: the same
-                                    operations in the same order, used on
-                                    the CPU and as the kernels' oracle.
+  arena_fold_ref /                  the plain PyTorch versions: the same
+  arena_fold_slice_ref /            operations in the same order, used on
+  arena_apply_ref                   the CPU and as the kernels' oracle.
 
 They replace the Pallas kernels of `repro/kernels/fused_step.py` in the
 fp32-moment, fp32-wire, unguarded, static-scale form. The m/v (fold) and p
@@ -72,9 +74,10 @@ def _sqrt32(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.double()).float()
 
 
-def _check_arenas(fn: str, *ts: torch.Tensor) -> None:
-    """Every operand: fp32, (rows, LANES), contiguous, one shape and one
-    device (CPU or CUDA, 16-byte aligned on CUDA for float4 access)."""
+def _check_arenas(fn: str, *ts: torch.Tensor, same_rows: bool = True) -> None:
+    """Every operand: fp32, (rows, LANES), contiguous, one shape (or only
+    one row width, `same_rows=False`) and one device (CPU or CUDA, 16-byte
+    aligned on CUDA for float4 access)."""
     ref = ts[0]
     for t in ts:
         if t.dtype != torch.float32:
@@ -82,7 +85,7 @@ def _check_arenas(fn: str, *ts: torch.Tensor) -> None:
         if t.dim() != 2 or t.shape[1] != LANES:
             raise ValueError(f"{fn}: expected (rows, {LANES}) operands, got "
                              f"{tuple(t.shape)}")
-        if t.shape != ref.shape:
+        if same_rows and t.shape != ref.shape:
             raise ValueError(f"{fn}: operand shapes differ: "
                              f"{tuple(t.shape)} vs {tuple(ref.shape)}")
         if not t.is_contiguous():
@@ -100,29 +103,14 @@ _P, _I64, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
 # is the CUDA stream)
 SIGNATURES = {
     "arena_fold_launch": (_P, _P, _P, _I64, _F, _F, _F, _F, _F, _P),
+    "arena_fold_slice_launch": (_P, _P, _P, _I64, _I64, _F, _F, _F, _F, _F,
+                                _P),
     "arena_apply_launch": (_P, _P, _P, _I64, _F, _F, _F, _F, _F, _P),
 }
-_LIB = None
 
 
 def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = build.load("fused_step")
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
-
-
-def _launch(fn: str, launcher, lead: torch.Tensor, *args) -> None:
-    with torch.cuda.device(lead.device):
-        err = launcher(*args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{fn}: kernel launch failed with CUDA error "
-                           f"{err}")
+    return build.bind("fused_step", SIGNATURES)
 
 
 # ---------------------------------------------------------------------------
@@ -167,13 +155,68 @@ def arena_fold(m, v, g, *, beta1: float, beta2: float, scale=1.0,
     if m.device.type == "cpu":
         return arena_fold_ref(m, v, g, beta1=beta1, beta2=beta2, scale=scale,
                               decay=decay)
-    _launch("arena_fold", _lib().arena_fold_launch, m,
-            *fold_args(m, v, g, beta1, beta2, scale, decay))
+    build.launch("arena_fold", _lib().arena_fold_launch, m,
+                 *fold_args(m, v, g, beta1, beta2, scale, decay))
     arena_fold.launches += 1
     return m, v
 
 
 arena_fold.launches = 0
+
+
+def fold_slice_args(m, v, g, row_offset, beta1, beta2, scale, decay):
+    """Arguments of arena_fold_slice_launch, the stream excepted."""
+    return (m.data_ptr(), v.data_ptr(), g.data_ptr(), row_offset, g.shape[0],
+            *_fold_scalars(beta1, beta2, scale, decay))
+
+
+def _check_slice(m, v, g, row_offset: int, block: int) -> None:
+    """The reference's checks (fused_step.py::arena_fold_slice): whole
+    blocks of rows, a block-aligned offset, and the slice inside the
+    arena."""
+    _check_arenas("arena_fold_slice", m, v)
+    _check_arenas("arena_fold_slice", m, g, same_rows=False)
+    rows_g = g.shape[0]
+    if block < 1 or rows_g % block or row_offset % block:
+        raise ValueError(f"arena_fold_slice: slab rows {rows_g} and row "
+                         f"offset {row_offset} must be multiples of the "
+                         f"block {block}")
+    if row_offset < 0 or row_offset + rows_g > m.shape[0]:
+        raise ValueError(f"arena_fold_slice: rows [{row_offset}, "
+                         f"{row_offset + rows_g}) lie outside the arena's "
+                         f"{m.shape[0]} rows")
+
+
+def arena_fold_slice_ref(m, v, g, row_offset: int, *, beta1: float,
+                         beta2: float, block: int, scale=1.0, decay=None):
+    """Plain version of `arena_fold_slice`: `arena_fold_ref` on the rows
+    of the slice (views of m and v). `block` is checked by the wrapper."""
+    rows = slice(row_offset, row_offset + g.shape[0])
+    arena_fold_ref(m[rows], v[rows], g, beta1=beta1, beta2=beta2, scale=scale,
+                   decay=decay)
+    return m, v
+
+
+def arena_fold_slice(m, v, g, row_offset: int, *, beta1: float, beta2: float,
+                     block: int, scale=1.0, decay=None):
+    """Fold a (rows_g, LANES) gradient slab into arena rows
+    [row_offset, row_offset + rows_g) of m and v, in place, with the
+    arena_fold arithmetic; every other row is left untouched. `block` is
+    the layout's `slice_block` for the region: rows_g and row_offset must
+    be multiples of it. Returns (m, v)."""
+    _check_slice(m, v, g, row_offset, block)
+    if m.device.type == "cpu":
+        return arena_fold_slice_ref(m, v, g, row_offset, beta1=beta1,
+                                    beta2=beta2, block=block, scale=scale,
+                                    decay=decay)
+    build.launch("arena_fold_slice", _lib().arena_fold_slice_launch, m,
+                 *fold_slice_args(m, v, g, row_offset, beta1, beta2, scale,
+                                  decay))
+    arena_fold_slice.launches += 1
+    return m, v
+
+
+arena_fold_slice.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -216,8 +259,8 @@ def arena_apply(p, m, v, *, lr, bc1, bc2, eps: float = 1e-8,
     if p.device.type == "cpu":
         return arena_apply_ref(p, m, v, lr=lr, bc1=bc1, bc2=bc2, eps=eps,
                                weight_decay=weight_decay)
-    _launch("arena_apply", _lib().arena_apply_launch, p,
-            *apply_args(p, m, v, lr, bc1, bc2, eps, weight_decay))
+    build.launch("arena_apply", _lib().arena_apply_launch, p,
+                 *apply_args(p, m, v, lr, bc1, bc2, eps, weight_decay))
     arena_apply.launches += 1
     return p
 

@@ -39,6 +39,9 @@ def main(argv=None):
     ap.add_argument("--micro-batches", type=int, default=8)
     ap.add_argument("--accumulation", default="adama",
                     choices=list(ACCUM_ENGINES))
+    ap.add_argument("--per-leaf", action="store_true",
+                    help="per-leaf optimizer state (arena=False): adama and "
+                         "adama_layerwise fold and apply leaf by leaf")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args(argv)
@@ -46,7 +49,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     run = RunConfig(model=cfg,
                     optimizer=OptimizerConfig(accumulation=args.accumulation,
-                                              micro_batches=args.micro_batches),
+                                              micro_batches=args.micro_batches,
+                                              arena=not args.per_leaf),
                     seq_len=args.seq_len, global_batch=args.global_batch,
                     seed=args.seed, steps=2, log_every=1)
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
@@ -61,6 +65,7 @@ def main(argv=None):
     kernels.sort(key=_device_us, reverse=True)
     print(json.dumps({
         "arch": cfg.name, "accumulation": args.accumulation,
+        "per_leaf": args.per_leaf,
         "seq_len": args.seq_len, "global_batch": args.global_batch,
         "micro_batches": args.micro_batches,
         "device": torch.cuda.get_device_name(0),

@@ -7,6 +7,10 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \
       --reduced --steps 4 --global-batch 8 --micro-batches 2 --seq-len 32 \
       --log-every 1 --device cpu
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch bert-large \
+      --reduced --steps 2 --global-batch 4 --micro-batches 2 --seq-len 16 \
+      --accumulation adama_layerwise --per-leaf --log-every 1 --device cpu
 """
 from __future__ import annotations
 
@@ -31,6 +35,9 @@ def main(argv=None):
     ap.add_argument("--micro-batches", type=int, default=4)
     ap.add_argument("--accumulation", default="adama",
                     choices=list(ACCUM_ENGINES))
+    ap.add_argument("--per-leaf", action="store_true",
+                    help="per-leaf optimizer state (arena=False): adama and "
+                         "adama_layerwise fold and apply leaf by leaf")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
@@ -47,7 +54,7 @@ def main(argv=None):
         model=cfg,
         optimizer=OptimizerConfig(accumulation=args.accumulation,
                                   micro_batches=args.micro_batches,
-                                  lr=args.lr),
+                                  lr=args.lr, arena=not args.per_leaf),
         seq_len=args.seq_len, global_batch=args.global_batch, seed=args.seed,
         steps=args.steps, log_every=args.log_every)
     lr_fn = sched.warmup_cosine(args.lr, args.warmup, args.steps)

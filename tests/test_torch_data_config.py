@@ -46,11 +46,24 @@ def test_bert_large_is_the_papers_workload():
 
 
 def test_optimizer_config_defaults_match_reference():
+    """Every port field defaults as the reference's does, with one
+    documented exception: `arena` defaults to True, since the port has only
+    kernel paths and its main path is the arena (the reference defaults to
+    use_pallas=False, arena=False)."""
     t, j = OptimizerConfig(), JaxOptimizerConfig()
+    exceptions = {"arena": True}
     for name, value in _fields(t).items():
-        assert getattr(j, name) == value, name
+        if name in exceptions:
+            assert value == exceptions[name] != getattr(j, name), name
+        else:
+            assert getattr(j, name) == value, name
+    assert OptimizerConfig(accumulation="adama_layerwise").arena
+    assert not OptimizerConfig(accumulation="adama_layerwise",
+                               arena=False).arena
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        OptimizerConfig(accumulation="ga", arena=False)
     with pytest.raises(ValueError):
-        OptimizerConfig(accumulation="adama_layerwise")
+        OptimizerConfig(accumulation="adam")
     assert isinstance(get_config("stablelm-1.6b"), ModelConfig)
 
 

@@ -132,14 +132,21 @@ def test_launch_arguments_match_the_declared_c_signatures(name):
     """ctypes converts every argument the wrappers pass (pointers as
     c_void_p, the count as int64, scalars as float32)."""
     x = torch.zeros(8, tfs.LANES)
-    args = (tfs.fold_args(x, x, x, B1, B2, 0.125, (B1, B2))
-            if name == "arena_fold_launch"
-            else tfs.apply_args(x, x, x, 1e-3, 0.1, 0.001, 1e-8, 0.01))
+    ints = 1                         # the element count, or offset and rows
+    if name == "arena_fold_launch":
+        args = tfs.fold_args(x, x, x, B1, B2, 0.125, (B1, B2))
+    elif name == "arena_fold_slice_launch":
+        args = tfs.fold_slice_args(x, x, x[:4], 2, B1, B2, 0.125, (B1, B2))
+        ints = 2
+    else:
+        args = tfs.apply_args(x, x, x, 1e-3, 0.1, 0.001, 1e-8, 0.01)
     got = []
     proto = ctypes.CFUNCTYPE(ctypes.c_int, *tfs.SIGNATURES[name])
     assert proto(lambda *a: got.append(a) or 0)(*args, 0) == 0
-    assert got[0][0] == x.data_ptr() and got[0][3] == x.numel()
-    assert got[0][4:9] == tuple(float(np.float32(s)) for s in args[4:])
+    assert got[0][0] == x.data_ptr()
+    assert got[0][3:3 + ints] == ((x.numel(),) if ints == 1 else (2, 4))
+    assert got[0][3 + ints:len(args)] == tuple(float(np.float32(s))
+                                               for s in args[3 + ints:])
 
 
 def test_first_moment_coefficient_is_rounded_from_double():
