@@ -23,18 +23,28 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      a 1024-element norm view inside a stacked leaf, and a ragged odd size
      at a pointer that is not 16-byte aligned; the apply with and without
      weight decay.
+   - rwkv6_chunk_scan (forward) and rwkv6_chunk_scan_bwd (backward) at
+     the rwkv6-7b training shape (BH 128, S 4096, K = V = 64), at one
+     chunk (BH 3, S 64), and at BH 4, S 512, where two halves run with the
+     carried state must equal one run; nonzero s0 and ds_final, each
+     output within 2e-5 of its largest |value| of the plain version's; the
+     backward also through the torch.autograd.Function.
 4. A small-input check: reduced bert-large trained 2 steps on the card
    (kernels) and on the CPU (plain versions) from the same params agree,
    for adama, adama_layerwise (arena and per-leaf state) and per-leaf
-   adama.
+   adama; so does reduced rwkv6-7b for adama and adama_layerwise.
 5. The main paths: bert-large at full width and depth, bf16 compute, fp32
    params and state, seq 128, global batch 256, 8 micro-batches: 5 steps of
    `adama`, of the `ga` baseline and of `adama_layerwise` (Algorithm 2,
    arena state), and 3 steps each of the per-leaf forms of
    `adama_layerwise` and `adama`, with per-step loss, step time and peak
-   device memory. Each path runs with every launch count set to 0 just
-   before it and read just after: every fold and apply must have gone
-   through the kernels, as many times as the path's schedule says.
+   device memory. Then rwkv6-7b at full width (d_model 4096, 64 heads of
+   64, d_ff 14336, vocab 65536) with its depth cut from 32 to 4 layers,
+   seq 4096 (train_4k) and global batch 16 (cut from 256), 8 micro-batches:
+   3 steps each of `adama`, `ga` and `adama_layerwise`. Each path runs with
+   every launch count set to 0 just before it and read just after: every
+   fold, apply and scan must have gone through the kernels, as many times
+   as the path's schedule says.
 
 The last three lines are a JSON object with every kernel's numbers, the
 card's name and power limit, and the JSON result line
@@ -52,19 +62,36 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12           # H100 SXM data sheet, non-tensor fp32
-FULL_ROWS = 357_888              # bert-large arena rows
 LANES = 1024                     # arena row width
 SMALL_ROWS = 8
 TIMED_RUNS = 25
 KERNEL_REPS = 20                 # back-to-back launches per timed kernel run
-MAIN = dict(arch="bert_large", seq_len=128, global_batch=256,
-            micro_batches=8, seed=0)
-# main paths: name -> (engine, arena state, steps)
-PATHS = {"adama": ("adama", True, 5),
-         "ga": ("ga", True, 5),
-         "adama_layerwise": ("adama_layerwise", True, 5),
-         "adama_layerwise_per_leaf": ("adama_layerwise", False, 3),
-         "adama_per_leaf": ("adama", False, 3)}
+# each arch's main-path settings and the rows of its arena; rwkv6-7b's cuts
+# of the published config and of train_4k's batch are listed in `reduced`.
+# Arena rows: each leaf takes ceil(numel / 1024) rows, a layer's and the
+# rest region's rows are aligned to 64, the whole to 256. bert-large: 24 x
+# 12,352 block rows + 61,248 rest = 357,696 -> 357,888; rwkv6-7b at 4
+# layers: 4 x 213,312 + 524,352 rest (embed and lm_head 262,144 each, the
+# final norm 4, aligned) = 1,377,600 -> 1,377,792
+MAIN = {"bert_large": dict(seq_len=128, global_batch=256, micro_batches=8,
+                           seed=0, arena_rows=357_888),
+        "rwkv6_7b": dict(seq_len=4096, global_batch=16, micro_batches=8,
+                         seed=0, num_layers=4, arena_rows=1_377_792,
+                         reduced={"num_layers": [32, 4],
+                                  "global_batch": [256, 16]})}
+# main paths: name -> (arch, engine, arena state, steps)
+PATHS = {"adama": ("bert_large", "adama", True, 5),
+         "ga": ("bert_large", "ga", True, 5),
+         "adama_layerwise": ("bert_large", "adama_layerwise", True, 5),
+         "adama_layerwise_per_leaf": ("bert_large", "adama_layerwise", False,
+                                      3),
+         "adama_per_leaf": ("bert_large", "adama", False, 3),
+         "rwkv6_adama": ("rwkv6_7b", "adama", True, 3),
+         "rwkv6_ga": ("rwkv6_7b", "ga", True, 3),
+         "rwkv6_adama_layerwise": ("rwkv6_7b", "adama_layerwise", True, 3)}
+# the scan at the rwkv6-7b main path's shape: BH = micro-batch 2 x 64 heads
+SCAN_SHAPE = dict(bh=128, s=4096, k=64, v=64, chunk=64)
+SCAN_REL_TOL = 2e-5      # largest |kernel - plain| / largest |plain|
 # each kernel: (module, source, the TPU kernel it replaces, its main path)
 KERNELS = {
     "arena_fold": ("fused_step", "src/repro_torch/kernels/csrc/fused_step.cu",
@@ -84,6 +111,16 @@ KERNELS = {
                       "src/repro_torch/kernels/csrc/adam_apply.cu",
                       "src/repro/kernels/adam_apply.py:36",
                       "adama_layerwise_per_leaf"),
+    # the TPU kernel has no backward (XLA differentiates the model's scan);
+    # the backward kernel is the gradient of the same kernel
+    "rwkv6_chunk_scan": ("rwkv6_chunk",
+                         "src/repro_torch/kernels/csrc/rwkv6_chunk.cu",
+                         "src/repro/kernels/rwkv6_chunk.py:73",
+                         "rwkv6_adama"),
+    "rwkv6_chunk_scan_bwd": ("rwkv6_chunk",
+                             "src/repro_torch/kernels/csrc/rwkv6_chunk.cu",
+                             "src/repro/kernels/rwkv6_chunk.py:73",
+                             "rwkv6_adama"),
 }
 
 
@@ -126,7 +163,8 @@ def bound_ms(n_bytes: int, n_ops: int):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_kernels(torch, fused_step, dev="cuda", sizes=(SMALL_ROWS, FULL_ROWS)):
+def check_kernels(torch, fused_step, dev="cuda",
+                  sizes=(SMALL_ROWS, MAIN["bert_large"]["arena_rows"])):
     """Phase 3: each kernel bitwise against its plain version; times."""
     dev = torch.device(dev)
     gen = torch.Generator(device=dev)
@@ -233,7 +271,7 @@ def full_layout(torch):
     from repro_torch.models.model import init_params
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    params = init_params(get_config(MAIN["arch"]), gen)
+    params = init_params(get_config("bert_large"), gen)
     layout = build_layout(params)
     del params
     torch.cuda.empty_cache()
@@ -340,7 +378,7 @@ def check_leaf_kernels(torch, adama_accum, adam_apply):
     shapes: bitwise against the plain version (over the whole tensor, so
     a view's neighbours must be untouched too), then timed."""
     from repro_torch.configs.base import get_config
-    cfg = get_config(MAIN["arch"])
+    cfg = get_config("bert_large")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
 
@@ -413,62 +451,234 @@ def check_leaf_kernels(torch, adama_accum, adam_apply):
     return out
 
 
-SMALL_PATHS = (("adama", True), ("adama_layerwise", True),
-               ("adama_layerwise", False), ("adama", False))
+def scan_fwd_work(bh, s, c, k, v):
+    """(bytes, operations) that one forward scan must do: r, k, logw, v, u,
+    s0 read once, y and s_final written once (the chunk-start states the
+    kernel also writes for the backward are its own intermediate, not
+    counted); each pair decay e^{cx[t]-cw[i]} formed once. A fused
+    multiply-add counts two operations, an exponential one."""
+    pairs = c * (c - 1) // 2
+    per_chunk = (2 * c * k                     # cumsums
+                 + 5 * pairs * k               # A (sub, exp, mul, fma)
+                 + 3 * c * k                   # bonus
+                 + 5 * c * k                   # r e^{cx}, k e^{T-cw}
+                 + 2 * c * v * k + 2 * pairs * v + 2 * c * v   # y
+                 + 2 * k * v + 2 * k * v * c)  # state carry
+    n_bytes = 4 * (3 * bh * s * k + 2 * bh * s * v + bh * k + 2 * bh * k * v)
+    return n_bytes, bh * (s // c) * per_chunk
+
+
+def scan_bwd_work(bh, s, c, k, v):
+    """(bytes, operations) that the gradient of one scan must do, counted
+    from its arithmetic, not from the kernel's loops: r, k, logw, v, dy,
+    u and ds_final read once, dr, dk, dlogw, dv, du and ds0 written once
+    (the forward's saved chunk-start states are this design's
+    intermediate, not counted). Per chunk, with E = e^{cx[t]-cw[i]} formed
+    once per (t, i, k), i < t: sub and exp, r E, A += (r E) k, p_k +=
+    dA (r E), p_r += (dA E) k: 10 operations. Per (t, i, v): dA = dy v and
+    dv += A dy. Per (t, k, v): dv += (k e^{T-cw}) dS, S dy (dr), v dS
+    (dk), dS += (r e^{cx}) dy. Per (t, k): 29 (cumsums, bonus, the decays
+    e^{cx} and e^{T-cw}, dr, dk, dcx, dcw, du, the dT sum and dlogw's
+    reverse cumsum); per (k, v): 3; per k: 4 (e^T, dT)."""
+    pairs = c * (c - 1) // 2
+    per_chunk = (10 * pairs * k + 4 * pairs * v + 8 * c * k * v
+                 + 4 * c * v + 29 * c * k + 3 * k * v + 4 * k)
+    n_bytes = 4 * (6 * bh * s * k + 3 * bh * s * v + 2 * bh * k
+                   + 2 * bh * k * v)
+    return n_bytes, bh * (s // c) * per_chunk
+
+
+def _scan_inputs(torch, bh, s, k, v, seed):
+    """The distributions of tests/test_rwkv6_kernel.py, with a nonzero s0,
+    and output gradients dy, ds_final."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def n(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    args = (n(bh, s, k) * 0.5, n(bh, s, k) * 0.5, n(bh, s, v) * 0.5,
+            -torch.exp(n(bh, s, k) - 1.0), n(bh, k) * 0.5, n(bh, k, v) * 0.3)
+    return args, n(bh, s, v), n(bh, k, v)
+
+
+def _scan_rel(label, names, got, want):
+    """Largest |got - want| / largest |want| per output; raise above the
+    tolerance. Returns the largest relative and absolute errors."""
+    worst_rel, worst_abs = 0.0, 0.0
+    for name, a, b in zip(names, got, want):
+        if not bool(a.isfinite().all()):
+            raise AssertionError(f"rwkv6 scan {label}: {name} not finite")
+        err = float((a - b).abs().max())
+        rel = err / max(float(b.abs().max()), 1e-30)
+        if rel > SCAN_REL_TOL:
+            raise AssertionError(f"rwkv6 scan {label}: {name} differs from "
+                                 f"the plain version by {err} ({rel:.3g} of "
+                                 f"its largest value; tolerance "
+                                 f"{SCAN_REL_TOL})")
+        worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, err)
+    return worst_rel, worst_abs
+
+
+GRAD_NAMES = ("dr", "dk", "dv", "dlogw", "du", "ds0")
+
+
+def _check_scan_case(torch, rc, label, bh, s, seed):
+    """Forward and backward kernels against the plain versions at one
+    shape (the plain backward is torch.autograd.grad through the plain
+    forward), the backward also through the autograd.Function; then
+    timed."""
+    k, v, c = SCAN_SHAPE["k"], SCAN_SHAPE["v"], SCAN_SHAPE["chunk"]
+    args, dy, dsf = _scan_inputs(torch, bh, s, k, v, seed)
+    y, sf, states = rc.scan_forward(*args, chunk=c, save_states=True)
+    yr, sr, str_ = rc.rwkv6_chunk_scan_ref(*args, chunk=c, states=True)
+    torch.cuda.synchronize()
+    fwd_err = _scan_rel(f"{label} forward", ("y", "s_final", "states"),
+                        (y, sf, states), (yr, sr, str_))
+    del yr, sr, str_
+    want = rc.rwkv6_chunk_scan_bwd_ref(*args, dy, dsf, chunk=c)
+    got = rc.rwkv6_chunk_scan_bwd(*args[:5], states, dy, dsf, chunk=c)
+    torch.cuda.synchronize()
+    bwd_err = _scan_rel(f"{label} backward", GRAD_NAMES, got, want)
+    leaves = [x.clone().requires_grad_(True) for x in args]
+    ya, sa = rc.rwkv6_chunk_scan(*leaves, chunk=c)
+    auto = torch.autograd.grad((ya, sa), leaves, (dy, dsf))
+    torch.cuda.synchronize()
+    bwd_err = max(bwd_err, _scan_rel(f"{label} autograd", GRAD_NAMES, auto,
+                                     want))
+    del got, want, auto, leaves, ya, sa, y, sf
+    info = {"bh": bh, "s": s, "k": k, "v": v, "chunk": c}
+    fwd = _kernel_entry(
+        "rwkv6_chunk_scan", label,
+        timed_ms(torch, lambda: rc.scan_forward(*args, chunk=c,
+                                                save_states=True),
+                 reps=KERNEL_REPS),
+        timed_ms(torch, lambda: rc.rwkv6_chunk_scan_ref(*args, chunk=c,
+                                                         states=True)),
+        bound_ms(*scan_fwd_work(bh, s, c, k, v)),
+        dict(info, saves_states=True, max_rel_err=fwd_err[0],
+             max_abs_err=fwd_err[1]))
+    bwd = _kernel_entry(
+        "rwkv6_chunk_scan_bwd", label,
+        timed_ms(torch, lambda: rc.rwkv6_chunk_scan_bwd(
+            *args[:5], states, dy, dsf, chunk=c), reps=KERNEL_REPS),
+        # the plain backward: autograd through the plain forward, whose
+        # forward pass is part of its time
+        timed_ms(torch, lambda: rc.rwkv6_chunk_scan_bwd_ref(
+            *args, dy, dsf, chunk=c)),
+        bound_ms(*scan_bwd_work(bh, s, c, k, v)),
+        dict(info, max_rel_err=bwd_err[0], max_abs_err=bwd_err[1]))
+    return fwd, bwd
+
+
+def _check_state_carry(torch, rc, bh, s, seed):
+    """Two halves run with the carried state equal one full run (kernel
+    against kernel, as tests/test_rwkv6_kernel.py does for Pallas)."""
+    k, v, c = SCAN_SHAPE["k"], SCAN_SHAPE["v"], SCAN_SHAPE["chunk"]
+    (r, kk, vv, w, u, s0), _, _ = _scan_inputs(torch, bh, s, k, v, seed)
+    y_full, s_full, _ = rc.scan_forward(r, kk, vv, w, u, s0, chunk=c)
+    h = s // 2
+    halves = [tuple(x[:, sl].contiguous() for x in (r, kk, vv, w))
+              for sl in (slice(0, h), slice(h, s))]
+    y1, s1, _ = rc.scan_forward(*halves[0], u, s0, chunk=c)
+    y2, s2, _ = rc.scan_forward(*halves[1], u, s1, chunk=c)
+    torch.cuda.synchronize()
+    return _scan_rel("state carry", ("y", "s_final"),
+                     (torch.cat([y1, y2], 1), s2), (y_full, s_full))
+
+
+def check_rwkv_scan(torch, rc):
+    """Phase 3, the RWKV-6 scan kernels at three shapes."""
+    sh = SCAN_SHAPE
+    cases = [("rwkv6-7b training shape", sh["bh"], sh["s"], 10),
+             ("one chunk", 3, sh["chunk"], 11),
+             ("state carry", 4, 512, 12)]
+    fwd, bwd = [], []
+    for label, bh, s, seed in cases:
+        f, b = _check_scan_case(torch, rc, label, bh, s, seed)
+        fwd.append(f)
+        bwd.append(b)
+        torch.cuda.empty_cache()
+    carry = _check_state_carry(torch, rc, 4, 512, 13)
+    log(json.dumps({"phase": "kernel", "name": "rwkv6_chunk_scan",
+                    "case": "two halves with the carried state vs one run",
+                    "max_rel_err": carry[0], "max_abs_err": carry[1]}))
+    out = {}
+    for name, entries in (("rwkv6_chunk_scan", fwd),
+                          ("rwkv6_chunk_scan_bwd", bwd)):
+        main = {k: x for k, x in entries[0].items()
+                if k not in ("max_rel_err", "max_abs_err")}
+        out[name] = dict(main, max_abs_err=max(e["max_abs_err"]
+                                               for e in entries),
+                         max_rel_err=max(e["max_rel_err"] for e in entries),
+                         tolerance_rel=SCAN_REL_TOL, library_ms=None,
+                         by_case=entries)
+    return out
+
+
+# reduced models checked card against CPU: arch -> (engine, arena) pairs
+SMALL_PATHS = {"bert_large": (("adama", True), ("adama_layerwise", True),
+                              ("adama_layerwise", False), ("adama", False)),
+               "rwkv6_7b": (("adama", True), ("adama_layerwise", True))}
+SMALL_PARAM_TOL = 2e-5
 
 
 def check_small_input(torch):
     """Phase 4: the CUDA path agrees with the CPU path (plain versions) on
-    a reduced bert-large run from identical params and data, for each
-    engine and state form the kernels serve."""
+    a reduced run from identical params and data, for each engine and
+    state form the kernels serve: bert-large and rwkv6-7b (whose scan is
+    not bitwise, so its losses and params agree to the same tolerances)."""
     import dataclasses
 
     from repro_torch.configs.base import OptimizerConfig, RunConfig, get_config
     from repro_torch.models.model import init_params
     from repro_torch.train.loop import train
 
-    cfg = dataclasses.replace(get_config("bert_large").reduced(),
-                              compute_dtype="float32")
-    gen = torch.Generator()
-    gen.manual_seed(0)
-    base = init_params(cfg, gen)
-
     def copy_to(tree, device):
         return {k: copy_to(x, device) if isinstance(x, dict)
                 else x.clone().to(device) for k, x in tree.items()}
 
-    for engine, arena in SMALL_PATHS:
-        run = RunConfig(model=cfg, optimizer=OptimizerConfig(
-            accumulation=engine, micro_batches=2, arena=arena),
-            seq_len=32, global_batch=4, steps=2, log_every=10**9)
-        outs = {dev: train(run, params=copy_to(base, dev), device=dev,
-                           log_fn=lambda s: None) for dev in ("cuda", "cpu")}
-        lc, lg = outs["cpu"]["losses"], outs["cuda"]["losses"]
-        label = f"{engine} {'arena' if arena else 'per-leaf'}"
-        for a, b in zip(lc, lg):
-            if not (math.isfinite(b) and abs(a - b) <= 1e-5 * abs(a)):
-                raise AssertionError(f"small-input {label}: losses differ: "
-                                     f"cpu {lc} cuda {lg}")
-        worst = 0.0
-        pc = dict(outs["cpu"]["model"].named_parameters())
-        for name, x in outs["cuda"]["model"].named_parameters():
-            worst = max(worst, float((x.detach().cpu() - pc[name].detach())
-                                     .abs().max()))
-        log(json.dumps({"phase": "small_input", "engine": engine,
-                        "arena": arena, "losses_cpu": lc, "losses_cuda": lg,
-                        "max_param_abs_diff": worst}))
-        if worst > 2e-5:
-            raise AssertionError(f"small-input {label}: params differ by "
-                                 f"{worst}")
+    for arch, paths in SMALL_PATHS.items():
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  compute_dtype="float32")
+        gen = torch.Generator()
+        gen.manual_seed(0)
+        base = init_params(cfg, gen)
+        for engine, arena in paths:
+            run = RunConfig(model=cfg, optimizer=OptimizerConfig(
+                accumulation=engine, micro_batches=2, arena=arena),
+                seq_len=32, global_batch=4, steps=2, log_every=10**9)
+            outs = {dev: train(run, params=copy_to(base, dev), device=dev,
+                               log_fn=lambda s: None)
+                    for dev in ("cuda", "cpu")}
+            lc, lg = outs["cpu"]["losses"], outs["cuda"]["losses"]
+            label = f"{arch} {engine} {'arena' if arena else 'per-leaf'}"
+            worst = 0.0
+            pc = dict(outs["cpu"]["model"].named_parameters())
+            for name, x in outs["cuda"]["model"].named_parameters():
+                worst = max(worst, float((x.detach().cpu()
+                                          - pc[name].detach()).abs().max()))
+            log(json.dumps({"phase": "small_input", "arch": arch,
+                            "engine": engine, "arena": arena,
+                            "losses_cpu": lc, "losses_cuda": lg,
+                            "max_param_abs_diff": worst}))
+            for a, b in zip(lc, lg):
+                if not (math.isfinite(b) and abs(a - b) <= 1e-5 * abs(a)):
+                    raise AssertionError(f"small-input {label}: losses "
+                                         f"differ: cpu {lc} cuda {lg}")
+            if worst > SMALL_PARAM_TOL:
+                raise AssertionError(f"small-input {label}: params differ "
+                                     f"by {worst}")
 
 
 def _expected_launches(path, tree):
     """Launches per step that a path's schedule makes, derived from the
     param tree: N micro-batches, L layers, the stacked block leaves and
     the rest leaves (the layer-wise arena path folds L layer slices and
-    one rest slice per micro-batch)."""
-    engine, arena, _ = PATHS[path]
-    n = MAIN["micro_batches"]
+    one rest slice per micro-batch). An rwkv6 model runs one forward scan
+    per layer and micro-batch (two in the layer-wise path: the no-grad
+    forward and the recompute) and one backward scan."""
+    arch, engine, arena, _ = PATHS[path]
+    n = MAIN[arch]["micro_batches"]
     blocks = tree["blocks"]
     n_layers = next(iter(blocks.values())).shape[0]
     n_block, n_leaves = len(blocks), len(tree) - 1 + len(blocks)
@@ -486,27 +696,44 @@ def _expected_launches(path, tree):
         want["adam_apply_2d"] = n_leaves
         want["adama_accum_2d"] = n * (n_leaves if engine == "adama" else
                                       n_block * n_layers + n_rest)
+    if arch == "rwkv6_7b":
+        recompute = 2 if engine == "adama_layerwise" else 1
+        want["rwkv6_chunk_scan"] = recompute * n * n_layers
+        want["rwkv6_chunk_scan_bwd"] = n * n_layers
     return want
 
 
-def run_main_path(torch, wrappers):
-    """Phase 5: bert-large, full width, every main path; returns each
-    path's launch counts per kernel."""
-    from repro_torch.configs.base import OptimizerConfig, RunConfig, get_config
+def _main_config(arch):
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    cfg = get_config(arch)
+    if "num_layers" in MAIN[arch]:
+        cfg = dataclasses.replace(cfg, num_layers=MAIN[arch]["num_layers"])
+    return cfg
+
+
+def run_main_paths(torch, wrappers, arch):
+    """Phase 5: one arch at full width, each of its main paths; returns
+    each path's launch counts per kernel and peak memory. Every arena path
+    must have the arch's arena rows."""
+    from repro_torch.configs.base import OptimizerConfig, RunConfig
     from repro_torch.train.loop import train
 
-    cfg = get_config(MAIN["arch"])
+    cfg = _main_config(arch)
+    main = MAIN[arch]
     ln_v = math.log(cfg.padded_vocab())
     counts, first_loss, peaks = {}, {}, {}
-    arena_bytes = FULL_ROWS * LANES * 4
-    for path, (engine, arena, steps) in PATHS.items():
+    paths = [p for p, spec in PATHS.items() if spec[0] == arch]
+    for path in paths:
+        _, engine, arena, steps = PATHS[path]
         run = RunConfig(model=cfg,
                         optimizer=OptimizerConfig(
                             accumulation=engine, arena=arena,
-                            micro_batches=MAIN["micro_batches"]),
-                        seq_len=MAIN["seq_len"],
-                        global_batch=MAIN["global_batch"],
-                        seed=MAIN["seed"], steps=steps, log_every=1)
+                            micro_batches=main["micro_batches"]),
+                        seq_len=main["seq_len"],
+                        global_batch=main["global_batch"],
+                        seed=main["seed"], steps=steps, log_every=1)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         for fn in wrappers.values():
@@ -519,42 +746,59 @@ def run_main_path(torch, wrappers):
         rows = state["m"].layout.rows if arena else None
         want = _expected_launches(path, out["params"])
         log(json.dumps({"phase": "main_path", "path": path, "engine": engine,
-                        "arena": arena, "arch": cfg.name, "params": n_params,
+                        "arena": arena, "arch": cfg.name,
+                        "num_layers": cfg.num_layers, "params": n_params,
                         "arena_rows": rows, "steps": steps,
                         "losses": out["losses"],
                         "step_seconds": out["step_seconds"],
                         "max_memory_allocated_bytes": peaks[path],
                         "launches": counts[path],
-                        "launches_per_step": want, **MAIN}))
+                        "launches_per_step": want, **main}))
         losses = out["losses"]
         first_loss[path] = losses[0]
+        first = first_loss[paths[0]]
         if not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"{path}: non-finite loss {losses}")
         if abs(losses[0] - ln_v) > 0.1 * ln_v:
             raise AssertionError(f"{path}: step-1 loss {losses[0]} is not "
                                  f"within 10% of ln(V)={ln_v:.4f}")
-        if abs(losses[0] - first_loss["adama"]) > 1e-4 * first_loss["adama"]:
+        if abs(losses[0] - first) > 1e-4 * first:
             raise AssertionError(f"{path}: step-1 loss {losses[0]} differs "
-                                 f"from adama's {first_loss['adama']}")
+                                 f"from {paths[0]}'s {first}")
         want = {k: c * steps for k, c in want.items()}
         if counts[path] != want:
             raise AssertionError(f"{path}: kernel launches {counts[path]} "
                                  f"!= {want}")
-        if arena and rows != FULL_ROWS:
-            raise AssertionError(f"arena rows {rows} != {FULL_ROWS}")
+        if arena and (rows != main["arena_rows"] or rows * LANES < n_params):
+            raise AssertionError(f"{path}: arena rows {rows} != "
+                                 f"{main['arena_rows']} or too few for "
+                                 f"{n_params} params")
         del out, state
-    saving = peaks["adama"] - peaks["adama_layerwise"]
-    log(json.dumps({"phase": "memory", "peaks": peaks,
-                    "adama_minus_adama_layerwise": saving,
-                    "ga_minus_adama": peaks["ga"] - peaks["adama"],
+    return counts, peaks
+
+
+def check_memory(arch, peaks):
+    """ga peaks at least one fp32 arena (its accumulator) above adama, and
+    Algorithm 2 at least two below Algorithm 1 (no whole-model gradient
+    and its packed copy)."""
+    path = {spec[1]: p for p, spec in PATHS.items()
+            if spec[0] == arch and spec[2]}
+    adama, ga, lw = (peaks[path[e]] for e in ("adama", "ga",
+                                              "adama_layerwise"))
+    arena_bytes = MAIN[arch]["arena_rows"] * LANES * 4
+    log(json.dumps({"phase": "memory", "arch": arch, "peaks": peaks,
+                    "ga_minus_adama": ga - adama,
+                    "adama_minus_adama_layerwise": adama - lw,
                     "arena_bytes": arena_bytes}))
-    if saving < 2 * arena_bytes:
-        raise AssertionError(f"adama_layerwise's peak "
-                             f"{peaks['adama_layerwise']} is only {saving} "
-                             f"B below adama's "
-                             f"{peaks['adama']}; expected at least two fp32 "
-                             f"arenas ({2 * arena_bytes} B)")
-    return counts
+    if ga - adama < arena_bytes:
+        raise AssertionError(f"{arch}: adama's peak {adama} is only "
+                             f"{ga - adama} B below ga's {ga}; expected at "
+                             f"least one fp32 arena ({arena_bytes} B)")
+    if adama - lw < 2 * arena_bytes:
+        raise AssertionError(f"{arch}: adama_layerwise's peak {lw} is only "
+                             f"{adama - lw} B below adama's {adama}; "
+                             f"expected at least two fp32 arenas "
+                             f"({2 * arena_bytes} B)")
 
 
 def main() -> int:
@@ -569,7 +813,8 @@ def main() -> int:
               f"checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
-    from repro_torch.kernels import adam_apply, adama_accum, build, fused_step
+    from repro_torch.kernels import (adam_apply, adama_accum, build,
+                                     fused_step, rwkv6_chunk)
     from repro_torch.train.loop import resolve_device
 
     t_start = time.perf_counter()
@@ -592,17 +837,22 @@ def main() -> int:
                 log(f"[ptxas {name}] {line.strip()}")
 
     modules = {"fused_step": fused_step, "adama_accum": adama_accum,
-               "adam_apply": adam_apply}
+               "adam_apply": adam_apply, "rwkv6_chunk": rwkv6_chunk}
     wrappers = {k: getattr(modules[mod], k)
                 for k, (mod, _, _, _) in KERNELS.items()}
     kernels = check_kernels(torch, fused_step)
     kernels["arena_fold_slice"] = check_slice_fold(torch, fused_step,
                                                    full_layout(torch))
     kernels.update(check_leaf_kernels(torch, adama_accum, adam_apply))
+    kernels.update(check_rwkv_scan(torch, rwkv6_chunk))
     log(json.dumps({"phase": "kernels_checked",
                     "seconds": time.perf_counter() - t_start}))
     check_small_input(torch)
-    counts = run_main_path(torch, wrappers)
+    counts = {}
+    for arch in MAIN:
+        c, peaks = run_main_paths(torch, wrappers, arch)
+        check_memory(arch, peaks)
+        counts.update(c)
 
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": source,

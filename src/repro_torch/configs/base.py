@@ -12,9 +12,17 @@ from typing import Optional
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 16            # recurrent state per channel (Mamba) / head
+    d_conv: int = 4              # depthwise conv width (Mamba)
+    expand: int = 2              # inner expansion for Mamba
+    head_dim: int = 64           # RWKV6 head size
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str               # dense | encoder
+    arch_type: str               # dense | encoder | ssm (rwkv6)
     source: str                  # citation for the numbers
     num_layers: int
     d_model: int
@@ -24,7 +32,8 @@ class ModelConfig:
     vocab_size: int
     head_dim: Optional[int] = None       # default d_model // n_heads
     max_seq_len: int = 8192
-    attention: str = "gqa"
+    attention: str = "gqa"               # gqa | none (attention-free)
+    ssm: Optional[SSMConfig] = None      # the rwkv6 family's head size
     norm: str = "rmsnorm"                # rmsnorm | layernorm
     act: str = "silu"                    # silu (gated MLP) | gelu (plain MLP)
     pos_emb: str = "rope"                # rope | sinusoidal (added at embed)
@@ -43,7 +52,9 @@ class ModelConfig:
         return ((self.vocab_size + mult - 1) // mult) * mult
 
     def reduced(self) -> "ModelConfig":
-        """CPU-smoke variant of the same family (<=2 layers, d_model<=256)."""
+        """CPU-smoke variant of the same family (<=2 layers, d_model<=256).
+        `ssm` is kept: head_dim 32 is the attention head size, and an rwkv6
+        model keeps ssm.head_dim 64 (4 heads at d_model 256)."""
         d_model = min(self.d_model, 256)
         n_heads = max(2, min(self.n_heads, 4))
         ratio = max(1, self.n_heads // max(self.n_kv_heads, 1))
@@ -114,7 +125,7 @@ class RunConfig:
     log_every: int = 10
 
 
-ARCH_IDS = ["stablelm_1_6b", "bert_large"]
+ARCH_IDS = ["stablelm_1_6b", "bert_large", "rwkv6_7b"]
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
 

@@ -9,11 +9,18 @@ milliseconds).
 
   PYTHONPATH=src python -m repro_torch.launch.profile_step --arch bert-large \
       --seq-len 128 --global-batch 256 --micro-batches 8 --accumulation adama
+
+`--num-layers` cuts the depth (rwkv6-7b's 32 layers do not fit one 80 GB
+card with their fp32 params, m and v; chip_smoke.py trains it at 4):
+
+  PYTHONPATH=src python -m repro_torch.launch.profile_step --arch rwkv6-7b \
+      --num-layers 4 --seq-len 4096 --global-batch 16 --micro-batches 8
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 
 import torch
@@ -44,9 +51,13 @@ def main(argv=None):
                          "adama_layerwise fold and apply leaf by leaf")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--num-layers", type=int, default=None,
+                    help="cut the depth to this many layers")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
+    if args.num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.num_layers)
     run = RunConfig(model=cfg,
                     optimizer=OptimizerConfig(accumulation=args.accumulation,
                                               micro_batches=args.micro_batches,
@@ -64,7 +75,8 @@ def main(argv=None):
     busy_us = sum(_device_us(e) for e in kernels)
     kernels.sort(key=_device_us, reverse=True)
     print(json.dumps({
-        "arch": cfg.name, "accumulation": args.accumulation,
+        "arch": cfg.name, "num_layers": cfg.num_layers,
+        "accumulation": args.accumulation,
         "per_leaf": args.per_leaf,
         "seq_len": args.seq_len, "global_batch": args.global_batch,
         "micro_batches": args.micro_batches,

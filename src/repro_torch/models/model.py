@@ -1,5 +1,6 @@
-"""Model assembly for the dense and encoder families: parameter init, the
-training forward pass and the loss (`repro/models/model.py`).
+"""Model assembly for the dense, encoder and rwkv6 (ssm) families:
+parameter init, the training forward pass and the loss
+(`repro/models/model.py`).
 
 Param tree layout, the reference's key for key:
   {"embed": (V_pad, D), "lm_head": (D, V_pad),
@@ -79,13 +80,51 @@ def _block_params(cfg, gen, n_layers):
     return p
 
 
+def _rwkv_block_params(cfg, gen, n_layers):
+    """The RWKV-6 block's params for all layers at once (leading L axis)."""
+    lead = (n_layers,)
+    d, lora = cfg.d_model, 32
+    dev = gen.device
+    out_scale = 0.02 / math.sqrt(2 * cfg.num_layers)
+
+    def full(value):
+        return torch.full(lead + (d,), value, dtype=torch.float32, device=dev)
+    p = {f"mu_{nm}": full(0.5) for nm in ("r", "k", "v", "g", "w")}
+    for nm in ("w_r", "w_k", "w_v", "w_g"):
+        p[nm] = _dense(gen, lead + (d, d))
+    p["w_o"] = _dense(gen, lead + (d, d), out_scale)
+    p["w_dd_a"] = _dense(gen, lead + (d, lora))
+    p["w_dd_b"] = _dense(gen, lead + (lora, d))
+    # w_base such that decay exp(-exp(w_base)) spans (slow..fast) per channel
+    p["w_base"] = torch.linspace(-6.0, 1.0, d, dtype=torch.float32,
+                                 device=dev).expand(lead + (d,)).clone()
+    p["u_bonus"] = _dense(gen, lead + (d,), 0.5)
+    p["ln_x"] = full(1.0)
+    p["mu_ck"] = full(0.5)
+    p["mu_cr"] = full(0.5)
+    p["w_ck"] = _dense(gen, lead + (d, cfg.d_ff))
+    p["w_cv"] = _dense(gen, lead + (cfg.d_ff, d), out_scale)
+    p["w_cr"] = _dense(gen, lead + (d, d))
+    for prefix in ("att_norm_", "ffn_norm_"):
+        for k, x in _norm_params(cfg, d, prefix, dev).items():
+            p[k] = x.expand(lead + x.shape).clone()
+    return p
+
+
+def main_stack_kind(cfg) -> str:
+    """The block kind of the main stack, as the reference names it."""
+    return {"dense": "dense", "encoder": "dense",
+            "ssm": "rwkv"}[cfg.arch_type]
+
+
 def _check_family(cfg: ModelConfig):
-    if cfg.arch_type not in ("dense", "encoder") or cfg.attention != "gqa":
+    if not ((cfg.arch_type in ("dense", "encoder") and cfg.attention == "gqa")
+            or (cfg.arch_type == "ssm" and cfg.attention == "none")):
         raise NotImplementedError(
             f"{cfg.name}: arch_type={cfg.arch_type!r} attention="
             f"{cfg.attention!r} is not ported yet (ROADMAP queue 1, item 9: "
             f"other model families); this port runs dense and encoder gqa "
-            f"models")
+            f"models and the rwkv6 (ssm) family")
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
@@ -97,7 +136,9 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     params: Params = {"embed": _dense(gen, (vp, cfg.d_model)),
                       "lm_head": _dense(gen, (cfg.d_model, vp))}
     params.update(_norm_params(cfg, cfg.d_model, "final_norm_", gen.device))
-    params["blocks"] = _block_params(cfg, gen, cfg.num_layers)
+    stack = (_rwkv_block_params if main_stack_kind(cfg) == "rwkv"
+             else _block_params)
+    params["blocks"] = stack(cfg, gen, cfg.num_layers)
     return params
 
 
@@ -140,7 +181,22 @@ class Model(nn.Module):
 
 
 def apply_block(cfg, p, x, positions, *, causal=True):
-    """One dense transformer block on (B, S, D)."""
+    """One block of the config's main stack on (B, S, D): a dense
+    transformer block, or an RWKV-6 block (time-mix, then channel-mix, each
+    from a zero token-shift carry and, for the time-mix, a zero fp32
+    state)."""
+    if main_stack_kind(cfg) == "rwkv":
+        b, _, d = x.shape
+        hd = cfg.ssm.head_dim
+        zeros_x = torch.zeros((b, d), dtype=x.dtype, device=x.device)
+        st = torch.zeros((b, d // hd, hd, hd), dtype=torch.float32,
+                         device=x.device)
+        a_in = md.apply_norm(cfg, p, x, "att_norm_")
+        y, _, _ = md.rwkv6_timemix(cfg, p, a_in, zeros_x, st)
+        x = x + y
+        c_in = md.apply_norm(cfg, p, x, "ffn_norm_")
+        y, _ = md.rwkv6_channelmix(p, c_in, zeros_x)
+        return x + y
     a_in = md.apply_norm(cfg, p, x, "attn_norm_")
     x = x + md.gqa_attention(cfg, p, a_in, positions, causal=causal)
     m_in = md.apply_norm(cfg, p, x, "mlp_norm_")

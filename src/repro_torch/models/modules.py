@@ -1,10 +1,12 @@
-"""Model building blocks (dense and encoder families), plain functions on
-tensors with the reference's layouts and operation order
+"""Model building blocks (dense, encoder and rwkv6 families), plain
+functions on tensors with the reference's layouts and operation order
 (`repro/models/modules.py`).
 
 Params are dicts of tensors. Attention is the blockwise online-softmax
 formulation over 1024-key blocks in plain torch (einsum), as the reference
-leaves it to XLA; it never calls a fused attention operator.
+leaves it to XLA; it never calls a fused attention operator. The RWKV-6
+time-mix runs its chunked recurrence through the scan kernel
+(`kernels/rwkv6_chunk.py`).
 """
 from __future__ import annotations
 
@@ -12,6 +14,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.rwkv6_chunk import rwkv6_chunk_scan
 
 NORM_EPS = 1e-6
 _INT32_MAX = 2 ** 31 - 1
@@ -171,3 +175,71 @@ def mlp(cfg, p, x):
     else:                                                   # plain (gelu) FFN
         h = a(x @ p["w_up"].to(x.dtype))
     return h @ p["w_down"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 (Finch): data-dependent decay linear recurrence, chunk-parallel
+# ---------------------------------------------------------------------------
+
+
+def _token_shift(x, prev):
+    """Shift sequence right by one; prev: (B,D) last token of previous call."""
+    return torch.cat([prev[:, None], x[:, :-1]], dim=1)
+
+
+def rwkv6_decay(p, x):
+    """Data-dependent decay (Finch's signature): w = exp(-exp(w0 + lora(x))).
+    Returns the log-decay, fp32, <= 0."""
+    lo = torch.tanh(x @ p["w_dd_a"].to(x.dtype)) @ p["w_dd_b"].to(x.dtype)
+    return -torch.exp(torch.clamp(p["w_base"].float() + lo.float(), -20.0,
+                                  8.0))
+
+
+def rwkv6_timemix(cfg, p, x, prev_x, state, *, chunk=64):
+    """Chunked RWKV-6 time-mix.
+
+    x: (B,S,D); prev_x: (B,D) token-shift carry; state: (B,H,K,V) wkv state.
+    Returns (y, new_prev_x, new_state). The recurrence runs over (B*H, S, 64)
+    fp32 operands in the scan kernel, S padded to a chunk multiple."""
+    b, s, d = x.shape
+    hd = cfg.ssm.head_dim
+    h = d // hd
+    xs = _token_shift(x, prev_x)
+
+    def mix(name):
+        mu = p[f"mu_{name}"].to(x.dtype)
+        return x + (xs - x) * mu
+    r = (mix("r") @ p["w_r"].to(x.dtype)).reshape(b, s, h, hd)
+    kk = (mix("k") @ p["w_k"].to(x.dtype)).reshape(b, s, h, hd)
+    v = (mix("v") @ p["w_v"].to(x.dtype)).reshape(b, s, h, hd)
+    g = F.silu(mix("g") @ p["w_g"].to(x.dtype))
+    logw = rwkv6_decay(p, mix("w")).reshape(b, s, h, hd)   # (B,S,H,K) fp32
+    u = p["u_bonus"].float().reshape(h, hd)
+
+    nc = -(-s // chunk)
+    sp = nc * chunk
+
+    def heads(a):                        # (B,S,H,hd) -> (B*H, Sp, hd) fp32
+        a = F.pad(a.float(), (0, 0, 0, 0, 0, sp - s))
+        return a.permute(0, 2, 1, 3).reshape(b * h, sp, hd).contiguous()
+    y, new_state = rwkv6_chunk_scan(
+        heads(r), heads(kk), heads(v), heads(logw),
+        u.expand(b, h, hd).reshape(b * h, hd),
+        state.float().reshape(b * h, hd, hd).contiguous(), chunk=chunk)
+    y = y.reshape(b, h, sp, hd).permute(0, 2, 1, 3)[:, :s]
+    y = y.reshape(b, s, d).to(x.dtype)
+    y = rmsnorm(y.reshape(b, s, h, hd), p["ln_x"].reshape(h, hd)).reshape(
+        b, s, d)
+    y = (y * g) @ p["w_o"].to(x.dtype)
+    return y, x[:, -1], new_state.reshape(b, h, hd, hd).to(state.dtype)
+
+
+def rwkv6_channelmix(p, x, prev_x):
+    xs = _token_shift(x, prev_x)
+    mu_k = p["mu_ck"].to(x.dtype)
+    mu_r = p["mu_cr"].to(x.dtype)
+    xk = x + (xs - x) * mu_k
+    xr = x + (xs - x) * mu_r
+    k = torch.square(F.relu(xk @ p["w_ck"].to(x.dtype)))
+    r = torch.sigmoid(xr @ p["w_cr"].to(x.dtype))
+    return r * (k @ p["w_cv"].to(x.dtype)), x[:, -1]

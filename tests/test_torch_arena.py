@@ -14,7 +14,7 @@ from repro_torch.core import arena as tarena
 
 torch.set_num_threads(1)
 
-ARCHS = ("bert_large", "stablelm_1_6b")
+ARCHS = ("bert_large", "stablelm_1_6b", "rwkv6_7b")
 
 
 def _rand(rng, shape):

@@ -29,7 +29,11 @@ def test_model_config_fields_match_reference(arch, reduced):
     if reduced:
         t, j = t.reduced(), j.reduced()
     for name, value in _fields(t).items():
-        assert getattr(j, name) == value, name
+        ref = getattr(j, name)
+        if dataclasses.is_dataclass(value):       # ssm: the port's own class
+            assert _fields(ref) == _fields(value), name
+        else:
+            assert ref == value, name
     assert t.padded_vocab() == j.padded_vocab()
     assert t.resolved_head_dim == j.resolved_head_dim
 
@@ -42,7 +46,7 @@ def test_bert_large_is_the_papers_workload():
     assert (cfg.arch_type, cfg.norm, cfg.act, cfg.pos_emb) == \
         ("encoder", "layernorm", "gelu", "sinusoidal")
     with pytest.raises(KeyError):
-        get_config("rwkv6_7b")
+        get_config("mistral_nemo_12b")           # a family not ported yet
 
 
 def test_optimizer_config_defaults_match_reference():

@@ -31,6 +31,14 @@ torch.set_num_threads(1)
 N_MICRO, GLOBAL_BATCH, SEQ, STEPS = 2, 4, 16, 3
 # Fp32Codec's declared engine tolerance in the reference
 ENGINE_TOL = 5e-6
+# rwkv6: its chunked scan sums in another order than XLA's (log-decay sums
+# reach -170 within a chunk, where a float32 ulp is 1.5e-5), so its
+# gradients differ from the reference's by up to 6e-6 of a leaf's largest
+# value (test_torch_models), and Adam moves an element whose gradient is as
+# small as that noise by a noise-decided fraction of lr. Measured over 3
+# steps: loss 9.1e-6, params 1.7e-5, m and v 6.3e-4 and 5.0e-4 of their
+# largest values.
+RWKV_TOL = dict(loss=5e-5, params=5e-5, moments_of_max=2e-3)
 
 # ga folds the ACCUMULATED gradient once, so at its first step v = g^2
 # exactly and the update is lr*g/(|g| + eps): an element whose micro-batch
@@ -45,6 +53,8 @@ CASES = {
     "adama-stablelm-cosine": ("stablelm_1_6b", "adama", "cosine", None),
     "ga-bert-cosine": ("bert_large", "ga", "cosine", None),
     "ga-stablelm-cosine-clip": ("stablelm_1_6b", "ga", "cosine", 1.0),
+    "adama-rwkv6": ("rwkv6_7b", "adama", None, None),
+    "ga-rwkv6-cosine": ("rwkv6_7b", "ga", "cosine", None),
 }
 
 
@@ -118,10 +128,20 @@ def test_engine_matches_reference(case, n_steps, monkeypatch):
         folds = (i + 1) * (N_MICRO if engine == "adama" else 1)
         assert calls == {"fold": folds, "apply": i + 1}
         assert state["step"] == t == i + 1
+        rwkv = arch == "rwkv6_7b"
         np.testing.assert_allclose(float(metrics["loss"]), loss, rtol=0,
-                                   atol=1e-5)
+                                   atol=RWKV_TOL["loss"] if rwkv else 1e-5)
         with torch.no_grad():
             tparams = tarena.pack(tree, state["m"].layout).numpy()
+        if rwkv:
+            np.testing.assert_allclose(tparams, params, rtol=0,
+                                       atol=RWKV_TOL["params"])
+            for got, ref in ((state["m"].data.numpy(), m),
+                             (state["v"].data.numpy(), v)):
+                np.testing.assert_allclose(
+                    got, ref, rtol=0,
+                    atol=RWKV_TOL["moments_of_max"] * np.abs(ref).max())
+            continue
         np.testing.assert_allclose(tparams, params, rtol=0, atol=ENGINE_TOL)
         np.testing.assert_allclose(state["m"].data.numpy(), m, rtol=0,
                                    atol=ENGINE_TOL)

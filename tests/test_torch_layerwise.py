@@ -34,7 +34,11 @@ torch.set_num_threads(1)
 B1, B2 = 0.9, 0.999
 N_MICRO, GLOBAL_BATCH, SEQ, STEPS = 2, 4, 16, 3
 ENGINE_TOL = 5e-6        # Fp32Codec's declared engine tolerance
-ARCHS = ("bert_large", "stablelm_1_6b")
+# rwkv6 (see test_torch_engines.RWKV_TOL): its scan's float32 noise, grown
+# by Adam over 3 steps; measured loss 9.5e-6, params 1.7e-5, m 4.6e-5 of a
+# largest |m| of ~0.07, v 2.3e-7
+RWKV_TOL = dict(loss=5e-5, params=5e-5, moments_of_max=2e-3)
+ARCHS = ("bert_large", "stablelm_1_6b", "rwkv6_7b")
 
 
 def _t(x):
@@ -214,15 +218,23 @@ def test_layerwise_engine_matches_reference(arch, arena):
             tree, state, {k: torch.from_numpy(v) for k, v in batch.items()})
         loss, params, m, v = want[i]
         assert state["step"] == i + 1
+        rwkv = arch == "rwkv6_7b"
         np.testing.assert_allclose(float(metrics["loss"]), loss, rtol=0,
-                                   atol=1e-5)
-        for got, ref in ((tarena.tree_flatten(tree)[0], params),
-                         (_moment_leaves(state, "m"), m),
-                         (_moment_leaves(state, "v"), v)):
+                                   atol=RWKV_TOL["loss"] if rwkv else 1e-5)
+        for j, (got, ref) in enumerate(((tarena.tree_flatten(tree)[0],
+                                         params),
+                                        (_moment_leaves(state, "m"), m),
+                                        (_moment_leaves(state, "v"), v))):
             assert len(got) == len(ref)
+            if rwkv:
+                scale = max(float(np.abs(b).max()) for b in ref)
+                atol = (RWKV_TOL["params"] if j == 0
+                        else RWKV_TOL["moments_of_max"] * scale)
+            else:
+                atol = ENGINE_TOL
             for a, b in zip(got, ref):
                 np.testing.assert_allclose(a.detach().numpy(), b, rtol=0,
-                                           atol=ENGINE_TOL)
+                                           atol=atol)
     assert {id(x) for x in tarena.tree_flatten(tree)[0]} == \
         {id(x) for x in model.parameters()}
 

@@ -1,6 +1,7 @@
 """The port's model (repro_torch.models) against the reference's
 (repro.models): each module, then logits, loss and packed gradient arenas of
-the reduced bert_large and stablelm_1_6b from the reference's own params."""
+the reduced bert_large, stablelm_1_6b and rwkv6_7b from the reference's own
+params."""
 import dataclasses
 
 import jax
@@ -23,6 +24,9 @@ torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 ARCHS = ("bert_large", "stablelm_1_6b")
+# whole-model tests also cover the rwkv6 family (its own module tests are in
+# test_torch_rwkv6.py)
+ALL_ARCHS = ARCHS + ("rwkv6_7b",)
 
 
 def _rand(seed, *shape, scale=1.0):
@@ -104,7 +108,7 @@ def _setup(arch, b=4, s=16):
     return jcfg, tcfg, jparams, tparams, batch
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_forward_loss_and_gradient_arena_match_reference(arch):
     jcfg, tcfg, jparams, tparams, batch = _setup(arch)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
@@ -130,12 +134,16 @@ def test_forward_loss_and_gradient_arena_match_reference(arch):
         torch.autograd.grad(tloss, leaves)))
     jlayout, tlayout = jarena.build_layout(jparams), tarena.build_layout(tree)
     assert jlayout.rows == tlayout.rows
+    # rwkv6's gradients reach 0.57 (the embedding) and its time-mix sums the
+    # chunked scan in another order than XLA: largest |difference| measured
+    # 3.3e-6, 6e-6 of its leaf's largest value
+    atol = 1e-5 if arch == "rwkv6_7b" else 1e-7
     np.testing.assert_allclose(tarena.pack(tgrads, tlayout).numpy(),
                                np.asarray(jarena.pack(jgrads, jlayout)),
-                               rtol=1e-4, atol=1e-7)
+                               rtol=1e-4, atol=atol)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_init_params_have_the_reference_tree(arch):
     """Same keys, shapes, dtypes and scales as repro.models.model.init_params
     (the numbers differ: torch.Generator is not jax.random)."""
