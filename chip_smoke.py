@@ -28,7 +28,13 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      chunk (BH 3, S 64), and at BH 4, S 512, where two halves run with the
      carried state must equal one run; nonzero s0 and ds_final, each
      output within 2e-5 of its largest |value| of the plain version's; the
-     backward also through the torch.autograd.Function.
+     backward also through the torch.autograd.Function; both also at BH
+     3, S 96 with each other chunk, K and V the kernels take (chunk 32,
+     K 16, V 48; chunk 48, K 48, V 32; chunk 16, K 32, V 16). The
+     forward also at BH 4, S 512 with logw at both ends of the model's
+     clip (-e^8, -e^-20): finite and within the same 2e-5. Its bound is a tensor-core design's
+     (products at the TF32 rate), the fp32-core figure logged beside it;
+     torch.profiler counts the kernels one forward call runs.
 4. A small-input check: reduced bert-large trained 2 steps on the card
    (kernels) and on the CPU (plain versions) from the same params agree,
    for adama, adama_layerwise (arena and per-leaf state) and per-leaf
@@ -62,6 +68,7 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12           # H100 SXM data sheet, non-tensor fp32
+TF32_OPS_PER_S = 495e12          # H100 SXM data sheet, dense TF32 tensor
 LANES = 1024                     # arena row width
 SMALL_ROWS = 8
 TIMED_RUNS = 25
@@ -157,9 +164,11 @@ def timed_ms(torch, fn, runs=TIMED_RUNS, warmup=2, reps=1):
     return statistics.median(times)
 
 
-def bound_ms(n_bytes: int, n_ops: int):
+def bound_ms(n_bytes: int, n_ops: int, tf32_ops: int = 0):
+    """The larger of the bytes over the memory rate and the operations'
+    time: n_ops on fp32 cores, tf32_ops (products) on tensor cores."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = (n_ops / FP32_OPS_PER_S + tf32_ops / TF32_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -254,11 +263,14 @@ def _compare(name, label, pairs):
     return max(float((a - b).abs().max()) for a, b in pairs)
 
 
-def _kernel_entry(name, label, ms, plain_ms, bound, shape_info):
+def _kernel_entry(name, label, ms, plain_ms, bound, shape_info,
+                  logged=None):
+    """The kernel's entry for one case; `logged` goes into the logged line
+    only."""
     bnd, by = bound
     line = {"phase": "kernel", "name": name, "case": label, **shape_info,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
-            "library_call": "none"}
+            "library_call": "none", **(logged or {})}
     log(json.dumps(line))
     return {"case": label, **shape_info, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bnd, "bound_by": by}
@@ -452,20 +464,26 @@ def check_leaf_kernels(torch, adama_accum, adam_apply):
 
 
 def scan_fwd_work(bh, s, c, k, v):
-    """(bytes, operations) that one forward scan must do: r, k, logw, v, u,
-    s0 read once, y and s_final written once (the chunk-start states the
-    kernel also writes for the backward are its own intermediate, not
-    counted); each pair decay e^{cx[t]-cw[i]} formed once. A fused
-    multiply-add counts two operations, an exponential one."""
+    """(bytes, products, elementwise operations) that one forward scan must
+    do: r, k, logw, v, u, s0 read once, y and s_final written once (the
+    chunk-start states the kernels also write, for the output pass and the
+    backward, are the design's intermediate, not counted); each pair decay
+    e^{cx[t]-cw[i]} formed once. A fused multiply-add counts two
+    operations, an exponential one. Products are the sums of products a
+    tensor core can take: A's pair sums, (r e^{cx}) S, A v and the bonus
+    times v, and the state carry (k e^{T-cw})^T v."""
     pairs = c * (c - 1) // 2
-    per_chunk = (2 * c * k                     # cumsums
-                 + 5 * pairs * k               # A (sub, exp, mul, fma)
-                 + 3 * c * k                   # bonus
-                 + 5 * c * k                   # r e^{cx}, k e^{T-cw}
-                 + 2 * c * v * k + 2 * pairs * v + 2 * c * v   # y
-                 + 2 * k * v + 2 * k * v * c)  # state carry
+    products = (2 * pairs * k                 # A's sums over k
+                + 2 * c * v * k + 2 * pairs * v + 2 * c * v    # y
+                + 2 * k * v * c)              # state carry
+    elementwise = (2 * c * k                  # cumsums
+                   + 3 * pairs * k            # pair decays (sub, exp, mul)
+                   + 3 * c * k                # bonus
+                   + 5 * c * k                # r e^{cx}, k e^{T-cw}
+                   + 2 * k * v)               # diag(e^T) S
     n_bytes = 4 * (3 * bh * s * k + 2 * bh * s * v + bh * k + 2 * bh * k * v)
-    return n_bytes, bh * (s // c) * per_chunk
+    n = bh * (s // c)
+    return n_bytes, n * products, n * elementwise
 
 
 def scan_bwd_work(bh, s, c, k, v):
@@ -522,12 +540,12 @@ def _scan_rel(label, names, got, want):
 GRAD_NAMES = ("dr", "dk", "dv", "dlogw", "du", "ds0")
 
 
-def _check_scan_case(torch, rc, label, bh, s, seed):
+def _check_scan_case(torch, rc, label, bh, s, seed, k=SCAN_SHAPE["k"],
+                     v=SCAN_SHAPE["v"], c=SCAN_SHAPE["chunk"]):
     """Forward and backward kernels against the plain versions at one
     shape (the plain backward is torch.autograd.grad through the plain
     forward), the backward also through the autograd.Function; then
     timed."""
-    k, v, c = SCAN_SHAPE["k"], SCAN_SHAPE["v"], SCAN_SHAPE["chunk"]
     args, dy, dsf = _scan_inputs(torch, bh, s, k, v, seed)
     y, sf, states = rc.scan_forward(*args, chunk=c, save_states=True)
     yr, sr, str_ = rc.rwkv6_chunk_scan_ref(*args, chunk=c, states=True)
@@ -547,6 +565,8 @@ def _check_scan_case(torch, rc, label, bh, s, seed):
                                      want))
     del got, want, auto, leaves, ya, sa, y, sf
     info = {"bh": bh, "s": s, "k": k, "v": v, "chunk": c}
+    n_bytes, products, elementwise = scan_fwd_work(bh, s, c, k, v)
+    fp32_ms, fp32_by = bound_ms(n_bytes, products + elementwise)
     fwd = _kernel_entry(
         "rwkv6_chunk_scan", label,
         timed_ms(torch, lambda: rc.scan_forward(*args, chunk=c,
@@ -554,9 +574,11 @@ def _check_scan_case(torch, rc, label, bh, s, seed):
                  reps=KERNEL_REPS),
         timed_ms(torch, lambda: rc.rwkv6_chunk_scan_ref(*args, chunk=c,
                                                          states=True)),
-        bound_ms(*scan_fwd_work(bh, s, c, k, v)),
+        bound_ms(n_bytes, elementwise, tf32_ops=products),
         dict(info, saves_states=True, max_rel_err=fwd_err[0],
-             max_abs_err=fwd_err[1]))
+             max_abs_err=fwd_err[1]),
+        # the bound of a design on fp32 cores alone
+        logged={"bound_fp32_ms": fp32_ms, "bound_fp32_by": fp32_by})
     bwd = _kernel_entry(
         "rwkv6_chunk_scan_bwd", label,
         timed_ms(torch, lambda: rc.rwkv6_chunk_scan_bwd(
@@ -586,15 +608,55 @@ def _check_state_carry(torch, rc, bh, s, seed):
                      (torch.cat([y1, y2], 1), s2), (y_full, s_full))
 
 
+def _check_large_decays(torch, rc, bh, s, seed):
+    """logw at both ends of the model's clip (-e^8 on every 7th token,
+    -e^-20 on every 5th from the 3rd), where a wrongly factored decay
+    would overflow or lose terms: the forward kernel's y, s_final and
+    states finite and within SCAN_REL_TOL of the plain version's (the
+    kernel takes its cumsums in the plain version's order)."""
+    k, v, c = SCAN_SHAPE["k"], SCAN_SHAPE["v"], SCAN_SHAPE["chunk"]
+    args, _, _ = _scan_inputs(torch, bh, s, k, v, seed)
+    args[3][:, ::7] = -math.exp(8.0)
+    args[3][:, 3::5] = -math.exp(-20.0)
+    got = rc.scan_forward(*args, chunk=c, save_states=True)
+    want = rc.rwkv6_chunk_scan_ref(*args, chunk=c, states=True)
+    torch.cuda.synchronize()
+    return _scan_rel("large decays", ("y", "s_final", "states"), got, want)
+
+
+def device_kernels_per_call(torch, fn, prefix):
+    """How many kernels whose name holds `prefix` one call of fn() runs on
+    the card, as torch.profiler records them."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and prefix in e.key)
+    if n == 0:
+        raise AssertionError(f"torch.profiler recorded no {prefix}* kernel "
+                             f"on the card")
+    return n
+
+
 def check_rwkv_scan(torch, rc):
-    """Phase 3, the RWKV-6 scan kernels at three shapes."""
+    """Phase 3, the RWKV-6 scan kernels at six shapes, and the forward
+    at the decay clip's ends."""
     sh = SCAN_SHAPE
-    cases = [("rwkv6-7b training shape", sh["bh"], sh["s"], 10),
-             ("one chunk", 3, sh["chunk"], 11),
-             ("state carry", 4, 512, 12)]
+    cases = [("rwkv6-7b training shape", sh["bh"], sh["s"], 10, {}),
+             ("one chunk", 3, sh["chunk"], 11, {}),
+             ("state carry", 4, 512, 12, {}),
+             # the other chunk, K and V that check_inputs admits on the card
+             ("chunk 32, K 16, V 48", 3, 96, 15, dict(c=32, k=16, v=48)),
+             ("chunk 48, K 48, V 32", 3, 96, 16, dict(c=48, k=48, v=32)),
+             ("chunk 16, K 32, V 16", 3, 96, 17, dict(c=16, k=32, v=16))]
     fwd, bwd = [], []
-    for label, bh, s, seed in cases:
-        f, b = _check_scan_case(torch, rc, label, bh, s, seed)
+    for label, bh, s, seed, shape in cases:
+        f, b = _check_scan_case(torch, rc, label, bh, s, seed, **shape)
         fwd.append(f)
         bwd.append(b)
         torch.cuda.empty_cache()
@@ -602,6 +664,17 @@ def check_rwkv_scan(torch, rc):
     log(json.dumps({"phase": "kernel", "name": "rwkv6_chunk_scan",
                     "case": "two halves with the carried state vs one run",
                     "max_rel_err": carry[0], "max_abs_err": carry[1]}))
+    large = _check_large_decays(torch, rc, 4, 512, 14)
+    log(json.dumps({"phase": "kernel", "name": "rwkv6_chunk_scan",
+                    "case": "large decays (logw -e^8 and -e^-20)",
+                    "bh": 4, "s": 512, "max_rel_err": large[0],
+                    "max_abs_err": large[1], "tolerance_rel": SCAN_REL_TOL}))
+    # the state pass and the output pass, at the training shape
+    args, _, _ = _scan_inputs(torch, sh["bh"], sh["s"], sh["k"], sh["v"], 10)
+    per_call = device_kernels_per_call(
+        torch, lambda: rc.scan_forward(*args, chunk=sh["chunk"],
+                                       save_states=True), "rwkv6_")
+    del args
     out = {}
     for name, entries in (("rwkv6_chunk_scan", fwd),
                           ("rwkv6_chunk_scan_bwd", bwd)):
@@ -612,6 +685,8 @@ def check_rwkv_scan(torch, rc):
                          max_rel_err=max(e["max_rel_err"] for e in entries),
                          tolerance_rel=SCAN_REL_TOL, library_ms=None,
                          by_case=entries)
+    out["rwkv6_chunk_scan"].update(large_decay_max_rel_err=large[0],
+                                   device_kernels_per_call=per_call)
     return out
 
 

@@ -2,14 +2,16 @@
 forward and backward.
 
   rwkv6_chunk_scan        the differentiable op. On CUDA tensors it runs
-                          the hand-written forward kernel in
+                          the hand-written forward kernels in
                           csrc/rwkv6_chunk.cu under a torch.autograd.Function
                           whose backward is the hand-written backward kernel
                           (or raises); on CPU tensors it runs the plain
                           forward, which autograd differentiates.
-  scan_forward            the forward kernel's launcher, optionally writing
-                          the state at the start of every chunk (what the
-                          backward reads). Counts into
+  scan_forward            the forward's launcher: a state pass writes the
+                          state at the start of every chunk (what the
+                          backward reads, returned on request), then an
+                          output pass computes y from it, every chunk at
+                          once. One call counts one into
                           `rwkv6_chunk_scan.launches`.
   rwkv6_chunk_scan_bwd    the backward kernel's wrapper (own launch count).
   rwkv6_chunk_scan_ref    the plain forward: the reference model's chunk
@@ -35,6 +37,11 @@ into a product of e^{cx} and e^{-cw}. The backward cannot rebuild S from S'
 by dividing by e^T for the same reason; it reads the chunk-start states the
 forward wrote.
 
+The forward's output pass factors the decays between 16-token sub-chunks
+at the later sub-chunk's start b: e^{cx[t]-cw[i]} = e^{cx[t]-b} e^{b-cw[i]},
+both exponents <= 0, so that those blocks of A are matrix products; only
+the pairs within a sub-chunk take the pairwise form.
+
 The kernels sum in another order than the plain versions, so they agree to
 a tolerance, not bit for bit (stated where they are compared).
 """
@@ -47,14 +54,18 @@ import torch
 from repro_torch.kernels import build
 
 CHUNK = 64
-# the kernels keep a (C, K), (C, V) and (K, V) tile each in shared memory
+# the kernels size their shared-memory tiles and fragment arrays for chunk,
+# K and V up to this
 MAX_DIM = 64
+# the CUDA forward's sub-chunk and tensor-core tile side: on the card,
+# chunk, K and V are multiples of it
+SUB = 16
 
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 # C signatures of the launchers in csrc/rwkv6_chunk.cu (the trailing
 # pointer is the CUDA stream)
 SIGNATURES = {
-    # r, k, v, logw, u, s0, y, s_out, states|NULL, bh, s, chunk, K, V
+    # r, k, v, logw, u, s0, y, s_out, states, bh, s, chunk, K, V
     "rwkv6_fwd_launch": (_P,) * 9 + (_I64, _I64, _I, _I, _I, _P),
     # r, k, v, logw, u, states, dy, ds_final, dr, dk, dv, dlogw, du, ds0,
     # bh, s, chunk, K, V
@@ -89,9 +100,15 @@ def check_inputs(fn, r, k, v, logw, u, s0, chunk):
     if chunk < 1 or s % chunk:
         raise ValueError(f"{fn}: sequence length {s} is not a multiple of "
                          f"the chunk {chunk}")
-    if r.is_cuda and max(chunk, kdim, vdim) > MAX_DIM:
-        raise ValueError(f"{fn}: the CUDA kernels take chunk, K and V up to "
-                         f"{MAX_DIM}; got {chunk}, {kdim}, {vdim}")
+    if r.is_cuda:
+        if max(chunk, kdim, vdim) > MAX_DIM or chunk % SUB or kdim % SUB \
+                or vdim % SUB:
+            raise ValueError(f"{fn}: the CUDA kernels take chunk, K and V "
+                             f"multiples of {SUB} up to {MAX_DIM}; got "
+                             f"{chunk}, {kdim}, {vdim}")
+        if any(t.data_ptr() % 16 for t in ts):
+            raise ValueError(f"{fn}: the CUDA kernels take operands whose "
+                             f"data is 16-byte aligned")
     return bh, s, kdim, vdim
 
 
@@ -170,15 +187,16 @@ def scan_forward(r, k, v, logw, u, s0, *, chunk: int = CHUNK,
     lib = _lib()
     y = torch.empty((bh, s, vdim), dtype=torch.float32, device=r.device)
     s_out = torch.empty_like(s0)
-    states = (torch.empty((bh, s // chunk, kdim, vdim), dtype=torch.float32,
-                          device=r.device) if save_states else None)
+    # the state pass writes every chunk-start state for the output pass
+    # (and the backward); without save_states they are scratch
+    states = torch.empty((bh, s // chunk, kdim, vdim), dtype=torch.float32,
+                         device=r.device)
     build.launch("rwkv6_chunk_scan", lib.rwkv6_fwd_launch, r,
                  r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
                  u.data_ptr(), s0.data_ptr(), y.data_ptr(), s_out.data_ptr(),
-                 states.data_ptr() if save_states else None, bh, s, chunk,
-                 kdim, vdim)
+                 states.data_ptr(), bh, s, chunk, kdim, vdim)
     rwkv6_chunk_scan.launches += 1
-    return y, s_out, states
+    return y, s_out, states if save_states else None
 
 
 def rwkv6_chunk_scan_bwd(r, k, v, logw, u, states, dy, ds_final, *,

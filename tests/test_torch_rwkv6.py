@@ -2,8 +2,10 @@
 repro_torch.models.modules) against the reference's: the plain scan against
 the Pallas kernel (interpret mode) and the token-level recurrence, its
 gradients (autograd, and the backward wrapper's plain version) against
-jax.vjp, the time-mix, channel-mix and rwkv block against the JAX
-functions, the kernel wrappers' dispatch, and a wider model's first steps
+jax.vjp, a plain model of the CUDA forward's decomposition (state pass,
+output pass with sub-chunked decays) against both, the time-mix,
+channel-mix and rwkv block against the JAX functions, the kernel wrappers'
+dispatch and the shapes the kernels take, and a wider model's first steps
 against the JAX engine's. The CUDA kernels themselves are held against
 these plain versions on the card by chip_smoke.py."""
 import dataclasses
@@ -175,6 +177,110 @@ def test_gradients_take_large_decays():
         assert _rel_err(a, j) <= LARGE_DECAY_REL_TOL, name
 
 
+# ---------------------------------------------------------------------------
+# The CUDA forward's decomposition, modelled on the CPU
+# ---------------------------------------------------------------------------
+
+def _state_pass(k, v, logw, s0, chunk):
+    """The forward's only sequential part: the state at the start of every
+    chunk and the final state, S <- diag(e^T) S + (k e^{T-cw})^T v."""
+    st, starts = s0, []
+    for c0 in range(0, k.shape[1], chunk):
+        sl = slice(c0, c0 + chunk)
+        cw = torch.cumsum(logw[:, sl], dim=1)
+        total = cw[:, -1:]
+        starts.append(st)
+        st = (st * torch.exp(total).transpose(1, 2)
+              + (k[:, sl] * torch.exp(total - cw)).transpose(1, 2) @ v[:, sl])
+    return torch.stack(starts, dim=1), st
+
+
+def _output_chunk(r, k, v, logw, u, st, sub):
+    """y of one chunk from its start state alone. A's diagonal sub-chunk
+    blocks take pairwise e^{cx[t]-cw[i]}; a block below them is a product
+    of r e^{cx-b} and k e^{b-cw}, factored at the start b of t's sub-chunk
+    (both exponents <= 0 up to the cumsum's rounding); A's diagonal holds
+    the bonus."""
+    bh, c, _ = r.shape
+    cw = torch.cumsum(logw, dim=1)
+    cx = cw - logw
+    ulp = 4 * torch.finfo(torch.float32).eps * float(cw.abs().max())
+    tri = torch.ones((sub, sub), dtype=torch.bool).tril(-1)[None, :, :, None]
+    att = torch.zeros((bh, c, c))
+    for p0 in range(0, c, sub):
+        tp = slice(p0, p0 + sub)
+        pair = torch.where(tri, cx[:, tp, None, :] - cw[:, None, tp, :],
+                           -torch.inf)
+        att[:, tp, tp] = torch.einsum("btk,bik,btik->bti", r[:, tp], k[:, tp],
+                                      torch.exp(pair))
+        if p0:
+            b = cx[:, p0:p0 + 1]
+            up, down = cx[:, tp] - b, b - cw[:, :p0]
+            assert float(up.max()) <= ulp and float(down.max()) <= ulp
+            att[:, tp, :p0] = ((r[:, tp] * torch.exp(up))
+                               @ (k[:, :p0] * torch.exp(down)).transpose(1, 2))
+    diag = torch.arange(c)
+    att[:, diag, diag] = torch.einsum("btk,bk,btk->bt", r, u, k)
+    return (r * torch.exp(cx)) @ st + att @ v
+
+
+def _decomposed_scan(r, k, v, logw, u, s0, chunk):
+    """The CUDA forward's design in plain PyTorch: a state pass, then an
+    output pass in which every chunk is independent."""
+    states, s_final = _state_pass(k, v, logw, s0, chunk)
+    # a chunk shorter than the CUDA forward's sub-chunk is one sub-chunk
+    sub = min(rc.SUB, chunk)
+    ys = [_output_chunk(*(x[:, c0:c0 + chunk] for x in (r, k, v, logw)), u,
+                        states[:, c0 // chunk], sub)
+          for c0 in range(0, r.shape[1], chunk)]
+    return torch.cat(ys, dim=1), s_final, states
+
+
+def _large_decay_inputs(bh, s, kk, vv, seed):
+    """logw at both ends of the model's clip: -e^8 on every 7th token and
+    -e^-20 on every 5th from the 3rd."""
+    args = list(_inputs(bh, s, kk, vv, seed=seed))
+    args[3][:, ::7] = -np.float32(np.exp(8.0))
+    args[3][:, 3::5] = -np.float32(np.exp(-20.0))
+    return args
+
+
+@pytest.mark.parametrize("chunk", [8, 32, 64])
+@pytest.mark.parametrize("bh,s,kk,vv", [(2, 64, 16, 16), (3, 128, 16, 24),
+                                        (1, 64, 32, 8)])
+def test_decomposition_matches_plain_scan_and_pallas_kernel(chunk, bh, s, kk,
+                                                            vv):
+    """The state pass + output pass, with the off-diagonal sub-chunk blocks
+    factored, gives the plain scan's y, s_final and chunk-start states and
+    the Pallas kernel's y and s_final."""
+    args = _inputs(bh, s, kk, vv)
+    y, sf, states = _decomposed_scan(*_t(args), chunk=chunk)
+    yp, sp, stp = rc.rwkv6_chunk_scan_ref(*_t(args), chunk=chunk, states=True)
+    yj, sj = jax_scan(*(jnp.asarray(x) for x in args), chunk=chunk,
+                      interpret=True)
+    for got, want in ((y, yp), (sf, sp), (states, stp), (y, yj), (sf, sj)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **SCAN_TOL)
+
+
+@pytest.mark.parametrize("chunk", [32, 64])
+def test_decomposition_takes_large_decays(chunk):
+    """At logw = -e^8 and -e^-20 the factored blocks neither overflow nor
+    lose terms: every output finite and within the chunked form's own fp32
+    error of the plain scan, the Pallas kernel and the recurrence."""
+    args = _large_decay_inputs(2, 128, 16, 16, seed=11)
+    y, sf, states = _decomposed_scan(*_t(args), chunk=chunk)
+    yp, sp, stp = rc.rwkv6_chunk_scan_ref(*_t(args), chunk=chunk, states=True)
+    jargs = [jnp.asarray(x) for x in args]
+    yj, sj = jax_scan(*jargs, chunk=chunk, interpret=True)
+    yq, sq = rwkv6_scan_ref(*jargs)
+    for name, got, wants in (("y", y, (yp, yj, yq)), ("s_final", sf,
+                                                      (sp, sj, sq)),
+                             ("states", states, (stp,))):
+        assert torch.isfinite(got).all(), name
+        for want in wants:
+            assert _rel_err(got, want) <= LARGE_DECAY_REL_TOL, name
+
+
 def test_autograd_function_runs_forward_and_backward_wrappers():
     """The CUDA path's autograd.Function, driven with CPU tensors (its two
     wrappers then run their plain versions): same outputs and gradients as
@@ -235,6 +341,34 @@ def test_wrappers_on_cuda_tensors_raise_when_the_library_cannot_load(
         rc.rwkv6_chunk_scan_bwd(*args[:5], states, dy, args[5])
     assert (rc.rwkv6_chunk_scan.launches,
             rc.rwkv6_chunk_scan_bwd.launches) == before
+
+
+@pytest.mark.parametrize("shape, chunk, match", [
+    ((2, 64, 16, 16), 8, "multiples of 16"),
+    ((2, 64, 24, 16), 32, "multiples of 16"),
+    ((2, 64, 16, 8), 32, "multiples of 16"),
+    ((2, 128, 16, 16), 128, "up to 64"),
+    ("unaligned", 32, "16-byte aligned"),
+])
+def test_cuda_tensors_the_kernels_do_not_take_raise(monkeypatch, shape,
+                                                    chunk, match):
+    """A CUDA tensor outside the kernels' shapes or alignment raises
+    before any library is loaded; the plain version never runs for it."""
+    def no_library(name):
+        raise AssertionError("the library was loaded for operands the "
+                             "kernels do not take")
+    monkeypatch.setattr(build, "load", no_library)
+    monkeypatch.setattr(build, "_bound", {})
+    monkeypatch.setattr(rc, "rwkv6_chunk_scan_ref", no_library)
+    if shape == "unaligned":
+        args = _t(_inputs(2, 64, 16, 16))
+        flat = torch.empty(args[0].numel() + 1)
+        args[0] = flat[1:].view(args[0].shape).copy_(args[0])
+    else:
+        args = _t(_inputs(*shape))
+    fake = [x.as_subclass(_FakeCuda) for x in args]
+    with pytest.raises(ValueError, match=match):
+        rc.scan_forward(*fake, chunk=chunk, save_states=True)
 
 
 def test_cpu_wrappers_run_the_plain_versions_and_count_no_launch(
