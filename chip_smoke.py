@@ -30,11 +30,12 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      output within 2e-5 of its largest |value| of the plain version's; the
      backward also through the torch.autograd.Function; both also at BH
      3, S 96 with each other chunk, K and V the kernels take (chunk 32,
-     K 16, V 48; chunk 48, K 48, V 32; chunk 16, K 32, V 16). The
-     forward also at BH 4, S 512 with logw at both ends of the model's
-     clip (-e^8, -e^-20): finite and within the same 2e-5. Its bound is a tensor-core design's
-     (products at the TF32 rate), the fp32-core figure logged beside it;
-     torch.profiler counts the kernels one forward call runs.
+     K 16, V 48; chunk 48, K 48, V 32; chunk 16, K 32, V 16). Forward
+     and backward also at BH 4, S 512 with logw at both ends of the
+     model's clip (-e^8, -e^-20): finite and within the same 2e-5. The
+     forward's bound is a tensor-core design's (products at the TF32
+     rate), the fp32-core figure logged beside it; torch.profiler counts
+     the kernels one forward call and one backward call run.
 4. A small-input check: reduced bert-large trained 2 steps on the card
    (kernels) and on the CPU (plain versions) from the same params agree,
    for adama, adama_layerwise (arena and per-leaf state) and per-leaf
@@ -612,21 +613,29 @@ def _check_large_decays(torch, rc, bh, s, seed):
     """logw at both ends of the model's clip (-e^8 on every 7th token,
     -e^-20 on every 5th from the 3rd), where a wrongly factored decay
     would overflow or lose terms: the forward kernel's y, s_final and
-    states finite and within SCAN_REL_TOL of the plain version's (the
-    kernel takes its cumsums in the plain version's order)."""
+    states, and the backward kernels' gradients (from those states),
+    finite and within SCAN_REL_TOL of the plain versions' (the kernels
+    take their cumsums in the plain version's order). Returns the
+    forward's and the backward's largest errors."""
     k, v, c = SCAN_SHAPE["k"], SCAN_SHAPE["v"], SCAN_SHAPE["chunk"]
-    args, _, _ = _scan_inputs(torch, bh, s, k, v, seed)
+    args, dy, dsf = _scan_inputs(torch, bh, s, k, v, seed)
     args[3][:, ::7] = -math.exp(8.0)
     args[3][:, 3::5] = -math.exp(-20.0)
     got = rc.scan_forward(*args, chunk=c, save_states=True)
     want = rc.rwkv6_chunk_scan_ref(*args, chunk=c, states=True)
     torch.cuda.synchronize()
-    return _scan_rel("large decays", ("y", "s_final", "states"), got, want)
+    fwd = _scan_rel("large decays forward", ("y", "s_final", "states"), got,
+                    want)
+    grads = rc.rwkv6_chunk_scan_bwd(*args[:5], got[2], dy, dsf, chunk=c)
+    want = rc.rwkv6_chunk_scan_bwd_ref(*args, dy, dsf, chunk=c)
+    torch.cuda.synchronize()
+    return fwd, _scan_rel("large decays backward", GRAD_NAMES, grads, want)
 
 
 def device_kernels_per_call(torch, fn, prefix):
     """How many kernels whose name holds `prefix` one call of fn() runs on
-    the card, as torch.profiler records them."""
+    the card, and each one's device milliseconds, as torch.profiler
+    records them."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -634,18 +643,24 @@ def device_kernels_per_call(torch, fn, prefix):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    n = sum(e.count for e in prof.key_averages()
-            if str(getattr(e, "device_type", "")).endswith("CUDA")
-            and prefix in e.key)
-    if n == 0:
+    found = [e for e in prof.key_averages()
+             if str(getattr(e, "device_type", "")).endswith("CUDA")
+             and prefix in e.key]
+    if not found:
         raise AssertionError(f"torch.profiler recorded no {prefix}* kernel "
                              f"on the card")
-    return n
+    # "void (anonymous namespace)::rwkv6_grad_kernel(float const*, ...)"
+    # -> "rwkv6_grad_kernel"
+    ms = {e.key.split("::")[-1].split("(")[0].replace("void ", "").strip():
+          getattr(e, "self_device_time_total",
+                  getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+          for e in found}
+    return sum(e.count for e in found), ms
 
 
 def check_rwkv_scan(torch, rc):
-    """Phase 3, the RWKV-6 scan kernels at six shapes, and the forward
-    at the decay clip's ends."""
+    """Phase 3, the RWKV-6 scan kernels at six shapes and at the decay
+    clip's ends; the device kernels per call of each."""
     sh = SCAN_SHAPE
     cases = [("rwkv6-7b training shape", sh["bh"], sh["s"], 10, {}),
              ("one chunk", 3, sh["chunk"], 11, {}),
@@ -664,17 +679,32 @@ def check_rwkv_scan(torch, rc):
     log(json.dumps({"phase": "kernel", "name": "rwkv6_chunk_scan",
                     "case": "two halves with the carried state vs one run",
                     "max_rel_err": carry[0], "max_abs_err": carry[1]}))
-    large = _check_large_decays(torch, rc, 4, 512, 14)
-    log(json.dumps({"phase": "kernel", "name": "rwkv6_chunk_scan",
-                    "case": "large decays (logw -e^8 and -e^-20)",
-                    "bh": 4, "s": 512, "max_rel_err": large[0],
-                    "max_abs_err": large[1], "tolerance_rel": SCAN_REL_TOL}))
-    # the state pass and the output pass, at the training shape
-    args, _, _ = _scan_inputs(torch, sh["bh"], sh["s"], sh["k"], sh["v"], 10)
-    per_call = device_kernels_per_call(
-        torch, lambda: rc.scan_forward(*args, chunk=sh["chunk"],
-                                       save_states=True), "rwkv6_")
-    del args
+    large = dict(zip(("rwkv6_chunk_scan", "rwkv6_chunk_scan_bwd"),
+                     _check_large_decays(torch, rc, 4, 512, 14)))
+    for name, err in large.items():
+        log(json.dumps({"phase": "kernel", "name": name,
+                        "case": "large decays (logw -e^8 and -e^-20)",
+                        "bh": 4, "s": 512, "max_rel_err": err[0],
+                        "max_abs_err": err[1],
+                        "tolerance_rel": SCAN_REL_TOL}))
+    # the kernels one call runs, at the training shape: the forward's state
+    # and output passes; the backward's reverse state pass, gradient pass
+    # and du reduction
+    args, dy, dsf = _scan_inputs(torch, sh["bh"], sh["s"], sh["k"], sh["v"],
+                                 10)
+    states = rc.scan_forward(*args, chunk=sh["chunk"], save_states=True)[2]
+    per_call = {
+        "rwkv6_chunk_scan": device_kernels_per_call(
+            torch, lambda: rc.scan_forward(*args, chunk=sh["chunk"],
+                                           save_states=True), "rwkv6_"),
+        "rwkv6_chunk_scan_bwd": device_kernels_per_call(
+            torch, lambda: rc.rwkv6_chunk_scan_bwd(
+                *args[:5], states, dy, dsf, chunk=sh["chunk"]), "rwkv6_")}
+    del args, dy, dsf, states
+    for name, (n, ms) in per_call.items():
+        log(json.dumps({"phase": "kernel", "name": name,
+                        "case": "device kernels of one call, torch.profiler",
+                        "device_kernels_per_call": n, "device_ms": ms}))
     out = {}
     for name, entries in (("rwkv6_chunk_scan", fwd),
                           ("rwkv6_chunk_scan_bwd", bwd)):
@@ -685,8 +715,10 @@ def check_rwkv_scan(torch, rc):
                          max_rel_err=max(e["max_rel_err"] for e in entries),
                          tolerance_rel=SCAN_REL_TOL, library_ms=None,
                          by_case=entries)
-    out["rwkv6_chunk_scan"].update(large_decay_max_rel_err=large[0],
-                                   device_kernels_per_call=per_call)
+    for name in out:
+        out[name].update(large_decay_max_rel_err=large[name][0],
+                         device_kernels_per_call=per_call[name][0],
+                         device_ms_by_kernel=per_call[name][1])
     return out
 
 

@@ -32,11 +32,22 @@
 // pairwise: its time was one CTA's latency per chunk times the chunks
 // (8.5 ms at BH 128, S 4096), with the card nearly idle.
 //
-// Backward: one CTA per bh walks its chunks in reverse with the state's
-// gradient in shared memory, reading each chunk-start state; each (t, i, k)
-// term formed where it is summed, in scalar fp32 loops. Tiles whose rows are
-// read by neighbouring threads are padded to an odd row stride, so those
-// reads fall in different shared-memory banks.
+// Backward: three launches. Of the gradient, only dS, the gradient of the
+// state at each chunk boundary, needs the chain of chunks: dS_c =
+// diag(e^{T_c}) dS_{c+1} + (r e^{cx})^T dy_c, from dS_n = ds_final. It is
+// the forward's state recurrence with r e^{cx} (exponent <= 0) for
+// k e^{T-cw} and dy for v, over the chunks in reverse, so pass 1 is the
+// forward's state kernel instantiated in that direction: it writes dS_{c+1}
+// to `dstates` at c and dS_0 to ds0. Given S_c and dS_{c+1}, a chunk's
+// gradients depend on that chunk alone. Pass 2, the gradient pass, runs one
+// CTA per (bh, chunk), all independent, two per SM, in scalar fp32 with each
+// pair decay formed pairwise where it is summed; it writes dr, dk, dv, dlogw
+// and the chunk's partial of du. Pass 3 sums the partials in chunk order
+// (no atomics: every run gives the same du). They replaced one CTA per bh
+// that walked its chunks in reverse, its time one CTA's latency per chunk
+// times the chunks (10.3 ms at BH 128, S 4096 on an H100 SXM, 128 of its
+// 132 SMs busy); the split runs in 5.7 ms there, pass 1 0.38 ms and pass
+// 2 5.3 ms of it.
 //
 // Bounds at the rwkv6-7b training shape (BH 128, S 4096, K = V = C = 64),
 // counted from what the function and its gradient must do, not from these
@@ -46,21 +57,23 @@
 // ms at the 495 TFLOP/s TF32 rate) and 3.6 GFLOP of elementwise work
 // (0.053 ms at 67 TFLOP/s): bytes bound it; on fp32 cores alone the 16.5
 // GFLOP would take 0.246 ms. Backward: 33.2 GFLOP of fp32 operations (0.50
-// ms at 67 TFLOP/s) against 1.21 GB (0.36 ms); the kernel forms each pair
-// decay three times (for A, dr and dk), 15 operations per (t, i, k) where
-// the gradient needs 10.
+// ms at 67 TFLOP/s) against 1.21 GB (0.36 ms; the states and dstates not
+// counted). The gradient pass is not at it: it forms each pair decay three
+// times (for A, dr and dk), 15 operations per (t, i, k) where the gradient
+// needs 10, reads two or three shared-memory operands for each of them, and
+// runs every product on fp32 cores, where the forward's output pass uses
+// tensor cores and 16-token sub-chunks.
 //
 // The sums run in another order than the plain PyTorch versions in
 // rwkv6_chunk.py, so the two agree to a tolerance, not bit for bit. The
-// cumsums run in the plain version's order. The backward's exponentials are
-// expf, the forward's __expf of the same differences.
+// cumsums run in the plain version's order. Every exponential is __expf of
+// a difference <= 0 (see the state pass).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kSub = 16;          // sub-chunk: tokens per diagonal block
 
 // Cumsums of a chunk's logw down each column, one thread per column, in
@@ -91,26 +104,8 @@ __device__ __forceinline__ void cumsums(int C, int K, int ldw, int ldx,
   }
 }
 
-__device__ __forceinline__ void load_tile(float* dst, int ld,
-                                          const float* __restrict__ src,
-                                          int rows, int cols) {
-  for (int idx = threadIdx.x; idx < rows * cols; idx += blockDim.x) {
-    const int a = idx / cols, b = idx - a * cols;
-    dst[a * ld + b] = src[idx];
-  }
-}
-
-__device__ __forceinline__ void store_tile(float* __restrict__ dst,
-                                           const float* src, int ld,
-                                           int rows, int cols) {
-  for (int idx = threadIdx.x; idx < rows * cols; idx += blockDim.x) {
-    const int a = idx / cols, b = idx - a * cols;
-    dst[idx] = src[a * ld + b];
-  }
-}
-
 // ---------------------------------------------------------------------------
-// Forward: shared pieces
+// Shared pieces: cp.async, tensor-core fragments
 // ---------------------------------------------------------------------------
 
 constexpr int kOutThreads = 256;
@@ -235,16 +230,20 @@ __device__ __forceinline__ void store_frag(float* p, int64_t ld,
 }
 
 // ---------------------------------------------------------------------------
-// Forward, pass 1: the state pass, the only sequential part
+// The state pass (forward pass 1, backward pass 1), the only sequential part
 // ---------------------------------------------------------------------------
 //
 // One CTA per bh, 2 x V / 8 warps: warp w carries state columns
 // 8 (w mod V/8).. +7 of the m-tiles (16-row blocks) of its half, mt = w div
 // (V/8) + 2 j, in its accumulator fragments across all chunks. Per chunk:
-// write the chunk-start state to `states`, then S <- diag(e^T) S +
-// (k e^{T-cw})^T v on tensor cores, while the next chunk's k, logw and v
-// are in flight (cp.async, two stages). One CTA per bh reads each input
-// once; the chain of chunks is the pass's latency.
+// write the state before the chunk's update to `states`, then S <-
+// diag(e^T) S + X^T B on tensor cores, while the next chunk's operands are
+// in flight (cp.async, two stages). Forward: chunks in order from s0, X =
+// k e^{T-cw}, B = v, writing the chunk-start states and s_out. Reverse (the
+// backward's dS): chunks in descending order from ds_final, X = r e^{cx},
+// B = dy, writing the gradient of the state after each chunk (`dstates`)
+// and ds0. One CTA per bh reads each input once; the chain of chunks is the
+// pass's latency.
 
 size_t state_smem_floats(int C, int K, int V) {
   // two stages of k, logw (C x (K + 8)) and v (C x (V + 8)) | T
@@ -253,10 +252,11 @@ size_t state_smem_floats(int C, int K, int V) {
 
 constexpr int kStateMaxThreads = 2 * 64 / 8 * 32;
 
+template <bool kReverse>
 __global__ void __launch_bounds__(kStateMaxThreads)
-rwkv6_state_kernel(const float* __restrict__ k, const float* __restrict__ v,
-                   const float* __restrict__ w, const float* __restrict__ s0,
-                   float* __restrict__ states, float* __restrict__ s_out,
+rwkv6_state_kernel(const float* __restrict__ a, const float* __restrict__ bm,
+                   const float* __restrict__ w, const float* __restrict__ init,
+                   float* __restrict__ states, float* __restrict__ last,
                    int64_t S, int C, int K, int V) {
   extern __shared__ float smem[];
   const int ldk = K + 8, ldv = V + 8;   // 8 mod 16: q walks their rows
@@ -275,19 +275,21 @@ rwkv6_state_kernel(const float* __restrict__ k, const float* __restrict__ v,
   for (int j = 0; j < 2; ++j)
     if (mt0 + 2 * j < n_mt) {
       const int q = threadIdx.x & 3;
-      const float* src = s0 + (b * K + (mt0 + 2 * j) * 16 + g) * V + col +
+      const float* src = init + (b * K + (mt0 + 2 * j) * 16 + g) * V + col +
                          2 * q;
       const float2 lo = *reinterpret_cast<const float2*>(src);
       const float2 hi = *reinterpret_cast<const float2*>(src + 8 * V);
       acc[j][0] = lo.x, acc[j][1] = lo.y, acc[j][2] = hi.x, acc[j][3] = hi.y;
     }
 
-  auto issue = [&](int c, int buf) {
+  // the j-th chunk of the walk
+  auto chunk_at = [&](int j) { return kReverse ? n_chunks - 1 - j : j; };
+  auto issue = [&](int j, int buf) {
     float* ks = smem + buf * stage;
-    const int64_t row0 = b * S + (int64_t)c * C;
-    load_tile_async(ks, ldk, k + row0 * K, K, C, K);
+    const int64_t row0 = b * S + (int64_t)chunk_at(j) * C;
+    load_tile_async(ks, ldk, a + row0 * K, K, C, K);
     load_tile_async(ks + C * ldk, ldk, w + row0 * K, K, C, K);
-    load_tile_async(ks + 2 * C * ldk, ldv, v + row0 * V, V, C, V);
+    load_tile_async(ks + 2 * C * ldk, ldv, bm + row0 * V, V, C, V);
   };
   issue(0, 0);
   cp_async_commit();
@@ -298,24 +300,26 @@ rwkv6_state_kernel(const float* __restrict__ k, const float* __restrict__ v,
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    float* ks = smem + buf * stage;     // k, then k e^{T - cw}
-    float* cw = ks + C * ldk;           // logw, then its cumsum
-    const float* vs = cw + C * ldk;     // C x V
-    float* dst = states + (b * n_chunks + c) * (int64_t)K * V + col;
+    float* ks = smem + buf * stage;     // A: k (r), then k e^{T-cw} (r e^{cx})
+    float* cw = ks + C * ldk;           // logw, then cw (cx)
+    const float* vs = cw + C * ldk;     // B: v (dy), C x V
+    float* dst = states + (b * n_chunks + chunk_at(c)) * (int64_t)K * V + col;
 #pragma unroll
     for (int j = 0; j < 2; ++j)
       if (mt0 + 2 * j < n_mt)
         store_frag(dst + (mt0 + 2 * j) * 16 * V, V, acc[j]);
-    cumsums(C, K, ldk, 0, cw, nullptr, tv, nullptr);
+    // in reverse, cx is written over cw (each row's cw is read before its
+    // cx is stored)
+    cumsums(C, K, ldk, ldk, cw, kReverse ? cw : nullptr, tv, nullptr);
     __syncthreads();
-    // the forward's exponentials are __expf (the MUFU exponential of x
-    // log2(e)) of differences <= 0, up to the cumsums' rounding: its
-    // relative error, about (|x| + 4) 2^-24, stays below 2e-6 wherever e^x
-    // is above 1e-9; expf's range reduction costs four times the
-    // instructions
+    // the exponentials are __expf (the MUFU exponential of x log2(e)) of
+    // differences <= 0, up to the cumsums' rounding: its relative error,
+    // about (|x| + 4) 2^-24, stays below 2e-6 wherever e^x is above 1e-9;
+    // expf's range reduction costs four times the instructions
     for (int i = warp; i < C; i += n_warps)
       for (int kk = threadIdx.x & 31; kk < K; kk += 32)
-        ks[i * ldk + kk] *= __expf(tv[kk] - cw[i * ldk + kk]);
+        ks[i * ldk + kk] *= __expf(kReverse ? cw[i * ldk + kk]
+                                            : tv[kk] - cw[i * ldk + kk]);
     __syncthreads();
 #pragma unroll
     for (int j = 0; j < 2; ++j)
@@ -339,7 +343,7 @@ rwkv6_state_kernel(const float* __restrict__ k, const float* __restrict__ v,
     }
     __syncthreads();
   }
-  float* dst = s_out + b * K * V + col;
+  float* dst = last + b * K * V + col;
 #pragma unroll
   for (int j = 0; j < 2; ++j)
     if (mt0 + 2 * j < n_mt) store_frag(dst + (mt0 + 2 * j) * 16 * V, V, acc[j]);
@@ -560,180 +564,305 @@ rwkv6_out_kernel(const float* __restrict__ r, const float* __restrict__ k,
   }
 }
 
-size_t bwd_smem_floats(int C, int K, int V) {
-  const size_t ck = (size_t)C * K, cc = (size_t)C * C;
-  // ks, cw | vs | st, ds (padded) | rs, cx, kd, dcx, dcw | dys | A | dA |
-  // tv, us, du | bon, db
-  return 2 * (size_t)C * (K + 1) + (size_t)C * (V + 1) +
-         2 * (size_t)K * (V + 1) + 5 * ck + (size_t)C * V +
-         (cc > ck ? cc : ck) + cc + 3 * (size_t)K + 2 * (size_t)C;
+// ---------------------------------------------------------------------------
+// Backward, pass 2: the gradient pass, every chunk independent
+// ---------------------------------------------------------------------------
+//
+// One CTA per (bh, chunk), 256 threads, from the chunk's r, k, v, logw, dy
+// and u, its start state S (`states`) and the gradient dS' of the state
+// after it (`dstates`, the reverse state pass's). With dA[t, i] = dy[t].v[i]
+// and E = e^{cx[t]-cw[i]} (i < t), for column k:
+//   dv  = A^T dy + bonus dy + (k e^{T-cw}) dS'
+//   dr  = e^{cx} (S dy) + sum_i dA E k[i] + d(bonus) u k
+//   dk  = sum_t dA E r[t] + d(bonus) u r + e^{T-cw} (v dS'^T)
+//   dlogw[t] = dT + sum_{t' > t} (dcx + dcw)[t'] + dcw[t], with dcx, dcw
+//   the gradients in cx and cw and dT = e^T sum_v S dS' + sum_i k e^{T-cw}
+//   (v dS'^T)
+// and du's partial sum_t d(bonus) r k into `du_part`. Every pair decay is
+// formed pairwise where it is summed (for A, for dr and for dk): scalar
+// fp32, __expf as in the forward. Phases, each with all 8 warps busy:
+//   1. cumsums down the columns (threads < K) beside the bonus and
+//      d(bonus), one thread per t each;
+//   2. A and dA, one thread per pair i < t;
+//   3. per column k, G = 256 / K threads, each a run of consecutive rows:
+//      S dy and v dS'^T (S and dS' rows straight from global memory), then
+//      the rows in reverse with the pairwise sums, dr and dk stored, the
+//      dlogw terms of its own rows kept in registers; after a sync, the
+//      column's partials meet in shared memory, and dlogw and du's partial
+//      are stored;
+//   4. dv, with k e^{T-cw} written over cx, dS' from global memory.
+// Shared memory (floats): rs, cx C x K; ks, cw C x (K + 1) (odd: phase 2's
+// lanes walk their rows); vs C x V (then the partials); dys C x V; att
+// C x (C + 1): A below the diagonal, dA transposed above it, the bonus on
+// it, d(bonus) in column C. 115,456 B at C = K = V = 64: two CTAs per SM.
+
+constexpr int kGradThreads = 256;
+// most rows a thread holds in phases 3 and 4: ceil(C / (256 / K)) at C = K
+// = 64, and no more at any admitted shape
+constexpr int kGradRows = 16;
+
+size_t grad_smem_floats(int C, int K, int V) {
+  const size_t cv = (size_t)C * V;
+  return 2 * (size_t)C * K + 2 * (size_t)C * (K + 1) +
+         (cv > 3 * (size_t)kGradThreads ? cv : 3 * (size_t)kGradThreads) + cv +
+         (size_t)C * (C + 1);
 }
 
-__global__ void __launch_bounds__(kThreads)
-rwkv6_bwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ w,
-                 const float* __restrict__ u,
-                 const float* __restrict__ states,
-                 const float* __restrict__ dy,
-                 const float* __restrict__ ds_final, float* __restrict__ dr,
-                 float* __restrict__ dk, float* __restrict__ dv,
-                 float* __restrict__ dw, float* __restrict__ du,
-                 float* __restrict__ ds0, int64_t S, int C, int K, int V) {
-  extern __shared__ float smem[];
-  const int ldk = K + 1, ldv = V + 1;  // odd row strides (see above)
-  const int64_t b = blockIdx.x;
-  const int n_chunks = (int)(S / C);
-  const int ck = C * K, cc = C * C;
-  float* ks = smem;                     // C x ldk
-  float* cw = ks + C * ldk;             // C x ldk
-  float* vs = cw + C * ldk;             // C x ldv
-  float* st = vs + C * ldv;             // K x ldv    chunk-start state
-  float* ds = st + K * ldv;             // K x ldv    dL/d(state after chunk)
-  float* rs = ds + K * ldv;             // C x K
-  float* cx = rs + ck;                  // C x K
-  float* kd = cx + ck;                  // C x K      k e^{T-cw}, then r e^{cx}
-  float* dcx = kd + ck;                 // C x K
-  float* dcw = dcx + ck;                // C x K
-  float* dys = dcw + ck;                // C x V
-  float* att = dys + C * V;             // C x C      A, then k * dk_state
-  float* datt = att + (cc > ck ? cc : ck);  // C x C
-  float* tv = datt + cc;                // K
-  float* us = tv + K;                   // K
-  float* dus = us + K;                  // K          du, summed over chunks
-  float* bon = dus + K;                 // C
-  float* db = bon + C;                  // C
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
 
+// j + o wrapped into [0, n) (o < n): lanes that start a walk at different
+// o read different banks of rows whose stride is a multiple of 32
+__device__ __forceinline__ int rot(int j, int o, int n) {
+  const int x = j + o;
+  return x < n ? x : x - n;
+}
+
+__global__ void __launch_bounds__(kGradThreads, 2)
+rwkv6_grad_kernel(const float* __restrict__ r, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ w,
+                  const float* __restrict__ u,
+                  const float* __restrict__ states,
+                  const float* __restrict__ dstates,
+                  const float* __restrict__ dy, float* __restrict__ dr,
+                  float* __restrict__ dk, float* __restrict__ dv,
+                  float* __restrict__ dw, float* __restrict__ du_part,
+                  int64_t S, int C, int K, int V) {
+  extern __shared__ float smem[];
+  const int ldk = K + 1, ldc = C + 1;
+  const int n_chunks = (int)(S / C);
+  const int64_t b = blockIdx.x / n_chunks;
+  const int c = (int)(blockIdx.x - b * n_chunks);
+  const int cv = C * V;
+  float* rs = smem;                     // C x K
+  float* cx = rs + C * K;               // C x K     cx, then k e^{T-cw}
+  float* ks = cx + C * K;               // C x ldk
+  float* cw = ks + C * ldk;             // C x ldk   logw, then cw
+  float* vs = cw + C * ldk;             // C x V     v, then the partials
+  float* dys = vs + (cv > 3 * kGradThreads ? cv : 3 * kGradThreads);   // C x V
+  float* att = dys + cv;                // C x ldc
   const int tid = threadIdx.x, nt = blockDim.x;
-  load_tile(ds, ldv, ds_final + b * K * V, K, V);
-  for (int kk = tid; kk < K; kk += nt) {
-    us[kk] = u[b * K + kk];
-    dus[kk] = 0.f;
+  const int64_t row0 = b * S + (int64_t)c * C;
+  const int64_t sidx = (b * n_chunks + c) * (int64_t)K * V;
+  const float* ub = u + b * K;
+
+  load_tile_async(rs, K, r + row0 * K, K, C, K);
+  load_tile_async(vs, V, v + row0 * V, V, C, V);
+  load_tile_async(dys, V, dy + row0 * V, V, C, V);
+  for (int idx = tid; idx < C * K; idx += nt) {
+    const int i = idx / K, kk = idx - i * K;
+    cp_async4(ks + i * ldk + kk, k + row0 * K + idx);
+    cp_async4(cw + i * ldk + kk, w + row0 * K + idx);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // 1. cumsums (threads < K); the bonus r[t].u.k[t] and d(bonus) =
+  // dy[t].v[t] (threads K.., one t each, walks rotated by t)
+  cumsums(C, K, ldk, K, cw, cx, nullptr, nullptr);
+  if (tid >= K && tid < K + 2 * C) {
+    const int t = (tid - K) % C;
+    float acc = 0.f;
+    if (tid < K + C) {
+      for (int j = 0; j < K; ++j) {
+        const int kk = rot(j, t % K, K);
+        acc = fmaf(rs[t * K + kk] * __ldg(ub + kk), ks[t * ldk + kk], acc);
+      }
+      att[t * ldc + t] = acc;
+    } else {
+      for (int j = 0; j < V; ++j) {
+        const int vv = rot(j, t % V, V);
+        acc = fmaf(dys[t * V + vv], vs[t * V + vv], acc);
+      }
+      att[t * ldc + C] = acc;
+    }
   }
   __syncthreads();
 
-  for (int c = n_chunks - 1; c >= 0; --c) {
-    const int64_t row0 = b * S + (int64_t)c * C;
-    load_tile(rs, K, r + row0 * K, C, K);
-    load_tile(ks, ldk, k + row0 * K, C, K);
-    load_tile(vs, ldv, v + row0 * V, C, V);
-    load_tile(dys, V, dy + row0 * V, C, V);
-    load_tile(cw, ldk, w + row0 * K, C, K);
-    load_tile(st, ldv, states + (b * n_chunks + c) * (int64_t)K * V, K, V);
-    __syncthreads();
-    cumsums(C, K, ldk, K, cw, cx, tv, nullptr);
-    __syncthreads();
-
-    // A, dA = dy v^T (both 0 for i >= t), bonus, d(bonus), k e^{T-cw}
-    for (int idx = tid; idx < cc; idx += nt) {
-      const int t = idx / C, i = idx - t * C;
-      float a = 0.f, da = 0.f;
-      if (i < t) {
-        for (int kk = 0; kk < K; ++kk) {
-          const float e = expf(cx[t * K + kk] - cw[i * ldk + kk]);
-          a = fmaf(rs[t * K + kk] * ks[i * ldk + kk], e, a);
-        }
-        for (int vv = 0; vv < V; ++vv)
-          da = fmaf(dys[t * V + vv], vs[i * ldv + vv], da);
-      }
-      att[idx] = a;
-      datt[idx] = da;
+  // 2. A[t, i] and dA[t, i] for i < t, one thread per pair, pairs packed
+  // row by row (e = t (t - 1) / 2 + i): a warp's lanes share t, so r[t] and
+  // cx[t] are broadcast and k[i], cw[i] rows of odd stride; two chains each
+  for (int e = tid; e < C * (C - 1) / 2; e += nt) {
+    int t = (int)((1.f + sqrtf(1.f + 8.f * (float)e)) * 0.5f);
+    while (t * (t - 1) / 2 > e) --t;
+    while ((t + 1) * t / 2 <= e) ++t;
+    const int i = e - t * (t - 1) / 2;
+    const float* rt = rs + t * K;
+    const float* xt = cx + t * K;
+    const float* ki = ks + i * ldk;
+    const float* wi = cw + i * ldk;
+    float a0 = 0.f, a1 = 0.f;
+    for (int kk = 0; kk < K; kk += 2) {
+      a0 = fmaf(rt[kk] * ki[kk], __expf(xt[kk] - wi[kk]), a0);
+      a1 = fmaf(rt[kk + 1] * ki[kk + 1], __expf(xt[kk + 1] - wi[kk + 1]),
+                a1);
     }
-    for (int t = tid; t < C; t += nt) {
-      float bb = 0.f, dbb = 0.f;
-      for (int kk = 0; kk < K; ++kk)
-        bb = fmaf(rs[t * K + kk] * us[kk], ks[t * ldk + kk], bb);
-      for (int vv = 0; vv < V; ++vv)
-        dbb = fmaf(dys[t * V + vv], vs[t * ldv + vv], dbb);
-      bon[t] = bb;
-      db[t] = dbb;
+    // v rows have stride V: rotated walks, by i
+    const float* yt = dys + t * V;
+    const float* vi = vs + i * V;
+    const int o = i % V;
+    float d0 = 0.f, d1 = 0.f;
+    for (int j = 0; j < V; j += 2) {
+      const int v0 = rot(j, o, V), v1 = rot(j + 1, o, V);
+      d0 = fmaf(yt[v0], vi[v0], d0);
+      d1 = fmaf(yt[v1], vi[v1], d1);
     }
-    for (int idx = tid; idx < ck; idx += nt) {
-      const int i = idx / K, kk = idx - i * K;
-      kd[idx] = ks[i * ldk + kk] * expf(tv[kk] - cw[i * ldk + kk]);
-    }
-    __syncthreads();
-
-    // dv = A^T dy + bonus dy + (k e^{T-cw}) dS'
-    for (int idx = tid; idx < C * V; idx += nt) {
-      const int i = idx / V, vv = idx - i * V;
-      float acc = 0.f;
-      for (int t = i + 1; t < C; ++t)
-        acc = fmaf(att[t * C + i], dys[t * V + vv], acc);
-      acc = fmaf(bon[i], dys[i * V + vv], acc);
-      for (int kk = 0; kk < K; ++kk)
-        acc = fmaf(kd[i * K + kk], ds[kk * ldv + vv], acc);
-      dv[(row0 + i) * V + vv] = acc;
-    }
-    __syncthreads();
-
-    // dr at (t, kk) and dk at (i, kk) = (t, kk); the log-space terms
-    for (int idx = tid; idx < ck; idx += nt) {
-      const int t = idx / K, kk = idx - t * K;
-      const float cxt = cx[idx], cwt = cw[t * ldk + kk];
-      float sdy = 0.f;
-      for (int vv = 0; vv < V; ++vv)
-        sdy = fmaf(st[kk * ldv + vv], dys[t * V + vv], sdy);
-      const float dr_inter = expf(cxt) * sdy;
-      float p_r = 0.f;
-      for (int i = 0; i < t; ++i) {
-        const float e = expf(cxt - cw[i * ldk + kk]);
-        p_r = fmaf(datt[t * C + i] * ks[i * ldk + kk], e, p_r);
-      }
-      const float kt = ks[t * ldk + kk], rt = rs[idx];
-      dr[(row0 + t) * K + kk] = dr_inter + p_r + db[t] * us[kk] * kt;
-      dcx[idx] = rt * (dr_inter + p_r);
-
-      float p_k = 0.f;
-      for (int j = t + 1; j < C; ++j) {
-        const float e = expf(cx[j * K + kk] - cwt);
-        p_k = fmaf(datt[j * C + t] * rs[j * K + kk], e, p_k);
-      }
-      float vds = 0.f;
-      for (int vv = 0; vv < V; ++vv)
-        vds = fmaf(vs[t * ldv + vv], ds[kk * ldv + vv], vds);
-      const float dk_state = expf(tv[kk] - cwt) * vds;
-      dk[(row0 + t) * K + kk] = p_k + db[t] * us[kk] * rt + dk_state;
-      dcw[idx] = -kt * (p_k + dk_state);
-      att[idx] = kt * dk_state;         // A is dead after dv
-    }
-    __syncthreads();
-
-    // per column: dT, dlogw (reverse cumsums), du; all: r e^{cx}
-    for (int kk = tid; kk < K; kk += nt) {
-      const float et = expf(tv[kk]);
-      float s_ds = 0.f;
-      for (int vv = 0; vv < V; ++vv)
-        s_ds = fmaf(st[kk * ldv + vv], ds[kk * ldv + vv], s_ds);
-      float sk = 0.f;
-      for (int i = 0; i < C; ++i) sk += att[i * K + kk];
-      const float dT = et * s_ds + sk;
-      float acc = 0.f;
-      for (int t = C - 1; t >= 0; --t) {
-        float g = dcw[t * K + kk] + dcx[t * K + kk];
-        if (t == C - 1) g += dT;
-        acc += g;
-        dw[(row0 + t) * K + kk] = acc - dcx[t * K + kk];
-      }
-      float dsum = 0.f;
-      for (int t = 0; t < C; ++t)
-        dsum = fmaf(db[t] * rs[t * K + kk], ks[t * ldk + kk], dsum);
-      dus[kk] += dsum;
-    }
-    for (int idx = tid; idx < ck; idx += nt) kd[idx] = rs[idx] * expf(cx[idx]);
-    __syncthreads();
-
-    // dS (the state before this chunk) = (r e^{cx})^T dy + diag(e^T) dS'
-    for (int idx = tid; idx < K * V; idx += nt) {
-      const int kk = idx / V, vv = idx - kk * V;
-      float acc = ds[kk * ldv + vv] * expf(tv[kk]);
-      for (int t = 0; t < C; ++t)
-        acc = fmaf(kd[t * K + kk], dys[t * V + vv], acc);
-      ds[kk * ldv + vv] = acc;
-    }
-    __syncthreads();
+    att[t * ldc + i] = a0 + a1;
+    att[i * ldc + t] = d0 + d1;
   }
-  store_tile(ds0 + b * K * V, ds, ldv, K, V);
-  for (int kk = tid; kk < K; kk += nt) du[b * K + kk] = dus[kk];
+  __syncthreads();
+
+  // 3. column col, rows t0 .. t0 + nrows - 1
+  const int G = nt / K;
+  const int col = tid % K, grp = tid / K;
+  const int R = (C + G - 1) / G;
+  const int t0 = grp * R;
+  const int nrows = grp < G ? max(0, min(R, C - t0)) : 0;
+  const float T = cw[(C - 1) * ldk + col];
+  float h[kGradRows];       // dcw[t] + sum of (dcx + dcw) over own rows > t
+  float gsum = 0.f, sk = 0.f, dup = 0.f, s_ds = 0.f;
+  if (nrows > 0) {
+    float sdy[kGradRows], vds[kGradRows];
+#pragma unroll
+    for (int j = 0; j < kGradRows; ++j) sdy[j] = vds[j] = 0.f;
+    const float* srow = states + sidx + (int64_t)col * V;
+    const float* drow = dstates + sidx + (int64_t)col * V;
+    for (int v0 = 0; v0 < V; v0 += 4) {
+      const float4 s4 = *reinterpret_cast<const float4*>(srow + v0);
+      const float4 d4 = *reinterpret_cast<const float4*>(drow + v0);
+      s_ds = fmaf(s4.x, d4.x, s_ds);
+      s_ds = fmaf(s4.y, d4.y, s_ds);
+      s_ds = fmaf(s4.z, d4.z, s_ds);
+      s_ds = fmaf(s4.w, d4.w, s_ds);
+#pragma unroll
+      for (int j = 0; j < kGradRows; ++j)
+        if (j < nrows) {
+          const float4 y4 =
+              *reinterpret_cast<const float4*>(dys + (t0 + j) * V + v0);
+          const float4 x4 =
+              *reinterpret_cast<const float4*>(vs + (t0 + j) * V + v0);
+          sdy[j] = fmaf(s4.x, y4.x, sdy[j]);
+          sdy[j] = fmaf(s4.y, y4.y, sdy[j]);
+          sdy[j] = fmaf(s4.z, y4.z, sdy[j]);
+          sdy[j] = fmaf(s4.w, y4.w, sdy[j]);
+          vds[j] = fmaf(d4.x, x4.x, vds[j]);
+          vds[j] = fmaf(d4.y, x4.y, vds[j]);
+          vds[j] = fmaf(d4.z, x4.z, vds[j]);
+          vds[j] = fmaf(d4.w, x4.w, vds[j]);
+        }
+    }
+    const float uk = __ldg(ub + col);
+#pragma unroll
+    for (int j = kGradRows - 1; j >= 0; --j)
+      if (j < nrows) {
+        const int t = t0 + j;
+        const float cxt = cx[t * K + col], cwt = cw[t * ldk + col];
+        const float kt = ks[t * ldk + col], rt = rs[t * K + col];
+        const float dbt = att[t * ldc + C];
+        const float dr_inter = __expf(cxt) * sdy[j];
+        float p_r = 0.f;
+        for (int i = 0; i < t; ++i)
+          p_r = fmaf(att[i * ldc + t] * ks[i * ldk + col],
+                     __expf(cxt - cw[i * ldk + col]), p_r);
+        float p_k = 0.f;
+        for (int i = t + 1; i < C; ++i)
+          p_k = fmaf(att[t * ldc + i] * rs[i * K + col],
+                     __expf(cx[i * K + col] - cwt), p_k);
+        const float dk_state = __expf(T - cwt) * vds[j];
+        dr[(row0 + t) * K + col] = dr_inter + p_r + dbt * uk * kt;
+        dk[(row0 + t) * K + col] = p_k + dbt * uk * rt + dk_state;
+        const float dcw = -kt * (p_k + dk_state);
+        h[j] = gsum + dcw;
+        gsum += rt * (dr_inter + p_r) + dcw;
+        sk = fmaf(kt, dk_state, sk);
+        dup = fmaf(dbt * rt, kt, dup);
+      }
+  }
+  __syncthreads();
+
+  // the column partials (G x K each) over v; k e^{T-cw} over cx
+  float* gpart = vs;
+  float* skpart = gpart + G * K;
+  float* dupart = skpart + G * K;
+  if (grp < G) {
+    gpart[grp * K + col] = gsum;
+    skpart[grp * K + col] = sk;
+    dupart[grp * K + col] = dup;
+  }
+  for (int j = 0; j < nrows; ++j) {
+    const int t = t0 + j;
+    cx[t * K + col] = ks[t * ldk + col] * __expf(T - cw[t * ldk + col]);
+  }
+  __syncthreads();
+  if (nrows > 0) {
+    float later = 0.f, sk_all = 0.f;
+    for (int g2 = G - 1; g2 > grp; --g2) later += gpart[g2 * K + col];
+    for (int g2 = 0; g2 < G; ++g2) sk_all += skpart[g2 * K + col];
+    // dT plus the sums of the later rows' groups
+    const float base = (__expf(T) * s_ds + sk_all) + later;
+#pragma unroll
+    for (int j = 0; j < kGradRows; ++j)
+      if (j < nrows) dw[(row0 + t0 + j) * K + col] = base + h[j];
+    if (grp == 0) {
+      float d = 0.f;
+      for (int g2 = 0; g2 < G; ++g2) d += dupart[g2 * K + col];
+      du_part[(b * n_chunks + c) * K + col] = d;
+    }
+  }
+
+  // 4. dv: column vv, rows gv, gv + GV, ... (a warp shares its rows)
+  const int GV = nt / V;
+  const int vv = tid % V, gv = tid / V;
+  if (gv < GV) {
+    float acc[kGradRows];
+#pragma unroll
+    for (int n = 0; n < kGradRows; ++n) acc[n] = 0.f;
+    const float* dsc = dstates + sidx + vv;
+    for (int k0 = 0; k0 < K; k0 += 4) {
+      const float e0 = dsc[(int64_t)k0 * V], e1 = dsc[(int64_t)(k0 + 1) * V],
+                  e2 = dsc[(int64_t)(k0 + 2) * V],
+                  e3 = dsc[(int64_t)(k0 + 3) * V];
+#pragma unroll
+      for (int n = 0; n < kGradRows; ++n) {
+        const int i = gv + n * GV;
+        if (i < C) {
+          const float4 kd = *reinterpret_cast<const float4*>(cx + i * K + k0);
+          acc[n] = fmaf(kd.x, e0, acc[n]);
+          acc[n] = fmaf(kd.y, e1, acc[n]);
+          acc[n] = fmaf(kd.z, e2, acc[n]);
+          acc[n] = fmaf(kd.w, e3, acc[n]);
+        }
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kGradRows; ++n) {
+      const int i = gv + n * GV;
+      if (i < C) {
+        float a = fmaf(att[i * ldc + i], dys[i * V + vv], acc[n]);
+        for (int t = i + 1; t < C; ++t)
+          a = fmaf(att[t * ldc + i], dys[t * V + vv], a);
+        dv[(row0 + i) * V + vv] = a;
+      }
+    }
+  }
+}
+
+// du: the per-chunk partials summed in chunk order, one thread per (bh, k)
+__global__ void rwkv6_du_kernel(const float* __restrict__ part,
+                                float* __restrict__ du, int64_t bh,
+                                int n_chunks, int K) {
+  const int64_t idx = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  if (idx >= bh * K) return;
+  const int64_t b = idx / K;
+  const float* p = part + b * n_chunks * K + (idx - b * K);
+  float acc = 0.f;
+  for (int c = 0; c < n_chunks; ++c) acc += p[(int64_t)c * K];
+  du[idx] = acc;
 }
 
 int launch_checked(const void* fn, size_t smem_bytes) {
@@ -761,9 +890,9 @@ extern "C" int rwkv6_fwd_launch(const void* r, const void* k, const void* v,
                                 int vdim, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const size_t smem1 = state_smem_floats(chunk, kdim, vdim) * sizeof(float);
-  int err = launch_checked((const void*)rwkv6_state_kernel, smem1);
+  int err = launch_checked((const void*)rwkv6_state_kernel<false>, smem1);
   if (err != 0) return err;
-  rwkv6_state_kernel<<<(unsigned)bh, 2 * 32 * (vdim / 8), smem1, st>>>(
+  rwkv6_state_kernel<false><<<(unsigned)bh, 2 * 32 * (vdim / 8), smem1, st>>>(
       (const float*)k, (const float*)v, (const float*)w, (const float*)s0,
       (float*)states, (float*)s_out, s, chunk, kdim, vdim);
   err = (int)cudaGetLastError();
@@ -779,21 +908,41 @@ extern "C" int rwkv6_fwd_launch(const void* r, const void* k, const void* v,
 }
 
 // dy: (bh, s, V); ds_final, ds0: (bh, K, V); dr, dk, dlogw: (bh, s, K); dv:
-// (bh, s, V); du: (bh, K); states as the forward wrote them.
+// (bh, s, V); du: (bh, K); states as the forward wrote them. Scratch:
+// dstates (bh, s/chunk, K, V), the gradient of the state after every
+// chunk; du_part (bh, s/chunk, K), du's partial of every chunk. Launches
+// the reverse state pass, the gradient pass and du's reduction on
+// `stream`; returns the first CUDA error (0 on success).
 extern "C" int rwkv6_bwd_launch(const void* r, const void* k, const void* v,
                                 const void* w, const void* u,
                                 const void* states, const void* dy,
                                 const void* ds_final, void* dr, void* dk,
                                 void* dv, void* dw, void* du, void* ds0,
-                                int64_t bh, int64_t s, int chunk, int kdim,
-                                int vdim, void* stream) {
-  const size_t smem = bwd_smem_floats(chunk, kdim, vdim) * sizeof(float);
-  int err = launch_checked((const void*)rwkv6_bwd_kernel, smem);
+                                void* dstates, void* du_part, int64_t bh,
+                                int64_t s, int chunk, int kdim, int vdim,
+                                void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int n_chunks = (int)(s / chunk);
+  const size_t smem1 = state_smem_floats(chunk, kdim, vdim) * sizeof(float);
+  int err = launch_checked((const void*)rwkv6_state_kernel<true>, smem1);
   if (err != 0) return err;
-  rwkv6_bwd_kernel<<<(unsigned)bh, kThreads, smem, (cudaStream_t)stream>>>(
+  rwkv6_state_kernel<true><<<(unsigned)bh, 2 * 32 * (vdim / 8), smem1, st>>>(
+      (const float*)r, (const float*)dy, (const float*)w,
+      (const float*)ds_final, (float*)dstates, (float*)ds0, s, chunk, kdim,
+      vdim);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  const size_t smem2 = grad_smem_floats(chunk, kdim, vdim) * sizeof(float);
+  err = launch_checked((const void*)rwkv6_grad_kernel, smem2);
+  if (err != 0) return err;
+  rwkv6_grad_kernel<<<(unsigned)(bh * n_chunks), kGradThreads, smem2, st>>>(
       (const float*)r, (const float*)k, (const float*)v, (const float*)w,
-      (const float*)u, (const float*)states, (const float*)dy,
-      (const float*)ds_final, (float*)dr, (float*)dk, (float*)dv, (float*)dw,
-      (float*)du, (float*)ds0, s, chunk, kdim, vdim);
+      (const float*)u, (const float*)states, (const float*)dstates,
+      (const float*)dy, (float*)dr, (float*)dk, (float*)dv, (float*)dw,
+      (float*)du_part, s, chunk, kdim, vdim);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  rwkv6_du_kernel<<<(unsigned)((bh * kdim + 255) / 256), 256, 0, st>>>(
+      (const float*)du_part, (float*)du, bh, n_chunks, kdim);
   return (int)cudaGetLastError();
 }

@@ -4,7 +4,7 @@ forward and backward.
   rwkv6_chunk_scan        the differentiable op. On CUDA tensors it runs
                           the hand-written forward kernels in
                           csrc/rwkv6_chunk.cu under a torch.autograd.Function
-                          whose backward is the hand-written backward kernel
+                          whose backward is the hand-written backward kernels
                           (or raises); on CPU tensors it runs the plain
                           forward, which autograd differentiates.
   scan_forward            the forward's launcher: a state pass writes the
@@ -13,7 +13,13 @@ forward and backward.
                           output pass computes y from it, every chunk at
                           once. One call counts one into
                           `rwkv6_chunk_scan.launches`.
-  rwkv6_chunk_scan_bwd    the backward kernel's wrapper (own launch count).
+  rwkv6_chunk_scan_bwd    the backward's launcher: a reverse state pass
+                          writes the gradient of the state after every chunk,
+                          then a gradient pass computes every chunk's
+                          gradients from it and the forward's states, all
+                          chunks at once, and a reduction sums du's per-chunk
+                          partials. One call counts one into
+                          `rwkv6_chunk_scan_bwd.launches`.
   rwkv6_chunk_scan_ref    the plain forward: the reference model's chunk
                           body (`repro/models/modules.py::rwkv6_timemix`),
                           batched over BH.
@@ -36,6 +42,12 @@ chunk: every exponential is taken of a difference that is <= 0, never split
 into a product of e^{cx} and e^{-cw}. The backward cannot rebuild S from S'
 by dividing by e^T for the same reason; it reads the chunk-start states the
 forward wrote.
+
+The backward's only sequential part is dS, the gradient of the state at each
+chunk boundary: dS_c = diag(e^T) dS_{c+1} + (r e^{cx})^T dy_c from
+dS_n = ds_final, the forward's state recurrence with r e^{cx} for
+k e^{T-cw} and dy for v, over the chunks in reverse (the same kernel). Given
+S_c and dS_{c+1}, each chunk's gradients depend on that chunk alone.
 
 The forward's output pass factors the decays between 16-token sub-chunks
 at the later sub-chunk's start b: e^{cx[t]-cw[i]} = e^{cx[t]-b} e^{b-cw[i]},
@@ -68,8 +80,8 @@ SIGNATURES = {
     # r, k, v, logw, u, s0, y, s_out, states, bh, s, chunk, K, V
     "rwkv6_fwd_launch": (_P,) * 9 + (_I64, _I64, _I, _I, _I, _P),
     # r, k, v, logw, u, states, dy, ds_final, dr, dk, dv, dlogw, du, ds0,
-    # bh, s, chunk, K, V
-    "rwkv6_bwd_launch": (_P,) * 14 + (_I64, _I64, _I, _I, _I, _P),
+    # dstates, du_part (scratch), bh, s, chunk, K, V
+    "rwkv6_bwd_launch": (_P,) * 16 + (_I64, _I64, _I, _I, _I, _P),
 }
 
 
@@ -201,9 +213,13 @@ def scan_forward(r, k, v, logw, u, s0, *, chunk: int = CHUNK,
 
 def rwkv6_chunk_scan_bwd(r, k, v, logw, u, states, dy, ds_final, *,
                          chunk: int = CHUNK):
-    """Gradients of (y, s_final) -> (r, k, v, logw, u, s0), one backward
-    launch; `states` as `scan_forward` wrote them. CPU tensors run the
-    plain version. Returns (dr, dk, dv, dlogw, du, ds0)."""
+    """Gradients of (y, s_final) -> (r, k, v, logw, u, s0); `states` as
+    `scan_forward` wrote them. One call runs three kernels: the reverse
+    state pass, the gradient pass and du's reduction, with two scratch
+    tensors allocated here: `dstates` (the shape of `states`, the gradient
+    of the state after every chunk) and du's per-chunk partials (BH,
+    S/chunk, K). CPU tensors run the plain version. Returns (dr, dk, dv,
+    dlogw, du, ds0)."""
     bh, s, kdim, vdim = check_inputs("rwkv6_chunk_scan_bwd", r, k, v, logw,
                                      u, ds_final, chunk)
     for name, t, shape in (("states", states, (bh, s // chunk, kdim, vdim)),
@@ -213,6 +229,9 @@ def rwkv6_chunk_scan_bwd(r, k, v, logw, u, states, dy, ds_final, *,
             raise ValueError(f"rwkv6_chunk_scan_bwd: {name} must be a "
                              f"contiguous float32 {shape} tensor on "
                              f"{r.device}")
+        if t.is_cuda and t.data_ptr() % 16:
+            raise ValueError(f"rwkv6_chunk_scan_bwd: the CUDA kernels take "
+                             f"{name} whose data is 16-byte aligned")
     if r.device.type == "cpu":
         return rwkv6_chunk_scan_bwd_ref(r, k, v, logw, u,
                                         states[:, 0].contiguous(), dy,
@@ -221,9 +240,16 @@ def rwkv6_chunk_scan_bwd(r, k, v, logw, u, states, dy, ds_final, *,
     dr, dk, dv, dw = (torch.empty_like(x) for x in (r, k, v, logw))
     du = torch.empty_like(u)
     ds0 = torch.empty_like(ds_final)
+    # scratch: the reverse pass writes the gradient of the state after
+    # every chunk for the gradient pass, which writes du's partial of every
+    # chunk for the reduction
+    dstates = torch.empty_like(states)
+    du_part = torch.empty((bh, s // chunk, kdim), dtype=torch.float32,
+                          device=r.device)
     build.launch("rwkv6_chunk_scan_bwd", lib.rwkv6_bwd_launch, r,
                  *(t.data_ptr() for t in (r, k, v, logw, u, states, dy,
-                                          ds_final, dr, dk, dv, dw, du, ds0)),
+                                          ds_final, dr, dk, dv, dw, du, ds0,
+                                          dstates, du_part)),
                  bh, s, chunk, kdim, vdim)
     rwkv6_chunk_scan_bwd.launches += 1
     return dr, dk, dv, dw, du, ds0

@@ -2,8 +2,9 @@
 repro_torch.models.modules) against the reference's: the plain scan against
 the Pallas kernel (interpret mode) and the token-level recurrence, its
 gradients (autograd, and the backward wrapper's plain version) against
-jax.vjp, a plain model of the CUDA forward's decomposition (state pass,
-output pass with sub-chunked decays) against both, the time-mix,
+jax.vjp, plain models of the CUDA kernels' decompositions (forward: state
+pass, output pass with sub-chunked decays; backward: reverse state pass,
+per-chunk gradient pass, du summed in chunk order) against both, the time-mix,
 channel-mix and rwkv block against the JAX functions, the kernel wrappers'
 dispatch and the shapes the kernels take, and a wider model's first steps
 against the JAX engine's. The CUDA kernels themselves are held against
@@ -236,6 +237,73 @@ def _decomposed_scan(r, k, v, logw, u, s0, chunk):
     return torch.cat(ys, dim=1), s_final, states
 
 
+def _reverse_state_pass(r, dy, logw, ds_final, chunk):
+    """The backward's only sequential part, the forward's state pass run
+    backwards: dS <- diag(e^T) dS + (r e^{cx})^T dy over the chunks in
+    descending order, from ds_final. Returns the gradient of the state
+    after every chunk (index c holds dS_{c+1}) and ds0."""
+    ds, after = ds_final, []
+    for c0 in reversed(range(0, r.shape[1], chunk)):
+        sl = slice(c0, c0 + chunk)
+        cw = torch.cumsum(logw[:, sl], dim=1)
+        cx = cw - logw[:, sl]
+        total = cw[:, -1:]
+        after.append(ds)
+        ds = (ds * torch.exp(total).transpose(1, 2)
+              + (r[:, sl] * torch.exp(cx)).transpose(1, 2) @ dy[:, sl])
+    return torch.stack(after[::-1], dim=1), ds
+
+
+def _grad_chunk(r, k, v, logw, u, dy, st, dst):
+    """One chunk's gradients from its start state S and the gradient dS'
+    of the state after it alone, as the CUDA gradient pass forms them:
+    every pair decay e^{cx[t]-cw[i]} (i < t) pairwise, from a difference
+    <= 0. Returns dr, dk, dv, dlogw and the chunk's partial of du."""
+    c = r.shape[1]
+    cw = torch.cumsum(logw, dim=1)
+    cx = cw - logw
+    total = cw[:, -1:]
+    tri = torch.ones((c, c), dtype=torch.bool).tril(-1)
+    decay = torch.exp(torch.where(tri[None, :, :, None],
+                                  cx[:, :, None, :] - cw[:, None, :, :],
+                                  -torch.inf))                 # [t, i, k]
+    att = torch.einsum("btk,bik,btik->bti", r, k, decay)
+    datt = torch.where(tri, dy @ v.transpose(1, 2), 0.0)       # dy[t].v[i]
+    bonus = torch.einsum("btk,bk,btk->bt", r, u, k)[..., None]
+    dbon = (dy * v).sum(-1, keepdim=True)
+    dv = (att.transpose(1, 2) @ dy + bonus * dy
+          + (k * torch.exp(total - cw)) @ dst)
+    dr_inter = torch.exp(cx) * (dy @ st.transpose(1, 2))
+    p_r = torch.einsum("bti,bik,btik->btk", datt, k, decay)
+    p_k = torch.einsum("bti,btk,btik->bik", datt, r, decay)
+    dk_state = torch.exp(total - cw) * (v @ dst.transpose(1, 2))
+    dr = dr_inter + p_r + dbon * u[:, None] * k
+    dk = p_k + dbon * u[:, None] * r + dk_state
+    dcx, dcw = r * (dr_inter + p_r), -k * (p_k + dk_state)
+    d_total = (torch.exp(total[:, 0]) * (st * dst).sum(-1)
+               + (k * dk_state).sum(1))
+    # dlogw[t] = dT + sum_{t' > t} (dcx + dcw)[t'] + dcw[t]
+    g = dcx + dcw
+    after = torch.flip(torch.cumsum(torch.flip(g, [1]), 1), [1]) - g
+    dlogw = d_total[:, None] + after + dcw
+    return dr, dk, dv, dlogw, (dbon * r * k).sum(1)
+
+
+def _decomposed_bwd(r, k, v, logw, u, s0, dy, ds_final, chunk):
+    """The CUDA backward's design in plain PyTorch: the chunk-start states
+    (the forward's state pass), the reverse state pass, then every chunk's
+    gradients on their own, du summed over the chunks in chunk order."""
+    states, _ = _state_pass(k, v, logw, s0, chunk)
+    dstates, ds0 = _reverse_state_pass(r, dy, logw, ds_final, chunk)
+    parts = [_grad_chunk(*(x[:, c0:c0 + chunk] for x in (r, k, v, logw)), u,
+                         dy[:, c0:c0 + chunk], states[:, c0 // chunk],
+                         dstates[:, c0 // chunk])
+             for c0 in range(0, r.shape[1], chunk)]
+    dr, dk, dv, dlogw = (torch.cat([p[j] for p in parts], dim=1)
+                         for j in range(4))
+    return dr, dk, dv, dlogw, sum(p[4] for p in parts), ds0
+
+
 def _large_decay_inputs(bh, s, kk, vv, seed):
     """logw at both ends of the model's clip: -e^8 on every 7th token and
     -e^-20 on every 5th from the 3rd."""
@@ -279,6 +347,69 @@ def test_decomposition_takes_large_decays(chunk):
         assert torch.isfinite(got).all(), name
         for want in wants:
             assert _rel_err(got, want) <= LARGE_DECAY_REL_TOL, name
+
+
+GRAD_NAMES = ("r", "k", "v", "logw", "u", "s0")
+
+
+@pytest.mark.parametrize("bh,s,kk,vv,chunk", GRAD_CASES)
+def test_decomposed_backward_matches_plain_backward_and_jax_vjp(bh, s, kk, vv,
+                                                                chunk):
+    """The reverse state pass + the per-chunk gradient pass + du summed in
+    chunk order give the plain backward's and jax.vjp's gradients (the
+    inputs and cotangents of test_gradients_match_jax_vjp)."""
+    args = _inputs(bh, s, kk, vv, seed=bh + s)
+    dy, dsf = _cotangents(bh, s, kk, vv)
+    got = _decomposed_bwd(*_t(args), torch.from_numpy(dy),
+                          torch.from_numpy(dsf), chunk)
+    plain = rc.rwkv6_chunk_scan_bwd_ref(*_t(args), torch.from_numpy(dy),
+                                        torch.from_numpy(dsf), chunk=chunk)
+    want = _vjp(args, dy, dsf)
+    for name, a, p, j in zip(GRAD_NAMES, got, plain, want):
+        assert _rel_err(a, p.numpy()) <= GRAD_REL_TOL, name
+        assert _rel_err(a, j) <= GRAD_REL_TOL, name
+
+
+@pytest.mark.parametrize("chunk", [32, 64])
+def test_decomposed_backward_takes_large_decays(chunk):
+    """At logw = -e^8 and -e^-20 every pair decay of the gradient pass and
+    the reverse pass's e^{cx} stay finite: each gradient within the chunked
+    form's own fp32 error of the plain backward and of jax.vjp."""
+    args = _large_decay_inputs(2, 128, 16, 16, seed=11)
+    dy, dsf = _cotangents(2, 128, 16, 16)
+    got = _decomposed_bwd(*_t(args), torch.from_numpy(dy),
+                          torch.from_numpy(dsf), chunk)
+    plain = rc.rwkv6_chunk_scan_bwd_ref(*_t(args), torch.from_numpy(dy),
+                                        torch.from_numpy(dsf), chunk=chunk)
+    want = _vjp(args, dy, dsf)
+    for name, a, p, j in zip(GRAD_NAMES, got, plain, want):
+        assert torch.isfinite(a).all(), name
+        assert _rel_err(a, p.numpy()) <= LARGE_DECAY_REL_TOL, name
+        assert _rel_err(a, j) <= LARGE_DECAY_REL_TOL, name
+
+
+@pytest.mark.parametrize("chunk", [16, 32])
+def test_reverse_state_pass_gives_the_state_gradients(chunk):
+    """The reverse pass's dS at every chunk boundary is the gradient of
+    (y, s_final) . (dy, ds_final) in the state there, as autograd finds it
+    through the plain forward run chunk by chunk; its last step is ds0."""
+    r, k, v, logw, u, s0 = _t(_inputs(2, 96, 16, 8, seed=21))
+    dy, dsf = (torch.from_numpy(x) for x in _cotangents(2, 96, 16, 8))
+    starts, ys, st = [], [], s0.clone().requires_grad_(True)
+    for c0 in range(0, 96, chunk):
+        starts.append(st)
+        y, st = rc.rwkv6_chunk_scan_ref(*(x[:, c0:c0 + chunk].contiguous()
+                                          for x in (r, k, v, logw)), u, st,
+                                        chunk=chunk)
+        ys.append(y)
+    want = torch.autograd.grad((torch.cat(ys, 1), st), starts, (dy, dsf))
+    dstates, ds0 = _reverse_state_pass(r, dy, logw, dsf, chunk)
+    assert dstates.shape == (2, 96 // chunk, 16, 8)
+    np.testing.assert_allclose(ds0.numpy(), want[0].numpy(), **SCAN_TOL)
+    for c in range(1, 96 // chunk):
+        np.testing.assert_allclose(dstates[:, c - 1].numpy(),
+                                   want[c].numpy(), **SCAN_TOL)
+    np.testing.assert_array_equal(dstates[:, -1].numpy(), dsf.numpy())
 
 
 def test_autograd_function_runs_forward_and_backward_wrappers():
@@ -369,6 +500,29 @@ def test_cuda_tensors_the_kernels_do_not_take_raise(monkeypatch, shape,
     fake = [x.as_subclass(_FakeCuda) for x in args]
     with pytest.raises(ValueError, match=match):
         rc.scan_forward(*fake, chunk=chunk, save_states=True)
+
+
+@pytest.mark.parametrize("which", ["states", "dy"])
+def test_backward_takes_only_aligned_states_and_dy(monkeypatch, which):
+    """The backward kernels read states and dy 16 bytes at a time: a CUDA
+    tensor whose data is not 16-byte aligned raises before any library is
+    loaded, and no launch is counted."""
+    def no_library(name):
+        raise AssertionError("the library was loaded for operands the "
+                             "kernels do not take")
+    monkeypatch.setattr(build, "load", no_library)
+    monkeypatch.setattr(build, "_bound", {})
+    args = _t(_inputs(2, 64, 16, 16))
+    grads = {"states": torch.zeros(2, 2, 16, 16), "dy": torch.zeros(2, 64, 16)}
+    t = grads[which]
+    grads[which] = torch.empty(t.numel() + 1)[1:].view(t.shape)
+    fake = [x.as_subclass(_FakeCuda) for x in args]
+    before = rc.rwkv6_chunk_scan_bwd.launches
+    with pytest.raises(ValueError, match=f"{which} whose data is 16-byte"):
+        rc.rwkv6_chunk_scan_bwd(*fake[:5], grads["states"].as_subclass(
+            _FakeCuda), grads["dy"].as_subclass(_FakeCuda), fake[5],
+            chunk=32)
+    assert rc.rwkv6_chunk_scan_bwd.launches == before
 
 
 def test_cpu_wrappers_run_the_plain_versions_and_count_no_launch(
