@@ -10,6 +10,8 @@ import importlib
 from dataclasses import dataclass, replace
 from typing import Optional
 
+from repro_torch.core import state_store
+
 
 @dataclass(frozen=True)
 class SSMConfig:
@@ -74,12 +76,17 @@ class ModelConfig:
 
 
 ACCUM_ENGINES = ("ga", "adama", "adama_layerwise")
+# the reference's codec names (configs/base.py); which of them are ported is
+# core/state_store.py's registry (rowcol is not yet)
+STATE_CODECS = ("fp32", "int8", "factored", "rowcol")    # second moment (v)
+M_CODECS = ("fp32", "int8")                              # first moment (m)
 
 
 @dataclass(frozen=True)
 class OptimizerConfig:
     """The kernel paths of the reference's OptimizerConfig (use_pallas=True,
-    fp32 m/v codecs, fp32 gradient wire, no guard).
+    fp32 gradient wire, no guard), with its m and v codecs validated as its
+    `optimizer_capability` does.
 
     `arena` selects the state form, as in the reference: True (the default
     here, the reference's `arena=True`) keeps m and v in flat arenas folded
@@ -107,6 +114,20 @@ class OptimizerConfig:
         if self.micro_batches < 1:
             raise ValueError(f"micro_batches must be >= 1, got "
                              f"{self.micro_batches}")
+        if self.state_codec not in STATE_CODECS:
+            raise ValueError(f"unknown state_codec {self.state_codec!r}; "
+                             f"expected one of {STATE_CODECS}")
+        if self.m_codec not in M_CODECS:
+            raise ValueError(f"unknown m_codec {self.m_codec!r}; expected "
+                             f"one of {M_CODECS}")
+        state_store.get_codec(self.state_codec, "v")   # a queued codec
+        state_store.get_codec(self.m_codec, "m")       # raises here
+        for field, name in (("state_codec", self.state_codec),
+                            ("m_codec", self.m_codec)):
+            if name != "fp32" and not self.arena:
+                raise ValueError(f"{field}={name!r} requires arena=True: "
+                                 f"codecs are columns of the flat state "
+                                 f"arena (core/state_store.py)")
         if self.accumulation == "ga" and not self.arena:
             raise NotImplementedError(
                 "ga with arena=False runs the reference's plain optim/adam.py "

@@ -21,6 +21,11 @@ and per-leaf state (m and v are trees shaped like the params):
 further reader, and the caller drops it before the next micro-batch's
 backward. On arena state the begin-minibatch decay rides in the first fold.
 
+Arena state carries each moment in its codec (core/state_store.py): fp32
+arenas, int8 codes with row scales, or the factored row statistic; the
+fold and apply kernels take every pair. Per-leaf state is fp32 only, as
+the reference's config requires.
+
 Unlike the reference, whose arrays are immutable and whose kernels alias
 input to output, the port updates the moments and the params IN PLACE: a
 "new" state returned here shares its tensors with the old one.
@@ -41,8 +46,13 @@ State = Dict[str, Any]
 
 def init(params, codec: str = "fp32", m_codec: str = "fp32") -> State:
     """Per-leaf state: m and v are zeroed fp32 trees shaped like the params;
-    `step` is a host int. Any codec but fp32 raises (not ported yet)."""
-    state_store.check_codecs(m_codec, codec)
+    `step` is a host int. Any codec but fp32 raises: codecs are columns of
+    the arena (use init_arena)."""
+    for moment, name in (("m", m_codec), ("v", codec)):
+        if state_store.get_codec(name, moment).name != "fp32":
+            raise ValueError(f"{moment}-codec {name!r} requires arena state "
+                             f"(arena=True): codecs are columns of the flat "
+                             f"state arena (core/state_store.py)")
     leaves, paths = arena_mod.tree_flatten(params)
 
     def zeros():
@@ -53,18 +63,20 @@ def init(params, codec: str = "fp32", m_codec: str = "fp32") -> State:
 
 
 def init_arena(params, codec: str = "fp32", m_codec: str = "fp32") -> State:
-    """Arena-backed state: m and v are zeroed fp32 arenas on the params'
-    device, laid out as the reference lays them out; `step` is a host int.
-    Any codec but fp32 raises (not ported yet)."""
-    state_store.check_codecs(m_codec, codec)
+    """Arena-backed state on the params' device, laid out as the reference
+    lays it out: m in `m_codec`, v in `codec` (fp32 moments are Arenas,
+    the others MomentStates of the reference's column shapes), zeroed;
+    `step` is a host int."""
+    mc = state_store.get_codec(m_codec, "m")
+    vc = state_store.get_codec(codec, "v")
     layout = arena_mod.build_layout(params)
     device = arena_mod.tree_flatten(params)[0][0].device
-    return {"m": arena_mod.Arena.zeros(layout, device),
-            "v": arena_mod.Arena.zeros(layout, device), "step": 0}
+    return {"m": mc.init(layout, device), "v": vc.init(layout, device),
+            "step": 0}
 
 
 def is_arena_state(state: State) -> bool:
-    return isinstance(state["m"], arena_mod.Arena)
+    return state_store.is_arena_backed(state["m"])
 
 
 def _scale_tree_(tree, factor: float) -> None:
@@ -75,8 +87,12 @@ def _scale_tree_(tree, factor: float) -> None:
 @torch.no_grad()
 def begin_minibatch(state: State, beta1: float, beta2: float) -> State:
     """Per-leaf state: m *= beta1, v *= beta2 (in place) and count the
-    mini-batch. The arena engines skip this pass: their decay rides in the
-    mini-batch's first fold."""
+    mini-batch. Arena state raises: the arena engines fuse this decay into
+    the mini-batch's first fold."""
+    if is_arena_state(state):
+        raise ValueError("begin_minibatch takes per-leaf state; on arena "
+                         "state the decay rides in the first fold "
+                         "(accumulate(..., decay=(beta1, beta2)))")
     _scale_tree_(state["m"], beta1)
     _scale_tree_(state["v"], beta2)
     return dict(state, step=state["step"] + 1)
@@ -86,11 +102,11 @@ def begin_minibatch(state: State, beta1: float, beta2: float) -> State:
 def accumulate(state: State, grads, beta1: float, beta2: float,
                scale: float = 1.0, decay=None) -> State:
     """Fold one micro-batch's gradient tree into (m, v). Arena state: pack
-    it into one fp32 slab and run one fused fold. Per-leaf state: one
-    adama_accum_2d launch per leaf. `scale` multiplies g in-kernel
-    (Algorithm 1's 1/N); `decay=(dm, dv)` applies the begin-minibatch decay
-    first (fused into the fold on arena state; pass it on the first
-    micro-batch only)."""
+    it into one fp32 slab and run one fused fold, in the state's codecs.
+    Per-leaf state: one adama_accum_2d launch per leaf. `scale` multiplies
+    g in-kernel (Algorithm 1's 1/N); `decay=(dm, dv)` applies the
+    begin-minibatch decay first (fused into the fold on arena state; pass
+    it on the first micro-batch only)."""
     if is_arena_state(state):
         g = arena_mod.pack(grads, state["m"].layout)
         return state_store.fold_state(state, g, beta1=beta1, beta2=beta2,

@@ -26,6 +26,9 @@ the engine activation checkpointing as well.
 Arena state: each layer's gradient tree is packed into one
 (layer_rows, LANES) slab and folded into the layer's row range with ONE
 `arena_fold_slice` launch; the rest region likewise, once per micro-batch.
+The launch carries every codec column of the slice (int8 codes and row
+scales, the factored statistic): every column is row-indexed, so the
+per-layer folds need no per-micro-batch step of their own.
 `decay` (micro-batch 0 only) rides in every one of those folds: each arena
 row belongs to exactly one slice. Per-leaf state: each gradient leaf is
 folded into the matching view of the m/v trees (layer j's row of a stacked
@@ -64,10 +67,11 @@ def _fold_layer(state, dlp, j: int, name: str, beta1, beta2, decay) -> None:
         lay = state["m"].layout
         spec = lay.stack(name)
         g2 = arena_mod.pack_layer(dlp, spec)
-        state_store.fold_slice(state["m"].data, state["v"].data, g2,
-                               spec.row + j * spec.layer_rows, beta1=beta1,
-                               beta2=beta2, block=lay.slice_block(spec),
-                               decay=decay)
+        state_store.fold_slice_state(state, g2,
+                                     spec.row + j * spec.layer_rows,
+                                     beta1=beta1, beta2=beta2,
+                                     block=lay.slice_block(spec),
+                                     decay=decay)
         return
     m_j = {k: x[j] for k, x in state["m"][name].items()}
     v_j = {k: x[j] for k, x in state["v"][name].items()}
@@ -82,9 +86,10 @@ def _fold_rest(state, d_rest, beta1, beta2, decay) -> None:
         if not lay.rest.rows:
             return
         g2 = arena_mod.pack_rest(d_rest, lay)
-        state_store.fold_slice(state["m"].data, state["v"].data, g2,
-                               lay.rest.row, beta1=beta1, beta2=beta2,
-                               block=lay.slice_block(lay.rest), decay=decay)
+        state_store.fold_slice_state(state, g2, lay.rest.row, beta1=beta1,
+                                     beta2=beta2,
+                                     block=lay.slice_block(lay.rest),
+                                     decay=decay)
         return
     for k, g in d_rest.items():
         _fold_tree(state["m"][k], state["v"][k], g, beta1, beta2)

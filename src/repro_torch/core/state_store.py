@@ -1,52 +1,303 @@
-"""Optimizer-state store over the arena (`repro/core/state_store.py`).
+"""Optimizer-state store over the arena (`repro/core/state_store.py`):
+pluggable codecs for both Adam moments, the paper's composition of AdamA
+with optimizer-state memory reduction.
 
-This slice ports the fp32 codec only: each moment is a full-precision
-Arena, folded and applied by one fused kernel each. The reference's int8,
-factored and rowcol codecs are queued (ROADMAP queue 1, item 7); asking
-for one raises NotImplementedError.
+A training configuration picks an (m_codec, v_codec) pair, and every
+registered pair runs through the same three fused kernels
+(kernels/fused_step.py): one fold per micro-batch (or per layer slice),
+one apply per mini-batch.
+
+First-moment codecs (m is signed and carries the update's direction):
+
+  fp32      (rows, LANES) fp32                   exact; the default.
+  int8      (rows, LANES) int8 + (rows, 1) fp32  per-row codes over
+            scales                               [-127, 127], truncated
+            toward zero, so |m_hat| <= |m|: the update is only ever damped.
+
+Second-moment codecs (v >= 0, under the square root):
+
+  fp32      (rows, LANES) fp32                   exact; the default.
+  int8      (rows, LANES) int8 + (rows, 1) fp32  ceil codes over [0, 127]:
+            0 <= v_hat - v <= rowmax/127 (never-amplify).
+  factored  (rows, 1) fp32                       the row max of g^2, decayed
+            as v is: an SM3-style upper bound, one cover per arena row.
+
+Every column is row-indexed. The reference's rowcol codec (row sums plus a
+column-sum block shared by every row) is not ported: asking for it raises
+NotImplementedError (ROADMAP queue 1, item 7). The finite guard, master
+params and the ZeRO-1 collectives wait for their slices too.
+
+The port updates state IN PLACE: the codec columns a fold or apply is
+given are the ones written, and a "new" state shares them with the old.
+Each codec declares the reference's conformance contract (`Conformance`),
+which tests/test_torch_codecs.py holds the port to.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.arena import Arena, ArenaLayout
 from repro_torch.kernels import fused_step
+from repro_torch.kernels.adama_accum import ftz
+from repro_torch.kernels.fused_step import LANES
 
-PORTED_CODECS = ("fp32",)
-_QUEUED_CODECS = ("int8", "factored", "rowcol")
+
+class MomentState:
+    """A codec-encoded Adam moment: a tuple of codec columns plus its
+    layout, codec name and moment."""
+
+    def __init__(self, parts, layout: ArenaLayout, codec: str,
+                 moment: str = "v"):
+        self.parts = tuple(parts)
+        self.layout = layout
+        self.codec = codec
+        self.moment = moment
+
+    def decode(self) -> torch.Tensor:
+        """The (rows, LANES) fp32 moment arena."""
+        return get_codec(self.codec, self.moment).decode(self.parts)
+
+    def __repr__(self):
+        return (f"MomentState({self.moment}_codec={self.codec!r}, "
+                f"rows={self.layout.rows}, "
+                f"parts={[tuple(p.shape) for p in self.parts]})")
 
 
-def check_codecs(m_codec: str, v_codec: str) -> None:
-    """Refuse any (m, v) codec pair this port cannot run."""
-    for moment, name in (("m", m_codec), ("v", v_codec)):
-        if name in PORTED_CODECS:
-            continue
-        if name in _QUEUED_CODECS:
-            raise NotImplementedError(
-                f"{moment}-codec {name!r} is not ported yet (ROADMAP queue 1, "
-                f"item 7: remaining codecs); this port has {PORTED_CODECS}")
-        raise KeyError(f"unknown {moment}-codec {name!r}; available: "
-                       f"{PORTED_CODECS}")
+@dataclass(frozen=True)
+class Conformance:
+    """The codec's declared accuracy contract (the reference's fields and
+    values)."""
+    # elementwise |p - p_fp32| after one mini-batch, in units of lr; None:
+    # no elementwise bound (a lossy statistic)
+    drift_lr: Optional[float]
+    # the drift the bf16 gradient wire may add, in units of lr
+    bf16_wire_lr: float
+    # |p_new - p_0| <= |p_new_fp32 - p_0| elementwise, per fold
+    never_amplify: bool
+    # every column row-indexed
+    row_local: bool
+    # adama vs adama_layerwise engine parity on the same codec pair
+    engine_tol: float
+    # the drift the fp8 wire with error feedback may add, in units of lr
+    fp8_wire_lr: float = 4.0
+
+
+class MomentCodec:
+    """Host-side half of a codec: storage init, decode and the codec-space
+    decay. The kernel-side half (columns and the plain fragments) is
+    `self.kernel`."""
+
+    name: str = "?"
+    moment: str = "?"
+    conformance: Conformance = None
+
+    @property
+    def kernel(self) -> fused_step.KernelCodec:
+        return fused_step.kernel_codec(self.moment, self.name)
+
+    def init(self, layout: ArenaLayout, device):
+        """Zeroed state on `device`, the reference's column shapes."""
+        return MomentState(tuple(torch.zeros((layout.rows, c.width),
+                                             dtype=c.dtype, device=device)
+                                 for c in self.kernel.cols),
+                           layout, self.name, self.moment)
+
+    def parts_of(self, state) -> Tuple[torch.Tensor, ...]:
+        return state.parts
+
+    def decode(self, parts) -> torch.Tensor:
+        """Full (rows, LANES) fp32 reconstruction (host, tests), with XLA
+        CPU's flush of subnormals as the reference's decode runs there."""
+        rows = parts[0].shape[0]
+        return self.kernel.decode(tuple(parts), ftz).expand(rows, LANES)
+
+    def scale_state(self, state, c: float):
+        """state <- c * state in codec space, in place (the
+        begin-minibatch decay)."""
+        raise NotImplementedError
+
+
+def _scale_(x: torch.Tensor, c: float) -> None:
+    x.copy_(ftz(x * c))
+
+
+class Fp32Codec(MomentCodec):
+    """Identity codec: the moment is a full-precision Arena."""
+
+    name = "fp32"
+    conformance = Conformance(drift_lr=0.0, never_amplify=True,
+                              row_local=True, engine_tol=5e-6,
+                              bf16_wire_lr=0.25, fp8_wire_lr=2.0)
+
+    def __init__(self, moment: str):
+        self.moment = moment
+
+    def init(self, layout, device):
+        return Arena.zeros(layout, device)
+
+    def parts_of(self, state):
+        return (state.data,)
+
+    def scale_state(self, state, c):
+        state.data.mul_(c)
+        return state
+
+
+class Int8Codec(MomentCodec):
+    """(rows, LANES) int8 codes + (rows, 1) fp32 row scales. m truncates
+    toward zero over [-127, 127]; v takes the ceiling over [0, 127]."""
+
+    name = "int8"
+    conformance = Conformance(drift_lr=2.0, never_amplify=True,
+                              row_local=True, engine_tol=2e-3,
+                              bf16_wire_lr=2.0, fp8_wire_lr=4.0)
+
+    def __init__(self, moment: str):
+        self.moment = moment
+
+    def scale_state(self, state, c):
+        # c * (q * s) == q * (c * s): the decay touches the scales only
+        _scale_(state.parts[1], c)
+        return state
+
+
+class FactoredCodec(MomentCodec):
+    """v as one (rows, 1) fp32 per-row statistic (SM3-style)."""
+
+    name = "factored"
+    moment = "v"
+    conformance = Conformance(drift_lr=None, never_amplify=True,
+                              row_local=True, engine_tol=5e-6,
+                              bf16_wire_lr=1.0, fp8_wire_lr=2.0)
+
+    def scale_state(self, state, c):
+        _scale_(state.parts[0], c)
+        return state
+
+
+M_CODECS = {c.name: c for c in (Fp32Codec("m"), Int8Codec("m"))}
+V_CODECS = {c.name: c for c in (Fp32Codec("v"), Int8Codec("v"),
+                                FactoredCodec())}
+_REGISTRIES = {"m": M_CODECS, "v": V_CODECS}
+# codecs of the reference that the port does not have yet
+QUEUED = {("v", "rowcol"): "ROADMAP queue 1, item 7: the rowcol codec, with "
+                           "its deterministic column-sum pass"}
+
+
+def get_codec(name, moment: str = "v") -> MomentCodec:
+    if isinstance(name, MomentCodec):
+        return name
+    if (moment, name) in QUEUED:
+        raise NotImplementedError(f"{moment}-codec {name!r} is not ported "
+                                  f"yet ({QUEUED[moment, name]})")
+    reg = _REGISTRIES[moment]
+    try:
+        return reg[name]
+    except KeyError:
+        raise KeyError(f"unknown {moment}-codec {name!r}; "
+                       f"available: {sorted(reg)}") from None
+
+
+def codec_of(state, moment: str = "v") -> MomentCodec:
+    """The codec backing an arena-backed moment state object."""
+    if isinstance(state, Arena):
+        return _REGISTRIES[moment]["fp32"]
+    if isinstance(state, MomentState):
+        return _REGISTRIES[state.moment][state.codec]
+    raise TypeError(f"not an arena-backed moment: {type(state)!r}")
+
+
+def is_arena_backed(state) -> bool:
+    return isinstance(state, (Arena, MomentState))
+
+
+def registered_combinations() -> Tuple[Tuple[str, str], ...]:
+    """Every (m_codec, v_codec) pair the store supports."""
+    return tuple((m, v) for m in sorted(M_CODECS) for v in sorted(V_CODECS))
+
+
+# ---------------------------------------------------------------------------
+# Pair-level fused ops: ONE kernel updates both moments
+# ---------------------------------------------------------------------------
+
+
+def fold(m_codec, v_codec, m_parts, v_parts, g, *, beta1, beta2, scale=1.0,
+         decay=None):
+    """Whole-arena fold of one micro-batch's gradient arena into both
+    moments, in place: one fused kernel. `decay=(dm, dv)` fuses the
+    begin-minibatch decay. Returns (m_parts, v_parts)."""
+    mc, vc = get_codec(m_codec, "m"), get_codec(v_codec, "v")
+    return fused_step.arena_fold(tuple(m_parts), tuple(v_parts), g,
+                                 beta1=beta1, beta2=beta2, scale=scale,
+                                 decay=decay, m_codec=mc.kernel,
+                                 v_codec=vc.kernel)
+
+
+def fold_slice(m_codec, v_codec, m_parts, v_parts, g, row_offset, *,
+               beta1, beta2, block, scale=1.0, decay=None):
+    """Fold a gradient slab into rows [row_offset, row_offset + rows_g) of
+    both moments, in place: one slice-fold kernel."""
+    mc, vc = get_codec(m_codec, "m"), get_codec(v_codec, "v")
+    return fused_step.arena_fold_slice(tuple(m_parts), tuple(v_parts), g,
+                                       row_offset, beta1=beta1, beta2=beta2,
+                                       block=block, scale=scale, decay=decay,
+                                       m_codec=mc.kernel, v_codec=vc.kernel)
+
+
+def apply(m_codec, v_codec, p, m_parts, v_parts, *, lr, bc1, bc2, eps=1e-8,
+          weight_decay=0.0):
+    """Bias-corrected apply over the packed param arena, decoding both
+    moments in-pass; p updated in place."""
+    mc, vc = get_codec(m_codec, "m"), get_codec(v_codec, "v")
+    return fused_step.arena_apply(p, tuple(m_parts), tuple(v_parts), lr=lr,
+                                  bc1=bc1, bc2=bc2, eps=eps,
+                                  weight_decay=weight_decay,
+                                  m_codec=mc.kernel, v_codec=vc.kernel)
+
+
+# ---------------------------------------------------------------------------
+# State-dict-level helpers (state = {"m": ..., "v": ..., "step": ...})
+# ---------------------------------------------------------------------------
+
+
+def state_codecs(state) -> Tuple[MomentCodec, MomentCodec]:
+    return codec_of(state["m"], "m"), codec_of(state["v"], "v")
 
 
 def fold_state(state, g, *, beta1, beta2, scale=1.0, decay=None):
-    """One fused fold of a packed gradient arena into the state dict's
-    m/v arenas, in place."""
-    fused_step.arena_fold(state["m"].data, state["v"].data, g, beta1=beta1,
-                          beta2=beta2, scale=scale, decay=decay)
+    """One fused fold of a packed gradient arena into the state dict, in
+    place."""
+    mc, vc = state_codecs(state)
+    fold(mc, vc, mc.parts_of(state["m"]), vc.parts_of(state["v"]), g,
+         beta1=beta1, beta2=beta2, scale=scale, decay=decay)
     return state
 
 
-def fold_slice(m, v, g, row_offset, *, beta1, beta2, block, scale=1.0,
-               decay=None):
-    """Fold a packed gradient slab into arena rows
-    [row_offset, row_offset + rows_g) of the m/v arena tensors, in place
-    (one slice-fold kernel). Returns (m, v)."""
-    return fused_step.arena_fold_slice(m, v, g, row_offset, beta1=beta1,
-                                       beta2=beta2, block=block, scale=scale,
-                                       decay=decay)
+def fold_slice_state(state, g, row_offset, *, beta1, beta2, block,
+                     scale=1.0, decay=None):
+    """One fused slice fold of a gradient slab into rows
+    [row_offset, row_offset + g.shape[0]) of the state dict, in place."""
+    mc, vc = state_codecs(state)
+    fold_slice(mc, vc, mc.parts_of(state["m"]), vc.parts_of(state["v"]), g,
+               row_offset, beta1=beta1, beta2=beta2, block=block,
+               scale=scale, decay=decay)
+    return state
 
 
 def apply_state(p, state, *, lr, bc1, bc2, eps=1e-8, weight_decay=0.0):
     """One fused bias-corrected apply of the state dict onto a param arena,
     p updated in place."""
-    return fused_step.arena_apply(p, state["m"].data, state["v"].data, lr=lr,
-                                  bc1=bc1, bc2=bc2, eps=eps,
-                                  weight_decay=weight_decay)
+    mc, vc = state_codecs(state)
+    return apply(mc, vc, p, mc.parts_of(state["m"]), vc.parts_of(state["v"]),
+                 lr=lr, bc1=bc1, bc2=bc2, eps=eps, weight_decay=weight_decay)
+
+
+def optimizer_state_bytes(state) -> int:
+    """Bytes of the state's m and v columns."""
+    mc, vc = state_codecs(state)
+    return sum(int(np.prod(p.shape)) * p.element_size()
+               for p in mc.parts_of(state["m"]) + vc.parts_of(state["v"]))

@@ -9,7 +9,12 @@ leaf (or per layer view of a stacked leaf).
                       oracle.
 
 They replace the Pallas kernel `repro/kernels/adama_accum.py::
-adama_accum_2d` for fp32 m, v and g (a bf16 g is queued). The reference
+adama_accum_2d` for fp32 m, v and g (a bf16 g is queued).
+
+The module also holds the row helpers of the reference's int8 and factored
+state codecs (`q8_encode_rows`, `q8s_encode_rows`, their decodes and
+`fac_row_stat`): the building blocks of the codec forms' plain versions in
+fused_step.py and the decode used on the host. The reference
 pads each leaf to (R, 1024) rows first (`kernels/ops.py::_to_2d`); the fold
 is elementwise, so the port skips the padding and folds the leaf's own
 memory in place: m, v and g are contiguous tensors of one shape, any shape.
@@ -28,10 +33,104 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.fused_step import _f32, _fma32
 
 # elements per step of the plain version (bounds its float64 temporaries)
 _PLAIN_CHUNK = 1 << 24
+
+
+def _f32(x) -> float:
+    return float(np.float32(x))
+
+
+def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 a*b + c with ONE rounding, like a fused multiply-add.
+
+    a*b is exact in float64 (24+24 significant bits). The float64 sum is
+    kept exact as s + err (TwoSum), rounded to odd (if inexact, the last
+    bit of s is forced odd toward err), and then rounded to float32; with
+    53 >= 24 + 2 bits that double rounding is correct."""
+    prod = a.double() * b.double()
+    c = c.double()
+    s = prod + c
+    bb = s - prod
+    err = (prod - (s - bb)) + (c - bb)
+    bits = s.view(torch.int64)
+    toward = torch.where((err > 0) == (s > 0), 1, -1)
+    bits = torch.where((err != 0) & ((bits & 1) == 0), bits + toward, bits)
+    return bits.view(torch.float64).float()
+
+
+def _sqrt32(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 sqrt (torch's CPU kernel is not): the
+    float64 root rounded once more to float32 is exact."""
+    return torch.sqrt(x.double()).float()
+
+# ---------------------------------------------------------------------------
+# Row helpers of the int8 and factored state codecs
+# ---------------------------------------------------------------------------
+#
+# The reference's helpers run under XLA CPU, which evaluates every
+# floating-point operation with subnormal inputs read as zero and subnormal
+# results flushed to zero (its executables run with the FTZ and DAZ bits
+# set; `q8_encode_rows`'s fallback scale relies on it). The helpers here
+# spell that out with `ftz` after each operation, on the CPU and on the
+# card alike, so that no global flag changes any other kernel.
+
+Q8_MAX = 127.0
+# float32(1/127): the reference multiplies by the weak-typed 1.0 / Q8_MAX
+Q8_INV = float(np.float32(1.0 / Q8_MAX))
+TINY = float(np.finfo(np.float32).tiny)      # 2^-126, the least normal
+
+
+def ftz(x: torch.Tensor) -> torch.Tensor:
+    """Flush subnormal float32 values to zero of the same sign."""
+    return torch.where(x.abs() < TINY, x * 0.0, x)
+
+
+def _row_scale(rowmax: torch.Tensor) -> torch.Tensor:
+    """rowmax * f32(1/127), flushed; a row whose scale flushed to zero but
+    whose max is not zero takes the max itself (codes collapse to 0/±1)."""
+    s = ftz(rowmax * Q8_INV)
+    return torch.where((s == 0.0) & (rowmax > 0.0), rowmax, s)
+
+
+def _safe(s: torch.Tensor) -> torch.Tensor:
+    return torch.where(s > 0.0, s, torch.ones_like(s))
+
+
+def q8_encode_rows(v: torch.Tensor):
+    """(R, LANES) float32, v >= 0 -> ((R, LANES) int8 codes, (R, 1) float32
+    scales): codes ceil(v / s) clipped to [0, 127], so v_hat >= v (but for
+    the reference's one-ulp dip at the row max, where 127 * s can round
+    below it). The divide is IEEE-rounded."""
+    v = ftz(v)
+    s = _row_scale(v.amax(dim=-1, keepdim=True))
+    q = torch.clamp(torch.ceil(ftz(v / _safe(s))), 0.0, Q8_MAX)
+    return q.to(torch.int8), s
+
+
+def q8_decode_rows(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Inverse of q8_encode_rows (exact for the stored codes)."""
+    return ftz(q.to(torch.float32) * ftz(s))
+
+
+def q8s_encode_rows(m: torch.Tensor):
+    """(R, LANES) float32, signed -> ((R, LANES) int8, (R, 1) float32):
+    codes trunc(m / s) clipped to [-127, 127], rounding toward zero, so
+    |m_hat| <= |m|; s from the row max of |m|."""
+    m = ftz(m)
+    s = _row_scale(m.abs().amax(dim=-1, keepdim=True))
+    q = torch.clamp(torch.trunc(ftz(m / _safe(s))), -Q8_MAX, Q8_MAX)
+    return q.to(torch.int8), s
+
+
+q8s_decode_rows = q8_decode_rows
+
+
+def fac_row_stat(g2: torch.Tensor) -> torch.Tensor:
+    """The factored codec's per-row statistic: the row max of g^2."""
+    return ftz(g2).amax(dim=-1, keepdim=True)
+
 
 _P, _I64, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
 # C signature of the launcher in csrc/adama_accum.cu (the trailing pointer

@@ -1,7 +1,7 @@
 """Arena-wide fused AdamA kernels: the whole-arena m/v fold (one launch per
 micro-batch), the slice fold of Algorithm 2 (one launch per layer and one
 for the rest region, per micro-batch) and the bias-corrected apply (one
-launch per mini-batch).
+launch per mini-batch), for every ported (m codec, v codec) pair.
 
 Each function has two forms, side by side:
 
@@ -14,29 +14,61 @@ Each function has two forms, side by side:
   arena_apply_ref                   the CPU and as the kernels' oracle.
 
 They replace the Pallas kernels of `repro/kernels/fused_step.py` in the
-fp32-moment, fp32-wire, unguarded, static-scale form. The m/v (fold) and p
-(apply) arenas are updated IN PLACE, where the reference aliases input to
-output.
+fp32-wire, unguarded, static-scale form. The state (fold) and p (apply)
+are updated IN PLACE, where the reference aliases input to output.
+
+A codec is data (`KernelCodec`, as in the reference): the arena columns
+its moment rides in and its number in the CUDA source, plus the plain
+decode and update that the plain versions run. A moment is a bare tensor
+for fp32 and a tuple of columns otherwise:
+
+  fp32      (rows, LANES) float32
+  int8      (rows, LANES) int8 codes + (rows, 1) float32 row scales; m
+            truncates toward zero over [-127, 127], v takes the ceiling
+            over [0, 127] (adama_accum.q8s_encode_rows / q8_encode_rows)
+  factored  (v only) (rows, 1) float32: the row max of g^2, decayed
+
+Every column is row-indexed. The reference's rowcol codec, whose column
+sums are shared by every row, is not ported (ROADMAP queue 1, item 7).
 
 Scalars are rounded to float32 on the host the way JAX's weak-typed Python
 floats are: `1 - beta1` is formed in double and then rounded (0.1f for
 beta1=0.9, where `1.0f - 0.9f` would give 0.10000002).
 
-The reference's CPU lowering evaluates the fold's `d*m + c*g` pairs and the
-apply's final `p - lr*u` (and `u + wd*p`) as fused multiply-adds, and its
-`(m/bc1) / (sqrt(v/bc2) + eps)` as `m / (bc1*(sqrt(v/bc2) + eps))`. The
-kernels spell out the same operations; the plain versions compute each
-fused multiply-add exactly with `_fma32`. Kernel, plain version and
-reference therefore agree bit for bit.
+The reference's CPU lowering (XLA) contracts some multiply-add pairs into
+fused multiply-adds, and which operand it fuses depends on the codec:
+
+  fp32 moment    d*m + c*x          as fma(d, m, c*x)
+  int8 m         d*(q*s) + c*x      as fma(c, x, d*(q*s))
+  int8 v         d*(q*s) + c*x      as fma(d, q*s, c*x)
+  factored v     d*f + c*max(x)     as fma(d, f, c*max(x))
+  apply          p - lr*u           as fma(-lr, u, p)
+                 u + wd*p           as fma(wd, p, u)
+                 (m/bc1) / (sqrt(v/bc2) + eps)
+                                    as m / (bc1*(sqrt(v/bc2) + eps))
+
+with x = scale*g for m and (scale*g)^2 for v. The kernels spell out the
+same operations; the plain versions compute each fused multiply-add
+exactly with `_fma32`. XLA CPU also reads subnormal operands as zero and
+flushes subnormal results to zero. Every pair but fp32/fp32 does the same,
+explicitly, after every operation (`adama_accum.ftz`); the fp32/fp32 pair
+keeps IEEE subnormals (`_flush`). Kernel, plain version and reference
+therefore agree bit for bit (fp32/fp32 only where no value falls below
+2^-126).
 """
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass, field
+from typing import Callable, Tuple
 
-import numpy as np
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.adama_accum import (_f32, _fma32, _sqrt32,
+                                             fac_row_stat, ftz,
+                                             q8_decode_rows, q8_encode_rows,
+                                             q8s_encode_rows)
 
 LANES = 1024          # arena row width (the reference's 8 x 128 lanes)
 BLOCK_ROWS = 256      # arena row-count granularity above 256 rows
@@ -46,71 +78,188 @@ BLOCK_ROWS = 256      # arena row-count granularity above 256 rows
 _PLAIN_CHUNK_ROWS = 16384
 
 
-def _f32(x) -> float:
-    return float(np.float32(x))
+# ---------------------------------------------------------------------------
+# Codec descriptors
+# ---------------------------------------------------------------------------
 
 
-def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """float32 a*b + c with ONE rounding, like a fused multiply-add.
-
-    a*b is exact in float64 (24+24 significant bits). The float64 sum is
-    kept exact as s + err (TwoSum), rounded to odd (if inexact, the last
-    bit of s is forced odd toward err), and then rounded to float32; with
-    53 >= 24 + 2 bits that double rounding is correct."""
-    prod = a.double() * b.double()
-    c = c.double()
-    s = prod + c
-    bb = s - prod
-    err = (prod - (s - bb)) + (c - bb)
-    bits = s.view(torch.int64)
-    toward = torch.where((err > 0) == (s > 0), 1, -1)
-    bits = torch.where((err != 0) & ((bits & 1) == 0), bits + toward, bits)
-    return bits.view(torch.float64).float()
+@dataclass(frozen=True)
+class Col:
+    """One arena column of a codec's state, (rows, width) when
+    `row_indexed` (every ported codec's columns are)."""
+    width: int
+    dtype: torch.dtype
+    row_indexed: bool = True
 
 
-def _sqrt32(x: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded float32 sqrt (torch's CPU kernel is not): the
-    float64 root rounded once more to float32 is exact."""
-    return torch.sqrt(x.double()).float()
+@dataclass(frozen=True)
+class KernelCodec:
+    """What a codec contributes to the fused kernels: its columns, its
+    number in csrc/fused_step.cu (`kind`), and the plain decode and update
+    of the codec forms."""
+    name: str
+    cols: Tuple[Col, ...]
+    kind: int
+    # decode(parts, fl) -> float32, broadcastable to (rows, LANES)
+    decode: Callable = field(repr=False)
+    # update(parts, x, decay, coeff, fl) -> new parts:
+    # decay*moment + coeff*x; `fl` is the pair's flush (`_flush`)
+    update: Callable = field(repr=False)
 
 
-def _check_arenas(fn: str, *ts: torch.Tensor, same_rows: bool = True) -> None:
-    """Every operand: fp32, (rows, LANES), contiguous, one shape (or only
-    one row width, `same_rows=False`) and one device (CPU or CUDA, 16-byte
-    aligned on CUDA for float4 access)."""
-    ref = ts[0]
-    for t in ts:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{fn}: expected float32 operands, got {t.dtype}")
-        if t.dim() != 2 or t.shape[1] != LANES:
-            raise ValueError(f"{fn}: expected (rows, {LANES}) operands, got "
-                             f"{tuple(t.shape)}")
-        if same_rows and t.shape != ref.shape:
-            raise ValueError(f"{fn}: operand shapes differ: "
-                             f"{tuple(t.shape)} vs {tuple(ref.shape)}")
-        if not t.is_contiguous():
+def _ieee(x):
+    return x
+
+
+def _flush(mk: KernelCodec, vk: KernelCodec):
+    """The pair's subnormal handling: XLA CPU's flush (`ftz`) for every
+    pair but fp32/fp32, which keeps IEEE subnormals."""
+    return _ieee if mk.kind == vk.kind == 0 else ftz
+
+
+def _fp32_decode(parts, fl):
+    return fl(parts[0])
+
+
+def _fp32_update(parts, x, decay, coeff, fl):
+    return (fl(_fma32(decay, fl(parts[0]), fl(coeff * x))),)
+
+
+# the int8 and factored codecs only ride in flushing pairs (fl is ftz)
+def _q8_decode(parts, fl):
+    return q8_decode_rows(parts[0], parts[1])
+
+
+def _q8u_update(parts, x, decay, coeff, fl):
+    return q8_encode_rows(
+        ftz(_fma32(decay, _q8_decode(parts, fl), ftz(coeff * x))))
+
+
+def _q8s_update(parts, x, decay, coeff, fl):
+    return q8s_encode_rows(
+        ftz(_fma32(coeff, x, ftz(decay * _q8_decode(parts, fl)))))
+
+
+def _fac_update(parts, x, decay, coeff, fl):
+    return (ftz(_fma32(decay, ftz(parts[0]), ftz(coeff * fac_row_stat(x)))),)
+
+
+_F32_COLS = (Col(LANES, torch.float32),)
+_Q8_COLS = (Col(LANES, torch.int8), Col(1, torch.float32))
+_KERNEL_CODECS = {
+    "m": {
+        "fp32": KernelCodec("fp32", _F32_COLS, 0, _fp32_decode, _fp32_update),
+        "int8": KernelCodec("int8", _Q8_COLS, 1, _q8_decode, _q8s_update),
+    },
+    "v": {
+        "fp32": KernelCodec("fp32", _F32_COLS, 0, _fp32_decode, _fp32_update),
+        "int8": KernelCodec("int8", _Q8_COLS, 1, _q8_decode, _q8u_update),
+        "factored": KernelCodec("factored", (Col(1, torch.float32),), 2,
+                                _fp32_decode, _fac_update),
+    },
+}
+
+
+def kernel_codec(moment: str, name) -> KernelCodec:
+    """Resolve a kernel codec by (moment, name); KernelCodec passes
+    through."""
+    if isinstance(name, KernelCodec):
+        return name
+    try:
+        return _KERNEL_CODECS[moment][name]
+    except KeyError:
+        raise KeyError(f"unknown {moment}-codec kernel {name!r}; available: "
+                       f"{sorted(_KERNEL_CODECS[moment])}") from None
+
+
+def _as_parts(x):
+    """A moment as a column tuple, and whether it came bare (fp32)."""
+    if isinstance(x, (tuple, list)):
+        return tuple(x), False
+    return (x,), True
+
+
+def _check_parts(fn: str, parts, kc: KernelCodec, rows: int, device) -> None:
+    """A codec's columns: their count, shapes, dtypes, contiguity and
+    device (16-byte aligned on CUDA)."""
+    if len(parts) != len(kc.cols):
+        raise ValueError(f"{fn}: {kc.name} takes {len(kc.cols)} columns, "
+                         f"got {len(parts)}")
+    for p, c in zip(parts, kc.cols):
+        if p.dtype != c.dtype:
+            raise TypeError(f"{fn}: {kc.name} column must be {c.dtype}, "
+                            f"got {p.dtype}")
+        if tuple(p.shape) != (rows, c.width):
+            raise ValueError(f"{fn}: {kc.name} column must be ({rows}, "
+                             f"{c.width}), got {tuple(p.shape)}")
+        if not p.is_contiguous():
             raise ValueError(f"{fn}: operands must be contiguous")
-        if t.device != ref.device:
-            raise ValueError(f"{fn}: operands on {t.device} and {ref.device}")
-        if t.device.type not in ("cpu", "cuda"):
-            raise ValueError(f"{fn}: unsupported device {t.device}")
-        if t.device.type == "cuda" and t.data_ptr() % 16:
+        if p.device != device:
+            raise ValueError(f"{fn}: operands on {p.device} and {device}")
+        if p.device.type == "cuda" and p.data_ptr() % 16:
             raise ValueError(f"{fn}: CUDA operands must be 16-byte aligned")
 
 
-_P, _I64, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
-# C signatures of the launchers in csrc/fused_step.cu (the trailing pointer
-# is the CUDA stream)
+def _check_lead(fn: str, t: torch.Tensor) -> None:
+    """g (or p, for the apply): fp32, (rows, LANES), contiguous, on the CPU
+    or CUDA (16-byte aligned there, for float4 access)."""
+    if t.dtype != torch.float32:
+        raise TypeError(f"{fn}: expected float32 operands, got {t.dtype}")
+    if t.dim() != 2 or t.shape[1] != LANES:
+        raise ValueError(f"{fn}: expected (rows, {LANES}) operands, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{fn}: operands must be contiguous")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{fn}: unsupported device {t.device}")
+    if t.device.type == "cuda" and t.data_ptr() % 16:
+        raise ValueError(f"{fn}: CUDA operands must be 16-byte aligned")
+
+
+def _check_state(fn, mk, vk, m_parts, v_parts, lead, rows) -> None:
+    """`lead` (g, or p for the apply), then the m and v columns over
+    `rows` arena rows on its device."""
+    _check_lead(fn, lead)
+    _check_parts(fn, m_parts, mk, rows, lead.device)
+    _check_parts(fn, v_parts, vk, rows, lead.device)
+
+
+_P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                    ctypes.c_float)
+# C signatures of the launchers in csrc/fused_step.cu: the two codecs'
+# kinds, two column pointers per moment (the second NULL for a one-column
+# codec), ..., the CUDA stream. arena_fold_launch serves the whole-arena
+# fold (row offset 0) and the slice fold.
 SIGNATURES = {
-    "arena_fold_launch": (_P, _P, _P, _I64, _F, _F, _F, _F, _F, _P),
-    "arena_fold_slice_launch": (_P, _P, _P, _I64, _I64, _F, _F, _F, _F, _F,
-                                _P),
-    "arena_apply_launch": (_P, _P, _P, _I64, _F, _F, _F, _F, _F, _P),
+    "arena_fold_launch": (_I, _I, _P, _P, _P, _P, _P, _I64, _I64, _F, _F, _F,
+                          _F, _F, _P),
+    "arena_apply_launch": (_I, _I, _P, _P, _P, _P, _P, _I64, _F, _F, _F, _F,
+                           _F, _P),
 }
 
 
 def _lib() -> ctypes.CDLL:
     return build.bind("fused_step", SIGNATURES)
+
+
+def _ptrs(parts):
+    return tuple(p.data_ptr() for p in parts) + (None,) * (2 - len(parts))
+
+
+def _rows(parts, lo: int, hi: int):
+    return tuple(p[lo:hi] for p in parts)
+
+
+def _write(parts, new) -> None:
+    for p, x in zip(parts, new):
+        p.copy_(x)
+
+
+def _scalars_on(device, *xs):
+    """Host scalars as float32 tensors on `device` (torch on CUDA divides
+    by a host scalar as a multiply by its reciprocal)."""
+    return tuple(torch.tensor(x, dtype=torch.float32, device=device)
+                 for x in xs)
 
 
 # ---------------------------------------------------------------------------
@@ -124,39 +273,47 @@ def _fold_scalars(beta1, beta2, scale, decay):
             _f32(dv))
 
 
-def fold_args(m, v, g, beta1, beta2, scale, decay):
+def fold_args(mk, vk, m_parts, v_parts, g, row_offset, beta1, beta2,
+              scale, decay):
     """Arguments of arena_fold_launch, the stream excepted."""
-    return (m.data_ptr(), v.data_ptr(), g.data_ptr(), m.numel(),
-            *_fold_scalars(beta1, beta2, scale, decay))
+    return (mk.kind, vk.kind, *_ptrs(m_parts), *_ptrs(v_parts), g.data_ptr(),
+            row_offset, g.shape[0], *_fold_scalars(beta1, beta2, scale, decay))
 
 
 def arena_fold_ref(m, v, g, *, beta1: float, beta2: float, scale=1.0,
-                   decay=None):
+                   decay=None, m_codec="fp32", v_codec="fp32"):
     """Plain version of `arena_fold` (same operations, same order)."""
-    s, c1, c2, dm, dv = (torch.tensor(x, dtype=torch.float32,
-                                      device=m.device)
-                         for x in _fold_scalars(beta1, beta2, scale, decay))
-    for lo in range(0, m.shape[0], _PLAIN_CHUNK_ROWS):
-        mc, vc = m[lo:lo + _PLAIN_CHUNK_ROWS], v[lo:lo + _PLAIN_CHUNK_ROWS]
-        gs = g[lo:lo + _PLAIN_CHUNK_ROWS] * s
-        mc.copy_(_fma32(dm, mc, c1 * gs))
-        vc.copy_(_fma32(dv, vc, c2 * (gs * gs)))
+    mk, vk = kernel_codec("m", m_codec), kernel_codec("v", v_codec)
+    (m_parts, _), (v_parts, _) = _as_parts(m), _as_parts(v)
+    s, c1, c2, dm, dv = _scalars_on(g.device, *_fold_scalars(
+        beta1, beta2, scale, decay))
+    fl = _flush(mk, vk)
+    for lo in range(0, g.shape[0], _PLAIN_CHUNK_ROWS):
+        hi = lo + _PLAIN_CHUNK_ROWS
+        gs = fl(fl(g[lo:hi]) * s)
+        mp, vp = _rows(m_parts, lo, hi), _rows(v_parts, lo, hi)
+        _write(mp, mk.update(mp, gs, dm, c1, fl))
+        _write(vp, vk.update(vp, fl(gs * gs), dv, c2, fl))
     return m, v
 
 
 def arena_fold(m, v, g, *, beta1: float, beta2: float, scale=1.0,
-               decay=None):
-    """Fold one micro-batch's packed gradient `g` into the m/v arenas, in
-    place: m = dm*m + (1-beta1)*(scale*g), v = dv*v + (1-beta2)*(scale*g)^2.
-    `decay=(dm, dv)` fuses the begin-minibatch decay into this fold (pass
-    (beta1, beta2) on the first micro-batch); None means (1, 1).
-    Returns (m, v)."""
-    _check_arenas("arena_fold", m, v, g)
-    if m.device.type == "cpu":
+               decay=None, m_codec="fp32", v_codec="fp32"):
+    """Fold one micro-batch's packed gradient `g` into both moments, in
+    place: m = dm*m + (1-beta1)*(scale*g), v = dv*v + (1-beta2)*(scale*g)^2,
+    each in its codec's space. `m`/`v` are the codecs' column tuples (bare
+    tensors for fp32). `decay=(dm, dv)` fuses the begin-minibatch decay
+    into this fold (pass (beta1, beta2) on the first micro-batch); None
+    means (1, 1). Returns (m, v)."""
+    mk, vk = kernel_codec("m", m_codec), kernel_codec("v", v_codec)
+    (m_parts, _), (v_parts, _) = _as_parts(m), _as_parts(v)
+    _check_state("arena_fold", mk, vk, m_parts, v_parts, g, g.shape[0])
+    if g.device.type == "cpu":
         return arena_fold_ref(m, v, g, beta1=beta1, beta2=beta2, scale=scale,
-                              decay=decay)
-    build.launch("arena_fold", _lib().arena_fold_launch, m,
-                 *fold_args(m, v, g, beta1, beta2, scale, decay))
+                              decay=decay, m_codec=mk, v_codec=vk)
+    build.launch("arena_fold", _lib().arena_fold_launch, g,
+                 *fold_args(mk, vk, m_parts, v_parts, g, 0, beta1, beta2,
+                            scale, decay))
     arena_fold.launches += 1
     return m, v
 
@@ -164,54 +321,57 @@ def arena_fold(m, v, g, *, beta1: float, beta2: float, scale=1.0,
 arena_fold.launches = 0
 
 
-def fold_slice_args(m, v, g, row_offset, beta1, beta2, scale, decay):
-    """Arguments of arena_fold_slice_launch, the stream excepted."""
-    return (m.data_ptr(), v.data_ptr(), g.data_ptr(), row_offset, g.shape[0],
-            *_fold_scalars(beta1, beta2, scale, decay))
-
-
-def _check_slice(m, v, g, row_offset: int, block: int) -> None:
+def _check_slice(mk, vk, m_parts, v_parts, g, row_offset: int,
+                 block: int) -> None:
     """The reference's checks (fused_step.py::arena_fold_slice): whole
     blocks of rows, a block-aligned offset, and the slice inside the
     arena."""
-    _check_arenas("arena_fold_slice", m, v)
-    _check_arenas("arena_fold_slice", m, g, same_rows=False)
+    rows = m_parts[0].shape[0]
+    _check_state("arena_fold_slice", mk, vk, m_parts, v_parts, g, rows)
     rows_g = g.shape[0]
     if block < 1 or rows_g % block or row_offset % block:
         raise ValueError(f"arena_fold_slice: slab rows {rows_g} and row "
                          f"offset {row_offset} must be multiples of the "
                          f"block {block}")
-    if row_offset < 0 or row_offset + rows_g > m.shape[0]:
+    if row_offset < 0 or row_offset + rows_g > rows:
         raise ValueError(f"arena_fold_slice: rows [{row_offset}, "
                          f"{row_offset + rows_g}) lie outside the arena's "
-                         f"{m.shape[0]} rows")
+                         f"{rows} rows")
 
 
 def arena_fold_slice_ref(m, v, g, row_offset: int, *, beta1: float,
-                         beta2: float, block: int, scale=1.0, decay=None):
+                         beta2: float, block: int, scale=1.0, decay=None,
+                         m_codec="fp32", v_codec="fp32"):
     """Plain version of `arena_fold_slice`: `arena_fold_ref` on the rows
-    of the slice (views of m and v). `block` is checked by the wrapper."""
-    rows = slice(row_offset, row_offset + g.shape[0])
-    arena_fold_ref(m[rows], v[rows], g, beta1=beta1, beta2=beta2, scale=scale,
-                   decay=decay)
+    of the slice (views of every column). `block` is checked by the
+    wrapper."""
+    (m_parts, m_bare), (v_parts, v_bare) = _as_parts(m), _as_parts(v)
+    hi = row_offset + g.shape[0]
+    ms, vs = _rows(m_parts, row_offset, hi), _rows(v_parts, row_offset, hi)
+    arena_fold_ref(ms[0] if m_bare else ms, vs[0] if v_bare else vs, g,
+                   beta1=beta1, beta2=beta2, scale=scale, decay=decay,
+                   m_codec=m_codec, v_codec=v_codec)
     return m, v
 
 
 def arena_fold_slice(m, v, g, row_offset: int, *, beta1: float, beta2: float,
-                     block: int, scale=1.0, decay=None):
+                     block: int, scale=1.0, decay=None, m_codec="fp32",
+                     v_codec="fp32"):
     """Fold a (rows_g, LANES) gradient slab into arena rows
-    [row_offset, row_offset + rows_g) of m and v, in place, with the
+    [row_offset, row_offset + rows_g) of both moments, in place, with the
     arena_fold arithmetic; every other row is left untouched. `block` is
     the layout's `slice_block` for the region: rows_g and row_offset must
     be multiples of it. Returns (m, v)."""
-    _check_slice(m, v, g, row_offset, block)
-    if m.device.type == "cpu":
+    mk, vk = kernel_codec("m", m_codec), kernel_codec("v", v_codec)
+    (m_parts, _), (v_parts, _) = _as_parts(m), _as_parts(v)
+    _check_slice(mk, vk, m_parts, v_parts, g, row_offset, block)
+    if g.device.type == "cpu":
         return arena_fold_slice_ref(m, v, g, row_offset, beta1=beta1,
                                     beta2=beta2, block=block, scale=scale,
-                                    decay=decay)
-    build.launch("arena_fold_slice", _lib().arena_fold_slice_launch, m,
-                 *fold_slice_args(m, v, g, row_offset, beta1, beta2, scale,
-                                  decay))
+                                    decay=decay, m_codec=mk, v_codec=vk)
+    build.launch("arena_fold_slice", _lib().arena_fold_launch, g,
+                 *fold_args(mk, vk, m_parts, v_parts, g, row_offset, beta1,
+                            beta2, scale, decay))
     arena_fold_slice.launches += 1
     return m, v
 
@@ -228,39 +388,50 @@ def _apply_scalars(lr, bc1, bc2, eps, weight_decay):
     return (_f32(lr), _f32(bc1), _f32(bc2), _f32(eps), _f32(weight_decay))
 
 
-def apply_args(p, m, v, lr, bc1, bc2, eps, weight_decay):
+def apply_args(mk, vk, p, m_parts, v_parts, lr, bc1, bc2, eps,
+               weight_decay):
     """Arguments of arena_apply_launch, the stream excepted."""
-    return (p.data_ptr(), m.data_ptr(), v.data_ptr(), p.numel(),
-            *_apply_scalars(lr, bc1, bc2, eps, weight_decay))
+    return (mk.kind, vk.kind, p.data_ptr(), *_ptrs(m_parts), *_ptrs(v_parts),
+            p.shape[0], *_apply_scalars(lr, bc1, bc2, eps, weight_decay))
 
 
 def arena_apply_ref(p, m, v, *, lr, bc1, bc2, eps: float = 1e-8,
-                    weight_decay: float = 0.0):
+                    weight_decay: float = 0.0, m_codec="fp32",
+                    v_codec="fp32"):
     """Plain version of `arena_apply` (same operations, same order)."""
-    lr, bc1, bc2, eps, wd = (torch.tensor(x, dtype=torch.float32,
-                                          device=p.device)
-                             for x in _apply_scalars(lr, bc1, bc2, eps,
-                                                     weight_decay))
+    mk, vk = kernel_codec("m", m_codec), kernel_codec("v", v_codec)
+    (m_parts, _), (v_parts, _) = _as_parts(m), _as_parts(v)
+    lr, bc1, bc2, eps, wd = _scalars_on(p.device, *_apply_scalars(
+        lr, bc1, bc2, eps, weight_decay))
+    fl = _flush(mk, vk)
     for lo in range(0, p.shape[0], _PLAIN_CHUNK_ROWS):
-        pc = p[lo:lo + _PLAIN_CHUNK_ROWS]
-        u = m[lo:lo + _PLAIN_CHUNK_ROWS] / (
-            bc1 * (_sqrt32(v[lo:lo + _PLAIN_CHUNK_ROWS] / bc2) + eps))
+        hi = lo + _PLAIN_CHUNK_ROWS
+        pc = p[lo:hi]
+        pf = fl(pc)
+        vh = vk.decode(_rows(v_parts, lo, hi), fl)   # (rows, 1) factored
+        den = fl(bc1 * fl(fl(_sqrt32(fl(vh / bc2))) + eps))
+        u = fl(mk.decode(_rows(m_parts, lo, hi), fl) / den)
         if weight_decay:
-            u = _fma32(wd, pc, u)
-        pc.copy_(_fma32(-lr, u, pc))
+            u = fl(_fma32(wd, pf, u))
+        pc.copy_(fl(_fma32(-lr, u, pf)))
     return p
 
 
 def arena_apply(p, m, v, *, lr, bc1, bc2, eps: float = 1e-8,
-                weight_decay: float = 0.0):
-    """Bias-corrected Adam apply over the packed param arena, in place:
+                weight_decay: float = 0.0, m_codec="fp32", v_codec="fp32"):
+    """Bias-corrected Adam apply over the packed param arena, in place,
+    decoding both moments in-pass:
     p = p - lr*(m/bc1 / (sqrt(v/bc2) + eps) + weight_decay*p). Returns p."""
-    _check_arenas("arena_apply", p, m, v)
+    mk, vk = kernel_codec("m", m_codec), kernel_codec("v", v_codec)
+    (m_parts, _), (v_parts, _) = _as_parts(m), _as_parts(v)
+    _check_state("arena_apply", mk, vk, m_parts, v_parts, p, p.shape[0])
     if p.device.type == "cpu":
         return arena_apply_ref(p, m, v, lr=lr, bc1=bc1, bc2=bc2, eps=eps,
-                               weight_decay=weight_decay)
+                               weight_decay=weight_decay, m_codec=mk,
+                               v_codec=vk)
     build.launch("arena_apply", _lib().arena_apply_launch, p,
-                 *apply_args(p, m, v, lr, bc1, bc2, eps, weight_decay))
+                 *apply_args(mk, vk, p, m_parts, v_parts, lr, bc1, bc2, eps,
+                             weight_decay))
     arena_apply.launches += 1
     return p
 

@@ -1,7 +1,8 @@
 """Split the memory Algorithm 2 saves into what its recompute saves and
 what folding each layer's gradient at once saves, on the GPU.
 
-With the params and the (m, v) arenas resident as in training, one
+With the params and the (m, v) state resident as in training (in the
+codecs `--m-codec` and `--state-codec` name), one
 micro-batch's gradient work is run three ways, and each one's peak of
 `torch.cuda.max_memory_allocated` above the resident bytes is printed:
 
@@ -29,10 +30,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import get_config
-from repro_torch.core import adama
+from repro_torch.core import adama, state_store
 from repro_torch.core import arena as arena_mod
 from repro_torch.core.layerwise import layerwise_loss_and_fold
 from repro_torch.data import make_data
+from repro_torch.launch.train import add_codec_args
 from repro_torch.models import modules as md
 from repro_torch.models.model import (Model, apply_block, cross_entropy,
                                       embed_tokens, init_params, loss_fn)
@@ -66,6 +68,7 @@ def main(argv=None):
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--micro-batch", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
+    add_codec_args(ap)
     args = ap.parse_args(argv)
 
     device = resolve_device("cuda")
@@ -75,7 +78,8 @@ def main(argv=None):
     model = Model(cfg, init_params(cfg, gen))
     tree = model.tree()
     leaves, paths = arena_mod.tree_flatten(tree)
-    state = adama.init_arena(tree)
+    state = adama.init_arena(tree, codec=args.state_codec,
+                             m_codec=args.m_codec)
     layout = state["m"].layout
     batch = {k: torch.from_numpy(v).to(device) for k, v in
              make_data(cfg, args.seq_len, args.micro_batch,
@@ -113,6 +117,8 @@ def main(argv=None):
     print(json.dumps({
         "arch": cfg.name, "seq_len": args.seq_len,
         "micro_batch": args.micro_batch,
+        "m_codec": args.m_codec, "state_codec": args.state_codec,
+        "state_bytes": state_store.optimizer_state_bytes(state),
         "device": torch.cuda.get_device_name(0),
         "resident_bytes": resident,
         "gradient_tree_bytes": sum(x.numel() * 4 for x in leaves),

@@ -28,6 +28,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs.base import (ACCUM_ENGINES, OptimizerConfig,
                                       RunConfig, get_config)
+from repro_torch.launch.train import add_codec_args
 from repro_torch.train.loop import train
 
 
@@ -49,6 +50,7 @@ def main(argv=None):
     ap.add_argument("--per-leaf", action="store_true",
                     help="per-leaf optimizer state (arena=False): adama and "
                          "adama_layerwise fold and apply leaf by leaf")
+    add_codec_args(ap)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--num-layers", type=int, default=None,
@@ -61,7 +63,9 @@ def main(argv=None):
     run = RunConfig(model=cfg,
                     optimizer=OptimizerConfig(accumulation=args.accumulation,
                                               micro_batches=args.micro_batches,
-                                              arena=not args.per_leaf),
+                                              arena=not args.per_leaf,
+                                              state_codec=args.state_codec,
+                                              m_codec=args.m_codec),
                     seq_len=args.seq_len, global_batch=args.global_batch,
                     seed=args.seed, steps=2, log_every=1)
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
@@ -78,6 +82,7 @@ def main(argv=None):
         "arch": cfg.name, "num_layers": cfg.num_layers,
         "accumulation": args.accumulation,
         "per_leaf": args.per_leaf,
+        "m_codec": args.m_codec, "state_codec": args.state_codec,
         "seq_len": args.seq_len, "global_batch": args.global_batch,
         "micro_batches": args.micro_batches,
         "device": torch.cuda.get_device_name(0),

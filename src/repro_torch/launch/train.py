@@ -11,6 +11,10 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch bert-large \
       --reduced --steps 2 --global-batch 4 --micro-batches 2 --seq-len 16 \
       --accumulation adama_layerwise --per-leaf --log-every 1 --device cpu
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \
+      --reduced --steps 4 --global-batch 8 --micro-batches 2 --seq-len 32 \
+      --m-codec int8 --state-codec int8 --log-every 1 --device cpu
 """
 from __future__ import annotations
 
@@ -18,10 +22,22 @@ import argparse
 
 import torch
 
-from repro_torch.configs.base import (ACCUM_ENGINES, OptimizerConfig,
+from repro_torch.configs.base import (ACCUM_ENGINES, M_CODECS,
+                                      STATE_CODECS, OptimizerConfig,
                                       RunConfig, get_config)
 from repro_torch.optim import schedule as sched
 from repro_torch.train.loop import train
+
+
+def add_codec_args(ap: argparse.ArgumentParser) -> None:
+    """The reference CLI's codec flags."""
+    ap.add_argument("--state-codec", default="fp32",
+                    choices=list(STATE_CODECS),
+                    help="second-moment codec over the arena "
+                         "(core/state_store.py; rowcol is not ported yet)")
+    ap.add_argument("--m-codec", default="fp32", choices=list(M_CODECS),
+                    help="first-moment codec over the arena "
+                         "(core/state_store.py)")
 
 
 def main(argv=None):
@@ -38,6 +54,7 @@ def main(argv=None):
     ap.add_argument("--per-leaf", action="store_true",
                     help="per-leaf optimizer state (arena=False): adama and "
                          "adama_layerwise fold and apply leaf by leaf")
+    add_codec_args(ap)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
@@ -54,7 +71,9 @@ def main(argv=None):
         model=cfg,
         optimizer=OptimizerConfig(accumulation=args.accumulation,
                                   micro_batches=args.micro_batches,
-                                  lr=args.lr, arena=not args.per_leaf),
+                                  lr=args.lr, arena=not args.per_leaf,
+                                  state_codec=args.state_codec,
+                                  m_codec=args.m_codec),
         seq_len=args.seq_len, global_batch=args.global_batch, seed=args.seed,
         steps=args.steps, log_every=args.log_every)
     lr_fn = sched.warmup_cosine(args.lr, args.warmup, args.steps)

@@ -127,26 +127,36 @@ def test_cpu_wrappers_run_the_plain_version_and_count_no_launch(monkeypatch):
         (folds, applies)
 
 
-@pytest.mark.parametrize("name", sorted(tfs.SIGNATURES))
-def test_launch_arguments_match_the_declared_c_signatures(name):
-    """ctypes converts every argument the wrappers pass (pointers as
-    c_void_p, the count as int64, scalars as float32)."""
+@pytest.mark.parametrize("entry", ["arena_fold", "arena_fold_slice",
+                                   "arena_apply"])
+def test_launch_arguments_match_the_declared_c_signatures(entry):
+    """ctypes converts every argument the fp32/fp32 wrappers pass (the
+    kinds as int, pointers as c_void_p, a one-column codec's second pointer
+    as NULL, the row offset and rows as int64, scalars as float32); the
+    whole-arena fold passes row offset 0."""
     x = torch.zeros(8, tfs.LANES)
-    ints = 1                         # the element count, or offset and rows
-    if name == "arena_fold_launch":
-        args = tfs.fold_args(x, x, x, B1, B2, 0.125, (B1, B2))
-    elif name == "arena_fold_slice_launch":
-        args = tfs.fold_slice_args(x, x, x[:4], 2, B1, B2, 0.125, (B1, B2))
-        ints = 2
+    fp32 = tfs.kernel_codec("m", "fp32"), tfs.kernel_codec("v", "fp32")
+    if entry == "arena_apply":
+        name = "arena_apply_launch"
+        args = tfs.apply_args(*fp32, x, (x,), (x,), 1e-3, 0.1, 0.001, 1e-8,
+                              0.01)
+        ints = (8,)
     else:
-        args = tfs.apply_args(x, x, x, 1e-3, 0.1, 0.001, 1e-8, 0.01)
+        name = "arena_fold_launch"
+        off, g = (0, x) if entry == "arena_fold" else (2, x[:4])
+        args = tfs.fold_args(*fp32, (x,), (x,), g, off, B1, B2, 0.125,
+                             (B1, B2))
+        ints = (off, g.shape[0])
     got = []
     proto = ctypes.CFUNCTYPE(ctypes.c_int, *tfs.SIGNATURES[name])
     assert proto(lambda *a: got.append(a) or 0)(*args, 0) == 0
-    assert got[0][0] == x.data_ptr()
-    assert got[0][3:3 + ints] == ((x.numel(),) if ints == 1 else (2, 4))
-    assert got[0][3 + ints:len(args)] == tuple(float(np.float32(s))
-                                               for s in args[3 + ints:])
+    assert got[0][:2] == (0, 0)
+    x0 = x.data_ptr()
+    assert got[0][2:7] == ((x0, x0, None, x0, None) if entry == "arena_apply"
+                           else (x0, None, x0, None, x0))
+    assert got[0][7:7 + len(ints)] == ints
+    assert got[0][7 + len(ints):len(args)] == tuple(
+        float(np.float32(s)) for s in args[7 + len(ints):])
 
 
 def test_first_moment_coefficient_is_rounded_from_double():
@@ -158,14 +168,41 @@ def test_first_moment_coefficient_is_rounded_from_double():
     assert c2 == float(np.float32(1.0 - 0.999))
 
 
-def test_queued_codecs_raise_not_implemented():
+_INIT_CASES = ([("pair", m, v) for m, v in
+                state_store.registered_combinations()]
+               + [("queued", "fp32", "rowcol"),
+                  ("unknown", "nope", "fp32"), ("unknown", "fp32", "nope"),
+                  ("unknown", "factored", "fp32")])
+
+
+@pytest.mark.parametrize("kind,m_codec,v_codec", _INIT_CASES)
+def test_queued_codecs_raise_not_implemented(kind, m_codec, v_codec):
+    """Every ported (m, v) pair initialises with the reference's column
+    shapes and dtypes; the reference's rowcol codec, not ported yet, raises
+    NotImplementedError naming its ROADMAP item; an unknown name raises the
+    reference's KeyError (factored is a v codec only)."""
+    import jax
+
+    from repro.core import adama as jadama
     params = {"w": torch.zeros(3, 5)}
-    for name in ("int8", "factored", "rowcol"):
+    if kind == "queued":
         with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-            adama.init_arena(params, codec=name)
-        with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-            adama.init_arena(params, m_codec=name)
-    with pytest.raises(KeyError):
-        state_store.check_codecs("nope", "fp32")
-    state = adama.init_arena(params)
-    assert state["m"].data.shape == state["v"].data.shape == (64, tfs.LANES)
+            adama.init_arena(params, codec=v_codec, m_codec=m_codec)
+        return
+    if kind == "unknown":
+        with pytest.raises(KeyError):
+            jadama.init_arena({"w": jnp.zeros((3, 5))}, codec=v_codec,
+                              m_codec=m_codec)
+        with pytest.raises(KeyError):
+            adama.init_arena(params, codec=v_codec, m_codec=m_codec)
+        return
+    state = adama.init_arena(params, codec=v_codec, m_codec=m_codec)
+    want = jadama.init_arena({"w": jnp.zeros((3, 5))}, codec=v_codec,
+                             m_codec=m_codec)
+    for k in ("m", "v"):
+        got = state_store.codec_of(state[k], k).parts_of(state[k])
+        ref = jax.tree.leaves(want[k])
+        assert [(tuple(x.shape), str(x.dtype).replace("torch.", ""))
+                for x in got] == [(tuple(x.shape), str(x.dtype)) for x in ref]
+        assert all(not x.any() for x in got)
+    assert state["m"].layout.rows == 64 and state["step"] == 0
