@@ -37,22 +37,27 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      rate), the fp32-core figure logged beside it; torch.profiler counts
      the kernels one forward call and one backward call run.
    - the codec forms of arena_fold, arena_fold_slice and arena_apply, all
-     six (m, v) pairs (m fp32/int8, v fp32/int8/factored), on a 64-row
-     arena whose first rows are edge cases (a zero row, rows whose
+     eight (m, v) pairs (m fp32/int8, v fp32/int8/factored/rowcol), on a
+     64-row arena whose first rows are edge cases (a zero row, rows whose
      max/127 is subnormal, subnormal g^2 terms, values on code
      boundaries, a row of one sign, -0.0 in m), bit for bit: a first
      fold with the decay, a later fold at scale 0.25, the slice fold of
      rows [16, 48) (rows outside unchanged) and the apply with and
-     without weight decay; then int8/int8 and int8/factored at the full
-     stablelm-1.6b arena (1,607,424 rows): the fold, one layer slice, the
-     rest slice at its real row offset and the apply, each bit for bit
-     (every column of the arena) against its plain version, then timed.
+     without weight decay; the rowcol pairs also on a 1,000-row arena
+     (16 ranges of rowcol's partition, the last one short): a fold with
+     the decay, three slice folds in a row and the apply. Then int8/int8,
+     int8/factored, fp32/rowcol and int8/rowcol at the full stablelm-1.6b
+     arena (1,607,424 rows): the fold, one layer slice, the rest slice at
+     its real row offset and the apply, each bit for bit (every column of
+     the arena) against its plain version, then timed; torch.profiler
+     counts the device kernels of one rowcol fold, slice fold and apply.
 4. A small-input check: reduced bert-large trained 2 steps on the card
    (kernels) and on the CPU (plain versions) from the same params agree,
    for adama, adama_layerwise (arena and per-leaf state) and per-leaf
    adama; so does reduced rwkv6-7b for adama and adama_layerwise, and
    reduced stablelm-1.6b (3 steps) for adama with int8/int8 state and
-   adama_layerwise with int8/factored state: every param within 2e-5,
+   adama_layerwise with int8/factored and int8/rowcol state: every param
+   within 2e-5,
    or within the codecs' declared drift for at most 15% of them.
 5. The main paths: bert-large at full width and depth, bf16 compute, fp32
    params and state, seq 128, global batch 256, 8 micro-batches: 5 steps of
@@ -65,8 +70,9 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    3 steps each of `adama`, `ga` and `adama_layerwise`. Then stablelm-1.6b
    at full width and depth (24 layers, d_model 2048), seq 1024 (cut from
    4096), global batch 16, 8 micro-batches: 3 steps each of `adama`, `ga`
-   and `adama_layerwise` with fp32 state, `adama` with int8/int8 and with
-   int8/factored state, and `adama_layerwise` with int8/int8 state. Each
+   and `adama_layerwise` with fp32 state, `adama` with int8/int8, with
+   int8/factored, with fp32/rowcol and with int8/rowcol state, and
+   `adama_layerwise` with int8/int8 and with int8/rowcol state. Each
    path runs with every launch count set to 0 just before it and read just
    after: every fold, apply and scan must have gone through the kernels,
    as many times as the path's schedule says. `adama` and
@@ -136,16 +142,32 @@ PATHS = {"adama": ("bert_large", "adama", True, 5, FP32),
                                           ("int8", "factored")),
          "stablelm_adama_layerwise_int8": ("stablelm_1_6b",
                                            "adama_layerwise", True, 3,
-                                           ("int8", "int8"))}
+                                           ("int8", "int8")),
+         "stablelm_adama_rowcol": ("stablelm_1_6b", "adama", True, 3,
+                                   ("fp32", "rowcol")),
+         "stablelm_adama_int8_rowcol": ("stablelm_1_6b", "adama", True, 3,
+                                        ("int8", "rowcol")),
+         "stablelm_adama_layerwise_int8_rowcol": ("stablelm_1_6b",
+                                                  "adama_layerwise", True, 3,
+                                                  ("int8", "rowcol"))}
 # the compressed-state pairs timed at the full stablelm arena, and the main
 # path each one's launches are read from
 TIMED_CODEC_PAIRS = {("int8", "int8"): "stablelm_adama_int8",
-                     ("int8", "factored"): "stablelm_adama_int8_factored"}
+                     ("int8", "factored"): "stablelm_adama_int8_factored",
+                     ("fp32", "rowcol"): "stablelm_adama_rowcol",
+                     ("int8", "rowcol"): "stablelm_adama_int8_rowcol"}
 # the codec forms' plain versions take seconds a call at that arena
 CODEC_PLAIN_RUNS = 3
 # the scan at the rwkv6-7b main path's shape: BH = micro-batch 2 x 64 heads
 SCAN_SHAPE = dict(bh=128, s=4096, k=64, v=64, chunk=64)
 SCAN_REL_TOL = 2e-5      # largest |kernel - plain| / largest |plain|
+# torch.profiler sessions: in a process that had run for a minute or more,
+# the first records of a session went missing on the H100 (neither a host
+# wait nor a 57 ms spin kernel ahead of them helped), so a session traces
+# one warm-up step, whose records it drops, before the step it counts, and
+# a session whose records fall short is run again, up to PROFILE_ATTEMPTS
+# times in all
+PROFILE_ATTEMPTS = 3
 # each kernel: (module, source, the TPU kernel it replaces, its main path)
 KERNELS = {
     "arena_fold": ("fused_step", "src/repro_torch/kernels/csrc/fused_step.cu",
@@ -456,6 +478,8 @@ def _encode(adama_accum, moment, codec, x):
     if codec == "int8":
         return (adama_accum.q8s_encode_rows if moment == "m"
                 else adama_accum.q8_encode_rows)(x)
+    if codec == "rowcol":
+        return (x.sum(1, keepdim=True), x.sum(0, keepdim=True))
     return (adama_accum.fac_row_stat(x),)
 
 
@@ -483,10 +507,62 @@ def _compare_bits(torch, name, label, pairs):
     return err
 
 
+def _row_cols(fused_step, m_codec, v_codec, m, v):
+    """The row-indexed columns of both moments (rowcol's shared column
+    sums excepted)."""
+    return [x for name, moment, st in ((m_codec, "m", m), (v_codec, "v", v))
+            for x, c in zip(_cols(st),
+                            fused_step.kernel_codec(moment, name).cols)
+            if c.row_indexed]
+
+
+# rowcol's partition of this many rows: 16 ranges of 64 rows, the last 40
+RC_RANGE_ROWS = 1000
+
+
+def _check_rowcol_ranges(torch, fused_step, adama_accum, m_codec, checked):
+    """A rowcol pair on an arena of RC_RANGE_ROWS rows, whose fold spans
+    several ranges and so the kernel's ordered pass over their partial sums:
+    a fold with the decay, three slice folds in a row (the column sums take
+    each one's, undecayed) and the apply, bit for bit."""
+    pair = f"{m_codec}/rowcol"
+    codecs = dict(m_codec=m_codec, v_codec="rowcol")
+    m, v, g, p = _edge_arenas(torch, RC_RANGE_ROWS, 7)
+    mk, vk = _encode(adama_accum, "m", m_codec, m), \
+        _encode(adama_accum, "v", "rowcol", v)
+    mr, vr = _clone(mk), _clone(vk)
+    kw = dict(beta1=0.9, beta2=0.999, scale=1.0 / 8, **codecs)
+    fused_step.arena_fold(mk, vk, g, decay=(0.9, 0.999), **kw)
+    fused_step.arena_fold_ref(mr, vr, g, decay=(0.9, 0.999), **kw)
+    torch.cuda.synchronize()
+    _compare_bits(torch, "arena_fold", f"{pair} {RC_RANGE_ROWS} rows",
+                  [(mk, mr), (vk, vr)])
+    checked.append(("arena_fold", pair, f"{RC_RANGE_ROWS} rows"))
+    for off, rows_g in ((600, 400), (8, 592), (0, 8)):
+        gs = g[:rows_g].flip(0).contiguous()
+        fused_step.arena_fold_slice(mk, vk, gs, off, block=8, **kw)
+        fused_step.arena_fold_slice_ref(mr, vr, gs, off, block=8, **kw)
+        torch.cuda.synchronize()
+        _compare_bits(torch, "arena_fold_slice",
+                      f"{pair} rows [{off}, {off + rows_g})",
+                      [(mk, mr), (vk, vr)])
+        checked.append(("arena_fold_slice", pair,
+                        f"{RC_RANGE_ROWS} rows, [{off}, {off + rows_g})"))
+    kw = dict(lr=1e-3, bc1=0.19, bc2=0.001999, eps=1e-8, **codecs)
+    pk, pr = p.clone(), p.clone()
+    fused_step.arena_apply(pk, mk, vk, **kw)
+    fused_step.arena_apply_ref(pr, mr, vr, **kw)
+    torch.cuda.synchronize()
+    _compare_bits(torch, "arena_apply", f"{pair} {RC_RANGE_ROWS} rows",
+                  [(pk, pr)])
+    checked.append(("arena_apply", pair, f"{RC_RANGE_ROWS} rows"))
+
+
 def check_codec_small(torch, fused_step, adama_accum):
     """Phase 3, the codec forms: every (m, v) pair through the fold, the
     slice fold and the apply on a 64-row arena with the edge rows, bit for
-    bit against the plain versions. Returns the checked cases."""
+    bit against the plain versions (the rowcol pairs also on a
+    RC_RANGE_ROWS-row arena). Returns the checked cases."""
     from repro_torch.core import state_store
     b1, b2 = 0.9, 0.999
     checked = []
@@ -508,7 +584,8 @@ def check_codec_small(torch, fused_step, adama_accum):
             _compare_bits(torch, "arena_fold", f"{pair} {kw}",
                           [(mk, mr), (vk, vr)])
             checked.append(("arena_fold", pair, str(kw)))
-        before = [x.clone() for x in _cols(mk) + _cols(vk)]
+        rows_of = _row_cols(fused_step, m_codec, v_codec, mk, vk)
+        before = [x.clone() for x in rows_of]
         kw = dict(beta1=b1, beta2=b2, block=16, scale=1.0 / 8,
                   decay=(b1, b2), **codecs)
         fused_step.arena_fold_slice(mk, vk, g[8:40], 16, **kw)
@@ -516,7 +593,7 @@ def check_codec_small(torch, fused_step, adama_accum):
         torch.cuda.synchronize()
         _compare_bits(torch, "arena_fold_slice", f"{pair} rows [16, 48)",
                       [(mk, mr), (vk, vr)])
-        for x, x0 in zip(_cols(mk) + _cols(vk), before):
+        for x, x0 in zip(rows_of, before):
             if not (x[:16].equal(x0[:16]) and x[48:].equal(x0[48:])):
                 raise AssertionError(f"arena_fold_slice {pair}: a row "
                                      f"outside [16, 48) changed")
@@ -533,20 +610,27 @@ def check_codec_small(torch, fused_step, adama_accum):
             if not torch.isfinite(pk).all():
                 raise AssertionError(f"arena_apply {pair}: non-finite p")
             checked.append(("arena_apply", pair, f"wd={wd}"))
+        if v_codec == "rowcol":
+            _check_rowcol_ranges(torch, fused_step, adama_accum, m_codec,
+                                 checked)
     log(json.dumps({"phase": "kernel", "case": "codec forms, 64-row arena "
-                    "with edge rows, bit for bit", "checked": len(checked),
+                    "with edge rows (rowcol also at "
+                    f"{RC_RANGE_ROWS} rows), bit for bit",
+                    "checked": len(checked),
                     "pairs": [f"{a}/{b}" for a, b in
                               state_store.registered_combinations()]}))
     return checked
 
 
 def _codec_bytes(m_codec, v_codec, rows):
-    """Bytes of the (m, v) state columns over `rows` arena rows."""
+    """Bytes of the (m, v) state columns over `rows` arena rows (a shared
+    column, rowcol's column sums, once)."""
     from repro_torch.core import state_store
     total = 0
     for moment, name in (("m", m_codec), ("v", v_codec)):
         for c in state_store.get_codec(name, moment).kernel.cols:
-            total += rows * c.width * (1 if "int8" in str(c.dtype) else 4)
+            total += ((rows if c.row_indexed else 1) * c.width
+                      * (1 if "int8" in str(c.dtype) else 4))
     return total
 
 
@@ -554,11 +638,16 @@ def _codec_bytes(m_codec, v_codec, rows):
 # fused multiply-add counts two; flushes and conversions not counted). The
 # fold: s*g and (s*g)^2, then per moment fp32 c*x and the fma (3); int8 the
 # decode, one product, the fma, the row max, the divide, the rounding and
-# the clip (9); factored the row max (1). The apply: each int8 moment's
-# decode (1), the divide and the final fma (3), and unless v is factored
-# (one root per row) v/bc2, sqrt, +eps and bc1* (4).
-_FOLD_OPS = {"fp32": 3, "int8": 9, "factored": 1}
-_DECODE_OPS = {"fp32": 0, "int8": 1, "factored": 0}
+# the clip (9); factored the row max (1); rowcol the row sum and the column
+# sum (2). The apply: each int8 moment's decode (1), rowcol's vr * column
+# (1), the divide and the final fma (3), and unless v is factored (one root
+# per row) v/bc2, sqrt, +eps and bc1* (4).
+_FOLD_OPS = {"fp32": 3, "int8": 9, "factored": 1, "rowcol": 2}
+_DECODE_OPS = {"fp32": 0, "int8": 1, "factored": 0, "rowcol": 1}
+# the device kernel each rowcol form runs, by the name torch.profiler gives
+_RC_KERNELS = {"arena_fold": "rowcol_fold_kernel",
+               "arena_fold_slice": "rowcol_fold_kernel",
+               "arena_apply": "arena_apply_kernel"}
 
 
 def check_codec_timed(torch, fused_step, layout):
@@ -579,13 +668,17 @@ def check_codec_timed(torch, fused_step, layout):
         return torch.randint(lo, 128, (rows, LANES), generator=gen,
                              device="cuda", dtype=torch.int8)
 
-    def col(scale):
-        return torch.rand((rows, 1), generator=gen, device="cuda") * scale
+    def col(scale, n=rows, width=1):
+        return torch.rand((n, width), generator=gen, device="cuda") * scale
     out = {name: {} for name in CODEC_FORMS}
+    per_call = {}
     for (m_codec, v_codec) in TIMED_CODEC_PAIRS:
         pair = f"{m_codec}/{v_codec}"
-        m = (codes(-127), col(1e-5))
-        v = (codes(0), col(1e-8)) if v_codec == "int8" else (col(1e-6),)
+        m = ((codes(-127), col(1e-5)) if m_codec == "int8" else
+             torch.randn((rows, LANES), generator=gen, device="cuda") * 1e-3)
+        v = {"int8": lambda: (codes(0), col(1e-8)),
+             "factored": lambda: (col(1e-6),),
+             "rowcol": lambda: (col(1e-3), col(1.0, 1, LANES))}[v_codec]()
         codecs = dict(m_codec=m_codec, v_codec=v_codec)
         fold_kw = dict(beta1=0.9, beta2=0.999, scale=1.0 / 8, decay=None,
                        **codecs)
@@ -650,14 +743,56 @@ def check_codec_timed(torch, fused_step, layout):
             bound_ms(8 * n + _codec_bytes(m_codec, v_codec, rows),
                      apply_ops * n),
             {"pair": pair, "rows": rows, "max_abs_err": err})]
-        for x in (*m, *v, p):
+        if v_codec == "rowcol":
+            calls = [(f"{name} {pair} {label}", name,
+                      lambda name=name, off=off, block=block, gs=g[:n_rows]:
+                      (fused_step.arena_fold(m, v, gs, **fold_kw)
+                       if name == "arena_fold" else
+                       fused_step.arena_fold_slice(m, v, gs, off, block=block,
+                                                   **fold_kw)))
+                     for name, label, n_rows, off, block in cases]
+            calls.append((f"arena_apply {pair} whole arena", "arena_apply",
+                          lambda: fused_step.arena_apply(p, m, v,
+                                                         **apply_kw)))
+            per_call.update(_kernels_of_calls(torch, calls))
+        for x in (*_cols(m), *v, p):
             if x.is_floating_point() and not torch.isfinite(x).all():
                 raise AssertionError(f"{pair}: non-finite state or params "
                                      f"after the timed runs")
         del m, v
     del g, p
     torch.cuda.empty_cache()
-    return out
+    return out, per_call
+
+
+def _kernels_of_calls(torch, calls):
+    """The device kernels each of `calls` ((case, form, fn)) runs, from
+    one torch.profiler session over one call of each: every call must run
+    exactly one kernel, its form's (rowcol's fold makes its ordered pass
+    over the ranges' sums in the same launch; the memset of its ticket is
+    no kernel). A session whose records differ from that is run again, up
+    to PROFILE_ATTEMPTS times, and the attempts and each kernel's device ms
+    are logged. Returns {case: kernels per call}."""
+    want = {}
+    for _, form, _ in calls:
+        want[_RC_KERNELS[form]] = want.get(_RC_KERNELS[form], 0) + 1
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        found = profile_kernels(torch, lambda: [fn() for _, _, fn in calls])
+        got = {}
+        for name, (n, _) in found.items():
+            base = name.split("<")[0]
+            got[base] = got.get(base, 0) + n
+        if got == want:
+            break
+    log(json.dumps({"phase": "kernel", "case": "rowcol forms: device "
+                    "kernels of one call each, torch.profiler",
+                    "calls": [c for c, _, _ in calls], "kernels": found,
+                    "attempts": attempt}))
+    if got != want:
+        raise AssertionError(f"the rowcol calls {[c for c, _, _ in calls]} "
+                             f"ran the device kernels {found}; expected "
+                             f"{want}, one per call")
+    return {case: 1 for case, _, _ in calls}
 
 
 def _leaf_cases(cfg):
@@ -931,30 +1066,49 @@ def _check_large_decays(torch, rc, bh, s, seed):
     return fwd, _scan_rel("large decays backward", GRAD_NAMES, grads, want)
 
 
-def device_kernels_per_call(torch, fn, prefix):
-    """How many kernels whose name holds `prefix` one call of fn() runs on
-    the card, and each one's device milliseconds, as torch.profiler
-    records them."""
-    from torch.profiler import ProfilerActivity, profile
+def profile_kernels(torch, fn, prefix=""):
+    """{kernel: (launches, device ms)} of the kernels whose name holds
+    `prefix` that one call of fn() runs on the card, as torch.profiler
+    records them (memsets, copies and the step's own range are no
+    kernels)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    found = [e for e in prof.key_averages()
-             if str(getattr(e, "device_type", "")).endswith("CUDA")
-             and prefix in e.key]
+    events = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: events.extend(p.key_averages())
+                 ) as prof:
+        for _ in range(2):               # the warm-up step, the counted one
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    found = {}
+    for e in events:
+        if (str(getattr(e, "device_type", "")).endswith("CUDA")
+                and prefix in e.key
+                and not e.key.startswith(("Memset", "Memcpy",
+                                          "ProfilerStep"))):
+            # "void (anonymous namespace)::rwkv6_grad_kernel(float const*,
+            # ...)" -> "rwkv6_grad_kernel"
+            name = e.key.split("::")[-1].split("(")[0].replace("void ",
+                                                                "").strip()
+            n, ms = found.get(name, (0, 0.0))
+            found[name] = (n + e.count, ms + getattr(
+                e, "self_device_time_total",
+                getattr(e, "self_cuda_time_total", 0.0)) / 1e3)
+    return found
+
+
+def device_kernels_per_call(torch, fn, prefix):
+    """How many kernels whose name holds `prefix` one call of fn() runs on
+    the card, and each one's device milliseconds."""
+    found = profile_kernels(torch, fn, prefix)
     if not found:
         raise AssertionError(f"torch.profiler recorded no {prefix}* kernel "
                              f"on the card")
-    # "void (anonymous namespace)::rwkv6_grad_kernel(float const*, ...)"
-    # -> "rwkv6_grad_kernel"
-    ms = {e.key.split("::")[-1].split("(")[0].replace("void ", "").strip():
-          getattr(e, "self_device_time_total",
-                  getattr(e, "self_cuda_time_total", 0.0)) / 1e3
-          for e in found}
-    return sum(e.count for e in found), ms
+    return (sum(n for n, _ in found.values()),
+            {name: ms for name, (_, ms) in found.items()})
 
 
 def check_rwkv_scan(torch, rc):
@@ -1031,7 +1185,9 @@ SMALL_PATHS = {"bert_large": (2, (("adama", True, FP32),
                                 ("adama_layerwise", True, FP32))),
                "stablelm_1_6b": (3, (("adama", True, ("int8", "int8")),
                                      ("adama_layerwise", True,
-                                      ("int8", "factored"))))}
+                                      ("int8", "factored")),
+                                     ("adama_layerwise", True,
+                                      ("int8", "rowcol"))))}
 SMALL_PARAM_TOL = 2e-5
 # the largest share of params beyond SMALL_PARAM_TOL after the steps, from
 # int8 codes that a matmul's other rounding order flipped
@@ -1352,8 +1508,8 @@ def main() -> int:
     kernels.update(check_leaf_kernels(torch, adama_accum, adam_apply))
     kernels.update(check_rwkv_scan(torch, rwkv6_chunk))
     codec_checked = check_codec_small(torch, fused_step, adama_accum)
-    codec_timed = check_codec_timed(torch, fused_step,
-                                    full_layout(torch, "stablelm_1_6b"))
+    codec_timed, codec_per_call = check_codec_timed(
+        torch, fused_step, full_layout(torch, "stablelm_1_6b"))
     log(json.dumps({"phase": "kernels_checked",
                     "seconds": time.perf_counter() - t_start}))
     check_small_input(torch)
@@ -1365,6 +1521,9 @@ def main() -> int:
     for name in CODEC_FORMS:
         kernels[name]["codec_forms"] = _codec_forms(
             name, codec_checked, codec_timed[name], counts)
+        kernels[name]["codec_forms"]["device_kernels_per_call"] = {
+            case: n for case, n in codec_per_call.items()
+            if case.startswith(name + " ")}
 
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": source,

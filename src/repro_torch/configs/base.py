@@ -10,8 +10,6 @@ import importlib
 from dataclasses import dataclass, replace
 from typing import Optional
 
-from repro_torch.core import state_store
-
 
 @dataclass(frozen=True)
 class SSMConfig:
@@ -76,8 +74,8 @@ class ModelConfig:
 
 
 ACCUM_ENGINES = ("ga", "adama", "adama_layerwise")
-# the reference's codec names (configs/base.py); which of them are ported is
-# core/state_store.py's registry (rowcol is not yet)
+# the reference's codec names (configs/base.py), each in
+# core/state_store.py's registry
 STATE_CODECS = ("fp32", "int8", "factored", "rowcol")    # second moment (v)
 M_CODECS = ("fp32", "int8")                              # first moment (m)
 
@@ -120,8 +118,6 @@ class OptimizerConfig:
         if self.m_codec not in M_CODECS:
             raise ValueError(f"unknown m_codec {self.m_codec!r}; expected "
                              f"one of {M_CODECS}")
-        state_store.get_codec(self.state_codec, "v")   # a queued codec
-        state_store.get_codec(self.m_codec, "m")       # raises here
         for field, name in (("state_codec", self.state_codec),
                             ("m_codec", self.m_codec)):
             if name != "fp32" and not self.arena:

@@ -27,12 +27,15 @@ Arena state: each layer's gradient tree is packed into one
 (layer_rows, LANES) slab and folded into the layer's row range with ONE
 `arena_fold_slice` launch; the rest region likewise, once per micro-batch.
 The launch carries every codec column of the slice (int8 codes and row
-scales, the factored statistic): every column is row-indexed, so the
-per-layer folds need no per-micro-batch step of their own.
-`decay` (micro-batch 0 only) rides in every one of those folds: each arena
-row belongs to exactly one slice. Per-leaf state: each gradient leaf is
-folded into the matching view of the m/v trees (layer j's row of a stacked
-moment) with one `adama_accum_2d` launch.
+scales, the factored statistic, rowcol's row sums) and adds into the
+columns every row shares (rowcol's column sums).
+`decay` rides in every one of those folds for the row-indexed columns:
+each arena row belongs to exactly one slice. The shared columns are
+decayed once per micro-batch, before the first slice fold
+(`state_store.begin_micro_state`), as the reference's engine does.
+Per-leaf state: each gradient leaf is folded into the matching view of
+the m/v trees (layer j's row of a stacked moment) with one
+`adama_accum_2d` launch.
 """
 from __future__ import annotations
 
@@ -146,6 +149,8 @@ def layerwise_loss_and_fold(cfg: ModelConfig, params, batch, state, *,
     del h, logits, grads, x
 
     # ---- backward, one layer at a time, folding as it goes ----
+    if decay is not None:
+        state_store.begin_micro_state(state, decay)
     for j in reversed(range(n_layers)):
         lp = _requires_grad({k: stack[k][j] for k in keys})
         xin = saved.pop().requires_grad_(True)

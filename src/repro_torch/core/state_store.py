@@ -21,11 +21,15 @@ Second-moment codecs (v >= 0, under the square root):
             0 <= v_hat - v <= rowmax/127 (never-amplify).
   factored  (rows, 1) fp32                       the row max of g^2, decayed
             as v is: an SM3-style upper bound, one cover per arena row.
+  rowcol    (rows, 1) + (1, LANES) fp32          Adafactor's marginals: row
+            sums and one block of column sums, v_hat = vr * vc / sum(vc);
+            exact for a rank-one v, never-amplify not declared.
 
-Every column is row-indexed. The reference's rowcol codec (row sums plus a
-column-sum block shared by every row) is not ported: asking for it raises
-NotImplementedError (ROADMAP queue 1, item 7). The finite guard, master
-params and the ZeRO-1 collectives wait for their slices too.
+Every column but rowcol's column sums is row-indexed. That one block is
+shared by every row: the fold kernels add into it and leave its decay to
+the host, once per micro-batch (`begin_micro`, `begin_micro_state`), since
+the layer-wise engine folds a micro-batch in many slices. The finite
+guard, master params and the ZeRO-1 collectives wait for their slices.
 
 The port updates state IN PLACE: the codec columns a fold or apply is
 given are the ones written, and a "new" state shares them with the old.
@@ -100,11 +104,12 @@ class MomentCodec:
         return fused_step.kernel_codec(self.moment, self.name)
 
     def init(self, layout: ArenaLayout, device):
-        """Zeroed state on `device`, the reference's column shapes."""
-        return MomentState(tuple(torch.zeros((layout.rows, c.width),
-                                             dtype=c.dtype, device=device)
-                                 for c in self.kernel.cols),
-                           layout, self.name, self.moment)
+        """Zeroed state on `device`, the reference's column shapes: (rows,
+        width) for a row-indexed column, (1, width) for a shared one."""
+        return MomentState(tuple(torch.zeros(
+            (layout.rows if c.row_indexed else 1, c.width), dtype=c.dtype,
+            device=device) for c in self.kernel.cols),
+            layout, self.name, self.moment)
 
     def parts_of(self, state) -> Tuple[torch.Tensor, ...]:
         return state.parts
@@ -119,6 +124,13 @@ class MomentCodec:
         """state <- c * state in codec space, in place (the
         begin-minibatch decay)."""
         raise NotImplementedError
+
+    def begin_micro(self, parts, decay: float):
+        """Decay the shared (non-row-indexed) columns, in place, once per
+        micro-batch: the fold kernels decay the row-indexed ones, each row
+        being folded once per micro-batch, but a shared column would be
+        decayed once per slice fold. Nothing for a row-local codec."""
+        return parts
 
 
 def _scale_(x: torch.Tensor, c: float) -> None:
@@ -179,21 +191,38 @@ class FactoredCodec(MomentCodec):
         return state
 
 
+class RowColCodec(MomentCodec):
+    """v as its rank-1 marginals (Adafactor): (rows, 1) row sums and a
+    (1, LANES) block of column sums, v_hat = vr * vc / sum(vc). The
+    reconstruction can sit below v, so never-amplify is not declared; its
+    contracts are exact marginals and an exact rank-one reconstruction."""
+
+    name = "rowcol"
+    moment = "v"
+    conformance = Conformance(drift_lr=None, never_amplify=False,
+                              row_local=False, engine_tol=2e-3,
+                              bf16_wire_lr=1.0, fp8_wire_lr=2.0)
+
+    def scale_state(self, state, c):
+        # both marginals are linear in v
+        for x in state.parts:
+            _scale_(x, c)
+        return state
+
+    def begin_micro(self, parts, decay):
+        _scale_(parts[1], decay)
+        return parts
+
+
 M_CODECS = {c.name: c for c in (Fp32Codec("m"), Int8Codec("m"))}
 V_CODECS = {c.name: c for c in (Fp32Codec("v"), Int8Codec("v"),
-                                FactoredCodec())}
+                                FactoredCodec(), RowColCodec())}
 _REGISTRIES = {"m": M_CODECS, "v": V_CODECS}
-# codecs of the reference that the port does not have yet
-QUEUED = {("v", "rowcol"): "ROADMAP queue 1, item 7: the rowcol codec, with "
-                           "its deterministic column-sum pass"}
 
 
 def get_codec(name, moment: str = "v") -> MomentCodec:
     if isinstance(name, MomentCodec):
         return name
-    if (moment, name) in QUEUED:
-        raise NotImplementedError(f"{moment}-codec {name!r} is not ported "
-                                  f"yet ({QUEUED[moment, name]})")
     reg = _REGISTRIES[moment]
     try:
         return reg[name]
@@ -229,8 +258,13 @@ def fold(m_codec, v_codec, m_parts, v_parts, g, *, beta1, beta2, scale=1.0,
          decay=None):
     """Whole-arena fold of one micro-batch's gradient arena into both
     moments, in place: one fused kernel. `decay=(dm, dv)` fuses the
-    begin-minibatch decay. Returns (m_parts, v_parts)."""
+    begin-minibatch decay into it for the row-indexed columns; the shared
+    ones are decayed here first (`begin_micro`), as the reference's `fold`
+    does. Returns (m_parts, v_parts)."""
     mc, vc = get_codec(m_codec, "m"), get_codec(v_codec, "v")
+    if decay is not None:
+        mc.begin_micro(tuple(m_parts), decay[0])
+        vc.begin_micro(tuple(v_parts), decay[1])
     return fused_step.arena_fold(tuple(m_parts), tuple(v_parts), g,
                                  beta1=beta1, beta2=beta2, scale=scale,
                                  decay=decay, m_codec=mc.kernel,
@@ -240,7 +274,9 @@ def fold(m_codec, v_codec, m_parts, v_parts, g, *, beta1, beta2, scale=1.0,
 def fold_slice(m_codec, v_codec, m_parts, v_parts, g, row_offset, *,
                beta1, beta2, block, scale=1.0, decay=None):
     """Fold a gradient slab into rows [row_offset, row_offset + rows_g) of
-    both moments, in place: one slice-fold kernel."""
+    both moments, in place: one slice-fold kernel. Unlike `fold`, the
+    shared columns are not decayed here: a micro-batch is many slice folds,
+    and the engine decays them once before them (`begin_micro_state`)."""
     mc, vc = get_codec(m_codec, "m"), get_codec(v_codec, "v")
     return fused_step.arena_fold_slice(tuple(m_parts), tuple(v_parts), g,
                                        row_offset, beta1=beta1, beta2=beta2,
@@ -274,6 +310,17 @@ def fold_state(state, g, *, beta1, beta2, scale=1.0, decay=None):
     mc, vc = state_codecs(state)
     fold(mc, vc, mc.parts_of(state["m"]), vc.parts_of(state["v"]), g,
          beta1=beta1, beta2=beta2, scale=scale, decay=decay)
+    return state
+
+
+def begin_micro_state(state, decay):
+    """Decay the state dict's shared codec columns (rowcol's column sums)
+    by this micro-batch's decay pair, in place, before its slice folds;
+    nothing for row-local codecs or `decay=None`."""
+    if decay is not None:
+        mc, vc = state_codecs(state)
+        mc.begin_micro(mc.parts_of(state["m"]), decay[0])
+        vc.begin_micro(vc.parts_of(state["v"]), decay[1])
     return state
 
 

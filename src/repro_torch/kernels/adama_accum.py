@@ -11,13 +11,14 @@ leaf (or per layer view of a stacked leaf).
 They replace the Pallas kernel `repro/kernels/adama_accum.py::
 adama_accum_2d` for fp32 m, v and g (a bf16 g is queued).
 
-The module also holds the row helpers of the reference's int8 and factored
-state codecs (`q8_encode_rows`, `q8s_encode_rows`, their decodes and
-`fac_row_stat`): the building blocks of the codec forms' plain versions in
-fused_step.py and the decode used on the host. The reference
-pads each leaf to (R, 1024) rows first (`kernels/ops.py::_to_2d`); the fold
-is elementwise, so the port skips the padding and folds the leaf's own
-memory in place: m, v and g are contiguous tensors of one shape, any shape.
+The module also holds the row helpers of the reference's int8, factored and
+rowcol state codecs (`q8_encode_rows`, `q8s_encode_rows`, their decodes,
+`fac_row_stat` and `rowcol_decode`): the building blocks of the codec
+forms' plain versions in fused_step.py and the decode used on the host.
+The reference pads each leaf to (R, 1024) rows first
+(`kernels/ops.py::_to_2d`); the fold is elementwise, so the port skips
+the padding and folds the leaf's own memory in place: m, v and g are
+contiguous tensors of one shape, any shape.
 
 The reference's CPU lowering folds (1-beta1)*scale into one float32
 constant and contracts the first moment into a fused multiply-add:
@@ -130,6 +131,43 @@ q8s_decode_rows = q8_decode_rows
 def fac_row_stat(g2: torch.Tensor) -> torch.Tensor:
     """The factored codec's per-row statistic: the row max of g^2."""
     return ftz(g2).amax(dim=-1, keepdim=True)
+
+
+# rowcol's least column total (float32(1e-30), a normal number)
+RC_FLOOR = float(np.float32(1e-30))
+
+
+def halving_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum along `dim` (a power of two long) in a halving tree,
+    x[i] + x[i + n/2] at each level, each sum flushed: the order in which the
+    CUDA kernels add (a warp's shuffles down, a lane's registers, a CTA's
+    warps). Keeps `dim`, of length 1."""
+    while x.shape[dim] > 1:
+        h = x.shape[dim] // 2
+        x = ftz(x.narrow(dim, 0, h) + x.narrow(dim, h, h))
+    return x
+
+
+def rowcol_total(vc: torch.Tensor) -> torch.Tensor:
+    """sum(vc) of the (1, LANES) column sums, as (1, 1), in the order of
+    the apply kernel (csrc/fused_step.cu, rowcol_normalise): thread t's
+    columns 4t .. 4t + 3 in a halving tree, then its warp's 32 lanes, then
+    the CTA's 8 warps. The reference sums in XLA's order, which no simple
+    order reproduces bit for bit."""
+    t = ftz(vc).reshape(8, 32, 4)        # (warp, lane, column of the lane)
+    for dim in (2, 1, 0):
+        t = halving_sum(t, dim)
+    return t.reshape(1, 1)
+
+
+def rowcol_decode(vr: torch.Tensor, vc: torch.Tensor) -> torch.Tensor:
+    """The rowcol codec's rank-1 reconstruction (Adafactor) from the
+    (R, 1) row sums and the (1, LANES) column sums:
+    v_hat = vr * (vc / max(sum(vc), 1e-30)), flushed as XLA CPU does, the
+    sum in the port's order (`rowcol_total`). Exact when v is rank one;
+    zero rows decode to zero."""
+    total = torch.clamp(rowcol_total(vc), min=RC_FLOOR)
+    return ftz(ftz(vr) * ftz(ftz(vc) / total))
 
 
 _P, _I64, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float

@@ -21,13 +21,18 @@
 //               p = p - lr*(m/bc1 / (sqrt(v/bc2) + eps) + wd*p)   in place
 //
 // Codecs (the reference's _KERNEL_CODECS; m in {fp32, int8}, v in {fp32,
-// int8, factored}, six pairs):
+// int8, factored, rowcol}, eight pairs):
 //   fp32      (rows, 1024) fp32
 //   int8 m    (rows, 1024) int8 codes + (rows, 1) fp32 scales; the update
 //             decodes q*s, folds, and re-encodes the row: s = rowmax|m|/127,
 //             codes trunc(m/s) in [-127, 127]
 //   int8 v    the same with codes ceil(v/s) in [0, 127], s = rowmax(v)/127
 //   factored  v as a (rows, 1) fp32 statistic: dv*f + c2*rowmax((s*g)^2)
+//   rowcol    v as its marginals (Adafactor): (rows, 1) fp32 row sums
+//             vr = dv*vr + c2*rowsum((s*g)^2) and one (1, 1024) fp32 block of
+//             column sums vc = vc + c2*colsum((s*g)^2) over every row the call
+//             folds (its decay is the caller's, once per micro-batch); the
+//             apply decodes v = vr[row] * vc[col] / max(sum(vc), 1e-30)
 //
 // Design. The int8 re-encode needs the updated row's max before any code is
 // written, and the factored statistic is a row max, so one warp owns whole
@@ -35,9 +40,27 @@
 // of the SMs): it loads the row once (float4 for g and fp32 columns, 4
 // codes at a time, neighbouring lanes on neighbouring addresses), updates
 // it in registers, takes the max with warp shuffles, then encodes and
-// stores it. Every form is row-local: no atomics, no second pass, one
-// launch per call for every pair. The apply decodes both moments in
-// registers (no fp32 copy of a compressed moment is ever made). Every pass
+// stores it. Every form but rowcol's fold is row-local: no atomics, no
+// second pass, one launch per call for every pair. The apply decodes both
+// moments in registers (no fp32 copy of a compressed moment is ever made).
+//
+// Rowcol's column sums are shared by every row, and CTAs run in no set
+// order, so its fold is a kernel of its own (rowcol_fold_kernel). The rows
+// are cut into P ranges of L rows that depend on the row count alone
+// (fused_step.py::rowcol_partition, which the wrapper passes in; never the
+// card's SM count), one CTA per range. In a CTA, warp w folds rows
+// lo + w, lo + w + 8, ... and adds each row's (s*g)^2 into its lanes'
+// column partials in that order (in registers, or in shared memory when
+// the int8 m codec needs the registers); the 8 warps' partials meet in a
+// fixed tree through shared memory and go to row p of a (P, 1024) fp32
+// scratch.
+// The last CTA to finish (an integer ticket after __threadfence, zeroed by
+// the launcher) adds the P partials in order p = 0, 1, ... and folds the
+// total into vc: one launch, no float atomics, the same bits on every run
+// and every card. The row sums come from the same tree in every warp: a
+// halving tree over the lane's 32 values, then shuffles down. The apply
+// forms vc / max(sum(vc), 1e-30) once per CTA in shared memory (the sum in
+// a fixed tree), then v = vr[row] * that[col] in registers. Every pass
 // streams its operands once and does a handful of fp32 operations per
 // element, far below the card's fp32 rate, so it is bound by device-memory
 // bandwidth.
@@ -51,13 +74,18 @@
 // 1,646,002,176 elements): int8/int8 fold 8 B per element (g 4, codes 2 x
 // (1 + 1), the scales negligible) 13.19 GB, >= 3.94 ms; int8/factored fold
 // 6 B, 9.90 GB, >= 2.96 ms; int8/int8 apply 10 B (p 4 + 4, codes 2), 16.47
-// GB, >= 4.92 ms; int8/factored apply 9 B, 14.83 GB, >= 4.43 ms.
+// GB, >= 4.92 ms; int8/factored apply 9 B, 14.83 GB, >= 4.43 ms. Rowcol
+// (vr, vc and the 3 MiB scratch negligible): fp32/rowcol fold 12 B (g 4, m
+// 4 + 4) 19.75 GB, >= 5.90 ms; int8/rowcol fold 6 B, 9.88 GB, >= 2.95 ms;
+// fp32/rowcol apply 12 B, >= 5.90 ms; int8/rowcol apply 9 B, >= 4.42 ms.
 //
 // Rounding. The reference's CPU lowering (XLA) contracts
 //   fp32      d*m + c*x       as fma(d, m, c*x)
 //   int8 m    d*(q*s) + c*x   as fma(c, x, d*(q*s))
 //   int8 v    d*(q*s) + c*x   as fma(d, q*s, c*x)
 //   factored  d*f + c*max(x)  as fma(d, f, c*max(x))
+//   rowcol    d*vr + c*sum(x) as fma(d, vr, c*sum(x)); vc + c*sum(x) as
+//             fma(c, sum(x), vc); decode vr * (vc / max(sum(vc), 1e-30))
 //   apply     (m/bc1)/(sqrt(v/bc2) + eps)  as m / (bc1*(sqrt(v/bc2) + eps))
 //             u + wd*p        as fma(wd, p, u)
 //             p - lr*u        as fma(-lr, u, p)
@@ -72,7 +100,10 @@
 // it, and their checks hold it to its plain version's IEEE arithmetic).
 // The plain PyTorch versions in fused_step.py compute the same
 // expressions, so kernel, plain version and reference agree bit for bit
-// (fp32/fp32 where no value falls below 2^-126).
+// (fp32/fp32 where no value falls below 2^-126). Rowcol's sums are the
+// exception: the reference's order is XLA's own, so kernel and plain
+// version (the same partition and trees) agree bit for bit, and both lie
+// within a stated tolerance of the reference (tests/test_torch_codecs.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -89,7 +120,9 @@ constexpr float kTiny = 1.17549435e-38f;    // 2^-126, the least normal
 constexpr float kQ8Max = 127.0f;
 constexpr float kQ8Inv = 0x1.020408p-7f;    // float32(1/127)
 
-enum Kind { kFp32 = 0, kInt8 = 1, kFactored = 2 };
+enum Kind { kFp32 = 0, kInt8 = 1, kFactored = 2, kRowCol = 3 };
+constexpr int kVKinds = 4;                 // the launchers' key: mk * 4 + vk
+constexpr float kRcFloor = 1e-30f;          // rowcol's least column total
 
 // XLA CPU's flush of a subnormal to a zero of its sign, when F (every pair
 // but fp32/fp32); the identity otherwise.
@@ -222,6 +255,126 @@ arena_fold_kernel(void* __restrict__ m0, void* __restrict__ m1,
   }
 }
 
+// Halving tree over the lane's 32 values (x[j] += x[j + h], h = 16 ... 1),
+// then shuffles down the lanes: the row's sum, valid in lane 0. x is
+// overwritten. The plain version (fused_step.py::_rowcol_row_sums) takes
+// the same tree.
+__device__ __forceinline__ float rowcol_row_sum(float* x) {
+#pragma unroll
+  for (int h = kRowVals / 2; h > 0; h >>= 1)
+#pragma unroll
+    for (int j = 0; j < h; ++j) x[j] = fl<true>(x[j] + x[j + h]);
+  float t = x[0];
+  for (int off = 16; off > 0; off >>= 1)
+    t = fl<true>(t + __shfl_down_sync(0xffffffffu, t, off));
+  return t;
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(fl<true>(a.x + b.x), fl<true>(a.y + b.y),
+                     fl<true>(a.z + b.z), fl<true>(a.w + b.w));
+}
+
+// The rowcol fold (v = rowcol, every rowcol pair flushes): one CTA per range
+// [p * range_rows, min((p + 1) * range_rows, rows_g)) of the slab's rows.
+// m folds as in arena_fold_kernel; vr row by row; the column partials as
+// the header says, into partials[p], and the last CTA folds their ordered
+// sum into vc. ticket: an integer the launcher zeroes.
+template <int MK>
+__global__ void __launch_bounds__(kThreads)
+rowcol_fold_kernel(void* __restrict__ m0, void* __restrict__ m1,
+                   float* __restrict__ vr, float4* __restrict__ vc,
+                   const float4* __restrict__ g, int64_t off, int64_t rows_g,
+                   int64_t range_rows, int ranges,
+                   float4* __restrict__ partials,
+                   unsigned int* __restrict__ ticket, float s, float c1,
+                   float c2, float dm, float dv) {
+  // each warp's column partials meet in shared memory (32 KB). A warp
+  // accumulates its rows in registers when m is fp32, and in its own row
+  // of `red` when m is int8, whose re-encode needs the registers (each
+  // lane owns its entries: no barrier until the warps meet). Same order.
+  constexpr bool kRegAcc = MK == kFp32;
+  __shared__ float4 red[kWarps][kLanes / 4];
+  __shared__ bool last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
+  const int64_t lo = (int64_t)blockIdx.x * range_rows;
+  const int64_t hi = lo + range_rows < rows_g ? lo + range_rows : rows_g;
+  float4 acc[kRegAcc ? kRowF4 : 1];
+  float4* const sacc = red[warp];
+#pragma unroll
+  for (int k = 0; k < kRowF4; ++k) {
+    const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if constexpr (kRegAcc) acc[k] = zero;
+    else sacc[k * 32 + lane] = zero;
+  }
+  for (int64_t r = lo + warp; r < hi; r += kWarps) {
+    float x[kRowVals];
+#pragma unroll
+    for (int k = 0; k < kRowF4; ++k) {
+      const float4 a = g[f4_index(r, k, lane)];
+      x[4 * k + 0] = fl<true>(fl<true>(a.x) * s);
+      x[4 * k + 1] = fl<true>(fl<true>(a.y) * s);
+      x[4 * k + 2] = fl<true>(fl<true>(a.z) * s);
+      x[4 * k + 3] = fl<true>(fl<true>(a.w) * s);
+    }
+    fold_moment<MK, false, true>(m0, m1, x, dm, c1, off + r, lane);
+#pragma unroll
+    for (int k = 0; k < kRowF4; ++k) {
+      float* e = x + 4 * k;
+      e[0] = fl<true>(e[0] * e[0]);
+      e[1] = fl<true>(e[1] * e[1]);
+      e[2] = fl<true>(e[2] * e[2]);
+      e[3] = fl<true>(e[3] * e[3]);
+      const float4 sq = make_float4(e[0], e[1], e[2], e[3]);
+      if constexpr (kRegAcc) acc[k] = add4(acc[k], sq);
+      else sacc[k * 32 + lane] = add4(sacc[k * 32 + lane], sq);
+    }
+    const float rs = rowcol_row_sum(x);
+    if (lane == 0)
+      vr[off + r] = fl<true>(fmaf(dv, fl<true>(vr[off + r]),
+                                  fl<true>(c2 * rs)));
+  }
+  if constexpr (kRegAcc) {
+#pragma unroll
+    for (int k = 0; k < kRowF4; ++k) sacc[k * 32 + lane] = acc[k];
+  }
+  __syncthreads();
+  // thread t: columns 4t .. 4t + 3, the warps' partials in a halving tree
+  const int t = threadIdx.x;
+  float4 w[kWarps];
+#pragma unroll
+  for (int i = 0; i < kWarps; ++i) w[i] = red[i][t];
+#pragma unroll
+  for (int h = kWarps / 2; h > 0; h >>= 1)
+#pragma unroll
+    for (int i = 0; i < h; ++i) w[i] = add4(w[i], w[i + h]);
+  partials[(int64_t)blockIdx.x * (kLanes / 4) + t] = w[0];
+  __threadfence();
+  __syncthreads();
+  if (t == 0) last = atomicAdd(ticket, 1u) == (unsigned int)ranges - 1u;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // the last CTA: the ranges' partials in order, 16 loads in flight
+  float4 sum = __ldcg(&partials[t]);
+  int p = 1;
+  for (; p + 16 <= ranges; p += 16) {
+    float4 q[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      q[i] = __ldcg(&partials[(int64_t)(p + i) * (kLanes / 4) + t]);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) sum = add4(sum, q[i]);
+  }
+  for (; p < ranges; ++p)
+    sum = add4(sum, __ldcg(&partials[(int64_t)p * (kLanes / 4) + t]));
+  const float4 a = vc[t];
+  vc[t] = make_float4(fl<true>(fmaf(c2, sum.x, fl<true>(a.x))),
+                      fl<true>(fmaf(c2, sum.y, fl<true>(a.y))),
+                      fl<true>(fmaf(c2, sum.z, fl<true>(a.z))),
+                      fl<true>(fmaf(c2, sum.w, fl<true>(a.w))));
+}
+
 // The lane's 4 values of float4 k of a row, decoded to fp32.
 template <int K, bool F>
 __device__ __forceinline__ float4 decode4(const void* __restrict__ c0,
@@ -237,8 +390,42 @@ __device__ __forceinline__ float4 decode4(const void* __restrict__ c0,
     return make_float4(fl<true>((float)q.x * s), fl<true>((float)q.y * s),
                        fl<true>((float)q.z * s), fl<true>((float)q.w * s));
   }
-  const float f = fl<true>(((const float*)c0)[row]);  // factored: the row's
-  return make_float4(f, f, f, f);                     // statistic, broadcast
+  const float f = fl<true>(((const float*)c0)[row]);
+  if constexpr (K == kFactored) return make_float4(f, f, f, f);
+  // rowcol: c1 is the CTA's vc / max(sum(vc), 1e-30) in shared memory
+  const float4 n = ((const float4*)c1)[k * 32 + lane];
+  return make_float4(fl<true>(f * n.x), fl<true>(f * n.y), fl<true>(f * n.z),
+                     fl<true>(f * n.w));
+}
+
+// Rowcol's normalised column sums vc / max(sum(vc), 1e-30), into `nc`
+// (shared memory), by every CTA alike. The sum's tree: thread t's four
+// columns 4t .. 4t + 3 as (a.x + a.z) + (a.y + a.w), shuffles down each
+// warp's lanes, then a halving tree over the 8 warps; the plain version
+// (adama_accum.py::rowcol_total) takes the same one.
+__device__ __forceinline__ void rowcol_normalise(const float4* __restrict__ vc,
+                                                 float4* nc) {
+  __shared__ float ws[kWarps];
+  __shared__ float total;
+  const int t = threadIdx.x, lane = t & 31;
+  float4 a = vc[t];
+  a = make_float4(fl<true>(a.x), fl<true>(a.y), fl<true>(a.z), fl<true>(a.w));
+  float x = fl<true>(fl<true>(a.x + a.z) + fl<true>(a.y + a.w));
+  for (int off = 16; off > 0; off >>= 1)
+    x = fl<true>(x + __shfl_down_sync(0xffffffffu, x, off));
+  if (lane == 0) ws[t / 32] = x;
+  __syncthreads();
+  if (t == 0) {
+#pragma unroll
+    for (int h = kWarps / 2; h > 0; h >>= 1)
+#pragma unroll
+      for (int i = 0; i < h; ++i) ws[i] = fl<true>(ws[i] + ws[i + h]);
+    total = fmaxf(ws[0], kRcFloor);
+  }
+  __syncthreads();
+  nc[t] = make_float4(fl<true>(a.x / total), fl<true>(a.y / total),
+                      fl<true>(a.z / total), fl<true>(a.w / total));
+  __syncthreads();
 }
 
 template <bool F>
@@ -256,9 +443,14 @@ template <int MK, int VK>
 __global__ void __launch_bounds__(kThreads)
 arena_apply_kernel(float4* __restrict__ p, const void* __restrict__ m0,
                    const void* __restrict__ m1, const void* __restrict__ v0,
-                   const void* __restrict__ v1, int64_t rows, float lr,
+                   const void* v1, int64_t rows, float lr,
                    float bc1, float bc2, float eps, float wd) {
   constexpr bool F = MK != kFp32 || VK != kFp32;
+  __shared__ float4 nc[VK == kRowCol ? kLanes / 4 : 1];
+  if constexpr (VK == kRowCol) {
+    rowcol_normalise((const float4*)v1, nc);
+    v1 = nc;
+  }
   const int lane = threadIdx.x & 31;
   const int64_t warps = (int64_t)gridDim.x * kWarps;
   for (int64_t r = (int64_t)blockIdx.x * kWarps + threadIdx.x / 32;
@@ -287,12 +479,33 @@ int rows_grid(int64_t rows) {
   return (int)(want < cap ? (want > 0 ? want : 1) : cap);
 }
 
+// The launch of one pair's fold. Rowcol takes one CTA per range and the
+// (ranges, 1024) fp32 scratch, its ticket right after it; the others a
+// grid of rows_grid and no scratch.
 template <int MK, int VK>
-void fold(void* m0, void* m1, void* v0, void* v1, const void* g, int64_t off,
-          int64_t rows_g, float s, float c1, float c2, float dm, float dv,
-          cudaStream_t stream) {
-  arena_fold_kernel<MK, VK><<<rows_grid(rows_g), kThreads, 0, stream>>>(
-      m0, m1, v0, v1, (const float4*)g, off, rows_g, s, c1, c2, dm, dv);
+cudaError_t fold(void* m0, void* m1, void* v0, void* v1, const void* g,
+                 int64_t off, int64_t rows_g, int64_t ranges,
+                 int64_t range_rows, void* scratch, float s, float c1,
+                 float c2, float dm, float dv, cudaStream_t stream) {
+  if constexpr (VK != kRowCol) {
+    arena_fold_kernel<MK, VK><<<rows_grid(rows_g), kThreads, 0, stream>>>(
+        m0, m1, v0, v1, (const float4*)g, off, rows_g, s, c1, c2, dm, dv);
+    return cudaSuccess;
+  } else {
+    if (ranges < 1 || ranges > 65535 || range_rows < 1 ||
+        scratch == nullptr || (ranges - 1) * range_rows >= rows_g ||
+        ranges * range_rows < rows_g)
+      return cudaErrorInvalidValue;
+    float4* partials = (float4*)scratch;
+    unsigned int* ticket = (unsigned int*)(partials + ranges * (kLanes / 4));
+    const cudaError_t err = cudaMemsetAsync(ticket, 0, sizeof(unsigned int),
+                                            stream);
+    if (err != cudaSuccess) return err;
+    rowcol_fold_kernel<MK><<<(int)ranges, kThreads, 0, stream>>>(
+        m0, m1, (float*)v0, (float4*)v1, (const float4*)g, off, rows_g,
+        range_rows, (int)ranges, partials, ticket, s, c1, c2, dm, dv);
+    return cudaSuccess;
+  }
 }
 
 template <int MK, int VK>
@@ -306,34 +519,40 @@ void apply(void* p, const void* m0, const void* m1, const void* v0,
 }  // namespace
 
 // Launchers with a plain C interface (bound with ctypes). mk: m's kind (0
-// fp32, 1 int8); vk: v's (0 fp32, 1 int8, 2 factored). m0/m1 and v0/v1 are
-// each moment's columns over the whole arena (the second NULL for a
-// one-column codec); every pointer is 16-byte aligned (the Python wrappers
-// check it). Each returns cudaGetLastError() after the launch, so a refused
-// launch or an unknown pair surfaces as a non-zero code.
-#define PAIRS(X)                                                        \
-  X(kFp32, kFp32) X(kFp32, kInt8) X(kFp32, kFactored) X(kInt8, kFp32) \
-  X(kInt8, kInt8) X(kInt8, kFactored)
+// fp32, 1 int8); vk: v's (0 fp32, 1 int8, 2 factored, 3 rowcol). m0/m1 and
+// v0/v1 are each moment's columns over the whole arena (the second NULL for
+// a one-column codec; rowcol's v1 is its (1, 1024) column sums); every
+// pointer is 16-byte aligned (the Python wrappers check it). Each returns
+// cudaGetLastError() after the launch, so a refused launch or an unknown
+// pair surfaces as a non-zero code.
+#define PAIRS(X)                                                         \
+  X(kFp32, kFp32) X(kFp32, kInt8) X(kFp32, kFactored) X(kFp32, kRowCol) \
+  X(kInt8, kFp32) X(kInt8, kInt8) X(kInt8, kFactored) X(kInt8, kRowCol)
 
 // g is the (rows_g, 1024) slab for arena rows [row_offset, row_offset +
 // rows_g), inside the arena (checked by the wrapper); the whole-arena fold
-// passes row_offset 0 and rows_g = the arena's rows.
+// passes row_offset 0 and rows_g = the arena's rows. ranges, range_rows and
+// scratch serve rowcol alone (rowcol_partition(rows_g) and a (ranges * 1024
+// + 4)-float buffer; 0, 0 and NULL for the other pairs).
 extern "C" int arena_fold_launch(int mk, int vk, void* m0, void* m1,
                                  void* v0, void* v1, const void* g,
-                                 int64_t row_offset, int64_t rows_g, float s,
-                                 float c1, float c2, float dm, float dv,
-                                 void* stream) {
+                                 int64_t row_offset, int64_t rows_g,
+                                 int64_t ranges, int64_t range_rows,
+                                 void* scratch, float s, float c1, float c2,
+                                 float dm, float dv, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  switch (mk * 3 + vk) {
-#define FOLD(MK, VK)                                                       \
-  case MK * 3 + VK:                                                        \
-    fold<MK, VK>(m0, m1, v0, v1, g, row_offset, rows_g, s, c1, c2, dm, dv, \
-                 st);                                                      \
+  cudaError_t err;
+  switch (mk * kVKinds + vk) {
+#define FOLD(MK, VK)                                                     \
+  case MK * kVKinds + VK:                                                \
+    err = fold<MK, VK>(m0, m1, v0, v1, g, row_offset, rows_g, ranges,    \
+                       range_rows, scratch, s, c1, c2, dm, dv, st);      \
     break;
     PAIRS(FOLD)
 #undef FOLD
     default: return (int)cudaErrorInvalidValue;
   }
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -343,9 +562,9 @@ extern "C" int arena_apply_launch(int mk, int vk, void* p, const void* m0,
                                   float bc1, float bc2, float eps, float wd,
                                   void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  switch (mk * 3 + vk) {
+  switch (mk * kVKinds + vk) {
 #define APPLY(MK, VK)                                                   \
-  case MK * 3 + VK:                                                     \
+  case MK * kVKinds + VK:                                               \
     apply<MK, VK>(p, m0, m1, v0, v1, rows, lr, bc1, bc2, eps, wd, st); \
     break;
     PAIRS(APPLY)

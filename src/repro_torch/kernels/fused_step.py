@@ -27,9 +27,23 @@ for fp32 and a tuple of columns otherwise:
             truncates toward zero over [-127, 127], v takes the ceiling
             over [0, 127] (adama_accum.q8s_encode_rows / q8_encode_rows)
   factored  (v only) (rows, 1) float32: the row max of g^2, decayed
+  rowcol    (v only) (rows, 1) float32 row sums of g^2 + one (1, LANES)
+            float32 block of column sums (Adafactor's marginals), decoded
+            as vr * (vc / max(sum(vc), 1e-30))
 
-Every column is row-indexed. The reference's rowcol codec, whose column
-sums are shared by every row, is not ported (ROADMAP queue 1, item 7).
+Every column but rowcol's column sums is row-indexed. The column sums are
+the one column shared by every row (`Col.row_indexed=False`, shape
+(1, LANES)): every fold and slice fold adds its rows' (scale*g)^2 column
+sums into it, and its decay is the caller's, once per micro-batch
+(core/state_store.py), so the kernels' `decay` leaves it alone. A CUDA
+block cannot carry a sum to the next as a TPU grid step does, so the
+kernel cuts the rows into ranges fixed by the row count alone
+(`rowcol_partition`), sums each range in a fixed order and adds the
+ranges' sums in order; the plain versions take the same partition and the
+same trees (`_rowcol_row_sums`, `_rowcol_col_sums`), never `torch.sum`.
+Kernel and plain version therefore agree bit for bit; both differ from the
+reference, whose sums take XLA's own order, by a few float32 roundings
+(tests/test_torch_codecs.py states the tolerance).
 
 Scalars are rounded to float32 on the host the way JAX's weak-typed Python
 floats are: `1 - beta1` is formed in double and then rounded (0.1f for
@@ -42,6 +56,8 @@ fused multiply-adds, and which operand it fuses depends on the codec:
   int8 m         d*(q*s) + c*x      as fma(c, x, d*(q*s))
   int8 v         d*(q*s) + c*x      as fma(d, q*s, c*x)
   factored v     d*f + c*max(x)     as fma(d, f, c*max(x))
+  rowcol v       d*vr + c*sum(x)    as fma(d, vr, c*sum(x))
+                 vc + c*sum(x)      as fma(c, sum(x), vc)
   apply          p - lr*u           as fma(-lr, u, p)
                  u + wd*p           as fma(wd, p, u)
                  (m/bc1) / (sqrt(v/bc2) + eps)
@@ -60,15 +76,15 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass, field
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.adama_accum import (_f32, _fma32, _sqrt32,
-                                             fac_row_stat, ftz,
+                                             fac_row_stat, ftz, halving_sum,
                                              q8_decode_rows, q8_encode_rows,
-                                             q8s_encode_rows)
+                                             q8s_encode_rows, rowcol_decode)
 
 LANES = 1024          # arena row width (the reference's 8 x 128 lanes)
 BLOCK_ROWS = 256      # arena row-count granularity above 256 rows
@@ -76,6 +92,17 @@ BLOCK_ROWS = 256      # arena row-count granularity above 256 rows
 # rows per step of the plain versions: bounds their float64 temporaries on
 # a full-size arena (results do not depend on it)
 _PLAIN_CHUNK_ROWS = 16384
+# rows per step of rowcol's plain column sums (whole ranges; results do not
+# depend on it either)
+_PLAIN_COL_ROWS = 1 << 17
+
+# rowcol's row partition: at most RC_MAX_RANGES ranges (so the fold's
+# (ranges, LANES) fp32 scratch stays within 3 MiB), of at least
+# RC_MIN_RANGE_ROWS rows; RC_WARPS warps fold a range, warp w taking its
+# rows w, w + RC_WARPS, ... (csrc/fused_step.cu, rowcol_fold_kernel)
+RC_MAX_RANGES = 768
+RC_MIN_RANGE_ROWS = 64
+RC_WARPS = 8
 
 
 # ---------------------------------------------------------------------------
@@ -85,8 +112,9 @@ _PLAIN_CHUNK_ROWS = 16384
 
 @dataclass(frozen=True)
 class Col:
-    """One arena column of a codec's state, (rows, width) when
-    `row_indexed` (every ported codec's columns are)."""
+    """One arena column of a codec's state: (rows, width) when
+    `row_indexed`, else one (1, width) block shared by every row (rowcol's
+    column sums)."""
     width: int
     dtype: torch.dtype
     row_indexed: bool = True
@@ -102,9 +130,14 @@ class KernelCodec:
     kind: int
     # decode(parts, fl) -> float32, broadcastable to (rows, LANES)
     decode: Callable = field(repr=False)
-    # update(parts, x, decay, coeff, fl) -> new parts:
-    # decay*moment + coeff*x; `fl` is the pair's flush (`_flush`)
+    # update(parts, x, decay, coeff, fl) -> new row-indexed parts, over a
+    # chunk of rows: decay*moment + coeff*x; `fl` is the pair's flush
+    # (`_flush`)
     update: Callable = field(repr=False)
+    # fold_columns(parts, g, scale, coeff): adds coeff * the column sums of
+    # (scale*g)^2 over all of g's rows into the shared columns, in place;
+    # None for a codec whose columns are all row-indexed
+    fold_columns: Optional[Callable] = field(default=None, repr=False)
 
 
 def _ieee(x):
@@ -144,6 +177,69 @@ def _fac_update(parts, x, decay, coeff, fl):
     return (ftz(_fma32(decay, ftz(parts[0]), ftz(coeff * fac_row_stat(x)))),)
 
 
+def _rowcol_decode(parts, fl):
+    return rowcol_decode(parts[0], parts[1])
+
+
+def _rowcol_update(parts, x, decay, coeff, fl):
+    # the row sums; the shared column sums are _rowcol_fold_columns'
+    return (ftz(_fma32(decay, ftz(parts[0]),
+                       ftz(coeff * _rowcol_row_sums(x)))),)
+
+
+def _rowcol_fold_columns(parts, g, s, coeff):
+    vc = parts[1]
+    vc.copy_(ftz(_fma32(coeff, _rowcol_col_sums(g, s, ftz), ftz(vc))))
+
+
+def rowcol_partition(rows: int) -> Tuple[int, int]:
+    """(ranges, range_rows) of rowcol's fold over `rows` rows: range p is
+    rows [p * range_rows, min((p + 1) * range_rows, rows)). A function of
+    the row count alone, so the sums' order is the same on every card and
+    in the plain version."""
+    range_rows = max(RC_MIN_RANGE_ROWS, -(-rows // RC_MAX_RANGES))
+    return -(-rows // range_rows), range_rows
+
+
+def _rowcol_row_sums(x):
+    """(n, LANES) -> (n, 1) row sums in the kernel's order: the lane's 32
+    values (value j = 4k + e of lane l at column 4 * (32k + l) + e) in a
+    halving tree, then the 32 lanes in a halving tree (shuffles down)."""
+    n = x.shape[0]
+    t = x.reshape(n, 8, 32, 4).permute(0, 2, 1, 3).reshape(n, 32, 32)
+    return halving_sum(halving_sum(t, 2), 1).reshape(n, 1)
+
+
+def _rowcol_col_sums(g, s, fl):
+    """(1, LANES) column sums of fl((fl(g)*s)^2) in the kernel's order:
+    per range, warp w adds rows w, w + 8, ... one after another, the 8
+    warps meet in a halving tree, and the ranges' sums are added in
+    order."""
+    rows = g.shape[0]
+    ranges, rr = rowcol_partition(rows)
+    steps = -(-rr // RC_WARPS)
+    group = max(1, _PLAIN_COL_ROWS // rr)
+    partials = []
+    for p0 in range(0, ranges, group):
+        n = min(ranges, p0 + group) - p0
+        lo, hi = p0 * rr, min((p0 + n) * rr, rows)
+        x = fl(fl(g[lo:hi]) * s)
+        xp = x.new_zeros((n * rr, LANES))        # zero rows add exactly 0
+        xp[:hi - lo] = fl(x * x)
+        xp = torch.nn.functional.pad(xp.view(n, rr, LANES),
+                                     (0, 0, 0, steps * RC_WARPS - rr))
+        xp = xp.view(n, steps, RC_WARPS, LANES)
+        acc = xp[:, 0]
+        for k in range(1, steps):
+            acc = fl(acc + xp[:, k])
+        partials.append(halving_sum(acc, 1).view(n, LANES))
+    partials = torch.cat(partials)
+    total = partials[0]
+    for p in range(1, ranges):
+        total = fl(total + partials[p])
+    return total.view(1, LANES)
+
+
 _F32_COLS = (Col(LANES, torch.float32),)
 _Q8_COLS = (Col(LANES, torch.int8), Col(1, torch.float32))
 _KERNEL_CODECS = {
@@ -156,6 +252,11 @@ _KERNEL_CODECS = {
         "int8": KernelCodec("int8", _Q8_COLS, 1, _q8_decode, _q8u_update),
         "factored": KernelCodec("factored", (Col(1, torch.float32),), 2,
                                 _fp32_decode, _fac_update),
+        "rowcol": KernelCodec("rowcol",
+                              (Col(1, torch.float32),
+                               Col(LANES, torch.float32, row_indexed=False)),
+                              3, _rowcol_decode, _rowcol_update,
+                              _rowcol_fold_columns),
     },
 }
 
@@ -180,8 +281,9 @@ def _as_parts(x):
 
 
 def _check_parts(fn: str, parts, kc: KernelCodec, rows: int, device) -> None:
-    """A codec's columns: their count, shapes, dtypes, contiguity and
-    device (16-byte aligned on CUDA)."""
+    """A codec's columns: their count, shapes ((rows, width), or (1, width)
+    for a shared column), dtypes, contiguity and device (16-byte aligned on
+    CUDA)."""
     if len(parts) != len(kc.cols):
         raise ValueError(f"{fn}: {kc.name} takes {len(kc.cols)} columns, "
                          f"got {len(parts)}")
@@ -189,9 +291,10 @@ def _check_parts(fn: str, parts, kc: KernelCodec, rows: int, device) -> None:
         if p.dtype != c.dtype:
             raise TypeError(f"{fn}: {kc.name} column must be {c.dtype}, "
                             f"got {p.dtype}")
-        if tuple(p.shape) != (rows, c.width):
-            raise ValueError(f"{fn}: {kc.name} column must be ({rows}, "
-                             f"{c.width}), got {tuple(p.shape)}")
+        want = (rows if c.row_indexed else 1, c.width)
+        if tuple(p.shape) != want:
+            raise ValueError(f"{fn}: {kc.name} column must be {want}, got "
+                             f"{tuple(p.shape)}")
         if not p.is_contiguous():
             raise ValueError(f"{fn}: operands must be contiguous")
         if p.device != device:
@@ -229,10 +332,11 @@ _P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
 # C signatures of the launchers in csrc/fused_step.cu: the two codecs'
 # kinds, two column pointers per moment (the second NULL for a one-column
 # codec), ..., the CUDA stream. arena_fold_launch serves the whole-arena
-# fold (row offset 0) and the slice fold.
+# fold (row offset 0) and the slice fold; its (ranges, range_rows, scratch)
+# serve rowcol's column sums (0, 0, NULL for the other codecs).
 SIGNATURES = {
-    "arena_fold_launch": (_I, _I, _P, _P, _P, _P, _P, _I64, _I64, _F, _F, _F,
-                          _F, _F, _P),
+    "arena_fold_launch": (_I, _I, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                          _P, _F, _F, _F, _F, _F, _P),
     "arena_apply_launch": (_I, _I, _P, _P, _P, _P, _P, _I64, _F, _F, _F, _F,
                            _F, _P),
 }
@@ -246,8 +350,11 @@ def _ptrs(parts):
     return tuple(p.data_ptr() for p in parts) + (None,) * (2 - len(parts))
 
 
-def _rows(parts, lo: int, hi: int):
-    return tuple(p[lo:hi] for p in parts)
+def _rows(kc: KernelCodec, parts, lo: int, hi: int):
+    """Rows [lo, hi) of a codec's row-indexed columns; a shared column
+    whole."""
+    return tuple(p[lo:hi] if c.row_indexed else p
+                 for p, c in zip(parts, kc.cols))
 
 
 def _write(parts, new) -> None:
@@ -273,11 +380,27 @@ def _fold_scalars(beta1, beta2, scale, decay):
             _f32(dv))
 
 
+def fold_scratch(vk: KernelCodec, rows_g: int, device):
+    """(ranges, range_rows, scratch) for a fold of rows_g rows: for
+    rowcol, its partition and a (ranges * LANES + 4)-float fp32 buffer
+    (the ranges' column sums, then the kernel's ticket; at most
+    RC_MAX_RANGES * 4 KiB + 16 B, 3,145,744 B); (0, 0, None) otherwise."""
+    if vk.fold_columns is None:
+        return 0, 0, None
+    ranges, range_rows = rowcol_partition(rows_g)
+    return ranges, range_rows, torch.empty(ranges * LANES + 4,
+                                           dtype=torch.float32, device=device)
+
+
 def fold_args(mk, vk, m_parts, v_parts, g, row_offset, beta1, beta2,
-              scale, decay):
-    """Arguments of arena_fold_launch, the stream excepted."""
+              scale, decay, scratch=(0, 0, None)):
+    """Arguments of arena_fold_launch, the stream excepted. `scratch` is
+    fold_scratch's triple."""
+    ranges, range_rows, buf = scratch
     return (mk.kind, vk.kind, *_ptrs(m_parts), *_ptrs(v_parts), g.data_ptr(),
-            row_offset, g.shape[0], *_fold_scalars(beta1, beta2, scale, decay))
+            row_offset, g.shape[0], ranges, range_rows,
+            None if buf is None else buf.data_ptr(),
+            *_fold_scalars(beta1, beta2, scale, decay))
 
 
 def arena_fold_ref(m, v, g, *, beta1: float, beta2: float, scale=1.0,
@@ -291,9 +414,11 @@ def arena_fold_ref(m, v, g, *, beta1: float, beta2: float, scale=1.0,
     for lo in range(0, g.shape[0], _PLAIN_CHUNK_ROWS):
         hi = lo + _PLAIN_CHUNK_ROWS
         gs = fl(fl(g[lo:hi]) * s)
-        mp, vp = _rows(m_parts, lo, hi), _rows(v_parts, lo, hi)
+        mp, vp = _rows(mk, m_parts, lo, hi), _rows(vk, v_parts, lo, hi)
         _write(mp, mk.update(mp, gs, dm, c1, fl))
         _write(vp, vk.update(vp, fl(gs * gs), dv, c2, fl))
+    if vk.fold_columns is not None:
+        vk.fold_columns(v_parts, g, s, c2)
     return m, v
 
 
@@ -303,8 +428,9 @@ def arena_fold(m, v, g, *, beta1: float, beta2: float, scale=1.0,
     place: m = dm*m + (1-beta1)*(scale*g), v = dv*v + (1-beta2)*(scale*g)^2,
     each in its codec's space. `m`/`v` are the codecs' column tuples (bare
     tensors for fp32). `decay=(dm, dv)` fuses the begin-minibatch decay
-    into this fold (pass (beta1, beta2) on the first micro-batch); None
-    means (1, 1). Returns (m, v)."""
+    into this fold for the row-indexed columns (pass (beta1, beta2) on the
+    first micro-batch); None means (1, 1). A shared column (rowcol's column
+    sums) is decayed by the caller. Returns (m, v)."""
     mk, vk = kernel_codec("m", m_codec), kernel_codec("v", v_codec)
     (m_parts, _), (v_parts, _) = _as_parts(m), _as_parts(v)
     _check_state("arena_fold", mk, vk, m_parts, v_parts, g, g.shape[0])
@@ -313,7 +439,8 @@ def arena_fold(m, v, g, *, beta1: float, beta2: float, scale=1.0,
                               decay=decay, m_codec=mk, v_codec=vk)
     build.launch("arena_fold", _lib().arena_fold_launch, g,
                  *fold_args(mk, vk, m_parts, v_parts, g, 0, beta1, beta2,
-                            scale, decay))
+                            scale, decay,
+                            fold_scratch(vk, g.shape[0], g.device)))
     arena_fold.launches += 1
     return m, v
 
@@ -345,12 +472,14 @@ def arena_fold_slice_ref(m, v, g, row_offset: int, *, beta1: float,
     """Plain version of `arena_fold_slice`: `arena_fold_ref` on the rows
     of the slice (views of every column). `block` is checked by the
     wrapper."""
+    mk, vk = kernel_codec("m", m_codec), kernel_codec("v", v_codec)
     (m_parts, m_bare), (v_parts, v_bare) = _as_parts(m), _as_parts(v)
     hi = row_offset + g.shape[0]
-    ms, vs = _rows(m_parts, row_offset, hi), _rows(v_parts, row_offset, hi)
+    ms = _rows(mk, m_parts, row_offset, hi)
+    vs = _rows(vk, v_parts, row_offset, hi)
     arena_fold_ref(ms[0] if m_bare else ms, vs[0] if v_bare else vs, g,
                    beta1=beta1, beta2=beta2, scale=scale, decay=decay,
-                   m_codec=m_codec, v_codec=v_codec)
+                   m_codec=mk, v_codec=vk)
     return m, v
 
 
@@ -371,7 +500,8 @@ def arena_fold_slice(m, v, g, row_offset: int, *, beta1: float, beta2: float,
                                     decay=decay, m_codec=mk, v_codec=vk)
     build.launch("arena_fold_slice", _lib().arena_fold_launch, g,
                  *fold_args(mk, vk, m_parts, v_parts, g, row_offset, beta1,
-                            beta2, scale, decay))
+                            beta2, scale, decay,
+                            fold_scratch(vk, g.shape[0], g.device)))
     arena_fold_slice.launches += 1
     return m, v
 
@@ -408,9 +538,9 @@ def arena_apply_ref(p, m, v, *, lr, bc1, bc2, eps: float = 1e-8,
         hi = lo + _PLAIN_CHUNK_ROWS
         pc = p[lo:hi]
         pf = fl(pc)
-        vh = vk.decode(_rows(v_parts, lo, hi), fl)   # (rows, 1) factored
+        vh = vk.decode(_rows(vk, v_parts, lo, hi), fl)  # (rows, 1) factored
         den = fl(bc1 * fl(fl(_sqrt32(fl(vh / bc2))) + eps))
-        u = fl(mk.decode(_rows(m_parts, lo, hi), fl) / den)
+        u = fl(mk.decode(_rows(mk, m_parts, lo, hi), fl) / den)
         if weight_decay:
             u = fl(_fma32(wd, pf, u))
         pc.copy_(fl(_fma32(-lr, u, pf)))

@@ -34,7 +34,7 @@ def add_codec_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--state-codec", default="fp32",
                     choices=list(STATE_CODECS),
                     help="second-moment codec over the arena "
-                         "(core/state_store.py; rowcol is not ported yet)")
+                         "(core/state_store.py)")
     ap.add_argument("--m-codec", default="fp32", choices=list(M_CODECS),
                     help="first-moment codec over the arena "
                          "(core/state_store.py)")

@@ -146,7 +146,9 @@ def test_launch_arguments_match_the_declared_c_signatures(entry):
         off, g = (0, x) if entry == "arena_fold" else (2, x[:4])
         args = tfs.fold_args(*fp32, (x,), (x,), g, off, B1, B2, 0.125,
                              (B1, B2))
-        ints = (off, g.shape[0])
+        # the row offset and rows; rowcol's partition (none here) and its
+        # scratch pointer (NULL)
+        ints = (off, g.shape[0], 0, 0, None)
     got = []
     proto = ctypes.CFUNCTYPE(ctypes.c_int, *tfs.SIGNATURES[name])
     assert proto(lambda *a: got.append(a) or 0)(*args, 0) == 0
@@ -178,17 +180,14 @@ _INIT_CASES = ([("pair", m, v) for m, v in
 @pytest.mark.parametrize("kind,m_codec,v_codec", _INIT_CASES)
 def test_queued_codecs_raise_not_implemented(kind, m_codec, v_codec):
     """Every ported (m, v) pair initialises with the reference's column
-    shapes and dtypes; the reference's rowcol codec, not ported yet, raises
-    NotImplementedError naming its ROADMAP item; an unknown name raises the
-    reference's KeyError (factored is a v codec only)."""
+    shapes and dtypes, rowcol's (1, 1024) column sums included (the
+    "queued" case, named when rowcol was not ported yet, now initialises
+    as every pair does); an unknown name raises the reference's KeyError
+    (factored is a v codec only)."""
     import jax
 
     from repro.core import adama as jadama
     params = {"w": torch.zeros(3, 5)}
-    if kind == "queued":
-        with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-            adama.init_arena(params, codec=v_codec, m_codec=m_codec)
-        return
     if kind == "unknown":
         with pytest.raises(KeyError):
             jadama.init_arena({"w": jnp.zeros((3, 5))}, codec=v_codec,
