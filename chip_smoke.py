@@ -51,13 +51,30 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      its real row offset and the apply, each bit for bit (every column of
      the arena) against its plain version, then timed; torch.profiler
      counts the device kernels of one rowcol fold, slice fold and apply.
+   - the guarded forms of arena_fold, arena_fold_slice and arena_apply
+     (the guard vector [dm, dv, ok, scale] on the card), all eight pairs
+     on the 64-row edge arena and the rowcol pairs on 1,000 rows, bit for
+     bit against their plain versions: ok = 1 at the traced scale
+     f32(1/8) / f32(3), ok = 0 leaving every byte (rowcol's column sums
+     and p, at bc1 = 0 too), and ok = 1 at f32(1/8) equal to the
+     unguarded kernels; finite_and on fp32 and bf16 (one NaN, +Inf or
+     -Inf at the first or the last element, also at a view off 16-byte
+     alignment; rows of subnormals and of the largest values). Then the
+     guarded fp32/fp32 and int8/rowcol fold, layer and rest slices and
+     apply at the stablelm arena, bit for bit against the plain versions
+     and the unguarded kernels, timed in turns beside the unguarded ones;
+     torch.profiler counts finite_and + one guarded fold as two device
+     kernels; finite_and at the stablelm arena's, a layer's, the rest's
+     and the bert-large arena's slab, timed beside torch.isfinite(x).all()
+     and torch.isfinite(torch.aminmax(x)), allocating nothing.
 4. A small-input check: reduced bert-large trained 2 steps on the card
    (kernels) and on the CPU (plain versions) from the same params agree,
    for adama, adama_layerwise (arena and per-leaf state) and per-leaf
    adama; so does reduced rwkv6-7b for adama and adama_layerwise, and
    reduced stablelm-1.6b (3 steps) for adama with int8/int8 state and
-   adama_layerwise with int8/factored and int8/rowcol state: every param
-   within 2e-5,
+   adama_layerwise with int8/factored and int8/rowcol state, the last
+   also guarded with a NaN at micro-batch 1 of step 1 (one skip on both
+   sides): every param within 2e-5,
    or within the codecs' declared drift for at most 15% of them.
 5. The main paths: bert-large at full width and depth, bf16 compute, fp32
    params and state, seq 128, global batch 256, 8 micro-batches: 5 steps of
@@ -72,13 +89,20 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    4096), global batch 16, 8 micro-batches: 3 steps each of `adama`, `ga`
    and `adama_layerwise` with fp32 state, `adama` with int8/int8, with
    int8/factored, with fp32/rowcol and with int8/rowcol state, and
-   `adama_layerwise` with int8/int8 and with int8/rowcol state. Each
-   path runs with every launch count set to 0 just before it and read just
-   after: every fold, apply and scan must have gone through the kernels,
-   as many times as the path's schedule says. `adama` and
-   `adama_layerwise` on the same arena state must agree in every step's
-   loss. The compressed state must lower each peak by at least its exact
-   bytes.
+   `adama_layerwise` with int8/int8 and with int8/rowcol state; then the
+   guarded paths (finite_guard): `adama` fp32 clean, with a NaN and with
+   a forced skip at micro-batch 3 of step 1, `adama_layerwise` int8/rowcol
+   the same three ways, and `ga` fp32 with a NaN at micro-batch 0 of step
+   0 (2 steps). Each path runs with every launch count set to 0 just
+   before it and read just after: every fold, apply, scan and finite flag
+   must have gone through the kernels, as many times as the path's
+   schedule says. `adama` and `adama_layerwise` on the same arena state
+   must agree in every step's loss. The compressed state must lower each
+   peak by at least its exact bytes. A digest of the params, m and v
+   computed on the card holds the guard bitwise: a clean guarded path
+   equals its unguarded twin, a caught NaN equals a forced skip and
+   differs from the clean run; guarded ga leaves the params as they were,
+   its step at 0; every guarded path peaks at most 1 MiB above its twin.
 
 The last three lines are a JSON object with every kernel's numbers, the
 card's name and power limit, and the JSON result line
@@ -149,7 +173,56 @@ PATHS = {"adama": ("bert_large", "adama", True, 5, FP32),
                                         ("int8", "rowcol")),
          "stablelm_adama_layerwise_int8_rowcol": ("stablelm_1_6b",
                                                   "adama_layerwise", True, 3,
-                                                  ("int8", "rowcol"))}
+                                                  ("int8", "rowcol")),
+         "stablelm_adama_guarded": ("stablelm_1_6b", "adama", True, 3, FP32),
+         "stablelm_adama_guarded_nan": ("stablelm_1_6b", "adama", True, 3,
+                                        FP32),
+         "stablelm_adama_guarded_skip": ("stablelm_1_6b", "adama", True, 3,
+                                         FP32),
+         "stablelm_adama_layerwise_int8_rowcol_guarded": (
+             "stablelm_1_6b", "adama_layerwise", True, 3, ("int8", "rowcol")),
+         "stablelm_adama_layerwise_int8_rowcol_guarded_nan": (
+             "stablelm_1_6b", "adama_layerwise", True, 3, ("int8", "rowcol")),
+         "stablelm_adama_layerwise_int8_rowcol_guarded_skip": (
+             "stablelm_1_6b", "adama_layerwise", True, 3, ("int8", "rowcol")),
+         "stablelm_ga_guarded_nan": ("stablelm_1_6b", "ga", True, 2, FP32)}
+# the guarded paths (finite_guard=True): path -> (the fault injected, its
+# unguarded twin); each must peak at most GUARD_PEAK_SLACK above its twin
+GUARDED = {
+    "stablelm_adama_guarded": (None, "stablelm_adama"),
+    "stablelm_adama_guarded_nan": ("nan@micro=3,step=1", "stablelm_adama"),
+    "stablelm_adama_guarded_skip": ("skip@micro=3,step=1", "stablelm_adama"),
+    "stablelm_adama_layerwise_int8_rowcol_guarded": (
+        None, "stablelm_adama_layerwise_int8_rowcol"),
+    "stablelm_adama_layerwise_int8_rowcol_guarded_nan": (
+        "nan@micro=3,step=1", "stablelm_adama_layerwise_int8_rowcol"),
+    "stablelm_adama_layerwise_int8_rowcol_guarded_skip": (
+        "skip@micro=3,step=1", "stablelm_adama_layerwise_int8_rowcol"),
+    "stablelm_ga_guarded_nan": ("nan@micro=0,step=0", "stablelm_ga")}
+GUARD_PEAK_SLACK = 1 << 20
+# the bitwise claims on the guarded paths, over a digest of the params, m
+# and v bytes computed on the card: (path, path, equal?)
+GUARD_DIGESTS = (
+    ("stablelm_adama_guarded", "stablelm_adama", True),
+    ("stablelm_adama_guarded_nan", "stablelm_adama_guarded_skip", True),
+    ("stablelm_adama_guarded_nan", "stablelm_adama", False),
+    ("stablelm_adama_layerwise_int8_rowcol_guarded",
+     "stablelm_adama_layerwise_int8_rowcol", True),
+    ("stablelm_adama_layerwise_int8_rowcol_guarded_nan",
+     "stablelm_adama_layerwise_int8_rowcol_guarded_skip", True),
+    ("stablelm_adama_layerwise_int8_rowcol_guarded_nan",
+     "stablelm_adama_layerwise_int8_rowcol", False))
+# skipped micro-batches each guarded path must report after its steps, and
+# its final step counter
+GUARD_SKIPS = {"stablelm_adama_guarded": (0, 3),
+               "stablelm_adama_guarded_nan": (1, 3),
+               "stablelm_adama_guarded_skip": (1, 3),
+               "stablelm_adama_layerwise_int8_rowcol_guarded": (0, 3),
+               "stablelm_adama_layerwise_int8_rowcol_guarded_nan": (1, 3),
+               "stablelm_adama_layerwise_int8_rowcol_guarded_skip": (1, 3),
+               # ga's one verdict per step; its step counter stays, so the
+               # fault fires again
+               "stablelm_ga_guarded_nan": (2, 0)}
 # the compressed-state pairs timed at the full stablelm arena, and the main
 # path each one's launches are read from
 TIMED_CODEC_PAIRS = {("int8", "int8"): "stablelm_adama_int8",
@@ -197,6 +270,11 @@ KERNELS = {
                              "src/repro_torch/kernels/csrc/rwkv6_chunk.cu",
                              "src/repro/kernels/rwkv6_chunk.py:73",
                              "rwkv6_adama"),
+    # the guarded folds' finite flag; the TPU package computes it with
+    # jnp.isfinite(g).all() outside its kernels, in the fold's guard setup
+    "finite_and": ("fused_step", "src/repro_torch/kernels/csrc/fused_step.cu",
+                   "src/repro/kernels/fused_step.py:396",
+                   "stablelm_adama_guarded"),
 }
 
 
@@ -765,6 +843,499 @@ def check_codec_timed(torch, fused_step, layout):
     return out, per_call
 
 
+# ---------------------------------------------------------------------------
+# The guarded forms and the finite flag
+# ---------------------------------------------------------------------------
+
+# the guard's traced scale: f32(1/8) / f32(3), not a power of two, formed by
+# a division on the card
+GUARD_SCALE = (0.125, 3.0)
+
+
+def _guard_vec(torch, decay, ok, scale=None):
+    """A guard vector [dm, dv, ok, scale] on the card; scale None is
+    GUARD_SCALE's quotient, divided there."""
+    dm, dv = (1.0, 1.0) if decay is None else decay
+    head = torch.tensor([dm, dv, 1.0 if ok else 0.0], device="cuda")
+    if scale is None:
+        num, den = (torch.tensor(x, device="cuda") for x in GUARD_SCALE)
+        scale = (num / den).reshape(1)
+    else:
+        scale = torch.tensor([scale], device="cuda")
+    return torch.cat([head, scale])
+
+
+def _bits_equal(torch, a, b):
+    return all(x.view(torch.uint8).equal(y.view(torch.uint8))
+               for x, y in zip(_cols(a), _cols(b)))
+
+
+def _guard_case(torch, fused_step, name, pair, label, state, run, checked):
+    """One guarded call on `state` (a tuple of tensors or column tuples):
+    ok = 1 at the traced scale, kernel against plain version, bit for bit;
+    ok = 0, every byte of `state` unchanged by kernel and plain version."""
+    for ok in (True, False):
+        sk, sr = (tuple(_clone(x) for x in state) for _ in range(2))
+        run(True, sk, ok)
+        run(False, sr, ok)
+        torch.cuda.synchronize()
+        _compare_bits(torch, name, f"guarded {pair} {label} ok={int(ok)}",
+                      list(zip(sk, sr)))
+        if not ok and not all(_bits_equal(torch, x, y)
+                              for x, y in zip(sk, state)):
+            raise AssertionError(f"{name} guarded {pair} {label}: ok = 0 "
+                                 f"changed the state")
+        checked.append((name, pair, f"{label} ok={int(ok)}"))
+
+
+def _check_guard_arena(torch, fused_step, adama_accum, m_codec, v_codec,
+                       rows, seed, checked):
+    """A pair's guarded fold (with and without the decay), slice fold and
+    apply (with and without weight decay; ok = 0 also at bc1 = 0) on an
+    arena of `rows` rows with the edge rows; then ok = 1 at scale f32(1/8)
+    against the unguarded kernels, bit for bit."""
+    pair = f"{m_codec}/{v_codec}"
+    codecs = dict(m_codec=m_codec, v_codec=v_codec)
+    m, v, g, p = _edge_arenas(torch, rows, seed)
+    gbad = g.clone()                  # ok = 0 must keep its NaN out
+    gbad[rows // 2, 7] = float("nan")
+    mk, vk = _encode(adama_accum, "m", m_codec, m), \
+        _encode(adama_accum, "v", v_codec, v)
+    b1, b2 = 0.9, 0.999
+    kw = dict(beta1=b1, beta2=b2, **codecs)
+    block = 8
+    lo, hi = block * (rows // (4 * block)), block * (3 * rows // (4 * block))
+
+    def mv(state):
+        return state if len(state) == 2 else state[:2]
+    for decay in ((b1, b2), None):
+        def fold(kern, st, ok, decay=decay):
+            fn = fused_step.arena_fold if kern else fused_step.arena_fold_ref
+            fn(*st, g if ok else gbad, guard=_guard_vec(torch, decay, ok),
+               **kw)
+        _guard_case(torch, fused_step, "arena_fold", pair,
+                    f"{rows} rows decay={decay}", (mk, vk), fold, checked)
+
+    def slice_fold(kern, st, ok):
+        fn = (fused_step.arena_fold_slice if kern
+              else fused_step.arena_fold_slice_ref)
+        fn(*st, (g if ok else gbad)[:hi - lo].flip(0).contiguous(), lo,
+           block=block, guard=_guard_vec(torch, (b1, b2), ok), **kw)
+    _guard_case(torch, fused_step, "arena_fold_slice", pair,
+                f"{rows} rows [{lo}, {hi})", (mk, vk), slice_fold, checked)
+    # the apply reads a state folded once (unguarded) from the edge arena
+    fused_step.arena_fold(mk, vk, g, decay=(b1, b2), **kw)
+    for wd, bc1 in ((0.0, 0.19), (0.01, 0.19), (0.01, 0.0)):
+        def apply(kern, st, ok, wd=wd, bc1=bc1):
+            fn = fused_step.arena_apply if kern else fused_step.arena_apply_ref
+            fn(st[0], mk, vk, lr=1e-3, bc1=bc1, bc2=0.001999, eps=1e-8,
+               weight_decay=wd, guard=torch.tensor(
+                   [1.0 if ok else 0.0], device="cuda"), **codecs)
+        if bc1 == 0.0:               # only the skipped apply may see bc1 = 0
+            pk = p.clone()
+            apply(True, (pk,), False)
+            torch.cuda.synchronize()
+            if not _bits_equal(torch, pk, p):
+                raise AssertionError(f"arena_apply guarded {pair}: ok = 0 "
+                                     f"at bc1 = 0 changed p")
+            checked.append(("arena_apply", pair, f"{rows} rows ok=0 bc1=0"))
+            continue
+        _guard_case(torch, fused_step, "arena_apply", pair,
+                    f"{rows} rows wd={wd}", (p,), apply, checked)
+    # ok = 1 at a static scale: the guarded kernels are the unguarded ones
+    sg, su = ((_clone(mk), _clone(vk)) for _ in range(2))
+    fused_step.arena_fold(*sg, g, guard=_guard_vec(torch, (b1, b2), True,
+                                                   0.125), **kw)
+    fused_step.arena_fold(*su, g, scale=0.125, decay=(b1, b2), **kw)
+    fused_step.arena_fold_slice(*sg, g[:hi - lo], lo, block=block,
+                                guard=_guard_vec(torch, None, True, 0.125),
+                                **kw)
+    fused_step.arena_fold_slice(*su, g[:hi - lo], lo, block=block,
+                                scale=0.125, **kw)
+    pg, pu = p.clone(), p.clone()
+    akw = dict(lr=1e-3, bc1=0.19, bc2=0.001999, eps=1e-8, weight_decay=0.01,
+               **codecs)
+    fused_step.arena_apply(pg, *sg, guard=torch.ones(1, device="cuda"),
+                           **akw)
+    fused_step.arena_apply(pu, *su, **akw)
+    torch.cuda.synchronize()
+    _compare_bits(torch, "guarded vs unguarded", f"{pair} {rows} rows",
+                  [(sg[0], su[0]), (sg[1], su[1]), (pg, pu)])
+    checked.append(("guarded = unguarded", pair, f"{rows} rows"))
+
+
+def _finite_cases(torch, dtype):
+    """finite_and's edge cases: one NaN, +Inf and -Inf at the first and at
+    the last element (of a length whose bytes are no multiple of 16, and of
+    a view one element off 16-byte alignment), a finite row of subnormals
+    and a finite row of the largest values."""
+    n = 1_000_003
+    base = torch.linspace(-3.0, 3.0, n, device="cuda").to(dtype)
+    cases = {}
+    for bad in ("nan", "inf", "-inf"):
+        for at in (0, n - 1):
+            x = base.clone()
+            x[at] = float(bad)
+            cases[f"{bad} at {at}"] = x
+            cases[f"{bad} at {at}, view [1:]"] = x[1:]
+    fin = torch.finfo(dtype)
+    cases["subnormals"] = torch.full((LANES,), fin.tiny / 4, device="cuda",
+                                     dtype=dtype)
+    cases["largest finite"] = torch.full((n,), fin.max, device="cuda",
+                                         dtype=dtype)
+    cases["finite"] = base
+    return cases
+
+
+def check_guard_small(torch, fused_step, adama_accum):
+    """Phase 3, the guarded forms: every (m, v) pair on a 64-row edge arena,
+    the rowcol pairs also on RC_RANGE_ROWS rows, ok = 1 at the traced scale
+    and ok = 0, kernel against plain version bit for bit, ok = 0 a no-op,
+    ok = 1 at f32(1/8) equal to the unguarded kernels; finite_and on fp32
+    and bf16 edge cases against its plain version. Returns the checked
+    cases."""
+    from repro_torch.core import state_store
+    checked = []
+    for m_codec, v_codec in state_store.registered_combinations():
+        _check_guard_arena(torch, fused_step, adama_accum, m_codec, v_codec,
+                           CODEC_SMALL_ROWS, 21, checked)
+        if v_codec == "rowcol":
+            _check_guard_arena(torch, fused_step, adama_accum, m_codec,
+                               v_codec, RC_RANGE_ROWS, 22, checked)
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, x in _finite_cases(torch, dtype).items():
+            for start in (1.0, 0.0):
+                ok, okr = (torch.tensor([start], device="cuda")
+                           for _ in range(2))
+                fused_step.finite_and(x, ok)
+                fused_step.finite_and_ref(x, okr)
+                torch.cuda.synchronize()
+                if not ok.equal(okr):
+                    raise AssertionError(f"finite_and {dtype} {label} "
+                                         f"from {start}: {ok.item()} != "
+                                         f"plain {okr.item()}")
+                checked.append(("finite_and", str(dtype), label))
+    log(json.dumps({"phase": "kernel", "case": "guarded forms (ok = 1 at "
+                    "f32(1/8)/f32(3), ok = 0), every pair on the 64-row "
+                    f"edge arena, rowcol also at {RC_RANGE_ROWS} rows; "
+                    "finite_and edge cases; bit for bit",
+                    "checked": len(checked)}))
+    return checked
+
+
+def _digest(torch, tensors):
+    """A digest of the tensors' bytes, computed on the card: each one's
+    int32 words times fixed odd int64 weights, summed modulo 2^64 (an odd
+    weight times a nonzero word difference is never 0 modulo 2^64), chunk
+    by chunk, folded in order."""
+    chunk = 1 << 26
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(20)
+    w = torch.randint(-2 ** 62, 2 ** 62, (chunk,), generator=gen,
+                      device="cuda", dtype=torch.int64) * 2 + 1
+    total = 0
+    for t in tensors:
+        b = t.detach().contiguous().view(-1).view(torch.uint8)
+        if b.numel() % 4:
+            b = torch.cat([b, b.new_zeros(4 - b.numel() % 4)])
+        words = b.view(torch.int32)
+        for lo in range(0, words.numel(), chunk):
+            c = words[lo:lo + chunk].to(torch.int64)
+            term = int((c * w[:c.numel()]).sum()) % 2 ** 64
+            total = (total * 1_000_003 + term) % 2 ** 64
+    return total
+
+
+def _tree_leaves(tree):
+    from repro_torch.core import arena as arena_mod
+    return arena_mod.tree_flatten(tree)[0]
+
+
+def _state_tensors(out):
+    """The tensors a run's digest covers: the param leaves (sorted paths),
+    then every column of m and v."""
+    from repro_torch.core import state_store
+    state = out["opt_state"]
+    cols = [x for mo in ("m", "v")
+            for x in state_store.codec_of(state[mo], mo).parts_of(state[mo])]
+    return _tree_leaves(out["params"]) + cols
+
+
+# the guarded forms timed at the stablelm-1.6b arena beside the unguarded
+GUARD_TIMED_PAIRS = (FP32, ("int8", "rowcol"))
+
+
+def _profile_expect(torch, label, fn, want):
+    """torch.profiler's device kernels of one call of fn() must be `want`
+    ({kernel base name: count}); a session short of records is run again,
+    up to PROFILE_ATTEMPTS times. Returns {kernel: device ms}."""
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        found = profile_kernels(torch, fn)
+        got = {}
+        for name, (n, _) in found.items():
+            got[name.split("<")[0]] = got.get(name.split("<")[0], 0) + n
+        if got == want:
+            break
+    log(json.dumps({"phase": "kernel", "case": f"{label}: device kernels of "
+                    "one call, torch.profiler", "kernels": found,
+                    "attempts": attempt}))
+    if got != want:
+        raise AssertionError(f"{label} ran the device kernels {found}; "
+                             f"expected {want}")
+    return {name: ms for name, (_, ms) in found.items()}
+
+
+def check_guard_timed(torch, fused_step, layout):
+    """Phase 3, the guarded forms at the full stablelm-1.6b arena: for
+    fp32/fp32 and int8/rowcol, the fold, a layer slice, the rest slice and
+    the apply, guarded (ok = 1, the traced scale) against its plain
+    version bit for bit, guarded at f32(1/8) against the unguarded kernel
+    bit for bit, then timed in turns beside the unguarded kernel (unguarded,
+    guarded, guarded, unguarded). Then finite_and at the arena's slab, a
+    layer slab, the rest slab and the bert-large slab, against its plain
+    version and timed beside two PyTorch calls of the same function.
+    Returns ({kernel: {pair: [entry per case]}}, finite_and's entry)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    rows = layout.rows
+    spec, rest = layout.stack("blocks"), layout.rest
+    g = torch.randn((rows, LANES), generator=gen, device="cuda")
+    p = torch.randn((rows, LANES), generator=gen, device="cuda") * 0.02
+    out = {name: {} for name in CODEC_FORMS}
+    for m_codec, v_codec in GUARD_TIMED_PAIRS:
+        pair = f"{m_codec}/{v_codec}"
+        codecs = dict(m_codec=m_codec, v_codec=v_codec)
+        if m_codec == "int8":
+            m = (torch.randint(-127, 128, (rows, LANES), generator=gen,
+                               device="cuda", dtype=torch.int8),
+                 torch.rand((rows, 1), generator=gen, device="cuda") * 1e-5)
+            v = (torch.rand((rows, 1), generator=gen, device="cuda") * 1e-3,
+                 torch.rand((1, LANES), generator=gen, device="cuda"))
+        else:
+            m = torch.randn((rows, LANES), generator=gen,
+                            device="cuda") * 1e-3
+            v = (torch.randn((rows, LANES), generator=gen,
+                             device="cuda") * 1e-6).abs()
+        vec = _guard_vec(torch, None, True)
+        vec8 = _guard_vec(torch, None, True, 0.125)
+        ops = 2 + _FOLD_OPS[m_codec] + _FOLD_OPS[v_codec]
+        cases = [("arena_fold", "whole arena", rows, 0, None),
+                 ("arena_fold_slice", "layer 0", spec.layer_rows, spec.row,
+                  layout.slice_block(spec)),
+                 ("arena_fold_slice", "rest", rest.rows, rest.row,
+                  layout.slice_block(rest))]
+        for name, label, n_rows, off, block in cases:
+            gs = g[:n_rows]
+            base = dict(beta1=0.9, beta2=0.999, **codecs)
+            if name == "arena_fold":
+                def run(fn, mm, vv, gs=gs, **kw):
+                    fn(mm, vv, gs, **base, **kw)
+                kern, plain = fused_step.arena_fold, fused_step.arena_fold_ref
+            else:
+                def run(fn, mm, vv, gs=gs, off=off, block=block, **kw):
+                    fn(mm, vv, gs, off, block=block, **base, **kw)
+                kern, plain = (fused_step.arena_fold_slice,
+                               fused_step.arena_fold_slice_ref)
+            mk, vk, mr, vr = _clone(m), _clone(v), _clone(m), _clone(v)
+            run(kern, mk, vk, guard=vec)
+            run(plain, mr, vr, guard=vec)
+            torch.cuda.synchronize()
+            err = _compare_bits(torch, name, f"guarded {pair} {label}",
+                                [(mk, mr), (vk, vr)])
+            del mk, vk, mr, vr
+            mk, vk, mu, vu = _clone(m), _clone(v), _clone(m), _clone(v)
+            run(kern, mk, vk, guard=vec8)
+            run(kern, mu, vu, scale=0.125)
+            torch.cuda.synchronize()
+            _compare_bits(torch, name, f"guarded {pair} {label} at f32(1/8) "
+                          "vs unguarded", [(mk, mu), (vk, vu)])
+            del mk, vk, mu, vu
+            n = n_rows * LANES
+            t_u1 = timed_ms(torch, lambda: run(kern, m, v, scale=0.125),
+                            reps=KERNEL_REPS)
+            t_g1 = timed_ms(torch, lambda: run(kern, m, v, guard=vec),
+                            reps=KERNEL_REPS)
+            t_g2 = timed_ms(torch, lambda: run(kern, m, v, guard=vec),
+                            reps=KERNEL_REPS)
+            t_u2 = timed_ms(torch, lambda: run(kern, m, v, scale=0.125),
+                            reps=KERNEL_REPS)
+            entry = _kernel_entry(
+                name, f"guarded {pair} {label}", statistics.median(
+                    [t_g1, t_g2]),
+                timed_ms(torch, lambda: run(plain, m, v, guard=vec),
+                         runs=CODEC_PLAIN_RUNS, warmup=1),
+                # the unguarded form's bytes and the vector's 16
+                bound_ms(4 * n + 2 * _codec_bytes(m_codec, v_codec, n_rows)
+                         + 16, ops * n),
+                {"pair": pair, "rows": n_rows, "row_offset": off,
+                 "max_abs_err": err},
+                logged={"unguarded_ms_in_turns": [t_u1, t_u2],
+                        "guarded_ms_in_turns": [t_g1, t_g2]})
+            entry.update(unguarded_ms=statistics.median([t_u1, t_u2]),
+                         guarded_over_unguarded=statistics.median(
+                             [t_g1, t_g2]) / statistics.median([t_u1, t_u2]))
+            out[name].setdefault(pair, []).append(entry)
+        akw = dict(lr=1e-3, bc1=0.19, bc2=0.001999, eps=1e-8, **codecs)
+        ok1 = torch.ones(1, device="cuda")
+        pk, pr, pu = p.clone(), p.clone(), p.clone()
+        fused_step.arena_apply(pk, m, v, guard=ok1, **akw)
+        fused_step.arena_apply_ref(pr, m, v, guard=ok1, **akw)
+        fused_step.arena_apply(pu, m, v, **akw)
+        torch.cuda.synchronize()
+        err = _compare_bits(torch, "arena_apply", f"guarded {pair}",
+                            [(pk, pr), (pk, pu)])
+        del pk, pr, pu
+        n = rows * LANES
+        apply_ops = _DECODE_OPS[m_codec] + _DECODE_OPS[v_codec] + 7
+        t = [timed_ms(torch, lambda g_=gd: fused_step.arena_apply(
+                 p, m, v, guard=g_, **akw), reps=KERNEL_REPS)
+             for gd in (None, ok1, ok1, None)]
+        entry = _kernel_entry(
+            "arena_apply", f"guarded {pair} whole arena",
+            statistics.median(t[1:3]),
+            timed_ms(torch, lambda: fused_step.arena_apply_ref(
+                p, m, v, guard=ok1, **akw), runs=CODEC_PLAIN_RUNS, warmup=1),
+            bound_ms(8 * n + _codec_bytes(m_codec, v_codec, rows) + 4,
+                     apply_ops * n),
+            {"pair": pair, "rows": rows, "max_abs_err": err},
+            logged={"unguarded_ms_in_turns": [t[0], t[3]],
+                    "guarded_ms_in_turns": t[1:3]})
+        entry.update(unguarded_ms=statistics.median([t[0], t[3]]),
+                     guarded_over_unguarded=statistics.median(t[1:3])
+                     / statistics.median([t[0], t[3]]))
+        out["arena_apply"][pair] = [entry]
+        for x in (*_cols(m), *_cols(v), p):
+            if x.is_floating_point() and not torch.isfinite(x).all():
+                raise AssertionError(f"guarded {pair}: non-finite state or "
+                                     f"params after the timed runs")
+        del m, v
+    del p
+    torch.cuda.empty_cache()
+    fin = _time_finite_and(torch, fused_step, g, layout)
+    del g
+    torch.cuda.empty_cache()
+    return out, fin
+
+
+PROFILE_GUARD_FLAG = "--profile-guard"
+
+
+def profile_guard_child(torch, fused_step):
+    """(Run by guard_kernels_per_call in a fresh process, whose profiler
+    session is its first: in a process that has run for minutes,
+    torch.profiler delivered no records at all to a session, three
+    attempts in a row, on the H100.) The device kernels of finite_and plus
+    one guarded fold, fp32/fp32 and int8/rowcol, at the bert-large arena's
+    rows; prints them as one JSON line."""
+    rows = MAIN["bert_large"]["arena_rows"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(24)
+    g = torch.randn((rows, LANES), generator=gen, device="cuda")
+    vec = _guard_vec(torch, None, True)
+    out = {}
+    for m_codec, v_codec in GUARD_TIMED_PAIRS:
+        if m_codec == "int8":
+            m = (torch.zeros((rows, LANES), dtype=torch.int8, device="cuda"),
+                 torch.zeros((rows, 1), device="cuda"))
+            v = (torch.zeros((rows, 1), device="cuda"),
+                 torch.zeros((1, LANES), device="cuda"))
+        else:
+            m, v = (torch.zeros((rows, LANES), device="cuda")
+                    for _ in range(2))
+
+        def guarded_fold():
+            fused_step.finite_and(g, vec[2:3])
+            fused_step.arena_fold(m, v, g, beta1=0.9, beta2=0.999, guard=vec,
+                                  m_codec=m_codec, v_codec=v_codec)
+        fold_kernel = ("rowcol_fold_kernel" if v_codec == "rowcol"
+                       else "arena_fold_kernel")
+        out[f"{m_codec}/{v_codec}"] = _profile_expect(
+            torch, f"finite_and + guarded fold {m_codec}/{v_codec}",
+            guarded_fold, {"finite_and_kernel": 1, fold_kernel: 1})
+    print(json.dumps({"guard_kernels": out}), flush=True)
+
+
+def guard_kernels_per_call():
+    """finite_and + one guarded fold run two device kernels (the guard adds
+    none to the fold), counted by torch.profiler in a fresh process
+    (profile_guard_child). Returns {pair: {kernel: device ms}}."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           PROFILE_GUARD_FLAG], capture_output=True,
+                          text=True, timeout=600)
+    for line in proc.stdout.splitlines():
+        if line.startswith('{"phase"'):
+            log(line)
+    if proc.returncode != 0:
+        raise AssertionError(f"the guard's profiler check failed (exit "
+                             f"{proc.returncode}):\n{proc.stdout[-3000:]}"
+                             f"\n{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])["guard_kernels"]
+
+
+# finite_and's slabs: the stablelm-1.6b arena (its first), a layer's and the
+# rest region's rows of it, and the bert-large arena's rows
+def _time_finite_and(torch, fused_step, g, layout):
+    """finite_and against its plain version and timed beside the two
+    PyTorch calls of the same function (torch.isfinite(x).all(), which
+    allocates a bool the size of x, and torch.isfinite(torch.aminmax(x))),
+    at each slab: each returns the same verdict, clean and with a NaN."""
+    spec, rest = layout.stack("blocks"), layout.rest
+    slabs = {"stablelm arena slab": layout.rows,
+             "stablelm layer slab": spec.layer_rows,
+             "stablelm rest slab": rest.rows,
+             "bert-large arena slab": MAIN["bert_large"]["arena_rows"]}
+    ok = torch.ones(1, device="cuda")
+
+    def library_aminmax(x):
+        return torch.isfinite(torch.stack(torch.aminmax(x))).all()
+    entries = []
+    for label, n_rows in slabs.items():
+        x = g[:n_rows]
+        for poison in (False, True):
+            if poison:
+                x[n_rows // 3, 5] = float("nan")
+            ok.fill_(1.0)
+            okr = torch.ones(1, device="cuda")
+            fused_step.finite_and(x, ok)
+            fused_step.finite_and_ref(x, okr)
+            want = bool(torch.isfinite(x).all())
+            if (ok.item() != okr.item() or bool(ok.item()) != want
+                    or bool(library_aminmax(x)) != want):
+                raise AssertionError(f"finite_and {label} nan={poison}: "
+                                     f"{ok.item()}, plain {okr.item()}, "
+                                     f"library {want}")
+        x[n_rows // 3, 5] = 0.0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        for _ in range(3):
+            fused_step.finite_and(x, ok)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - before
+        t_isfinite = timed_ms(torch, lambda: torch.isfinite(x).all(),
+                              reps=KERNEL_REPS)
+        t_aminmax = timed_ms(torch, lambda: library_aminmax(x),
+                             reps=KERNEL_REPS)
+        entry = _kernel_entry(
+            "finite_and", label,
+            timed_ms(torch, lambda: fused_step.finite_and(x, ok),
+                     reps=KERNEL_REPS),
+            timed_ms(torch, lambda: fused_step.finite_and_ref(x, ok)),
+            # x read once; the flag's 4 bytes; one comparison per element
+            bound_ms(4 * n_rows * LANES + 4, n_rows * LANES),
+            {"rows": n_rows, "dtype": "float32", "max_abs_err": 0.0},
+            logged={"library_calls": {"torch.isfinite(x).all()": t_isfinite,
+                                      "torch.isfinite(torch.aminmax(x))":
+                                          t_aminmax}})
+        if extra:
+            raise AssertionError(f"finite_and {label} allocated {extra} B")
+        entry.update(library_ms=t_isfinite, library_ms_aminmax=t_aminmax,
+                     extra_bytes=extra)
+        entries.append(entry)
+    return dict({k: x for k, x in entries[0].items() if k != "case"},
+                by_case=entries)
+
+
 def _kernels_of_calls(torch, calls):
     """The device kernels each of `calls` ((case, form, fn)) runs, from
     one torch.profiler session over one call of each: every call must run
@@ -1187,7 +1758,12 @@ SMALL_PATHS = {"bert_large": (2, (("adama", True, FP32),
                                      ("adama_layerwise", True,
                                       ("int8", "factored")),
                                      ("adama_layerwise", True,
-                                      ("int8", "rowcol"))))}
+                                      ("int8", "rowcol")),
+                                     # guarded, a NaN caught at micro-batch
+                                     # 1 of step 1
+                                     ("adama_layerwise", True,
+                                      ("int8", "rowcol"),
+                                      "nan@micro=1,step=1")))}
 SMALL_PARAM_TOL = 2e-5
 # the largest share of params beyond SMALL_PARAM_TOL after the steps, from
 # int8 codes that a matmul's other rounding order flipped
@@ -1230,19 +1806,29 @@ def check_small_input(torch):
         gen = torch.Generator()
         gen.manual_seed(0)
         base = init_params(cfg, gen)
-        for engine, arena, codecs in paths:
+        for engine, arena, codecs, *fault in paths:
+            fault = fault[0] if fault else None
             opt = OptimizerConfig(accumulation=engine, micro_batches=2,
                                   arena=arena, m_codec=codecs[0],
-                                  state_codec=codecs[1])
+                                  state_codec=codecs[1],
+                                  finite_guard=fault is not None)
             tol = small_param_tol(codecs, opt.lr)
             run = RunConfig(model=cfg, optimizer=opt, seq_len=32,
-                            global_batch=4, steps=steps, log_every=10**9)
+                            global_batch=4, steps=steps, log_every=10**9,
+                            inject_fault=fault)
             outs = {dev: train(run, params=copy_to(base, dev), device=dev,
                                log_fn=lambda s: None)
                     for dev in ("cuda", "cpu")}
             lc, lg = outs["cpu"]["losses"], outs["cuda"]["losses"]
             label = (f"{arch} {engine} {'arena' if arena else 'per-leaf'} "
-                     f"{codecs[0]}/{codecs[1]}")
+                     f"{codecs[0]}/{codecs[1]}"
+                     + (f" guarded {fault}" if fault else ""))
+            skips = [outs[d]["metrics"].get("skipped_micro_batches")
+                     for d in ("cpu", "cuda")]
+            if fault and not skips[0] == skips[1] == 1:
+                raise AssertionError(f"small-input {label}: skipped "
+                                     f"micro-batches cpu, cuda {skips}; "
+                                     f"expected 1 each")
             worst, beyond, total = 0.0, 0, 0
             pc = dict(outs["cpu"]["model"].named_parameters())
             for name, x in outs["cuda"]["model"].named_parameters():
@@ -1253,6 +1839,7 @@ def check_small_input(torch):
             log(json.dumps({"phase": "small_input", "arch": arch,
                             "engine": engine, "arena": arena,
                             "m_codec": codecs[0], "v_codec": codecs[1],
+                            "fault": fault, "skipped_cpu_cuda": skips,
                             "steps": steps, "losses_cpu": lc,
                             "losses_cuda": lg, "max_param_abs_diff": worst,
                             "param_tolerance": tol,
@@ -1283,6 +1870,12 @@ def _expected_launches(path, tree):
     n_block, n_leaves = len(blocks), len(tree) - 1 + len(blocks)
     n_rest = n_leaves - n_block
     want = {k: 0 for k in KERNELS}
+    if path in GUARDED:
+        # one flag per fold (adama), per step (ga); the layer-wise engine's
+        # per slab and per tensor its pre-backward guard checks (dx and the
+        # head's gradients: every rest leaf but the embedding)
+        want["finite_and"] = {"adama": n, "ga": 1}.get(
+            engine, n * (n_layers + 1) + n * (1 + n_rest - 1))
     if arena:
         want["arena_apply"] = 1
         if engine == "adama":
@@ -1312,13 +1905,15 @@ def _main_config(arch):
     return cfg
 
 
-def _engine_twins(a, b):
-    """Two PATHS specs that differ only in adama vs adama_layerwise, on
-    arena state with the same codecs: their losses agree every step, the
-    codecs' state included (measured: bit for bit on bert-large and
-    stablelm-1.6b, within 6e-6 relative on rwkv6-7b)."""
+def _engine_twins(p, q):
+    """Two paths that differ only in adama vs adama_layerwise, on arena
+    state with the same codecs and the same guard and fault: their losses
+    agree every step, the codecs' state included (measured: bit for bit on
+    bert-large and stablelm-1.6b, within 6e-6 relative on rwkv6-7b)."""
+    a, b = PATHS[p], PATHS[q]
     return ({a[1], b[1]} == {"adama", "adama_layerwise"} and a[2] and b[2]
-            and a[0] == b[0] and a[4] == b[4])
+            and a[0] == b[0] and a[4] == b[4]
+            and GUARDED.get(p, (0,))[0] == GUARDED.get(q, (0,))[0])
 
 
 def run_main_paths(torch, wrappers, arch):
@@ -1329,28 +1924,66 @@ def run_main_paths(torch, wrappers, arch):
     from repro_torch.core import state_store
     from repro_torch.train.loop import train
 
+    from repro_torch.models.model import init_params
+
     cfg = _main_config(arch)
     main = MAIN[arch]
     ln_v = math.log(cfg.padded_vocab())
-    counts, peaks, all_losses = {}, {}, {}
+    counts, peaks, all_losses, digests = {}, {}, {}, {}
     paths = [p for p, spec in PATHS.items() if spec[0] == arch]
+    digested = {p for d in GUARD_DIGESTS for p in d[:2]}
     for path in paths:
         _, engine, arena, steps, codecs = PATHS[path]
+        fault, twin = GUARDED.get(path, (None, None))
         run = RunConfig(model=cfg,
                         optimizer=OptimizerConfig(
                             accumulation=engine, arena=arena,
                             micro_batches=main["micro_batches"],
-                            m_codec=codecs[0], state_codec=codecs[1]),
+                            m_codec=codecs[0], state_codec=codecs[1],
+                            finite_guard=path in GUARDED),
                         seq_len=main["seq_len"],
                         global_batch=main["global_batch"],
-                        seed=main["seed"], steps=steps, log_every=1)
+                        seed=main["seed"], steps=steps, log_every=1,
+                        inject_fault=fault)
         torch.cuda.empty_cache()
+        params, before = None, None
+        if engine == "ga" and path in GUARDED:
+            # the params train() would make, digested before the run
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(main["seed"])
+            params = init_params(cfg, gen)
+            before = _digest(torch, _tree_leaves(params))
         torch.cuda.reset_peak_memory_stats()
         for fn in wrappers.values():
             fn.launches = 0
-        out = train(run, device="cuda", log_fn=log)
+        out = train(run, device="cuda", log_fn=log, params=params)
         counts[path] = {k: fn.launches for k, fn in wrappers.items()}
         peaks[path] = torch.cuda.max_memory_allocated()
+        del params
+        if path in digested:
+            digests[path] = _digest(torch, _state_tensors(out))
+        guard_info = {}
+        if path in GUARDED:
+            skipped = out["metrics"]["skipped_micro_batches"]
+            guard_info = {"fault": fault, "twin": twin,
+                          "skipped_micro_batches": skipped,
+                          "final_step": out["opt_state"]["step"],
+                          "twin_peak": peaks.get(twin)}
+            if (skipped, out["opt_state"]["step"]) != GUARD_SKIPS[path]:
+                raise AssertionError(
+                    f"{path}: skipped {skipped}, step "
+                    f"{out['opt_state']['step']}; expected "
+                    f"{GUARD_SKIPS[path]}")
+            if peaks[path] > peaks[twin] + GUARD_PEAK_SLACK:
+                raise AssertionError(
+                    f"{path}: peak {peaks[path]} is more than "
+                    f"{GUARD_PEAK_SLACK} B above {twin}'s {peaks[twin]}")
+            if before is not None:
+                after = _digest(torch, _tree_leaves(out["params"]))
+                guard_info["params_unchanged"] = after == before
+                if after != before:
+                    raise AssertionError(f"{path}: the params changed; every "
+                                         f"step was skipped")
         n_params = sum(x.numel() for x in out["model"].parameters())
         state = out["opt_state"]
         rows = state["m"].layout.rows if arena else None
@@ -1367,7 +2000,8 @@ def run_main_paths(torch, wrappers, arch):
                         "step_seconds": out["step_seconds"],
                         "max_memory_allocated_bytes": peaks[path],
                         "launches": counts[path],
-                        "launches_per_step": want, **main}))
+                        "launches_per_step": want, **guard_info,
+                        "digest": digests.get(path), **main}))
         losses = out["losses"]
         all_losses[path] = losses
         first = all_losses[paths[0]][0]
@@ -1380,7 +2014,7 @@ def run_main_paths(torch, wrappers, arch):
             raise AssertionError(f"{path}: step-1 loss {losses[0]} differs "
                                  f"from {paths[0]}'s {first}")
         twin = next((p for p in paths if p in all_losses and p != path
-                     and _engine_twins(PATHS[p], PATHS[path])), None)
+                     and _engine_twins(p, path)), None)
         if twin and any(abs(a - b) > 1e-4 * abs(b)
                         for a, b in zip(losses, all_losses[twin])):
             raise AssertionError(f"{path}: losses {losses} differ from "
@@ -1398,6 +2032,17 @@ def run_main_paths(torch, wrappers, arch):
             raise AssertionError(f"{path}: state bytes {state_bytes} != "
                                  f"{_codec_bytes(*codecs, rows)}")
         del out, state
+    for a, b, equal in GUARD_DIGESTS:
+        if a in digests and (digests[a] == digests[b]) != equal:
+            raise AssertionError(f"{a} and {b}: params, m and v are "
+                                 f"{'not ' if equal else ''}bit for bit "
+                                 f"equal (digests {digests[a]}, "
+                                 f"{digests[b]})")
+    if any(a in digests for a, _, _ in GUARD_DIGESTS):
+        log(json.dumps({"phase": "guard", "arch": arch,
+                        "digest_claims": [[a, b, "equal" if e else "differ"]
+                                          for a, b, e in GUARD_DIGESTS],
+                        "met": True}))
     return counts, peaks
 
 
@@ -1407,7 +2052,8 @@ def check_memory(arch, peaks):
     and its packed copy); a path with compressed state peaks below the
     same engine's fp32 path by at least the state bytes it saves."""
     path = {spec[1]: p for p, spec in PATHS.items()
-            if spec[0] == arch and spec[2] and spec[4] == FP32}
+            if spec[0] == arch and spec[2] and spec[4] == FP32
+            and p not in GUARDED}
     adama, ga, lw = (peaks[path[e]] for e in ("adama", "ga",
                                               "adama_layerwise"))
     arena_bytes = MAIN[arch]["arena_rows"] * LANES * 4
@@ -1426,7 +2072,7 @@ def check_memory(arch, peaks):
                              f"({2 * arena_bytes} B)")
     rows = MAIN[arch]["arena_rows"]
     for p, (a, engine, arena, _, codecs) in PATHS.items():
-        if a != arch or codecs == FP32:
+        if a != arch or codecs == FP32 or p in GUARDED:
             continue
         base = path[engine]
         saved = _codec_bytes(*FP32, rows) - _codec_bytes(*codecs, rows)
@@ -1463,6 +2109,22 @@ def _codec_forms(name, checked, timed, counts):
             "timed": forms}
 
 
+def _guarded_forms(name, checked, timed, counts):
+    """The `kernels` line's guarded forms of one kernel: the pairs and
+    cases checked bit for bit on the small arenas; the timed pairs' numbers
+    at the stablelm arena beside the unguarded kernel's; and the launches
+    of the guarded main paths."""
+    return {"bitwise_pairs": sorted({pr for k, pr, _ in checked
+                                     if k == name}),
+            "bitwise_cases": sum(k == name for k, _, _ in checked),
+            "timed": [dict({k: x for k, x in entries[0].items()
+                            if k != "case"}, pair=pair, library_ms=None,
+                           by_case=entries)
+                      for pair, entries in timed.items()],
+            "launches_by_guarded_path": {p: counts[p][name]
+                                         for p in GUARDED if p in counts}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1478,6 +2140,10 @@ def main() -> int:
     from repro_torch.kernels import (adam_apply, adama_accum, build,
                                      fused_step, rwkv6_chunk)
     from repro_torch.train.loop import resolve_device
+    if sys.argv[1:] == [PROFILE_GUARD_FLAG]:
+        resolve_device("cuda")
+        profile_guard_child(torch, fused_step)
+        return 0
 
     t_start = time.perf_counter()
     resolve_device("cuda")           # TF32 off for fp32 matmuls
@@ -1508,8 +2174,14 @@ def main() -> int:
     kernels.update(check_leaf_kernels(torch, adama_accum, adam_apply))
     kernels.update(check_rwkv_scan(torch, rwkv6_chunk))
     codec_checked = check_codec_small(torch, fused_step, adama_accum)
-    codec_timed, codec_per_call = check_codec_timed(
-        torch, fused_step, full_layout(torch, "stablelm_1_6b"))
+    stablelm_layout = full_layout(torch, "stablelm_1_6b")
+    codec_timed, codec_per_call = check_codec_timed(torch, fused_step,
+                                                    stablelm_layout)
+    guard_checked = check_guard_small(torch, fused_step, adama_accum)
+    guard_timed, kernels["finite_and"] = check_guard_timed(
+        torch, fused_step, stablelm_layout)
+    kernels["finite_and"]["device_ms_with_guarded_fold"] = \
+        guard_kernels_per_call()
     log(json.dumps({"phase": "kernels_checked",
                     "seconds": time.perf_counter() - t_start}))
     check_small_input(torch)
@@ -1524,6 +2196,10 @@ def main() -> int:
         kernels[name]["codec_forms"]["device_kernels_per_call"] = {
             case: n for case, n in codec_per_call.items()
             if case.startswith(name + " ")}
+        kernels[name]["guarded_forms"] = _guarded_forms(
+            name, guard_checked, guard_timed[name], counts)
+    kernels["finite_and"]["bitwise_cases"] = sum(
+        k == "finite_and" for k, _, _ in guard_checked)
 
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": source,

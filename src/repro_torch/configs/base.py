@@ -80,11 +80,28 @@ STATE_CODECS = ("fp32", "int8", "factored", "rowcol")    # second moment (v)
 M_CODECS = ("fp32", "int8")                              # first moment (m)
 
 
+def parse_loss_scale(value: str):
+    """Parse an OptimizerConfig.loss_scale value (the reference's parser):
+    "off", "dynamic", or a positive float (a static scale); ValueError
+    otherwise."""
+    if value in ("off", "dynamic"):
+        return value
+    try:
+        scale = float(value)
+    except (TypeError, ValueError):
+        raise ValueError(
+            f"loss_scale={value!r} unsupported; expected 'off', 'dynamic', "
+            f"or a positive float literal (e.g. '1024')") from None
+    if not (scale > 0.0):
+        raise ValueError(f"loss_scale={value!r} must be > 0")
+    return scale
+
+
 @dataclass(frozen=True)
 class OptimizerConfig:
     """The kernel paths of the reference's OptimizerConfig (use_pallas=True,
-    fp32 gradient wire, no guard), with its m and v codecs validated as its
-    `optimizer_capability` does.
+    fp32 gradient wire), with its m and v codecs, its finite guard and its
+    loss-scale fields validated as its `optimizer_capability` does.
 
     `arena` selects the state form, as in the reference: True (the default
     here, the reference's `arena=True`) keeps m and v in flat arenas folded
@@ -103,6 +120,20 @@ class OptimizerConfig:
     state_codec: str = "fp32"            # second-moment codec
     m_codec: str = "fp32"                # first-moment codec
     arena: bool = True                   # False: per-leaf state
+    # the fused finite guard (core/accumulation.py): a micro-batch whose
+    # gradient holds an Inf or a NaN folds nothing (ga: a step whose
+    # accumulated gradient does applies nothing), and the skip counters
+    # ride in the state ("scaler", train/scaler.py). Requires arena=True.
+    finite_guard: bool = False
+    # "off" | "dynamic" | a positive float literal; only "off" here: loss
+    # scaling protects a reduced-precision gradient wire, and the port has
+    # the fp32 wire alone
+    loss_scale: str = "off"
+    # good micro-batches before a dynamic scale doubles
+    scaler_growth_interval: int = 200
+    # train/loop.py raises after this many consecutive skipped
+    # micro-batches; 0 never
+    scaler_abort_after: int = 0
 
     def __post_init__(self):
         if self.accumulation not in ACCUM_ENGINES:
@@ -129,6 +160,39 @@ class OptimizerConfig:
                 "ga with arena=False runs the reference's plain optim/adam.py "
                 "(no kernel), which is not ported (ROADMAP queue 1, item 12: "
                 "the optim/ baselines); use arena=True")
+        self._check_guard_fields()
+
+    def _check_guard_fields(self):
+        """The reference's checks of the guard and scaler fields, in its
+        order and with its messages; the gradient wire is fp32."""
+        if self.finite_guard and not self.arena:
+            raise ValueError(
+                "finite_guard=True requires arena=True: the per-fold finite "
+                "flag is a reduction over the packed gradient slab "
+                "(kernels/fused_step.py); pass arena=True use_pallas=True")
+        scale = parse_loss_scale(self.loss_scale)
+        if scale != "off":
+            if self.accumulation == "ga":
+                raise ValueError(
+                    f"loss_scale={self.loss_scale!r} with accumulation='ga' "
+                    f"is unsupported: the ga engine folds the whole "
+                    f"accumulated gradient once per step, so a skip loses "
+                    f"the entire mini-batch — too coarse a signal to drive "
+                    f"the dynamic backoff (and the ga wire is fp32-only "
+                    f"anyway); use accumulation='adama' or "
+                    f"'adama_layerwise'")
+            raise ValueError(
+                f"loss_scale={self.loss_scale!r} requires a reduced-"
+                f"precision gradient wire (grad_dtype='bf16' or "
+                f"'fp8_e4m3' — loss scaling protects the wire), got "
+                f"grad_dtype='fp32'; pass grad_dtype='bf16' "
+                f"or loss_scale='off'")
+        if self.scaler_growth_interval <= 0:
+            raise ValueError(f"scaler_growth_interval must be > 0, got "
+                             f"{self.scaler_growth_interval}")
+        if self.scaler_abort_after < 0:
+            raise ValueError(f"scaler_abort_after must be >= 0 (0 disables "
+                             f"the abort), got {self.scaler_abort_after}")
 
 
 @dataclass(frozen=True)
@@ -140,6 +204,9 @@ class RunConfig:
     seed: int = 0
     steps: int = 100
     log_every: int = 10
+    # fault-injection spec (train/faults.py parse_fault), test-only:
+    # e.g. "nan@micro=1", "skip@micro=3,step=1", "crash@step=3"
+    inject_fault: Optional[str] = None
 
 
 ARCH_IDS = ["stablelm_1_6b", "bert_large", "rwkv6_7b"]

@@ -19,6 +19,34 @@
 All consume a global batch (GB, ...) split into N micro-batches of GB/N.
 `OptimizerConfig.arena` selects the state form. Params and state are
 updated in place; `step` returns them for symmetry with the reference.
+
+`OptimizerConfig.finite_guard` (arena state) runs each engine's guarded
+branch, the reference's line for line, through the guarded kernel forms:
+
+  ga               one verdict over the accumulated slab predicates the
+                   fold, the apply and the step counter.
+  adama            a verdict per micro-batch over its packed slab: a
+                   non-finite micro-batch folds nothing; the begin-minibatch
+                   decay moves to the first committed fold (`good`, the
+                   count of committed folds, picks it on the device); the
+                   step counts only if some fold committed.
+  adama_layerwise  the same, the verdict ANDed over dx, the head's
+                   gradients and every layer's slab as the backward goes.
+
+The guarded state carries "scaler" (train/scaler.py). Its scale divides
+1/N in the fold's traced scale (scale_into_fold) and multiplies the loss
+(adama) or the backward's seed (adama_layerwise). Every verdict, count
+and scalar of the micro-batch loop lives on the device: the kernels read
+the guard vector [dm, dv, ok, scale] that the engine fills there and
+`finite_and` ANDs the flag into, and NOTHING reads a device value on the
+host inside the micro-batch loop. The step counter stays a host int: the
+apply's lr, bc1 and bc2 are formed on the host for step + 1 (when no fold
+committed the guarded apply is the identity, so their value does not
+matter), and after the apply is enqueued the engine reads `good` and the
+scaler's counters back once per mini-batch, to advance the step and
+report the metrics (loss, loss_scale, skipped_micro_batches,
+consec_skips). Faults (train/faults.py) select micro-batches and steps by
+those host ints.
 """
 from __future__ import annotations
 
@@ -31,7 +59,10 @@ from repro_torch.core import adama
 from repro_torch.core import arena as arena_mod
 from repro_torch.core import state_store
 from repro_torch.core.layerwise import layerwise_loss_and_fold
+from repro_torch.kernels import fused_step
 from repro_torch.models.model import loss_fn
+from repro_torch.train import faults as fault_mod
+from repro_torch.train import scaler as scaler_mod
 
 
 def _fold_decay(i: int, beta1: float, beta2: float):
@@ -49,9 +80,10 @@ def _split_micro(batch: Dict[str, Any], n: int):
              batch.items()} for i in range(n)]
 
 
-def _grads(cfg, params, leaves, mb):
-    """(loss, gradient tree) of one micro-batch."""
-    loss = loss_fn(cfg, params, mb)
+def _grads(cfg, params, leaves, mb, sc=None):
+    """(loss, gradient tree) of one micro-batch; with a scaler `sc`, of the
+    loss times its scale (scaler.scale_loss)."""
+    loss = scaler_mod.scale_loss(loss_fn(cfg, params, mb), sc)
     grads = torch.autograd.grad(loss, leaves)
     _, paths = arena_mod.tree_flatten(params)
     return loss.detach(), arena_mod.tree_unflatten(paths, list(grads))
@@ -61,8 +93,64 @@ def _lr(lr_schedule, opt: OptimizerConfig, step: int):
     return opt.lr if lr_schedule is None else lr_schedule(step)
 
 
-def make_ga_step(cfg: ModelConfig, opt: OptimizerConfig, *, lr_schedule=None):
+class _Guard:
+    """A guarded engine's device constants, copied from the host once per
+    device, and the guard vectors built from them on the device."""
+
+    def __init__(self, opt: OptimizerConfig):
+        self.opt = opt
+        self._consts = {}
+
+    def consts(self, device) -> torch.Tensor:
+        c = self._consts.get(device)
+        if c is None:
+            o = self.opt
+            # [b1, b2 | 1, 1 | ok False, ok True | f32(1/N) | 1]
+            c = self._consts[device] = torch.tensor(
+                [o.beta1, o.beta2, 1.0, 1.0, 0.0, 1.0,
+                 1.0 / o.micro_batches, 1.0], dtype=torch.float32,
+                device=device)
+        return c
+
+    def flag(self, device, ok: bool) -> torch.Tensor:
+        """A host verdict as a (1,) device view: 1.0 or 0.0."""
+        i = 5 if ok else 4
+        return self.consts(device)[i:i + 1]
+
+    def inv_n(self, device) -> torch.Tensor:
+        return self.consts(device)[6]
+
+    def one(self, device) -> torch.Tensor:
+        return self.consts(device)[7]
+
+    def fold_decay(self, good: torch.Tensor) -> torch.Tensor:
+        """The decay pair of the next fold, a (2,) device tensor: (beta1,
+        beta2) while no fold of the mini-batch has committed (good == 0),
+        (1, 1) after (the reference's _fold_decay(good, ...))."""
+        c = self.consts(good.device)
+        return torch.where(good == 0, c[0:2], c[2:4])
+
+    def vector(self, decay: torch.Tensor, ok: bool, scale: torch.Tensor):
+        """A fresh guard vector [dm, dv, ok, scale] on the device."""
+        return torch.cat([decay, self.flag(decay.device, ok),
+                          scale.reshape(1)])
+
+    def read_back(self, good, sc, loss):
+        """The one read of the mini-batch: (committed folds, metrics: the
+        loss and scaler.scaler_metrics'), after the apply is enqueued."""
+        named = scaler_mod.scaler_metrics({"scaler": sc})
+        vals = torch.stack([good.float(), loss.float()] + [
+            x.float() for x in named.values()]).tolist()
+        return int(vals[0]), {"loss": vals[1], **{
+            k: x if named[k].is_floating_point() else int(x)
+            for k, x in zip(named, vals[2:])}}
+
+
+def make_ga_step(cfg: ModelConfig, opt: OptimizerConfig, *, lr_schedule=None,
+                 fault=None):
     n = opt.micro_batches
+    if opt.finite_guard:
+        return _make_guarded_ga_step(cfg, opt, lr_schedule, fault)
 
     def step(params, opt_state, batch):
         layout = opt_state["m"].layout
@@ -93,10 +181,59 @@ def make_ga_step(cfg: ModelConfig, opt: OptimizerConfig, *, lr_schedule=None):
     return step, _init(opt)
 
 
+def _make_guarded_ga_step(cfg, opt, lr_schedule, fault):
+    """ga's whole-step guard: one verdict over the accumulated slab (checked
+    before the clip) predicates the single fold, the apply and the step
+    counter. The step does not advance on a skip, so a fault selecting
+    that step fires again next step."""
+    n = opt.micro_batches
+    guard = _Guard(opt)
+
+    def step(params, opt_state, batch):
+        layout = opt_state["m"].layout
+        leaves, _ = arena_mod.tree_flatten(params)
+        dev = leaves[0].device
+        st0 = opt_state["step"]
+        acc = torch.zeros((layout.rows, arena_mod.LANES), dtype=torch.float32,
+                          device=dev)
+        lsum = torch.zeros((), dtype=torch.float32, device=dev)
+        for i, mb in enumerate(_split_micro(batch, n)):
+            loss, g = _grads(cfg, params, leaves, mb)
+            fault_mod.corrupt_tree(fault, g, micro=i, step=st0)
+            acc += arena_mod.pack(g, layout) / n
+            del g
+            lsum = lsum + loss
+        c = guard.consts(dev)
+        vec = guard.vector(c[0:2], fault_mod.apply_skip(
+            fault, True, micro=0, step=st0), guard.one(dev))
+        fused_step.finite_and(acc, vec[2:3])
+        if opt.grad_clip:
+            gn = torch.sqrt(torch.sum(torch.square(acc)))
+            acc *= torch.clamp(opt.grad_clip / torch.clamp(gn, min=1e-9),
+                               max=1.0)
+        lr = _lr(lr_schedule, opt, st0)
+        opt_state, _ = state_store.fold_state(opt_state, acc, beta1=opt.beta1,
+                                              beta2=opt.beta2, guard=vec)
+        del acc
+        sc = scaler_mod.scaler_update(
+            opt_state["scaler"], vec[2] != 0, dynamic=False,
+            growth_interval=opt.scaler_growth_interval)
+        params, _ = adama.finalize(
+            params, dict(opt_state, step=st0 + 1), lr=lr, beta1=opt.beta1,
+            beta2=opt.beta2, eps=opt.eps, weight_decay=opt.weight_decay,
+            guard=vec[2:3])
+        good, metrics = guard.read_back(vec[2], sc, lsum / n)
+        return params, dict(opt_state, step=st0 + good, scaler=sc), metrics
+
+    return step, _init(opt)
+
+
 def make_adama_step(cfg: ModelConfig, opt: OptimizerConfig, *,
-                    lr_schedule=None):
+                    lr_schedule=None, fault=None):
     n = opt.micro_batches
     b1, b2 = opt.beta1, opt.beta2
+    if opt.finite_guard:
+        return _make_guarded_adama_step(cfg, opt, lr_schedule, fault)
 
     def step(params, opt_state, batch):
         leaves, _ = arena_mod.tree_flatten(params)
@@ -129,10 +266,60 @@ def make_adama_step(cfg: ModelConfig, opt: OptimizerConfig, *,
     return step, _init(opt)
 
 
-def make_adama_layerwise_step(cfg: ModelConfig, opt: OptimizerConfig, *,
-                              lr_schedule=None):
+def _make_guarded_adama_step(cfg, opt, lr_schedule, fault):
+    """Algorithm 1 guarded: per micro-batch, the loss times the live scale,
+    the packed slab's finite flag ANDed into a fresh guard vector [dm, dv,
+    ok, scale_into_fold(1/N, sc)], the guarded fold, the scaler's
+    transition; `good` counts the committed folds and moves the
+    begin-minibatch decay to the first of them."""
     n = opt.micro_batches
     b1, b2 = opt.beta1, opt.beta2
+    dyn = scaler_mod.is_dynamic(opt)
+    gi = opt.scaler_growth_interval
+    guard = _Guard(opt)
+
+    def step(params, opt_state, batch):
+        leaves, _ = arena_mod.tree_flatten(params)
+        dev = leaves[0].device
+        st0 = opt_state["step"]
+        state, sc = opt_state, opt_state["scaler"]
+        good = torch.zeros((), dtype=torch.int32, device=dev)
+        lsum = torch.zeros((), dtype=torch.float32, device=dev)
+        for i, mb in enumerate(_split_micro(batch, n)):
+            loss, g = _grads(cfg, params, leaves, mb, sc)
+            fault_mod.corrupt_tree(fault, g, micro=i, step=st0)
+            slab = arena_mod.pack(g, state["m"].layout)
+            del g
+            vec = guard.vector(guard.fold_decay(good), fault_mod.apply_skip(
+                fault, True, micro=i, step=st0),
+                scaler_mod.scale_into_fold(guard.inv_n(dev), sc))
+            fused_step.finite_and(slab, vec[2:3])
+            state, _ = state_store.fold_state(state, slab, beta1=b1,
+                                              beta2=b2, guard=vec)
+            del slab
+            ok = vec[2] != 0
+            lsum = lsum + torch.where(ok, loss, 0.0) / sc["scale"]
+            sc = scaler_mod.scaler_update(sc, ok, dynamic=dyn,
+                                          growth_interval=gi)
+            good = good + ok.to(torch.int32)
+        params, _ = adama.finalize(
+            params, dict(state, step=st0 + 1),
+            lr=_lr(lr_schedule, opt, st0 + 1), beta1=b1, beta2=b2,
+            eps=opt.eps, weight_decay=opt.weight_decay,
+            guard=(good > 0).float().reshape(1))
+        good, metrics = guard.read_back(
+            good, sc, lsum / torch.clamp(good, min=1).float())
+        return params, dict(state, step=st0 + (good > 0), scaler=sc), metrics
+
+    return step, _init(opt)
+
+
+def make_adama_layerwise_step(cfg: ModelConfig, opt: OptimizerConfig, *,
+                              lr_schedule=None, fault=None):
+    n = opt.micro_batches
+    b1, b2 = opt.beta1, opt.beta2
+    if opt.finite_guard:
+        return _make_guarded_layerwise_step(cfg, opt, lr_schedule, fault)
 
     def step(params, opt_state, batch):
         if opt.arena:
@@ -158,10 +345,59 @@ def make_adama_layerwise_step(cfg: ModelConfig, opt: OptimizerConfig, *,
     return step, _init(opt)
 
 
+def _make_guarded_layerwise_step(cfg, opt, lr_schedule, fault):
+    """Algorithm 2 guarded: the backward is seeded with (1/N) * S (a
+    nan/inf fault lands on the seed, and so reaches every slab), the guard
+    vector [dm, dv, ok, 1/S] starts from the forced-skip verdict, and
+    layerwise_loss_and_fold ANDs every check of the micro-batch into it."""
+    n = opt.micro_batches
+    b1, b2 = opt.beta1, opt.beta2
+    dyn = scaler_mod.is_dynamic(opt)
+    gi = opt.scaler_growth_interval
+    guard = _Guard(opt)
+
+    def step(params, opt_state, batch):
+        dev = batch["tokens"].device
+        st0 = opt_state["step"]
+        state, sc = opt_state, opt_state["scaler"]
+        good = torch.zeros((), dtype=torch.int32, device=dev)
+        lsum = torch.zeros((), dtype=torch.float32, device=dev)
+        for i, mb in enumerate(_split_micro(batch, n)):
+            seed = fault_mod.corrupt_loss(
+                fault, guard.inv_n(dev) * sc["scale"], micro=i, step=st0)
+            vec = guard.vector(guard.fold_decay(good), fault_mod.apply_skip(
+                fault, True, micro=i, step=st0), guard.one(dev) / sc["scale"])
+            loss, state, ok = layerwise_loss_and_fold(
+                cfg, params, mb, state, beta1=b1, beta2=b2, scale=seed,
+                guard=vec)
+            ok = ok.reshape(()) != 0
+            # the loss is the unscaled ce: the scale only seeds the backward
+            lsum = lsum + torch.where(ok, loss, 0.0)
+            sc = scaler_mod.scaler_update(sc, ok, dynamic=dyn,
+                                          growth_interval=gi)
+            good = good + ok.to(torch.int32)
+        params, _ = adama.finalize(
+            params, dict(state, step=st0 + 1),
+            lr=_lr(lr_schedule, opt, st0 + 1), beta1=b1, beta2=b2,
+            eps=opt.eps, weight_decay=opt.weight_decay,
+            guard=(good > 0).float().reshape(1))
+        good, metrics = guard.read_back(
+            good, sc, lsum / torch.clamp(good, min=1).float())
+        return params, dict(state, step=st0 + (good > 0), scaler=sc), metrics
+
+    return step, _init(opt)
+
+
 def _init(opt: OptimizerConfig):
     init = adama.init_arena if opt.arena else adama.init
-    return lambda params: init(params, codec=opt.state_codec,
-                               m_codec=opt.m_codec)
+
+    def init_state(params):
+        state = init(params, codec=opt.state_codec, m_codec=opt.m_codec)
+        if opt.finite_guard:
+            state["scaler"] = scaler_mod.init_scaler(
+                opt, arena_mod.tree_flatten(params)[0][0].device)
+        return state
+    return init_state
 
 
 ENGINES = {"ga": make_ga_step, "adama": make_adama_step,

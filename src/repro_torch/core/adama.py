@@ -100,17 +100,22 @@ def begin_minibatch(state: State, beta1: float, beta2: float) -> State:
 
 @torch.no_grad()
 def accumulate(state: State, grads, beta1: float, beta2: float,
-               scale: float = 1.0, decay=None) -> State:
+               scale: float = 1.0, decay=None, guard=None) -> State:
     """Fold one micro-batch's gradient tree into (m, v). Arena state: pack
     it into one fp32 slab and run one fused fold, in the state's codecs.
     Per-leaf state: one adama_accum_2d launch per leaf. `scale` multiplies
     g in-kernel (Algorithm 1's 1/N); `decay=(dm, dv)` applies the
     begin-minibatch decay first (fused into the fold on arena state; pass
-    it on the first micro-batch only)."""
+    it on the first micro-batch only). `guard` (arena state only): True or
+    a guard vector, as state_store.fold takes it; the return is then
+    (state, guard vector)."""
     if is_arena_state(state):
         g = arena_mod.pack(grads, state["m"].layout)
         return state_store.fold_state(state, g, beta1=beta1, beta2=beta2,
-                                      scale=scale, decay=decay)
+                                      scale=scale, decay=decay, guard=guard)
+    if guard is not None:
+        raise ValueError("finite guards require the arena fold path "
+                         "(OptimizerConfig arena=True)")
     if decay is not None:
         _scale_tree_(state["m"], decay[0])
         _scale_tree_(state["v"], decay[1])
@@ -135,20 +140,25 @@ def bias_corrections(step: int, beta1: float, beta2: float):
 
 @torch.no_grad()
 def finalize(params, state: State, *, lr, beta1: float, beta2: float,
-             eps: float = 1e-8, weight_decay: float = 0.0):
+             eps: float = 1e-8, weight_decay: float = 0.0, guard=None):
     """Bias-correct and apply (Algorithm 1's update). `state['step']` must
     already count this mini-batch. Arena state: packs the params, runs one
     fused apply, and copies the result back into the param leaves in place.
-    Per-leaf state: one adam_apply_2d launch per param leaf, in place."""
+    Per-leaf state: one adam_apply_2d launch per param leaf, in place.
+    `guard` (arena state only; a (1,) device flag, e.g. good > 0 after the
+    guarded folds): when 0 the params keep every byte, whatever bc1 is."""
     bc1, bc2 = bias_corrections(state["step"], beta1, beta2)
     if not is_arena_state(state):
+        if guard is not None:
+            raise ValueError("finite guards require the arena apply path "
+                             "(OptimizerConfig arena=True)")
         ops.adam_apply_tree(params, state["m"], state["v"], lr=lr, bc1=bc1,
                             bc2=bc2, eps=eps, weight_decay=weight_decay)
         return params, state
     layout = state["m"].layout
     p = state_store.apply_state(arena_mod.pack(params, layout), state, lr=lr,
                                 bc1=bc1, bc2=bc2, eps=eps,
-                                weight_decay=weight_decay)
+                                weight_decay=weight_decay, guard=guard)
     leaves, _ = arena_mod.tree_flatten(params)
     new, _ = arena_mod.tree_flatten(arena_mod.unpack(p, layout))
     for leaf, x in zip(leaves, new):

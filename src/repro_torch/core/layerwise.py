@@ -1,6 +1,6 @@
 """Algorithm 2: interleave the per-LAYER backward with the AdamA fold
 (`repro/core/layerwise.py`, dense and encoder families, one device, fp32
-wire, no guard).
+wire, with or without the finite guard).
 
 The port's block params are stacked: each leaf is one (L, ...) tensor. A
 gradient hook on such a leaf fires only once autograd has written the
@@ -36,6 +36,17 @@ decayed once per micro-batch, before the first slice fold
 Per-leaf state: each gradient leaf is folded into the matching view of
 the m/v trees (layer j's row of a stacked moment) with one
 `adama_accum_2d` launch.
+
+Guarded (arena state; `guard`, the guard vector [dm, dv, ok, fold_scale]
+whose ok holds the engine's external verdict): the pre-backward guard ANDs
+the finiteness of dx and of the head's gradients (final norm, lm_head)
+into ok before anything commits (`_pre_guard`), the shared columns' decay
+is where-predicated on it, and each layer's and the rest region's slab
+ANDs its own check in before its slice fold, every fold predicated on the
+running verdict (once false, every later fold is off). A loss-originated
+NaN reaches dx and so every slab: the whole micro-batch is a bitwise
+no-op. All of it is `finite_and` on the one device vector: no flag is read
+on the host.
 """
 from __future__ import annotations
 
@@ -48,6 +59,7 @@ from repro_torch.core import arena as arena_mod
 from repro_torch.core import state_store
 from repro_torch.core.adama import accumulate_leaf, is_arena_state
 from repro_torch.core.arena import STACK_KEYS
+from repro_torch.kernels import fused_step
 from repro_torch.models import modules as md
 from repro_torch.models.model import apply_block, cross_entropy, embed_tokens
 
@@ -62,37 +74,47 @@ def _fold_tree(m, v, g, beta1, beta2) -> None:
         accumulate_leaf(mx, vx, gx, beta1, beta2)
 
 
-def _fold_layer(state, dlp, j: int, name: str, beta1, beta2, decay) -> None:
+def _fold_slab(state, g2, row_offset, block, beta1, beta2, decay,
+               guard) -> None:
+    """One slice fold of a packed slab; guarded, the slab's finite flag is
+    ANDed into the guard vector's ok first."""
+    if guard is None:
+        state_store.fold_slice_state(state, g2, row_offset, beta1=beta1,
+                                     beta2=beta2, block=block, decay=decay)
+        return
+    fused_step.finite_and(g2, guard[2:3])
+    state_store.fold_slice_state(state, g2, row_offset, beta1=beta1,
+                                 beta2=beta2, block=block, guard=guard)
+
+
+def _fold_layer(state, dlp, j: int, name: str, beta1, beta2, decay,
+                guard=None) -> None:
     """Fold layer j's gradient tree. Arena state: pack it into one slab and
-    fold it into the layer's arena rows with one slice fold. Per-leaf
-    state: fold each leaf into row j of the stacked moments."""
+    fold it into the layer's arena rows with one slice fold (guarded: the
+    running verdict ANDed with the slab's). Per-leaf state: fold each leaf
+    into row j of the stacked moments."""
     if is_arena_state(state):
         lay = state["m"].layout
         spec = lay.stack(name)
-        g2 = arena_mod.pack_layer(dlp, spec)
-        state_store.fold_slice_state(state, g2,
-                                     spec.row + j * spec.layer_rows,
-                                     beta1=beta1, beta2=beta2,
-                                     block=lay.slice_block(spec),
-                                     decay=decay)
+        _fold_slab(state, arena_mod.pack_layer(dlp, spec),
+                   spec.row + j * spec.layer_rows, lay.slice_block(spec),
+                   beta1, beta2, decay, guard)
         return
     m_j = {k: x[j] for k, x in state["m"][name].items()}
     v_j = {k: x[j] for k, x in state["v"][name].items()}
     _fold_tree(m_j, v_j, dlp, beta1, beta2)
 
 
-def _fold_rest(state, d_rest, beta1, beta2, decay) -> None:
+def _fold_rest(state, d_rest, beta1, beta2, decay, guard=None) -> None:
     """Fold the non-stacked leaves' gradients. Arena state: one slice fold
-    over the contiguous rest region. Per-leaf state: leaf by leaf."""
+    over the contiguous rest region (guarded as `_fold_layer`). Per-leaf
+    state: leaf by leaf."""
     if is_arena_state(state):
         lay = state["m"].layout
         if not lay.rest.rows:
             return
-        g2 = arena_mod.pack_rest(d_rest, lay)
-        state_store.fold_slice_state(state, g2, lay.rest.row, beta1=beta1,
-                                     beta2=beta2,
-                                     block=lay.slice_block(lay.rest),
-                                     decay=decay)
+        _fold_slab(state, arena_mod.pack_rest(d_rest, lay), lay.rest.row,
+                   lay.slice_block(lay.rest), beta1, beta2, decay, guard)
         return
     for k, g in d_rest.items():
         _fold_tree(state["m"][k], state["v"][k], g, beta1, beta2)
@@ -103,16 +125,38 @@ def _requires_grad(tree):
     return {k: x.detach().requires_grad_(True) for k, x in tree.items()}
 
 
+def _pre_guard(guard, dx, d_rest_post) -> None:
+    """The pre-backward guard: AND the finiteness of the backward's seed dx
+    and of the head's gradients into the guard vector's ok, before any fold
+    or shared-column decay commits."""
+    ok = guard[2:3]
+    fused_step.finite_and(dx, ok)
+    for leaf in arena_mod.tree_flatten(d_rest_post)[0]:
+        fused_step.finite_and(leaf, ok)
+
+
 def layerwise_loss_and_fold(cfg: ModelConfig, params, batch, state, *,
-                            beta1: float, beta2: float, scale: float,
-                            decay=None):
+                            beta1: float, beta2: float, scale, decay=None,
+                            guard=None):
     """One micro-batch: forward, then layer-by-layer backward folding each
     layer's gradients into (m, v) in place. Gradients are scaled by `scale`
-    (1/N, Algorithm 1 line 6) through the backward's seed. `decay` (arena
-    state only) fuses the begin-minibatch decay into this micro-batch's
-    folds. Returns (loss, state)."""
-    if decay is not None and not is_arena_state(state):
-        raise ValueError("a fused decay requires arena state")
+    (1/N, Algorithm 1 line 6; a host number or a 0-d float32 device tensor)
+    through the backward's seed. `decay` (arena state only) fuses the
+    begin-minibatch decay into this micro-batch's folds. Returns (loss,
+    state).
+
+    `guard` (arena state only): the guard vector [dm, dv, ok, fold_scale]
+    (kernels/fused_step.py), in place of `decay`: ok holds the engine's
+    external verdict on entry and every check of the micro-batch is ANDed
+    into it (see the module's docstring); every fold reads the vector, the
+    slabs being scaled by `scale` (the seed, which may carry the loss
+    scale S) and un-scaled by fold_scale (1/S). Returns (loss, state, ok),
+    ok the vector's (1,) verdict."""
+    if (decay is not None or guard is not None) and not is_arena_state(state):
+        raise ValueError("a fused decay or a finite guard requires arena "
+                         "state")
+    if guard is not None and decay is not None:
+        raise ValueError("with guard=, the decay rides in the guard vector")
     causal = cfg.arch_type != "encoder"
     tokens = batch["tokens"]
     b, s = tokens.shape
@@ -140,16 +184,20 @@ def layerwise_loss_and_fold(cfg: ModelConfig, params, batch, state, *,
     logits = (h @ rest["lm_head"].to(h.dtype)).float()
     loss = cross_entropy(logits, batch["labels"])
     post_keys = [k for k in rest if k != "embed"]
+    seed = (scale if isinstance(scale, torch.Tensor) else
+            torch.tensor(scale, dtype=torch.float32, device=loss.device))
     grads = torch.autograd.grad(
-        loss, [rest[k] for k in post_keys] + [x],
-        grad_outputs=torch.tensor(scale, dtype=torch.float32,
-                                  device=loss.device))
+        loss, [rest[k] for k in post_keys] + [x], grad_outputs=seed)
     d_rest: Dict[str, Any] = dict(zip(post_keys, grads[:-1]))
     dx = grads[-1]
     del h, logits, grads, x
 
     # ---- backward, one layer at a time, folding as it goes ----
-    if decay is not None:
+    if guard is not None:
+        _pre_guard(guard, dx, d_rest)
+        state_store.begin_micro_state(state, (guard[0], guard[1]),
+                                      guard=guard[2:3])
+    elif decay is not None:
         state_store.begin_micro_state(state, decay)
     for j in reversed(range(n_layers)):
         lp = _requires_grad({k: stack[k][j] for k in keys})
@@ -159,12 +207,14 @@ def layerwise_loss_and_fold(cfg: ModelConfig, params, batch, state, *,
                                       grad_outputs=dx)
         del y, xin
         _fold_layer(state, dict(zip(keys, dl)), j, "blocks", beta1, beta2,
-                    decay)
+                    decay, guard)
         del dl
 
     # ---- embedding backward, rest-region fold ----
     (d_rest["embed"],) = torch.autograd.grad(x0, [rest["embed"]],
                                              grad_outputs=dx)
     del x0, dx
-    _fold_rest(state, d_rest, beta1, beta2, decay)
+    _fold_rest(state, d_rest, beta1, beta2, decay, guard)
+    if guard is not None:
+        return loss.detach(), state, guard[2:3]
     return loss.detach(), state

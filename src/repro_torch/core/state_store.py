@@ -28,8 +28,15 @@ Second-moment codecs (v >= 0, under the square root):
 Every column but rowcol's column sums is row-indexed. That one block is
 shared by every row: the fold kernels add into it and leave its decay to
 the host, once per micro-batch (`begin_micro`, `begin_micro_state`), since
-the layer-wise engine folds a micro-batch in many slices. The finite
-guard, master params and the ZeRO-1 collectives wait for their slices.
+the layer-wise engine folds a micro-batch in many slices.
+
+The finite guard (`guard=`, the reference's): a fold's guard is True (the
+slab checks itself: `finite_and` into a fresh guard vector) or the caller's
+device vector [dm, dv, ok, scale] (kernels/fused_step.py::guard_scalars),
+which then also carries the decay of the shared columns; the apply's is a
+(1,) device flag. With ok == 0 the call is a bitwise no-op, the shared
+columns' host-side decay included (`_guarded_begin_micro`). Master params
+and the ZeRO-1 collectives wait for their slices.
 
 The port updates state IN PLACE: the codec columns a fold or apply is
 given are the ones written, and a "new" state shares them with the old.
@@ -125,16 +132,20 @@ class MomentCodec:
         begin-minibatch decay)."""
         raise NotImplementedError
 
-    def begin_micro(self, parts, decay: float):
+    def begin_micro(self, parts, decay, ok=None):
         """Decay the shared (non-row-indexed) columns, in place, once per
         micro-batch: the fold kernels decay the row-indexed ones, each row
         being folded once per micro-batch, but a shared column would be
-        decayed once per slice fold. Nothing for a row-local codec."""
+        decayed once per slice fold. `decay` is a host number or a device
+        scalar; `ok` (a bool tensor) where-selects the decayed values, never
+        a multiply by a conditional 1.0 (x*1.0 is no bitwise identity for a
+        subnormal under the flush). Nothing for a row-local codec."""
         return parts
 
 
-def _scale_(x: torch.Tensor, c: float) -> None:
-    x.copy_(ftz(x * c))
+def _scale_(x: torch.Tensor, c, ok=None) -> None:
+    y = ftz(x * c)
+    x.copy_(y if ok is None else torch.where(ok, y, x))
 
 
 class Fp32Codec(MomentCodec):
@@ -209,8 +220,8 @@ class RowColCodec(MomentCodec):
             _scale_(x, c)
         return state
 
-    def begin_micro(self, parts, decay):
-        _scale_(parts[1], decay)
+    def begin_micro(self, parts, decay, ok=None):
+        _scale_(parts[1], decay, ok)
         return parts
 
 
@@ -254,14 +265,57 @@ def registered_combinations() -> Tuple[Tuple[str, str], ...]:
 # ---------------------------------------------------------------------------
 
 
+def _resolve_guard(guard, g, scale=1.0, decay=None):
+    """A fold's guard vector: None (unguarded) stays None; True self-checks,
+    a fresh vector [dm, dv, 1, scale] on g's device whose ok `finite_and`
+    clears if the slab holds an Inf or a NaN, before anything commits; a
+    tensor is the caller's vector, used verbatim (its scale and decay
+    replace the arguments')."""
+    if guard is None:
+        return None
+    if guard is True:
+        vec = fused_step.guard_scalars(decay, True, scale, device=g.device)
+        fused_step.finite_and(g, vec[2:3])
+        return vec
+    if decay is not None or not (isinstance(scale, (int, float))
+                                 and scale == 1.0):
+        raise ValueError("a guard vector carries the scale and the decay: "
+                         "pass neither beside it")
+    return guard
+
+
+def _guarded_begin_micro(codec, parts, decay, flag):
+    """begin_micro with the shared columns' decay predicated on the finite
+    flag (a bool tensor, or None): a skipped micro-batch must be a bitwise
+    no-op, and rowcol's column sums decay outside the kernel, so the decayed
+    and original values are where-selected instead of multiplying by a
+    conditional 1.0 (x*1.0 is no bitwise identity for every float)."""
+    return codec.begin_micro(tuple(parts), decay, flag)
+
+
 def fold(m_codec, v_codec, m_parts, v_parts, g, *, beta1, beta2, scale=1.0,
-         decay=None):
+         decay=None, guard=None):
     """Whole-arena fold of one micro-batch's gradient arena into both
     moments, in place: one fused kernel. `decay=(dm, dv)` fuses the
     begin-minibatch decay into it for the row-indexed columns; the shared
     ones are decayed here first (`begin_micro`), as the reference's `fold`
-    does. Returns (m_parts, v_parts)."""
+    does. `guard` (True, or a guard vector, `_resolve_guard`) makes the
+    whole fold, that decay included, a bitwise no-op when its ok is 0; the
+    vector's (dm, dv) then decay the shared columns (True without a decay
+    decays nothing, as unguarded). Returns (m_parts, v_parts), and the
+    guard vector as a third item when guarded."""
     mc, vc = get_codec(m_codec, "m"), get_codec(v_codec, "v")
+    vec = _resolve_guard(guard, g, scale, decay)
+    if vec is not None:
+        if decay is not None or guard is not True:
+            ok = vec[2] != 0
+            _guarded_begin_micro(mc, m_parts, vec[0], ok)
+            _guarded_begin_micro(vc, v_parts, vec[1], ok)
+        m, v = fused_step.arena_fold(tuple(m_parts), tuple(v_parts), g,
+                                     beta1=beta1, beta2=beta2,
+                                     m_codec=mc.kernel, v_codec=vc.kernel,
+                                     guard=vec)
+        return m, v, vec
     if decay is not None:
         mc.begin_micro(tuple(m_parts), decay[0])
         vc.begin_micro(tuple(v_parts), decay[1])
@@ -272,27 +326,36 @@ def fold(m_codec, v_codec, m_parts, v_parts, g, *, beta1, beta2, scale=1.0,
 
 
 def fold_slice(m_codec, v_codec, m_parts, v_parts, g, row_offset, *,
-               beta1, beta2, block, scale=1.0, decay=None):
+               beta1, beta2, block, scale=1.0, decay=None, guard=None):
     """Fold a gradient slab into rows [row_offset, row_offset + rows_g) of
     both moments, in place: one slice-fold kernel. Unlike `fold`, the
     shared columns are not decayed here: a micro-batch is many slice folds,
-    and the engine decays them once before them (`begin_micro_state`)."""
+    and the engine decays them once before them (`begin_micro_state`, with
+    the same flag when guarded). `guard` as in `fold`; the return gains the
+    guard vector when guarded."""
     mc, vc = get_codec(m_codec, "m"), get_codec(v_codec, "v")
-    return fused_step.arena_fold_slice(tuple(m_parts), tuple(v_parts), g,
-                                       row_offset, beta1=beta1, beta2=beta2,
-                                       block=block, scale=scale, decay=decay,
-                                       m_codec=mc.kernel, v_codec=vc.kernel)
+    vec = _resolve_guard(guard, g, scale, decay)
+    kw = (dict(scale=scale, decay=decay) if vec is None
+          else dict(guard=vec))
+    out = fused_step.arena_fold_slice(tuple(m_parts), tuple(v_parts), g,
+                                      row_offset, beta1=beta1, beta2=beta2,
+                                      block=block, m_codec=mc.kernel,
+                                      v_codec=vc.kernel, **kw)
+    return out if vec is None else (*out, vec)
 
 
 def apply(m_codec, v_codec, p, m_parts, v_parts, *, lr, bc1, bc2, eps=1e-8,
-          weight_decay=0.0):
+          weight_decay=0.0, guard=None):
     """Bias-corrected apply over the packed param arena, decoding both
-    moments in-pass; p updated in place."""
+    moments in-pass; p updated in place. `guard` (a (1,) device flag): when
+    0 the params keep every byte (an all-skipped mini-batch applies
+    nothing)."""
     mc, vc = get_codec(m_codec, "m"), get_codec(v_codec, "v")
     return fused_step.arena_apply(p, tuple(m_parts), tuple(v_parts), lr=lr,
                                   bc1=bc1, bc2=bc2, eps=eps,
                                   weight_decay=weight_decay,
-                                  m_codec=mc.kernel, v_codec=vc.kernel)
+                                  m_codec=mc.kernel, v_codec=vc.kernel,
+                                  guard=guard)
 
 
 # ---------------------------------------------------------------------------
@@ -304,43 +367,54 @@ def state_codecs(state) -> Tuple[MomentCodec, MomentCodec]:
     return codec_of(state["m"], "m"), codec_of(state["v"], "v")
 
 
-def fold_state(state, g, *, beta1, beta2, scale=1.0, decay=None):
+def fold_state(state, g, *, beta1, beta2, scale=1.0, decay=None,
+               guard=None):
     """One fused fold of a packed gradient arena into the state dict, in
-    place."""
+    place. With `guard` the return is (state, guard vector) — see
+    `fold`."""
     mc, vc = state_codecs(state)
-    fold(mc, vc, mc.parts_of(state["m"]), vc.parts_of(state["v"]), g,
-         beta1=beta1, beta2=beta2, scale=scale, decay=decay)
-    return state
+    out = fold(mc, vc, mc.parts_of(state["m"]), vc.parts_of(state["v"]), g,
+               beta1=beta1, beta2=beta2, scale=scale, decay=decay,
+               guard=guard)
+    return (state, out[2]) if len(out) == 3 else state
 
 
-def begin_micro_state(state, decay):
+def begin_micro_state(state, decay, guard=None):
     """Decay the state dict's shared codec columns (rowcol's column sums)
-    by this micro-batch's decay pair, in place, before its slice folds;
-    nothing for row-local codecs or `decay=None`."""
+    by this micro-batch's decay pair (host numbers or device scalars), in
+    place, before its slice folds; nothing for row-local codecs or
+    `decay=None`. `guard` (a one-element float tensor, e.g. the layer-wise
+    engine's running verdict) predicates the decay: a skipped micro-batch
+    leaves the shared columns bitwise."""
     if decay is not None:
+        ok = None if guard is None else guard.reshape(()) != 0
         mc, vc = state_codecs(state)
-        mc.begin_micro(mc.parts_of(state["m"]), decay[0])
-        vc.begin_micro(vc.parts_of(state["v"]), decay[1])
+        _guarded_begin_micro(mc, mc.parts_of(state["m"]), decay[0], ok)
+        _guarded_begin_micro(vc, vc.parts_of(state["v"]), decay[1], ok)
     return state
 
 
 def fold_slice_state(state, g, row_offset, *, beta1, beta2, block,
-                     scale=1.0, decay=None):
+                     scale=1.0, decay=None, guard=None):
     """One fused slice fold of a gradient slab into rows
-    [row_offset, row_offset + g.shape[0]) of the state dict, in place."""
+    [row_offset, row_offset + g.shape[0]) of the state dict, in place.
+    With `guard` the return is (state, guard vector)."""
     mc, vc = state_codecs(state)
-    fold_slice(mc, vc, mc.parts_of(state["m"]), vc.parts_of(state["v"]), g,
-               row_offset, beta1=beta1, beta2=beta2, block=block,
-               scale=scale, decay=decay)
-    return state
+    out = fold_slice(mc, vc, mc.parts_of(state["m"]),
+                     vc.parts_of(state["v"]), g, row_offset, beta1=beta1,
+                     beta2=beta2, block=block, scale=scale, decay=decay,
+                     guard=guard)
+    return (state, out[2]) if len(out) == 3 else state
 
 
-def apply_state(p, state, *, lr, bc1, bc2, eps=1e-8, weight_decay=0.0):
+def apply_state(p, state, *, lr, bc1, bc2, eps=1e-8, weight_decay=0.0,
+                guard=None):
     """One fused bias-corrected apply of the state dict onto a param arena,
-    p updated in place."""
+    p updated in place; `guard` as in `apply`."""
     mc, vc = state_codecs(state)
     return apply(mc, vc, p, mc.parts_of(state["m"]), vc.parts_of(state["v"]),
-                 lr=lr, bc1=bc1, bc2=bc2, eps=eps, weight_decay=weight_decay)
+                 lr=lr, bc1=bc1, bc2=bc2, eps=eps, weight_decay=weight_decay,
+                 guard=guard)
 
 
 def optimizer_state_bytes(state) -> int:

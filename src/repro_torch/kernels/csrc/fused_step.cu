@@ -1,7 +1,8 @@
 // Arena-wide fused AdamA optimizer kernels for Hopper (sm_90a), one
 // template on the (m codec, v codec) pair for each of the reference's three
-// Pallas kernels (repro/kernels/fused_step.py, fp32 gradient wire,
-// unguarded, static scale):
+// Pallas kernels (repro/kernels/fused_step.py, fp32 gradient wire), each in
+// its unguarded static-scale form and its guarded traced-scale form, and the
+// finite flag the guard reads:
 //
 // arena_fold  replaces fused_step.py::arena_fold (_fold_body):
 //               gs = g*s
@@ -19,6 +20,25 @@
 // arena_apply replaces fused_step.py::arena_apply (_apply_body, no master
 //             params), decoding both moments in-pass:
 //               p = p - lr*(m/bc1 / (sqrt(v/bc2) + eps) + wd*p)   in place
+// finite_and  ok <- ok AND (every element of x is finite), over a contiguous
+//             fp32 or bf16 tensor, in place. The reference computes this
+//             flag outside its kernels (jnp.isfinite(g).all() in
+//             fused_step.py::_fold_guard_setup and the engines); here it is
+//             one pass that reads x once and writes nothing but, where it
+//             finds an Inf or a NaN, 0.0f into ok: plain stores of one
+//             value, no float atomics, and no (rows, 1024) bool tensor.
+//
+// The guarded forms (the reference's _guard_scalars, _GuardedRef and the
+// apply's guard) take a device float vector instead of host scalars: [dm,
+// dv, ok, s] for a fold, [ok] for the apply, loaded once per CTA into
+// shared memory. With ok == 0 every CTA returns before its first write, so
+// the state (the row-indexed columns, rowcol's column partials, ticket and
+// column sums) or p keeps every byte: in place, an early return is the
+// bitwise no-op that the reference's where(ok, new, old) gives, NaNs of a
+// bc1 = 0 apply included. With ok != 0 the arithmetic is the unguarded
+// kernel's with the vector's values. Each kernel template takes the form as
+// a flag (G), so the unguarded instantiations compile as they did before
+// the guard existed; a NULL vector launches them.
 //
 // Codecs (the reference's _KERNEL_CODECS; m in {fp32, int8}, v in {fp32,
 // int8, factored, rowcol}, eight pairs):
@@ -78,6 +98,8 @@
 // (vr, vc and the 3 MiB scratch negligible): fp32/rowcol fold 12 B (g 4, m
 // 4 + 4) 19.75 GB, >= 5.90 ms; int8/rowcol fold 6 B, 9.88 GB, >= 2.95 ms;
 // fp32/rowcol apply 12 B, >= 5.90 ms; int8/rowcol apply 9 B, >= 4.42 ms.
+// A guarded form moves the same bytes and 16 more (the vector). finite_and
+// reads each element once: the stablelm slab (6.58 GB fp32) >= 1.965 ms.
 //
 // Rounding. The reference's CPU lowering (XLA) contracts
 //   fp32      d*m + c*x       as fma(d, m, c*x)
@@ -135,6 +157,31 @@ __device__ __forceinline__ float warp_max(float x) {
   for (int off = 16; off > 0; off >>= 1)
     x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
   return x;
+}
+
+// The guard vector [dm, dv, ok, s] of a fold (fused_step.py::guard_scalars),
+// loaded once per CTA into shared memory. Every thread of the CTA must call
+// it. The copy is volatile, so each scalar is read where it is used (once
+// per row) and no register holds it across a row's phases: held in
+// registers, s, dm and dv pushed the int8 m rowcol fold's row arrays onto a
+// stack frame (+30% time), where the unguarded form takes them from the
+// constant bank as kernel arguments.
+enum GuardSlot { kGDm = 0, kGDv = 1, kGOk = 2, kGScale = 3 };
+
+__device__ __forceinline__ const volatile float* fold_guard(
+    const float4* __restrict__ guard) {
+  __shared__ volatile float sg[4];
+  if (threadIdx.x < 4) sg[threadIdx.x] = ((const float*)guard)[threadIdx.x];
+  __syncthreads();
+  return sg;
+}
+
+// The apply's guard [ok], the same way: false when ok == 0.
+__device__ __forceinline__ bool apply_guard(const float* __restrict__ guard) {
+  __shared__ float so;
+  if (threadIdx.x == 0) so = *guard;
+  __syncthreads();
+  return so != 0.0f;
 }
 
 // lane's value j of a row lies at element 4 * ((j / 4) * 32 + lane) + j % 4
@@ -228,30 +275,41 @@ __device__ __forceinline__ void fold_moment(void* __restrict__ c0,
 }
 
 // One warp per row of the slab; slab row r folds into arena row off + r.
-template <int MK, int VK>
+// G: the guarded form (guard is the vector; the unguarded form's code is
+// the same with the guard read compiled out).
+template <int MK, int VK, bool G>
 __global__ void __launch_bounds__(kThreads)
 arena_fold_kernel(void* __restrict__ m0, void* __restrict__ m1,
                   void* __restrict__ v0, void* __restrict__ v1,
                   const float4* __restrict__ g, int64_t off, int64_t rows_g,
-                  float s, float c1, float c2, float dm, float dv) {
+                  float s, float c1, float c2, float dm, float dv,
+                  const float4* __restrict__ guard) {
   constexpr bool F = MK != kFp32 || VK != kFp32;
+  const volatile float* gv = nullptr;
+  if constexpr (G) {
+    gv = fold_guard(guard);
+    if (gv[kGOk] == 0.0f) return;
+  }
   const int lane = threadIdx.x & 31;
   const int64_t warps = (int64_t)gridDim.x * kWarps;
   for (int64_t r = (int64_t)blockIdx.x * kWarps + threadIdx.x / 32;
        r < rows_g; r += warps) {
     float x[kRowVals];
+    const float sr = G ? gv[kGScale] : s;
 #pragma unroll
     for (int k = 0; k < kRowF4; ++k) {
       const float4 a = g[f4_index(r, k, lane)];
-      x[4 * k + 0] = fl<F>(fl<F>(a.x) * s);
-      x[4 * k + 1] = fl<F>(fl<F>(a.y) * s);
-      x[4 * k + 2] = fl<F>(fl<F>(a.z) * s);
-      x[4 * k + 3] = fl<F>(fl<F>(a.w) * s);
+      x[4 * k + 0] = fl<F>(fl<F>(a.x) * sr);
+      x[4 * k + 1] = fl<F>(fl<F>(a.y) * sr);
+      x[4 * k + 2] = fl<F>(fl<F>(a.z) * sr);
+      x[4 * k + 3] = fl<F>(fl<F>(a.w) * sr);
     }
-    fold_moment<MK, false, F>(m0, m1, x, dm, c1, off + r, lane);
+    fold_moment<MK, false, F>(m0, m1, x, G ? gv[kGDm] : dm, c1, off + r,
+                              lane);
 #pragma unroll
     for (int j = 0; j < kRowVals; ++j) x[j] = fl<F>(x[j] * x[j]);
-    fold_moment<VK, true, F>(v0, v1, x, dv, c2, off + r, lane);
+    fold_moment<VK, true, F>(v0, v1, x, G ? gv[kGDv] : dv, c2, off + r,
+                             lane);
   }
 }
 
@@ -279,8 +337,9 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
 // [p * range_rows, min((p + 1) * range_rows, rows_g)) of the slab's rows.
 // m folds as in arena_fold_kernel; vr row by row; the column partials as
 // the header says, into partials[p], and the last CTA folds their ordered
-// sum into vc. ticket: an integer the launcher zeroes.
-template <int MK>
+// sum into vc. ticket: an integer the launcher zeroes. G as in
+// arena_fold_kernel.
+template <int MK, bool G>
 __global__ void __launch_bounds__(kThreads)
 rowcol_fold_kernel(void* __restrict__ m0, void* __restrict__ m1,
                    float* __restrict__ vr, float4* __restrict__ vc,
@@ -288,7 +347,14 @@ rowcol_fold_kernel(void* __restrict__ m0, void* __restrict__ m1,
                    int64_t range_rows, int ranges,
                    float4* __restrict__ partials,
                    unsigned int* __restrict__ ticket, float s, float c1,
-                   float c2, float dm, float dv) {
+                   float c2, float dm, float dv,
+                   const float4* __restrict__ guard) {
+  // ok == 0: no CTA writes, so none takes a ticket and vc is never written
+  const volatile float* gv = nullptr;
+  if constexpr (G) {
+    gv = fold_guard(guard);
+    if (gv[kGOk] == 0.0f) return;
+  }
   // each warp's column partials meet in shared memory (32 KB). A warp
   // accumulates its rows in registers when m is fp32, and in its own row
   // of `red` when m is int8, whose re-encode needs the registers (each
@@ -309,15 +375,17 @@ rowcol_fold_kernel(void* __restrict__ m0, void* __restrict__ m1,
   }
   for (int64_t r = lo + warp; r < hi; r += kWarps) {
     float x[kRowVals];
+    const float sr = G ? gv[kGScale] : s;
 #pragma unroll
     for (int k = 0; k < kRowF4; ++k) {
       const float4 a = g[f4_index(r, k, lane)];
-      x[4 * k + 0] = fl<true>(fl<true>(a.x) * s);
-      x[4 * k + 1] = fl<true>(fl<true>(a.y) * s);
-      x[4 * k + 2] = fl<true>(fl<true>(a.z) * s);
-      x[4 * k + 3] = fl<true>(fl<true>(a.w) * s);
+      x[4 * k + 0] = fl<true>(fl<true>(a.x) * sr);
+      x[4 * k + 1] = fl<true>(fl<true>(a.y) * sr);
+      x[4 * k + 2] = fl<true>(fl<true>(a.z) * sr);
+      x[4 * k + 3] = fl<true>(fl<true>(a.w) * sr);
     }
-    fold_moment<MK, false, true>(m0, m1, x, dm, c1, off + r, lane);
+    fold_moment<MK, false, true>(m0, m1, x, G ? gv[kGDm] : dm, c1, off + r,
+                                 lane);
 #pragma unroll
     for (int k = 0; k < kRowF4; ++k) {
       float* e = x + 4 * k;
@@ -331,7 +399,7 @@ rowcol_fold_kernel(void* __restrict__ m0, void* __restrict__ m1,
     }
     const float rs = rowcol_row_sum(x);
     if (lane == 0)
-      vr[off + r] = fl<true>(fmaf(dv, fl<true>(vr[off + r]),
+      vr[off + r] = fl<true>(fmaf(G ? gv[kGDv] : dv, fl<true>(vr[off + r]),
                                   fl<true>(c2 * rs)));
   }
   if constexpr (kRegAcc) {
@@ -439,13 +507,17 @@ __device__ __forceinline__ float apply1(float p, float m, float v, float lr,
   return fl<F>(fmaf(-lr, u, p));
 }
 
-template <int MK, int VK>
+template <int MK, int VK, bool G>
 __global__ void __launch_bounds__(kThreads)
 arena_apply_kernel(float4* __restrict__ p, const void* __restrict__ m0,
                    const void* __restrict__ m1, const void* __restrict__ v0,
                    const void* v1, int64_t rows, float lr,
-                   float bc1, float bc2, float eps, float wd) {
+                   float bc1, float bc2, float eps, float wd,
+                   const float* __restrict__ guard) {
   constexpr bool F = MK != kFp32 || VK != kFp32;
+  if constexpr (G) {
+    if (!apply_guard(guard)) return;
+  }
   __shared__ float4 nc[VK == kRowCol ? kLanes / 4 : 1];
   if constexpr (VK == kRowCol) {
     rowcol_normalise((const float4*)v1, nc);
@@ -469,6 +541,62 @@ arena_apply_kernel(float4* __restrict__ p, const void* __restrict__ m0,
   }
 }
 
+// finite_and: an Inf or NaN has every exponent bit set (fp32 0x7f800000, bf16
+// 0x7f80), so the check is integer arithmetic on the raw bits. B is the
+// element's bytes (4 fp32, 2 bf16).
+template <int B>
+__device__ __forceinline__ bool nonfinite_elem(const unsigned char* p) {
+  if constexpr (B == 4)
+    return (*(const uint32_t*)p & 0x7f800000u) == 0x7f800000u;
+  else
+    return (*(const uint16_t*)p & 0x7f80u) == 0x7f80u;
+}
+
+// 16 bytes: 4 fp32, or 8 bf16 (two to a 32-bit word, each half checked)
+template <int B>
+__device__ __forceinline__ bool nonfinite16(uint4 w) {
+  constexpr uint32_t hi = 0x7f800000u, lo = 0x7f80u;
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+  bool bad = false;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    bad |= (u[i] & hi) == hi;
+    if constexpr (B == 2) bad |= (u[i] & lo) == lo;
+  }
+  return bad;
+}
+
+// One pass over x: elements [0, head) come before the 16-byte-aligned body
+// of n16 words, `tail` elements after it. A grid-stride loop keeps 4 words
+// in flight per thread; block 0's first warp checks the head and the tail.
+// A warp that saw a non-finite element stores 0.0f into ok (never a read of
+// ok, never another value), so ok ends as ok AND finite(x).
+template <int B>
+__global__ void __launch_bounds__(kThreads)
+finite_and_kernel(const unsigned char* __restrict__ x, int64_t head,
+                  int64_t n16, int64_t tail, float* __restrict__ ok) {
+  const uint4* body = (const uint4*)(x + head * B);
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  bool bad = false;
+  for (; i + 3 * stride < n16; i += 4 * stride) {
+    uint4 w[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) w[k] = body[i + k * stride];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) bad |= nonfinite16<B>(w[k]);
+  }
+  for (; i < n16; i += stride) bad |= nonfinite16<B>(body[i]);
+  if (blockIdx.x == 0 && threadIdx.x < 32) {
+    for (int64_t e = threadIdx.x; e < head; e += 32)
+      bad |= nonfinite_elem<B>(x + e * B);
+    const unsigned char* t = x + (head + n16 * (16 / B)) * B;
+    for (int64_t e = threadIdx.x; e < tail; e += 32)
+      bad |= nonfinite_elem<B>(t + e * B);
+  }
+  if (__any_sync(0xffffffffu, bad) && (threadIdx.x & 31) == 0) *ok = 0.0f;
+}
+
 // Blocks for `rows` rows, one warp each, capped at a few waves of the SMs.
 int rows_grid(int64_t rows) {
   int device = 0, sms = 132;
@@ -486,10 +614,18 @@ template <int MK, int VK>
 cudaError_t fold(void* m0, void* m1, void* v0, void* v1, const void* g,
                  int64_t off, int64_t rows_g, int64_t ranges,
                  int64_t range_rows, void* scratch, float s, float c1,
-                 float c2, float dm, float dv, cudaStream_t stream) {
+                 float c2, float dm, float dv, const float4* guard,
+                 cudaStream_t stream) {
   if constexpr (VK != kRowCol) {
-    arena_fold_kernel<MK, VK><<<rows_grid(rows_g), kThreads, 0, stream>>>(
-        m0, m1, v0, v1, (const float4*)g, off, rows_g, s, c1, c2, dm, dv);
+    const int grid = rows_grid(rows_g);
+    if (guard == nullptr)
+      arena_fold_kernel<MK, VK, false><<<grid, kThreads, 0, stream>>>(
+          m0, m1, v0, v1, (const float4*)g, off, rows_g, s, c1, c2, dm, dv,
+          nullptr);
+    else
+      arena_fold_kernel<MK, VK, true><<<grid, kThreads, 0, stream>>>(
+          m0, m1, v0, v1, (const float4*)g, off, rows_g, s, c1, c2, dm, dv,
+          guard);
     return cudaSuccess;
   } else {
     if (ranges < 1 || ranges > 65535 || range_rows < 1 ||
@@ -501,9 +637,16 @@ cudaError_t fold(void* m0, void* m1, void* v0, void* v1, const void* g,
     const cudaError_t err = cudaMemsetAsync(ticket, 0, sizeof(unsigned int),
                                             stream);
     if (err != cudaSuccess) return err;
-    rowcol_fold_kernel<MK><<<(int)ranges, kThreads, 0, stream>>>(
-        m0, m1, (float*)v0, (float4*)v1, (const float4*)g, off, rows_g,
-        range_rows, (int)ranges, partials, ticket, s, c1, c2, dm, dv);
+    if (guard == nullptr)
+      rowcol_fold_kernel<MK, false><<<(int)ranges, kThreads, 0, stream>>>(
+          m0, m1, (float*)v0, (float4*)v1, (const float4*)g, off, rows_g,
+          range_rows, (int)ranges, partials, ticket, s, c1, c2, dm, dv,
+          nullptr);
+    else
+      rowcol_fold_kernel<MK, true><<<(int)ranges, kThreads, 0, stream>>>(
+          m0, m1, (float*)v0, (float4*)v1, (const float4*)g, off, rows_g,
+          range_rows, (int)ranges, partials, ticket, s, c1, c2, dm, dv,
+          guard);
     return cudaSuccess;
   }
 }
@@ -511,9 +654,14 @@ cudaError_t fold(void* m0, void* m1, void* v0, void* v1, const void* g,
 template <int MK, int VK>
 void apply(void* p, const void* m0, const void* m1, const void* v0,
            const void* v1, int64_t rows, float lr, float bc1, float bc2,
-           float eps, float wd, cudaStream_t stream) {
-  arena_apply_kernel<MK, VK><<<rows_grid(rows), kThreads, 0, stream>>>(
-      (float4*)p, m0, m1, v0, v1, rows, lr, bc1, bc2, eps, wd);
+           float eps, float wd, const float* guard, cudaStream_t stream) {
+  const int grid = rows_grid(rows);
+  if (guard == nullptr)
+    arena_apply_kernel<MK, VK, false><<<grid, kThreads, 0, stream>>>(
+        (float4*)p, m0, m1, v0, v1, rows, lr, bc1, bc2, eps, wd, nullptr);
+  else
+    arena_apply_kernel<MK, VK, true><<<grid, kThreads, 0, stream>>>(
+        (float4*)p, m0, m1, v0, v1, rows, lr, bc1, bc2, eps, wd, guard);
 }
 
 }  // namespace
@@ -533,20 +681,23 @@ void apply(void* p, const void* m0, const void* m1, const void* v0,
 // rows_g), inside the arena (checked by the wrapper); the whole-arena fold
 // passes row_offset 0 and rows_g = the arena's rows. ranges, range_rows and
 // scratch serve rowcol alone (rowcol_partition(rows_g) and a (ranges * 1024
-// + 4)-float buffer; 0, 0 and NULL for the other pairs).
-extern "C" int arena_fold_launch(int mk, int vk, void* m0, void* m1,
-                                 void* v0, void* v1, const void* g,
-                                 int64_t row_offset, int64_t rows_g,
-                                 int64_t ranges, int64_t range_rows,
-                                 void* scratch, float s, float c1, float c2,
-                                 float dm, float dv, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
+// + 4)-float buffer; 0, 0 and NULL for the other pairs). The guarded
+// launcher takes one more argument, the 16-byte-aligned device vector [dm,
+// dv, ok, s], whose values replace s, dm and dv; the unguarded one passes
+// NULL to the same kernels.
+namespace {
+int fold_dispatch(int mk, int vk, void* m0, void* m1, void* v0, void* v1,
+                  const void* g, int64_t row_offset, int64_t rows_g,
+                  int64_t ranges, int64_t range_rows, void* scratch, float s,
+                  float c1, float c2, float dm, float dv, const void* guard,
+                  cudaStream_t st) {
   cudaError_t err;
   switch (mk * kVKinds + vk) {
 #define FOLD(MK, VK)                                                     \
   case MK * kVKinds + VK:                                                \
     err = fold<MK, VK>(m0, m1, v0, v1, g, row_offset, rows_g, ranges,    \
-                       range_rows, scratch, s, c1, c2, dm, dv, st);      \
+                       range_rows, scratch, s, c1, c2, dm, dv,           \
+                       (const float4*)guard, st);                        \
     break;
     PAIRS(FOLD)
 #undef FOLD
@@ -556,20 +707,91 @@ extern "C" int arena_fold_launch(int mk, int vk, void* m0, void* m1,
   return (int)cudaGetLastError();
 }
 
-extern "C" int arena_apply_launch(int mk, int vk, void* p, const void* m0,
-                                  const void* m1, const void* v0,
-                                  const void* v1, int64_t rows, float lr,
-                                  float bc1, float bc2, float eps, float wd,
-                                  void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
+int apply_dispatch(int mk, int vk, void* p, const void* m0, const void* m1,
+                   const void* v0, const void* v1, int64_t rows, float lr,
+                   float bc1, float bc2, float eps, float wd,
+                   const void* guard, cudaStream_t st) {
   switch (mk * kVKinds + vk) {
 #define APPLY(MK, VK)                                                   \
   case MK * kVKinds + VK:                                               \
-    apply<MK, VK>(p, m0, m1, v0, v1, rows, lr, bc1, bc2, eps, wd, st); \
+    apply<MK, VK>(p, m0, m1, v0, v1, rows, lr, bc1, bc2, eps, wd,     \
+                  (const float*)guard, st);                             \
     break;
     PAIRS(APPLY)
 #undef APPLY
     default: return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+}  // namespace
+
+extern "C" int arena_fold_launch(int mk, int vk, void* m0, void* m1,
+                                 void* v0, void* v1, const void* g,
+                                 int64_t row_offset, int64_t rows_g,
+                                 int64_t ranges, int64_t range_rows,
+                                 void* scratch, float s, float c1, float c2,
+                                 float dm, float dv, void* stream) {
+  return fold_dispatch(mk, vk, m0, m1, v0, v1, g, row_offset, rows_g, ranges,
+                       range_rows, scratch, s, c1, c2, dm, dv, nullptr,
+                       (cudaStream_t)stream);
+}
+
+extern "C" int arena_fold_guarded_launch(int mk, int vk, void* m0, void* m1,
+                                         void* v0, void* v1, const void* g,
+                                         int64_t row_offset, int64_t rows_g,
+                                         int64_t ranges, int64_t range_rows,
+                                         void* scratch, float s, float c1,
+                                         float c2, float dm, float dv,
+                                         const void* guard, void* stream) {
+  if (guard == nullptr) return (int)cudaErrorInvalidValue;
+  return fold_dispatch(mk, vk, m0, m1, v0, v1, g, row_offset, rows_g, ranges,
+                       range_rows, scratch, s, c1, c2, dm, dv, guard,
+                       (cudaStream_t)stream);
+}
+
+// The guarded apply's extra argument: the device float ok (0 leaves p
+// untouched).
+extern "C" int arena_apply_launch(int mk, int vk, void* p, const void* m0,
+                                  const void* m1, const void* v0,
+                                  const void* v1, int64_t rows, float lr,
+                                  float bc1, float bc2, float eps, float wd,
+                                  void* stream) {
+  return apply_dispatch(mk, vk, p, m0, m1, v0, v1, rows, lr, bc1, bc2, eps,
+                        wd, nullptr, (cudaStream_t)stream);
+}
+
+extern "C" int arena_apply_guarded_launch(int mk, int vk, void* p,
+                                          const void* m0, const void* m1,
+                                          const void* v0, const void* v1,
+                                          int64_t rows, float lr, float bc1,
+                                          float bc2, float eps, float wd,
+                                          const void* guard, void* stream) {
+  if (guard == nullptr) return (int)cudaErrorInvalidValue;
+  return apply_dispatch(mk, vk, p, m0, m1, v0, v1, rows, lr, bc1, bc2, eps,
+                        wd, guard, (cudaStream_t)stream);
+}
+
+// x: the tensor's first byte; elem_bytes 4 (fp32) or 2 (bf16); head, n16 and
+// tail as finite_and_kernel takes them (the wrapper splits the tensor at its
+// 16-byte-aligned body); ok: a device float.
+extern "C" int finite_and_launch(const void* x, int elem_bytes, int64_t head,
+                                 int64_t n16, int64_t tail, void* ok,
+                                 void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  int device = 0, sms = 132;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const int64_t want = (n16 + 4 * kThreads - 1) / (4 * kThreads);
+  const int64_t cap = (int64_t)sms * kWavesPerSm;
+  const int blocks = (int)(want < 1 ? 1 : want < cap ? want : cap);
+  const unsigned char* xb = (const unsigned char*)x;
+  if (elem_bytes == 4)
+    finite_and_kernel<4><<<blocks, kThreads, 0, st>>>(xb, head, n16, tail,
+                                                      (float*)ok);
+  else if (elem_bytes == 2)
+    finite_and_kernel<2><<<blocks, kThreads, 0, st>>>(xb, head, n16, tail,
+                                                      (float*)ok);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

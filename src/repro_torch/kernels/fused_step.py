@@ -1,7 +1,9 @@
 """Arena-wide fused AdamA kernels: the whole-arena m/v fold (one launch per
 micro-batch), the slice fold of Algorithm 2 (one launch per layer and one
 for the rest region, per micro-batch) and the bias-corrected apply (one
-launch per mini-batch), for every ported (m codec, v codec) pair.
+launch per mini-batch), for every ported (m codec, v codec) pair, each in
+an unguarded and a guarded form; and `finite_and`, the finite flag that
+the guarded forms read.
 
 Each function has two forms, side by side:
 
@@ -12,10 +14,26 @@ Each function has two forms, side by side:
   arena_fold_ref /                  the plain PyTorch versions: the same
   arena_fold_slice_ref /            operations in the same order, used on
   arena_apply_ref                   the CPU and as the kernels' oracle.
+  finite_and / finite_and_ref       ok <- ok AND every element finite.
 
-They replace the Pallas kernels of `repro/kernels/fused_step.py` in the
-fp32-wire, unguarded, static-scale form. The state (fold) and p (apply)
-are updated IN PLACE, where the reference aliases input to output.
+They replace the Pallas kernels of `repro/kernels/fused_step.py` with the
+fp32 gradient wire, in two forms (the bf16 and e4m3 wires and master
+params are not ported):
+
+  unguarded   host scalars: the static scale and the decay pair.
+  guarded     `guard=`: a device float32 vector [dm, dv, ok, scale] for a
+              fold (`guard_scalars`, the reference's SMEM `_guard_scalars`),
+              [ok] for the apply. The scale is traced (any device value),
+              and with ok == 0 the call is a bitwise no-op on every state
+              column, rowcol's column sums included, and on p (the
+              reference's `_GuardedRef` and the apply's `where`, which also
+              drop the NaNs of a bc1 = 0 apply). The engines fill the
+              vector on the device and AND the finite flag into its ok
+              with `finite_and`, so no flag is read on the host.
+
+The state (fold) and p (apply) are updated IN PLACE, where the reference
+aliases input to output; in place, the kernels' ok == 0 is an early return
+and the plain versions' a `where` against the old values.
 
 A codec is data (`KernelCodec`, as in the reference): the arena columns
 its moment rides in and its number in the CUDA source, plus the plain
@@ -134,9 +152,10 @@ class KernelCodec:
     # chunk of rows: decay*moment + coeff*x; `fl` is the pair's flush
     # (`_flush`)
     update: Callable = field(repr=False)
-    # fold_columns(parts, g, scale, coeff): adds coeff * the column sums of
-    # (scale*g)^2 over all of g's rows into the shared columns, in place;
-    # None for a codec whose columns are all row-indexed
+    # fold_columns(parts, g, scale, coeff, ok): adds coeff * the column sums
+    # of (scale*g)^2 over all of g's rows into the shared columns, in place
+    # (where the bool tensor ok holds, if given); None for a codec whose
+    # columns are all row-indexed
     fold_columns: Optional[Callable] = field(default=None, repr=False)
 
 
@@ -187,9 +206,10 @@ def _rowcol_update(parts, x, decay, coeff, fl):
                        ftz(coeff * _rowcol_row_sums(x)))),)
 
 
-def _rowcol_fold_columns(parts, g, s, coeff):
+def _rowcol_fold_columns(parts, g, s, coeff, ok=None):
     vc = parts[1]
-    vc.copy_(ftz(_fma32(coeff, _rowcol_col_sums(g, s, ftz), ftz(vc))))
+    _write((vc,), (ftz(_fma32(coeff, _rowcol_col_sums(g, s, ftz), ftz(vc))),),
+           ok)
 
 
 def rowcol_partition(rows: int) -> Tuple[int, int]:
@@ -333,12 +353,19 @@ _P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
 # kinds, two column pointers per moment (the second NULL for a one-column
 # codec), ..., the CUDA stream. arena_fold_launch serves the whole-arena
 # fold (row offset 0) and the slice fold; its (ranges, range_rows, scratch)
-# serve rowcol's column sums (0, 0, NULL for the other codecs).
+# serve rowcol's column sums (0, 0, NULL for the other codecs). A guarded
+# launcher takes the unguarded one's arguments and then the guard's
+# pointer. finite_and_launch: x, its element bytes, (head, n16, tail) of
+# `_finite_split`, ok, the stream.
+_FOLD_ARGS = (_I, _I, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _F, _F,
+              _F, _F, _F)
+_APPLY_ARGS = (_I, _I, _P, _P, _P, _P, _P, _I64, _F, _F, _F, _F, _F)
 SIGNATURES = {
-    "arena_fold_launch": (_I, _I, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
-                          _P, _F, _F, _F, _F, _F, _P),
-    "arena_apply_launch": (_I, _I, _P, _P, _P, _P, _P, _I64, _F, _F, _F, _F,
-                           _F, _P),
+    "arena_fold_launch": _FOLD_ARGS + (_P,),
+    "arena_apply_launch": _APPLY_ARGS + (_P,),
+    "arena_fold_guarded_launch": _FOLD_ARGS + (_P, _P),
+    "arena_apply_guarded_launch": _APPLY_ARGS + (_P, _P),
+    "finite_and_launch": (_P, _I, _I64, _I64, _I64, _P, _P),
 }
 
 
@@ -357,9 +384,12 @@ def _rows(kc: KernelCodec, parts, lo: int, hi: int):
                  for p, c in zip(parts, kc.cols))
 
 
-def _write(parts, new) -> None:
+def _write(parts, new, ok=None) -> None:
+    """parts <- new, in place; where the bool tensor `ok` holds, if given
+    (the guarded forms' predicated write: where() selects, so a NaN of the
+    discarded side never reaches the state)."""
     for p, x in zip(parts, new):
-        p.copy_(x)
+        p.copy_(x if ok is None else torch.where(ok, x, p))
 
 
 def _scalars_on(device, *xs):
@@ -367,6 +397,115 @@ def _scalars_on(device, *xs):
     by a host scalar as a multiply by its reciprocal)."""
     return tuple(torch.tensor(x, dtype=torch.float32, device=device)
                  for x in xs)
+
+
+# ---------------------------------------------------------------------------
+# The guard
+# ---------------------------------------------------------------------------
+
+
+def guard_scalars(decay=None, ok=True, scale=1.0, *, device):
+    """A fold's guard vector [dm, dv, ok, scale] (float32, on `device`) from
+    host values, the reference's `_guard_scalars`: ok is 1.0 or 0.0, the
+    numbers round to float32 as JAX's weak-typed floats do. The engines
+    build theirs on the device instead, so that no call copies from the
+    host."""
+    dm, dv = (1.0, 1.0) if decay is None else decay
+    return torch.tensor([_f32(dm), _f32(dv), 1.0 if ok else 0.0,
+                         _f32(scale)], dtype=torch.float32, device=device)
+
+
+def _check_guard(fn: str, guard, n: int, device, scale=1.0,
+                 decay=None) -> None:
+    """A guard: a contiguous float32 (n,) tensor on the operands' device
+    (4n-byte aligned on CUDA). A fold's scale and decay ride in its guard
+    vector, so they must be left unset beside one."""
+    if not isinstance(guard, torch.Tensor):
+        raise TypeError(f"{fn}: guard must be a float32 tensor, got "
+                        f"{type(guard).__name__}")
+    if guard.dtype != torch.float32 or tuple(guard.shape) != (n,):
+        raise ValueError(f"{fn}: guard must be a ({n},) float32 tensor, got "
+                         f"{tuple(guard.shape)} {guard.dtype}")
+    if not guard.is_contiguous() or guard.device != device:
+        raise ValueError(f"{fn}: guard must be contiguous, on {device}")
+    if guard.device.type == "cuda" and guard.data_ptr() % (4 * n):
+        raise ValueError(f"{fn}: a CUDA guard must be {4 * n}-byte "
+                         f"aligned")
+    if decay is not None or not (isinstance(scale, (int, float))
+                                 and scale == 1.0):
+        raise ValueError(f"{fn}: with guard=, the scale and the decay ride "
+                         f"in the guard vector [dm, dv, ok, scale]")
+
+
+def _launch(fn: str, launcher: str, lead, args, guard) -> None:
+    """Launch `launcher` (unguarded) or its guarded twin with the guard's
+    pointer after `args`."""
+    lib = _lib()
+    if guard is None:
+        build.launch(fn, getattr(lib, launcher), lead, *args)
+    else:
+        build.launch(fn, getattr(lib, launcher.replace(
+            "_launch", "_guarded_launch")), lead, *args, guard.data_ptr())
+
+
+def finite_and_ref(x: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    """Plain version of `finite_and`."""
+    ok.copy_(torch.where(torch.isfinite(x).all(), ok, torch.zeros_like(ok)))
+    return ok
+
+
+def _finite_split(x: torch.Tensor) -> Tuple[int, int, int]:
+    """(head, n16, tail) of finite_and_launch: the elements before x's
+    first 16-byte boundary, the 16-byte words after it, the elements
+    left."""
+    n, b = x.numel(), x.element_size()
+    head = min(n, (-x.data_ptr() % 16) // b)
+    n16 = (n - head) * b // 16
+    return head, n16, n - head - n16 * 16 // b
+
+
+def finite_and(x: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    """ok <- ok AND (every element of x is finite), in place: one pass over
+    a contiguous float32 or bfloat16 tensor. `ok` is a one-element float32
+    tensor on x's device (1.0 or 0.0; a guard vector's ok slot, `vec[2:3]`,
+    or the apply's guard). Returns ok. The reference computes this flag
+    with `jnp.isfinite(g).all()`; the kernel reads x once and allocates
+    nothing."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"finite_and: expected float32 or bfloat16, got "
+                        f"{x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("finite_and: x must be contiguous")
+    if (ok.dtype != torch.float32 or ok.numel() != 1
+            or ok.device != x.device):
+        raise ValueError(f"finite_and: ok must be one float32 element on "
+                         f"{x.device}, got {tuple(ok.shape)} {ok.dtype} on "
+                         f"{ok.device}")
+    if x.device.type == "cpu":
+        return finite_and_ref(x, ok)
+    if x.device.type != "cuda":
+        raise ValueError(f"finite_and: unsupported device {x.device}")
+    if x.numel():
+        build.launch("finite_and", _lib().finite_and_launch, x,
+                     x.data_ptr(), x.element_size(), *_finite_split(x),
+                     ok.data_ptr())
+        finite_and.launches += 1
+    return ok
+
+
+finite_and.launches = 0
+
+
+def _guard_values(g, guard, beta1, beta2, scale, decay):
+    """The plain versions' scalars as float32 tensors on g's device: (s,
+    c1, c2, dm, dv, ok), ok a bool tensor or None; a guard vector supplies
+    s, dm, dv and ok."""
+    s, c1, c2, dm, dv = _scalars_on(g.device, *_fold_scalars(
+        beta1, beta2, scale, decay))
+    if guard is None:
+        return s, c1, c2, dm, dv, None
+    dm, dv, ok, s = guard.unbind(0)
+    return s, c1, c2, dm, dv, ok != 0
 
 
 # ---------------------------------------------------------------------------
@@ -404,43 +543,48 @@ def fold_args(mk, vk, m_parts, v_parts, g, row_offset, beta1, beta2,
 
 
 def arena_fold_ref(m, v, g, *, beta1: float, beta2: float, scale=1.0,
-                   decay=None, m_codec="fp32", v_codec="fp32"):
-    """Plain version of `arena_fold` (same operations, same order)."""
+                   decay=None, m_codec="fp32", v_codec="fp32", guard=None):
+    """Plain version of `arena_fold` (same operations, same order; guarded,
+    every write where-predicated on ok)."""
     mk, vk = kernel_codec("m", m_codec), kernel_codec("v", v_codec)
     (m_parts, _), (v_parts, _) = _as_parts(m), _as_parts(v)
-    s, c1, c2, dm, dv = _scalars_on(g.device, *_fold_scalars(
-        beta1, beta2, scale, decay))
+    s, c1, c2, dm, dv, ok = _guard_values(g, guard, beta1, beta2, scale,
+                                          decay)
     fl = _flush(mk, vk)
     for lo in range(0, g.shape[0], _PLAIN_CHUNK_ROWS):
         hi = lo + _PLAIN_CHUNK_ROWS
         gs = fl(fl(g[lo:hi]) * s)
         mp, vp = _rows(mk, m_parts, lo, hi), _rows(vk, v_parts, lo, hi)
-        _write(mp, mk.update(mp, gs, dm, c1, fl))
-        _write(vp, vk.update(vp, fl(gs * gs), dv, c2, fl))
+        _write(mp, mk.update(mp, gs, dm, c1, fl), ok)
+        _write(vp, vk.update(vp, fl(gs * gs), dv, c2, fl), ok)
     if vk.fold_columns is not None:
-        vk.fold_columns(v_parts, g, s, c2)
+        vk.fold_columns(v_parts, g, s, c2, ok)
     return m, v
 
 
 def arena_fold(m, v, g, *, beta1: float, beta2: float, scale=1.0,
-               decay=None, m_codec="fp32", v_codec="fp32"):
+               decay=None, m_codec="fp32", v_codec="fp32", guard=None):
     """Fold one micro-batch's packed gradient `g` into both moments, in
     place: m = dm*m + (1-beta1)*(scale*g), v = dv*v + (1-beta2)*(scale*g)^2,
     each in its codec's space. `m`/`v` are the codecs' column tuples (bare
     tensors for fp32). `decay=(dm, dv)` fuses the begin-minibatch decay
     into this fold for the row-indexed columns (pass (beta1, beta2) on the
     first micro-batch); None means (1, 1). A shared column (rowcol's column
-    sums) is decayed by the caller. Returns (m, v)."""
+    sums) is decayed by the caller. `guard` (the guarded form): the device
+    vector [dm, dv, ok, scale] (`guard_scalars`) in place of `scale` and
+    `decay`; with ok == 0 nothing is written. Returns (m, v)."""
     mk, vk = kernel_codec("m", m_codec), kernel_codec("v", v_codec)
     (m_parts, _), (v_parts, _) = _as_parts(m), _as_parts(v)
     _check_state("arena_fold", mk, vk, m_parts, v_parts, g, g.shape[0])
+    if guard is not None:
+        _check_guard("arena_fold", guard, 4, g.device, scale, decay)
     if g.device.type == "cpu":
         return arena_fold_ref(m, v, g, beta1=beta1, beta2=beta2, scale=scale,
-                              decay=decay, m_codec=mk, v_codec=vk)
-    build.launch("arena_fold", _lib().arena_fold_launch, g,
-                 *fold_args(mk, vk, m_parts, v_parts, g, 0, beta1, beta2,
-                            scale, decay,
-                            fold_scratch(vk, g.shape[0], g.device)))
+                              decay=decay, m_codec=mk, v_codec=vk,
+                              guard=guard)
+    _launch("arena_fold", "arena_fold_launch", g,
+            fold_args(mk, vk, m_parts, v_parts, g, 0, beta1, beta2, scale,
+                      decay, fold_scratch(vk, g.shape[0], g.device)), guard)
     arena_fold.launches += 1
     return m, v
 
@@ -468,7 +612,7 @@ def _check_slice(mk, vk, m_parts, v_parts, g, row_offset: int,
 
 def arena_fold_slice_ref(m, v, g, row_offset: int, *, beta1: float,
                          beta2: float, block: int, scale=1.0, decay=None,
-                         m_codec="fp32", v_codec="fp32"):
+                         m_codec="fp32", v_codec="fp32", guard=None):
     """Plain version of `arena_fold_slice`: `arena_fold_ref` on the rows
     of the slice (views of every column). `block` is checked by the
     wrapper."""
@@ -479,29 +623,32 @@ def arena_fold_slice_ref(m, v, g, row_offset: int, *, beta1: float,
     vs = _rows(vk, v_parts, row_offset, hi)
     arena_fold_ref(ms[0] if m_bare else ms, vs[0] if v_bare else vs, g,
                    beta1=beta1, beta2=beta2, scale=scale, decay=decay,
-                   m_codec=mk, v_codec=vk)
+                   m_codec=mk, v_codec=vk, guard=guard)
     return m, v
 
 
 def arena_fold_slice(m, v, g, row_offset: int, *, beta1: float, beta2: float,
                      block: int, scale=1.0, decay=None, m_codec="fp32",
-                     v_codec="fp32"):
+                     v_codec="fp32", guard=None):
     """Fold a (rows_g, LANES) gradient slab into arena rows
     [row_offset, row_offset + rows_g) of both moments, in place, with the
     arena_fold arithmetic; every other row is left untouched. `block` is
     the layout's `slice_block` for the region: rows_g and row_offset must
-    be multiples of it. Returns (m, v)."""
+    be multiples of it. `guard` as in arena_fold. Returns (m, v)."""
     mk, vk = kernel_codec("m", m_codec), kernel_codec("v", v_codec)
     (m_parts, _), (v_parts, _) = _as_parts(m), _as_parts(v)
     _check_slice(mk, vk, m_parts, v_parts, g, row_offset, block)
+    if guard is not None:
+        _check_guard("arena_fold_slice", guard, 4, g.device, scale, decay)
     if g.device.type == "cpu":
         return arena_fold_slice_ref(m, v, g, row_offset, beta1=beta1,
                                     beta2=beta2, block=block, scale=scale,
-                                    decay=decay, m_codec=mk, v_codec=vk)
-    build.launch("arena_fold_slice", _lib().arena_fold_launch, g,
-                 *fold_args(mk, vk, m_parts, v_parts, g, row_offset, beta1,
-                            beta2, scale, decay,
-                            fold_scratch(vk, g.shape[0], g.device)))
+                                    decay=decay, m_codec=mk, v_codec=vk,
+                                    guard=guard)
+    _launch("arena_fold_slice", "arena_fold_launch", g,
+            fold_args(mk, vk, m_parts, v_parts, g, row_offset, beta1, beta2,
+                      scale, decay, fold_scratch(vk, g.shape[0], g.device)),
+            guard)
     arena_fold_slice.launches += 1
     return m, v
 
@@ -527,12 +674,14 @@ def apply_args(mk, vk, p, m_parts, v_parts, lr, bc1, bc2, eps,
 
 def arena_apply_ref(p, m, v, *, lr, bc1, bc2, eps: float = 1e-8,
                     weight_decay: float = 0.0, m_codec="fp32",
-                    v_codec="fp32"):
-    """Plain version of `arena_apply` (same operations, same order)."""
+                    v_codec="fp32", guard=None):
+    """Plain version of `arena_apply` (same operations, same order;
+    guarded, p is where-selected on ok)."""
     mk, vk = kernel_codec("m", m_codec), kernel_codec("v", v_codec)
     (m_parts, _), (v_parts, _) = _as_parts(m), _as_parts(v)
     lr, bc1, bc2, eps, wd = _scalars_on(p.device, *_apply_scalars(
         lr, bc1, bc2, eps, weight_decay))
+    ok = None if guard is None else guard.reshape(()) != 0
     fl = _flush(mk, vk)
     for lo in range(0, p.shape[0], _PLAIN_CHUNK_ROWS):
         hi = lo + _PLAIN_CHUNK_ROWS
@@ -543,25 +692,30 @@ def arena_apply_ref(p, m, v, *, lr, bc1, bc2, eps: float = 1e-8,
         u = fl(mk.decode(_rows(mk, m_parts, lo, hi), fl) / den)
         if weight_decay:
             u = fl(_fma32(wd, pf, u))
-        pc.copy_(fl(_fma32(-lr, u, pf)))
+        _write((pc,), (fl(_fma32(-lr, u, pf)),), ok)
     return p
 
 
 def arena_apply(p, m, v, *, lr, bc1, bc2, eps: float = 1e-8,
-                weight_decay: float = 0.0, m_codec="fp32", v_codec="fp32"):
+                weight_decay: float = 0.0, m_codec="fp32", v_codec="fp32",
+                guard=None):
     """Bias-corrected Adam apply over the packed param arena, in place,
     decoding both moments in-pass:
-    p = p - lr*(m/bc1 / (sqrt(v/bc2) + eps) + weight_decay*p). Returns p."""
+    p = p - lr*(m/bc1 / (sqrt(v/bc2) + eps) + weight_decay*p). `guard` (the
+    guarded form): a (1,) float32 device tensor; with 0.0 p keeps every
+    byte, whatever bc1 is. Returns p."""
     mk, vk = kernel_codec("m", m_codec), kernel_codec("v", v_codec)
     (m_parts, _), (v_parts, _) = _as_parts(m), _as_parts(v)
     _check_state("arena_apply", mk, vk, m_parts, v_parts, p, p.shape[0])
+    if guard is not None:
+        _check_guard("arena_apply", guard, 1, p.device)
     if p.device.type == "cpu":
         return arena_apply_ref(p, m, v, lr=lr, bc1=bc1, bc2=bc2, eps=eps,
                                weight_decay=weight_decay, m_codec=mk,
-                               v_codec=vk)
-    build.launch("arena_apply", _lib().arena_apply_launch, p,
-                 *apply_args(mk, vk, p, m_parts, v_parts, lr, bc1, bc2, eps,
-                             weight_decay))
+                               v_codec=vk, guard=guard)
+    _launch("arena_apply", "arena_apply_launch", p,
+            apply_args(mk, vk, p, m_parts, v_parts, lr, bc1, bc2, eps,
+                       weight_decay), guard)
     arena_apply.launches += 1
     return p
 

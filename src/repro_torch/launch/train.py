@@ -15,6 +15,11 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \
       --reduced --steps 4 --global-batch 8 --micro-batches 2 --seq-len 32 \
       --m-codec int8 --state-codec int8 --log-every 1 --device cpu
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \
+      --reduced --steps 3 --global-batch 8 --micro-batches 2 --seq-len 32 \
+      --finite-guard --inject-fault nan@micro=1,step=1 --log-every 1 \
+      --device cpu
 """
 from __future__ import annotations
 
@@ -55,6 +60,15 @@ def main(argv=None):
                     help="per-leaf optimizer state (arena=False): adama and "
                          "adama_layerwise fold and apply leaf by leaf")
     add_codec_args(ap)
+    ap.add_argument("--finite-guard", action="store_true",
+                    help="fused finite guards: skip non-finite micro-batches "
+                         "bitwise (arena state)")
+    ap.add_argument("--scaler-abort-after", type=int, default=0,
+                    help="abort after this many consecutive skipped "
+                         "micro-batches (0 = never)")
+    ap.add_argument("--inject-fault", default=None,
+                    help="fault injection (train/faults.py grammar), e.g. "
+                         "nan@micro=1, skip@micro=0,step=2, crash@step=3")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
@@ -73,9 +87,12 @@ def main(argv=None):
                                   micro_batches=args.micro_batches,
                                   lr=args.lr, arena=not args.per_leaf,
                                   state_codec=args.state_codec,
-                                  m_codec=args.m_codec),
+                                  m_codec=args.m_codec,
+                                  finite_guard=args.finite_guard,
+                                  scaler_abort_after=args.scaler_abort_after),
         seq_len=args.seq_len, global_batch=args.global_batch, seed=args.seed,
-        steps=args.steps, log_every=args.log_every)
+        steps=args.steps, log_every=args.log_every,
+        inject_fault=args.inject_fault)
     lr_fn = sched.warmup_cosine(args.lr, args.warmup, args.steps)
     out = train(run, lr_schedule=lr_fn, device=args.device)
     peak = ""

@@ -1,5 +1,12 @@
-"""Training loop (`repro/train/loop.py`, without checkpoints, faults or a
-mesh): init, data, the engine's step, per-step loss and time."""
+"""Training loop (`repro/train/loop.py`, without checkpoints or a mesh):
+init, data, the engine's step, per-step loss and time.
+
+`run.inject_fault` (train/faults.py's grammar) threads a FaultSpec into the
+step (nan/inf/zero/skip) or raises InjectedCrash after a `crash@step=N`
+step's update. With `finite_guard=True` the loop logs the loss scale and
+the skipped micro-batches, and raises once `scaler_abort_after` (> 0)
+consecutive micro-batches were skipped: a run that only skips is not
+training."""
 from __future__ import annotations
 
 import contextlib
@@ -12,6 +19,7 @@ from repro_torch.configs.base import RunConfig
 from repro_torch.core.accumulation import make_train_step
 from repro_torch.data import make_data
 from repro_torch.models.model import Model, init_params
+from repro_torch.train import faults as faults_mod
 
 
 def resolve_device(device=None) -> torch.device:
@@ -38,8 +46,9 @@ def train(run: RunConfig, *, lr_schedule=None, log_fn=print, params=None,
           data=None, device=None, step_context=None) -> Dict[str, Any]:
     """Train `run.steps` steps. `params` (a tree on `device`) defaults to
     `init_params` from a generator seeded with `run.seed`. Returns the
-    model, its param tree, the optimizer state, and per-step losses and
-    wall-clock seconds (each step ends in a device synchronize).
+    model, its param tree, the optimizer state, per-step losses and
+    wall-clock seconds (each step ends in a device synchronize), and the
+    last step's metrics.
     `step_context(i)`, if given, returns a context manager entered around
     step i's timed region (e.g. a profiler)."""
     device = resolve_device(device)
@@ -50,12 +59,14 @@ def train(run: RunConfig, *, lr_schedule=None, log_fn=print, params=None,
         params = init_params(cfg, gen)
     model = Model(cfg, params)
     tree = model.tree()
-    step_fn, opt_init = make_train_step(cfg, run.optimizer,
-                                        lr_schedule=lr_schedule)
+    opt = run.optimizer
+    fault = faults_mod.parse_fault(run.inject_fault)
+    step_fn, opt_init = make_train_step(cfg, opt, lr_schedule=lr_schedule,
+                                        fault=fault)
     opt_state = opt_init(tree)
     if data is None:
         data = make_data(cfg, run.seq_len, run.global_batch, seed=run.seed)
-    losses, step_s = [], []
+    losses, step_s, metrics = [], [], {}
     for i in range(run.steps):
         batch = {k: torch.from_numpy(v).to(device)
                  for k, v in data.batch(i).items()}
@@ -66,8 +77,24 @@ def train(run: RunConfig, *, lr_schedule=None, log_fn=print, params=None,
             losses.append(float(metrics["loss"]))
             _sync(device)
             step_s.append(time.perf_counter() - t0)
+        consec = int(metrics.get("consec_skips", 0))
+        if opt.scaler_abort_after and consec >= opt.scaler_abort_after:
+            raise RuntimeError(
+                f"aborting at step {i + 1}: {consec} consecutive "
+                f"micro-batches skipped non-finite (>= scaler_abort_"
+                f"after={opt.scaler_abort_after}); loss_scale="
+                f"{float(metrics.get('loss_scale', 1.0)):g} — the run "
+                f"is diverging, not merely overflowing")
         if (i + 1) % run.log_every == 0:
-            log_fn(f"[train] step {i + 1}/{run.steps} loss={losses[-1]:.4f} "
-                   f"({step_s[-1]:.3f}s/step)")
+            extra = ""
+            if "loss_scale" in metrics:
+                extra = (f" scale={float(metrics['loss_scale']):g} skipped="
+                         f"{int(metrics['skipped_micro_batches'])}")
+            log_fn(f"[train] step {i + 1}/{run.steps} loss={losses[-1]:.4f}"
+                   f"{extra} ({step_s[-1]:.3f}s/step)")
+        if faults_mod.crash_due(fault, i):
+            raise faults_mod.InjectedCrash(
+                f"injected crash after step {i + 1}'s update")
     return {"model": model, "params": tree, "opt_state": opt_state,
-            "losses": losses, "step_seconds": step_s}
+            "losses": losses, "step_seconds": step_s,
+            "metrics": {k: float(x) for k, x in metrics.items()}}
