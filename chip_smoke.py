@@ -67,6 +67,16 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      kernels; finite_and at the stablelm arena's, a layer's, the rest's
      and the bert-large arena's slab, timed beside torch.isfinite(x).all()
      and torch.isfinite(torch.aminmax(x)), allocating nothing.
+   - the bf16 gradient wire of arena_fold and arena_fold_slice: every
+     pair's fold (with the decay; at scale 0.25), slice fold and both
+     guarded (ok = 1 at the traced scale, ok = 0 on a slab holding a NaN)
+     on a bf16 slab, on the 64-row edge arena and for the rowcol pairs on
+     1,000 rows, bit for bit against the plain versions and against the
+     fp32-wire kernels fed the same slab upcast; then fp32/fp32, int8/int8
+     and int8/rowcol at the stablelm arena (fold, layer and rest slices),
+     bit for bit both ways over the whole arena, timed in turns beside the
+     fp32-wire kernel against the bound of a 2-byte g; finite_and on the
+     bf16 slab, timed beside torch.isfinite(x).all().
 4. A small-input check: reduced bert-large trained 2 steps on the card
    (kernels) and on the CPU (plain versions) from the same params agree,
    for adama, adama_layerwise (arena and per-leaf state) and per-leaf
@@ -103,6 +113,15 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    equals its unguarded twin, a caught NaN equals a forced skip and
    differs from the clean run; guarded ga leaves the params as they were,
    its step at 0; every guarded path peaks at most 1 MiB above its twin.
+   Last, the bf16 gradient wire (grad_dtype="bf16"), 3 steps each:
+   `adama` fp32 and `adama_layerwise` int8/rowcol, and guarded `adama`
+   fp32 with dynamic loss scaling and a NaN at micro-batch 3 of step 1,
+   each beside its fp32-wire twin: a peak at most 1 MiB above the
+   twin's, the twin's launches per step, the twin's step-1 loss bit for
+   bit, params after step 1 within the pair's declared bf16_wire_lr x lr
+   of the twin's and at most CODE_FLIP_FRAC of them beyond
+   SMALL_PARAM_TOL (compared against a host copy), and the dynamic scale
+   at 2^14 after the skip with the step counter full.
 
 The last three lines are a JSON object with every kernel's numbers, the
 card's name and power limit, and the JSON result line
@@ -110,6 +129,8 @@ card's name and power limit, and the JSON result line
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import math
 import statistics
@@ -185,9 +206,34 @@ PATHS = {"adama": ("bert_large", "adama", True, 5, FP32),
              "stablelm_1_6b", "adama_layerwise", True, 3, ("int8", "rowcol")),
          "stablelm_adama_layerwise_int8_rowcol_guarded_skip": (
              "stablelm_1_6b", "adama_layerwise", True, 3, ("int8", "rowcol")),
-         "stablelm_ga_guarded_nan": ("stablelm_1_6b", "ga", True, 2, FP32)}
+         "stablelm_ga_guarded_nan": ("stablelm_1_6b", "ga", True, 2, FP32),
+         "stablelm_adama_bf16": ("stablelm_1_6b", "adama", True, 3, FP32),
+         "stablelm_adama_layerwise_int8_rowcol_bf16": (
+             "stablelm_1_6b", "adama_layerwise", True, 3, ("int8", "rowcol")),
+         "stablelm_adama_guarded_bf16_dynamic_nan": (
+             "stablelm_1_6b", "adama", True, 3, FP32)}
+# the bf16-wire paths: path -> (loss_scale, its fp32-wire twin). Each must
+# peak at most WIRE_PEAK_SLACK above its twin, launch what it launches,
+# reach its step-1 loss bit for bit (the forward never sees the wire) and
+# hold its params after step 1 within the pair's declared bf16_wire_lr x
+# lr of the twin's, at most CODE_FLIP_FRAC of them beyond SMALL_PARAM_TOL
+# (the card-vs-CPU rule: a missing or wrong update moves nearly every
+# param by ~lr, more than the declared bound allows on few of them)
+WIRE = {"stablelm_adama_bf16": ("off", "stablelm_adama"),
+        "stablelm_adama_layerwise_int8_rowcol_bf16": (
+            "off", "stablelm_adama_layerwise_int8_rowcol"),
+        "stablelm_adama_guarded_bf16_dynamic_nan": (
+            "dynamic", "stablelm_adama_guarded_nan")}
+WIRE_PEAK_SLACK = 1 << 20
+# the dynamic path's loss scale after its steps: DYNAMIC_INIT 2^15, halved
+# once by the skipped micro-batch, and no growth in the step after it
+# (scaler_growth_interval 200 good micro-batches)
+WIRE_LOSS_SCALE = {"stablelm_adama_guarded_bf16_dynamic_nan": 2.0 ** 14}
 # the guarded paths (finite_guard=True): path -> (the fault injected, its
-# unguarded twin); each must peak at most GUARD_PEAK_SLACK above its twin
+# unguarded twin); each must peak at most GUARD_PEAK_SLACK above its twin.
+# The faults fire in step 1 (0-based) of 3, so a step runs after each skip
+# and the digests see what the guard left for it (the good count moving
+# the decay, the step counter)
 GUARDED = {
     "stablelm_adama_guarded": (None, "stablelm_adama"),
     "stablelm_adama_guarded_nan": ("nan@micro=3,step=1", "stablelm_adama"),
@@ -198,7 +244,9 @@ GUARDED = {
         "nan@micro=3,step=1", "stablelm_adama_layerwise_int8_rowcol"),
     "stablelm_adama_layerwise_int8_rowcol_guarded_skip": (
         "skip@micro=3,step=1", "stablelm_adama_layerwise_int8_rowcol"),
-    "stablelm_ga_guarded_nan": ("nan@micro=0,step=0", "stablelm_ga")}
+    "stablelm_ga_guarded_nan": ("nan@micro=0,step=0", "stablelm_ga"),
+    "stablelm_adama_guarded_bf16_dynamic_nan": (
+        "nan@micro=3,step=1", "stablelm_adama_guarded_nan")}
 GUARD_PEAK_SLACK = 1 << 20
 # the bitwise claims on the guarded paths, over a digest of the params, m
 # and v bytes computed on the card: (path, path, equal?)
@@ -222,7 +270,8 @@ GUARD_SKIPS = {"stablelm_adama_guarded": (0, 3),
                "stablelm_adama_layerwise_int8_rowcol_guarded_skip": (1, 3),
                # ga's one verdict per step; its step counter stays, so the
                # fault fires again
-               "stablelm_ga_guarded_nan": (2, 0)}
+               "stablelm_ga_guarded_nan": (2, 0),
+               "stablelm_adama_guarded_bf16_dynamic_nan": (1, 3)}
 # the compressed-state pairs timed at the full stablelm arena, and the main
 # path each one's launches are read from
 TIMED_CODEC_PAIRS = {("int8", "int8"): "stablelm_adama_int8",
@@ -1366,6 +1415,302 @@ def _kernels_of_calls(torch, calls):
     return {case: 1 for case, _, _ in calls}
 
 
+# ---------------------------------------------------------------------------
+# The bf16 gradient wire
+# ---------------------------------------------------------------------------
+
+
+def _wire_cases(torch, rows, b1, b2):
+    """The calls each pair runs on the bf16 wire: (form, label, guarded ok
+    or None, call(fn, state, slab)) for the whole-arena fold (with the
+    decay at scale 1, and at scale 0.25), the slice fold of rows [lo, hi)
+    (decay, scale 1/8) and both guarded at the traced scale, ok = 1 and
+    ok = 0."""
+    block = 8
+    lo, hi = block * (rows // (4 * block)), block * (3 * rows // (4 * block))
+
+    def fold(**kw):
+        return lambda fn, st, gg: fn(*st, gg, **kw)
+
+    def slice_fold(**kw):
+        return lambda fn, st, gg: fn(*st, gg[:hi - lo].flip(0).contiguous(),
+                                     lo, block=block, **kw)
+    cases = [("arena_fold", "decay, scale 1", None,
+              fold(scale=1.0, decay=(b1, b2))),
+             ("arena_fold", "scale 0.25", None, fold(scale=0.25)),
+             ("arena_fold_slice", f"rows [{lo}, {hi}) decay, scale 1/8",
+              None, slice_fold(scale=0.125, decay=(b1, b2)))]
+    for ok in (True, False):
+        cases.append(("arena_fold", f"guarded ok={int(ok)}", ok, fold(
+            guard=_guard_vec(torch, (b1, b2), ok))))
+        cases.append(("arena_fold_slice", f"rows [{lo}, {hi}) guarded "
+                      f"ok={int(ok)}", ok, slice_fold(
+                          guard=_guard_vec(torch, None, ok))))
+    return cases
+
+
+def _check_wire_arena(torch, fused_step, adama_accum, m_codec, v_codec,
+                      rows, seed, checked):
+    """A pair's folds of a bf16 slab (`_wire_cases`) on an arena of `rows`
+    rows with the edge rows, each from the same state: the kernel against
+    its plain version bit for bit, and against the fp32-wire kernel fed the
+    same slab upcast outside the kernel, bit for bit (the reference's
+    test_in_kernel_upcast_bitwise_vs_preupcast_reference, on the card);
+    ok = 0 (the slab holding a NaN) writes nothing."""
+    pair = f"{m_codec}/{v_codec}"
+    b1, b2 = 0.9, 0.999
+    m, v, g, _ = _edge_arenas(torch, rows, seed)
+    g16 = g.to(torch.bfloat16)
+    bad16 = g16.clone()
+    bad16[rows // 2, 7] = float("nan")
+    mk, vk = _encode(adama_accum, "m", m_codec, m), \
+        _encode(adama_accum, "v", v_codec, v)
+    kw = dict(beta1=b1, beta2=b2, m_codec=m_codec, v_codec=v_codec)
+    fns = {"arena_fold": (fused_step.arena_fold, fused_step.arena_fold_ref),
+           "arena_fold_slice": (fused_step.arena_fold_slice,
+                                fused_step.arena_fold_slice_ref)}
+    for name, label, ok, call in _wire_cases(torch, rows, b1, b2):
+        kern, plain = fns[name]
+        slab = g16 if ok is not False else bad16
+        sk, sr, su = ((_clone(mk), _clone(vk)) for _ in range(3))
+        call(functools.partial(kern, grad_dtype=torch.bfloat16, **kw), sk,
+             slab)
+        call(functools.partial(plain, **kw), sr, slab)
+        call(functools.partial(kern, **kw), su, slab.float())
+        torch.cuda.synchronize()
+        _compare_bits(torch, name, f"bf16 {pair} {rows} rows {label}",
+                      list(zip(sk, sr)))
+        _compare_bits(torch, name, f"bf16 {pair} {rows} rows {label} vs the "
+                      "fp32 wire on the upcast slab", list(zip(sk, su)))
+        if ok is False and not all(_bits_equal(torch, x, y)
+                                   for x, y in zip(sk, (mk, vk))):
+            raise AssertionError(f"{name} bf16 {pair} {label}: ok = 0 "
+                                 f"changed the state")
+        checked.append((name, pair, f"{rows} rows {label}"))
+
+
+def check_wire_small(torch, fused_step, adama_accum):
+    """Phase 3, the bf16 wire: every (m, v) pair on the 64-row edge arena,
+    the rowcol pairs also on RC_RANGE_ROWS rows (`_check_wire_arena`).
+    Returns the checked cases."""
+    from repro_torch.core import state_store
+    checked = []
+    for m_codec, v_codec in state_store.registered_combinations():
+        _check_wire_arena(torch, fused_step, adama_accum, m_codec, v_codec,
+                          CODEC_SMALL_ROWS, 31, checked)
+        if v_codec == "rowcol":
+            _check_wire_arena(torch, fused_step, adama_accum, m_codec,
+                              v_codec, RC_RANGE_ROWS, 32, checked)
+    log(json.dumps({"phase": "kernel", "case": "bf16 wire: every pair's "
+                    "folds and slice folds, unguarded and guarded (ok = 1 "
+                    "at f32(1/8)/f32(3), ok = 0), on the 64-row edge arena "
+                    f"(rowcol also at {RC_RANGE_ROWS} rows), bit for bit "
+                    "against the plain versions and against the fp32-wire "
+                    "kernels on the upcast slab", "checked": len(checked)}))
+    return checked
+
+
+# the pairs whose bf16-wire folds are timed at the stablelm-1.6b arena
+WIRE_TIMED_PAIRS = (FP32, ("int8", "int8"), ("int8", "rowcol"))
+# CUDA-event-timed runs (of KERNEL_REPS launches each) per figure of the
+# wire phase, which times every case in turns four times over: its runs
+# spread by under 0.1% on an H100, and TIMED_RUNS' 25 cost a minute more
+WIRE_TIMED_RUNS = 8
+
+
+def _wire_state(torch, gen, m_codec, v_codec, rows):
+    """Random (m, v) state of a pair over `rows` rows on the card."""
+    def col(scale, n=rows, width=1):
+        return torch.rand((n, width), generator=gen, device="cuda") * scale
+    if m_codec == "int8":
+        m = (torch.randint(-127, 128, (rows, LANES), generator=gen,
+                           device="cuda", dtype=torch.int8), col(1e-5))
+    else:
+        m = torch.randn((rows, LANES), generator=gen, device="cuda") * 1e-3
+    if v_codec == "int8":
+        v = (torch.randint(0, 128, (rows, LANES), generator=gen,
+                           device="cuda", dtype=torch.int8), col(1e-8))
+    elif v_codec == "rowcol":
+        v = (col(1e-3), col(1.0, 1, LANES))
+    else:
+        v = (torch.randn((rows, LANES), generator=gen, device="cuda")
+             * 1e-6).abs()
+    return m, v
+
+
+def check_wire_timed(torch, fused_step, layout):
+    """Phase 3, the bf16 wire at the full stablelm-1.6b arena: for each of
+    WIRE_TIMED_PAIRS, the fold, a layer slice and the rest slice of a bf16
+    slab, once on clones of the same state against the plain version and
+    against the fp32-wire kernel on the upcast slab (every column of the
+    arena bit for bit), then timed in turns beside the fp32-wire kernel
+    (fp32, bf16, bf16, fp32) against the bound a 2-byte g gives; then
+    finite_and on the bf16 slab. Returns ({kernel: {pair: [entry per
+    case]}}, finite_and's bf16 entry)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(33)
+    rows = layout.rows
+    spec, rest = layout.stack("blocks"), layout.rest
+    g16 = torch.randn((rows, LANES), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    gup = g16.float()
+    out = {"arena_fold": {}, "arena_fold_slice": {}}
+    for m_codec, v_codec in WIRE_TIMED_PAIRS:
+        pair = f"{m_codec}/{v_codec}"
+        m, v = _wire_state(torch, gen, m_codec, v_codec, rows)
+        kw = dict(beta1=0.9, beta2=0.999, scale=1.0 / 8, m_codec=m_codec,
+                  v_codec=v_codec)
+        ops = 2 + _FOLD_OPS[m_codec] + _FOLD_OPS[v_codec]
+        cases = [("arena_fold", "whole arena", rows, 0, None),
+                 ("arena_fold_slice", "layer 0", spec.layer_rows, spec.row,
+                  layout.slice_block(spec)),
+                 ("arena_fold_slice", "rest", rest.rows, rest.row,
+                  layout.slice_block(rest))]
+        for name, label, n_rows, off, block in cases:
+            if name == "arena_fold":
+                def run(fn, mm, vv, gg, n_rows=n_rows):
+                    fn(mm, vv, gg[:n_rows], **kw)
+                kern, plain = fused_step.arena_fold, fused_step.arena_fold_ref
+            else:
+                def run(fn, mm, vv, gg, n_rows=n_rows, off=off, block=block):
+                    fn(mm, vv, gg[:n_rows], off, block=block, **kw)
+                kern, plain = (fused_step.arena_fold_slice,
+                               fused_step.arena_fold_slice_ref)
+            mk, vk, mr, vr = _clone(m), _clone(v), _clone(m), _clone(v)
+            run(kern, mk, vk, g16)
+            run(plain, mr, vr, g16)
+            torch.cuda.synchronize()
+            err = _compare_bits(torch, name, f"bf16 {pair} {label}",
+                                [(mk, mr), (vk, vr)])
+            del mr, vr
+            mu, vu = _clone(m), _clone(v)
+            run(kern, mu, vu, gup)
+            torch.cuda.synchronize()
+            _compare_bits(torch, name, f"bf16 {pair} {label} vs the fp32 "
+                          "wire on the upcast slab", [(mk, mu), (vk, vu)])
+            del mk, vk, mu, vu
+            n = n_rows * LANES
+            t = [timed_ms(torch, lambda gg=gg: run(kern, m, v, gg),
+                          runs=WIRE_TIMED_RUNS, reps=KERNEL_REPS)
+                 for gg in (gup, g16, g16, gup)]
+            state_bytes = 2 * _codec_bytes(m_codec, v_codec, n_rows)
+            entry = _kernel_entry(
+                name, f"bf16 {pair} {label}", statistics.median(t[1:3]),
+                timed_ms(torch, lambda: run(plain, m, v, g16),
+                         runs=CODEC_PLAIN_RUNS, warmup=1),
+                # g read once at 2 B; the slice's state read and written
+                bound_ms(2 * n + state_bytes, ops * n),
+                {"pair": pair, "wire": "bf16", "rows": n_rows,
+                 "row_offset": off, "max_abs_err": err},
+                logged={"fp32_wire_ms_in_turns": [t[0], t[3]],
+                        "bf16_ms_in_turns": t[1:3]})
+            fp32_ms = statistics.median([t[0], t[3]])
+            entry.update(fp32_wire_ms=fp32_ms,
+                         fp32_wire_bound_ms=bound_ms(4 * n + state_bytes,
+                                                     ops * n)[0],
+                         bf16_over_fp32_wire=entry["ms"] / fp32_ms)
+            if name == "arena_fold":
+                entry.update(_time_guarded_bf16(torch, kern, plain, m, v,
+                                                g16, kw, pair))
+            out[name].setdefault(pair, []).append(entry)
+        for x in (*_cols(m), *_cols(v)):
+            if x.is_floating_point() and not torch.isfinite(x).all():
+                raise AssertionError(f"bf16 {pair}: non-finite state after "
+                                     f"the timed runs")
+        del m, v
+    del gup
+    torch.cuda.empty_cache()
+    fin = _time_finite_and_bf16(torch, fused_step, g16)
+    del g16
+    torch.cuda.empty_cache()
+    return out, fin
+
+
+def _time_guarded_bf16(torch, kern, plain, m, v, g16, kw, pair):
+    """The guarded whole-arena fold of the bf16 slab (ok = 1, the traced
+    scale) against its plain version bit for bit, timed in turns beside
+    the unguarded one (unguarded, guarded, guarded, unguarded)."""
+    vec = _guard_vec(torch, None, True)
+    base = {k: x for k, x in kw.items() if k not in ("scale",)}
+    mk, vk, mr, vr = _clone(m), _clone(v), _clone(m), _clone(v)
+    kern(mk, vk, g16, guard=vec, **base)
+    plain(mr, vr, g16, guard=vec, **base)
+    torch.cuda.synchronize()
+    _compare_bits(torch, "arena_fold", f"guarded bf16 {pair} whole arena",
+                  [(mk, mr), (vk, vr)])
+    del mk, vk, mr, vr
+    t = [timed_ms(torch, lambda gd=gd: kern(m, v, g16, **gd, **base),
+                  runs=WIRE_TIMED_RUNS, reps=KERNEL_REPS)
+         for gd in ({"scale": kw["scale"]}, {"guard": vec}, {"guard": vec},
+                    {"scale": kw["scale"]})]
+    log(json.dumps({"phase": "kernel", "name": "arena_fold",
+                    "case": f"guarded bf16 {pair} whole arena",
+                    "unguarded_ms_in_turns": [t[0], t[3]],
+                    "guarded_ms_in_turns": t[1:3]}))
+    return {"guarded_ms": statistics.median(t[1:3]),
+            "guarded_over_unguarded": statistics.median(t[1:3])
+            / statistics.median([t[0], t[3]])}
+
+
+def _time_finite_and_bf16(torch, fused_step, x):
+    """finite_and on the stablelm arena's bf16 slab: the same verdict as
+    its plain version and torch.isfinite(x).all(), clean and with a NaN;
+    timed beside that call; allocates nothing."""
+    n = x.numel()
+    ok, okr = torch.ones(1, device="cuda"), torch.ones(1, device="cuda")
+    for poison in (False, True):
+        if poison:
+            x[x.shape[0] // 3, 5] = float("nan")
+        ok.fill_(1.0)
+        okr.fill_(1.0)
+        fused_step.finite_and(x, ok)
+        fused_step.finite_and_ref(x, okr)
+        want = bool(torch.isfinite(x).all())
+        if ok.item() != okr.item() or bool(ok.item()) != want:
+            raise AssertionError(f"finite_and bf16 nan={poison}: "
+                                 f"{ok.item()}, plain {okr.item()}, "
+                                 f"library {want}")
+    x[x.shape[0] // 3, 5] = 0.0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    fused_step.finite_and(x, ok)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - before
+    if extra:
+        raise AssertionError(f"finite_and bf16 allocated {extra} B")
+    t_lib = timed_ms(torch, lambda: torch.isfinite(x).all(),
+                     reps=KERNEL_REPS)
+    entry = _kernel_entry(
+        "finite_and", "stablelm arena slab, bf16",
+        timed_ms(torch, lambda: fused_step.finite_and(x, ok),
+                 reps=KERNEL_REPS),
+        timed_ms(torch, lambda: fused_step.finite_and_ref(x, ok)),
+        # x read once at 2 B; the flag's 4 bytes; one test per element
+        bound_ms(2 * n + 4, n),
+        {"rows": x.shape[0], "dtype": "bfloat16", "max_abs_err": 0.0},
+        logged={"library_calls": {"torch.isfinite(x).all()": t_lib}})
+    entry.update(library_ms=t_lib, extra_bytes=extra)
+    return entry
+
+
+def _wire_forms(name, checked, timed, counts):
+    """The `kernels` line's bf16-wire forms of one fold kernel: the pairs
+    and cases checked bit for bit on the small arenas; the timed pairs'
+    numbers at the stablelm arena beside the fp32-wire kernel's; the
+    launches of the bf16-wire main paths."""
+    return {"wire": "bf16",
+            "bitwise_pairs": sorted({pr for k, pr, _ in checked
+                                     if k == name}),
+            "bitwise_cases": sum(k == name for k, _, _ in checked),
+            "timed": [dict({k: x for k, x in entries[0].items()
+                            if k != "case"}, pair=pair, library_ms=None,
+                           by_case=entries)
+                      for pair, entries in timed.items()],
+            "launches_by_wire_path": {p: counts[p][name]
+                                      for p in WIRE if p in counts}}
+
+
 def _leaf_cases(cfg):
     """name -> (whole tensor shape, which part the kernel gets): None is
     the whole tensor, an int j the view [j] (a layer's row of a stacked
@@ -1913,7 +2258,85 @@ def _engine_twins(p, q):
     a, b = PATHS[p], PATHS[q]
     return ({a[1], b[1]} == {"adama", "adama_layerwise"} and a[2] and b[2]
             and a[0] == b[0] and a[4] == b[4]
-            and GUARDED.get(p, (0,))[0] == GUARDED.get(q, (0,))[0])
+            and GUARDED.get(p, (0,))[0] == GUARDED.get(q, (0,))[0]
+            and WIRE.get(p) == WIRE.get(q))
+
+
+def _after_step_one(action):
+    """A train() step_context that runs `action` once step 1 has ended and
+    been timed."""
+    @contextlib.contextmanager
+    def ctx(i):
+        yield
+        if i == 0:
+            action()
+    return ctx
+
+
+def _param_diff(torch, leaves, host_leaves, chunk=1 << 26):
+    """Leaves on the card against copies on the host, compared on the card
+    a chunk at a time (64 Mi elements: 256 MiB, far below any path's peak
+    between two steps): (largest |a - b|, elements beyond SMALL_PARAM_TOL,
+    elements)."""
+    worst, beyond, total = 0.0, 0, 0
+    for a, b in zip(leaves, host_leaves):
+        a, b = a.detach().reshape(-1), b.reshape(-1)
+        for lo in range(0, a.numel(), chunk):
+            d = (a[lo:lo + chunk] - b[lo:lo + chunk].to(a.device)).abs()
+            worst = max(worst, float(d.max()))
+            beyond += int((d > SMALL_PARAM_TOL).sum())
+            total += d.numel()
+    return worst, beyond, total
+
+
+def _wire_tolerance(codecs, lr):
+    """Params after one step, bf16 wire against fp32 wire: the pair's
+    declared bf16_wire_lr (summed over its codecs, as the reference's
+    tests/test_codec_conformance.py sums them) x lr."""
+    from repro_torch.core import state_store
+    return lr * sum(state_store.get_codec(name, moment).conformance
+                    .bf16_wire_lr for moment, name in zip(("m", "v"), codecs))
+
+
+def _check_wire_path(path, out, peak, counts, all_losses, peaks, diff, tol):
+    """A bf16-wire path against its fp32-wire twin (WIRE); returns what is
+    logged."""
+    loss_scale, twin = WIRE[path]
+    info = {"grad_dtype": "bf16", "loss_scale_config": loss_scale,
+            "wire_twin": twin, "wire_twin_peak": peaks[twin],
+            "peak_minus_wire_twin": peak - peaks[twin],
+            "step1_loss": out["losses"][0],
+            "wire_twin_step1_loss": all_losses[twin][0],
+            "params_after_step_1_max_abs_diff": diff[0],
+            "params_after_step_1_tolerance": tol,
+            "params_after_step_1_share_beyond": diff[1] / diff[2],
+            "share_beyond_limit": SMALL_PARAM_TOL,
+            "share_tolerance": CODE_FLIP_FRAC,
+            "metrics": out["metrics"]}
+    if peak > peaks[twin] + WIRE_PEAK_SLACK:
+        raise AssertionError(f"{path}: peak {peak} is more than "
+                             f"{WIRE_PEAK_SLACK} B above {twin}'s "
+                             f"{peaks[twin]}")
+    per_step = {p: {k: c / PATHS[p][3] for k, c in counts[p].items()}
+                for p in (path, twin)}
+    if per_step[path] != per_step[twin]:
+        raise AssertionError(f"{path}: launches per step {per_step[path]} "
+                             f"!= {twin}'s {per_step[twin]}")
+    if out["losses"][0] != all_losses[twin][0]:
+        raise AssertionError(f"{path}: step-1 loss {out['losses'][0]} != "
+                             f"{twin}'s {all_losses[twin][0]}")
+    if not diff[0] <= tol:
+        raise AssertionError(f"{path}: params after step 1 differ from "
+                             f"{twin}'s by up to {diff[0]} (tolerance {tol})")
+    if not diff[1] <= CODE_FLIP_FRAC * diff[2]:
+        raise AssertionError(f"{path}: {diff[1]} of {diff[2]} params after "
+                             f"step 1 differ from {twin}'s by more than "
+                             f"{SMALL_PARAM_TOL}")
+    want = WIRE_LOSS_SCALE.get(path)
+    if want is not None and out["metrics"].get("loss_scale") != want:
+        raise AssertionError(f"{path}: loss scale "
+                             f"{out['metrics'].get('loss_scale')} != {want}")
+    return info
 
 
 def run_main_paths(torch, wrappers, arch):
@@ -1932,33 +2355,57 @@ def run_main_paths(torch, wrappers, arch):
     counts, peaks, all_losses, digests = {}, {}, {}, {}
     paths = [p for p, spec in PATHS.items() if spec[0] == arch]
     digested = {p for d in GUARD_DIGESTS for p in d[:2]}
+    # params after step 1 of each bf16-wire path's twin, on the host
+    wire_twins = {twin for _, twin in WIRE.values()}
+    step1 = {}
     for path in paths:
         _, engine, arena, steps, codecs = PATHS[path]
         fault, twin = GUARDED.get(path, (None, None))
+        loss_scale = WIRE.get(path, ("off",))[0]
         run = RunConfig(model=cfg,
                         optimizer=OptimizerConfig(
                             accumulation=engine, arena=arena,
                             micro_batches=main["micro_batches"],
                             m_codec=codecs[0], state_codec=codecs[1],
-                            finite_guard=path in GUARDED),
+                            grad_dtype="bf16" if path in WIRE else "fp32",
+                            finite_guard=path in GUARDED,
+                            loss_scale=loss_scale),
                         seq_len=main["seq_len"],
                         global_batch=main["global_batch"],
                         seed=main["seed"], steps=steps, log_every=1,
                         inject_fault=fault)
         torch.cuda.empty_cache()
-        params, before = None, None
-        if engine == "ga" and path in GUARDED:
-            # the params train() would make, digested before the run
+        params, before, context, diff = None, None, None, []
+        if (engine == "ga" and path in GUARDED) or path in WIRE or \
+                path in wire_twins:
+            # the params train() would make, which it updates in place
             gen = torch.Generator(device="cuda")
             gen.manual_seed(main["seed"])
             params = init_params(cfg, gen)
+        if engine == "ga" and path in GUARDED:
             before = _digest(torch, _tree_leaves(params))
+        # the param leaves, for the step-1 actions; cleared after the run
+        held = {"leaves": _tree_leaves(params) if params else None}
+        if path in wire_twins:
+            def snapshot(path=path):
+                step1[path] = [x.detach().to("cpu", copy=True)
+                               for x in held["leaves"]]
+            context = _after_step_one(snapshot)
+        elif path in WIRE:
+            def compare(twin=WIRE[path][1]):
+                diff.append(_param_diff(torch, held["leaves"],
+                                        step1[twin]))
+            context = _after_step_one(compare)
         torch.cuda.reset_peak_memory_stats()
         for fn in wrappers.values():
             fn.launches = 0
-        out = train(run, device="cuda", log_fn=log, params=params)
+        out = train(run, device="cuda", log_fn=log, params=params,
+                    step_context=context)
         counts[path] = {k: fn.launches for k, fn in wrappers.items()}
         peaks[path] = torch.cuda.max_memory_allocated()
+        # drop every reference to the param leaves, or the next path's
+        # peak would count them
+        held.clear()
         del params
         if path in digested:
             digests[path] = _digest(torch, _state_tensors(out))
@@ -1984,6 +2431,12 @@ def run_main_paths(torch, wrappers, arch):
                 if after != before:
                     raise AssertionError(f"{path}: the params changed; every "
                                          f"step was skipped")
+        wire_info = {}
+        if path in WIRE:
+            wire_info = _check_wire_path(
+                path, out, peaks[path], counts, all_losses, peaks, diff[0],
+                _wire_tolerance(codecs, run.optimizer.lr))
+            del step1[WIRE[path][1]]
         n_params = sum(x.numel() for x in out["model"].parameters())
         state = out["opt_state"]
         rows = state["m"].layout.rows if arena else None
@@ -2001,7 +2454,7 @@ def run_main_paths(torch, wrappers, arch):
                         "max_memory_allocated_bytes": peaks[path],
                         "launches": counts[path],
                         "launches_per_step": want, **guard_info,
-                        "digest": digests.get(path), **main}))
+                        **wire_info, "digest": digests.get(path), **main}))
         losses = out["losses"]
         all_losses[path] = losses
         first = all_losses[paths[0]][0]
@@ -2053,7 +2506,7 @@ def check_memory(arch, peaks):
     same engine's fp32 path by at least the state bytes it saves."""
     path = {spec[1]: p for p, spec in PATHS.items()
             if spec[0] == arch and spec[2] and spec[4] == FP32
-            and p not in GUARDED}
+            and p not in GUARDED and p not in WIRE}
     adama, ga, lw = (peaks[path[e]] for e in ("adama", "ga",
                                               "adama_layerwise"))
     arena_bytes = MAIN[arch]["arena_rows"] * LANES * 4
@@ -2072,7 +2525,7 @@ def check_memory(arch, peaks):
                              f"({2 * arena_bytes} B)")
     rows = MAIN[arch]["arena_rows"]
     for p, (a, engine, arena, _, codecs) in PATHS.items():
-        if a != arch or codecs == FP32 or p in GUARDED:
+        if a != arch or codecs == FP32 or p in GUARDED or p in WIRE:
             continue
         base = path[engine]
         saved = _codec_bytes(*FP32, rows) - _codec_bytes(*codecs, rows)
@@ -2182,6 +2635,9 @@ def main() -> int:
         torch, fused_step, stablelm_layout)
     kernels["finite_and"]["device_ms_with_guarded_fold"] = \
         guard_kernels_per_call()
+    wire_checked = check_wire_small(torch, fused_step, adama_accum)
+    wire_timed, kernels["finite_and"]["bf16_slab"] = check_wire_timed(
+        torch, fused_step, stablelm_layout)
     log(json.dumps({"phase": "kernels_checked",
                     "seconds": time.perf_counter() - t_start}))
     check_small_input(torch)
@@ -2198,6 +2654,9 @@ def main() -> int:
             if case.startswith(name + " ")}
         kernels[name]["guarded_forms"] = _guarded_forms(
             name, guard_checked, guard_timed[name], counts)
+        if name in wire_timed:
+            kernels[name]["wire_forms"] = _wire_forms(
+                name, wire_checked, wire_timed[name], counts)
     kernels["finite_and"]["bitwise_cases"] = sum(
         k == "finite_and" for k, _, _ in guard_checked)
 

@@ -78,6 +78,18 @@ ACCUM_ENGINES = ("ga", "adama", "adama_layerwise")
 # core/state_store.py's registry
 STATE_CODECS = ("fp32", "int8", "factored", "rowcol")    # second moment (v)
 M_CODECS = ("fp32", "int8")                              # first moment (m)
+GRAD_DTYPES = ("fp32", "bf16", "fp8_e4m3")               # gradient wire
+
+
+def grad_wire_dtype(name: str):
+    """The torch dtype a `grad_dtype` config value packs gradients in (the
+    reference's `grad_wire_dtype`)."""
+    import torch
+    if name not in GRAD_DTYPES:
+        raise ValueError(f"unknown grad_dtype {name!r}; expected one of "
+                         f"{GRAD_DTYPES}")
+    return {"bf16": torch.bfloat16,
+            "fp8_e4m3": torch.float8_e4m3fn}.get(name, torch.float32)
 
 
 def parse_loss_scale(value: str):
@@ -99,9 +111,10 @@ def parse_loss_scale(value: str):
 
 @dataclass(frozen=True)
 class OptimizerConfig:
-    """The kernel paths of the reference's OptimizerConfig (use_pallas=True,
-    fp32 gradient wire), with its m and v codecs, its finite guard and its
-    loss-scale fields validated as its `optimizer_capability` does.
+    """The kernel paths of the reference's OptimizerConfig (use_pallas=True),
+    with its m and v codecs, its gradient wire (fp32 or bf16), its finite
+    guard and its loss-scale fields validated as its
+    `optimizer_capability` does.
 
     `arena` selects the state form, as in the reference: True (the default
     here, the reference's `arena=True`) keeps m and v in flat arenas folded
@@ -120,14 +133,26 @@ class OptimizerConfig:
     state_codec: str = "fp32"            # second-moment codec
     m_codec: str = "fp32"                # first-moment codec
     arena: bool = True                   # False: per-leaf state
+    # the gradient wire: the dtype each micro-batch's (or each layer's)
+    # gradient is packed in (core/arena.py). "bf16" halves the packed slab;
+    # the fold kernels upcast it to fp32 in-pass, so the moments still
+    # accumulate in fp32. Requires arena=True and an AdamA engine (ga sums
+    # raw gradients in its wire buffer). "fp8_e4m3" (codes + per-row
+    # scales, with error feedback) is not ported: ROADMAP queue 1, item 7.5
+    grad_dtype: str = "fp32"             # fp32 | bf16 (| fp8_e4m3)
     # the fused finite guard (core/accumulation.py): a micro-batch whose
     # gradient holds an Inf or a NaN folds nothing (ga: a step whose
     # accumulated gradient does applies nothing), and the skip counters
     # ride in the state ("scaler", train/scaler.py). Requires arena=True.
     finite_guard: bool = False
-    # "off" | "dynamic" | a positive float literal; only "off" here: loss
-    # scaling protects a reduced-precision gradient wire, and the port has
-    # the fp32 wire alone
+    # loss scaling for the gradient wire: "off" | "dynamic" | a positive
+    # float literal (a static scale). The loss (adama) or the backward's
+    # seed (adama_layerwise) is multiplied by the scale, and the guarded
+    # fold kernels divide it back out through their traced scale; "dynamic"
+    # starts at 2^15, halves on every skipped micro-batch (floor 1) and
+    # doubles after scaler_growth_interval good ones (train/scaler.py).
+    # Requires the bf16 wire (the wire it protects), finite_guard=True
+    # (skips drive the backoff) and an AdamA engine.
     loss_scale: str = "off"
     # good micro-batches before a dynamic scale doubles
     scaler_growth_interval: int = 200
@@ -155,16 +180,45 @@ class OptimizerConfig:
                 raise ValueError(f"{field}={name!r} requires arena=True: "
                                  f"codecs are columns of the flat state "
                                  f"arena (core/state_store.py)")
+        self._check_wire_and_guard_fields()
+        # the port's own refusals, after every check the reference makes
         if self.accumulation == "ga" and not self.arena:
             raise NotImplementedError(
                 "ga with arena=False runs the reference's plain optim/adam.py "
                 "(no kernel), which is not ported (ROADMAP queue 1, item 12: "
                 "the optim/ baselines); use arena=True")
-        self._check_guard_fields()
+        if self.grad_dtype == "fp8_e4m3":
+            raise NotImplementedError(
+                "grad_dtype='fp8_e4m3' (fp8 codes with per-row scales and an "
+                "error-feedback residual) is not ported (ROADMAP queue 1, "
+                "item 7.5); use grad_dtype='bf16'")
 
-    def _check_guard_fields(self):
-        """The reference's checks of the guard and scaler fields, in its
-        order and with its messages; the gradient wire is fp32."""
+    def _check_wire_and_guard_fields(self):
+        """The reference's checks of the wire, guard and scaler fields, in
+        its order and with its messages."""
+        if self.grad_dtype not in GRAD_DTYPES:
+            raise ValueError(f"unknown grad_dtype {self.grad_dtype!r}; "
+                             f"expected one of {GRAD_DTYPES}")
+        if self.grad_dtype != "fp32" and not self.arena:
+            raise ValueError(
+                f"grad_dtype={self.grad_dtype!r} requires arena=True: the "
+                f"gradient wire is the packed arena slab (core/arena.py); "
+                f"pass arena=True use_pallas=True")
+        if self.grad_dtype != "fp32" and self.accumulation == "ga":
+            raise ValueError(
+                f"grad_dtype={self.grad_dtype!r} with accumulation='ga' is "
+                f"unsupported: the ga engine SUMS raw gradients across "
+                f"micro-batches in the wire buffer, and bf16 accumulation "
+                f"loses the fp32-accumulation guarantee the AdamA fold "
+                f"kernels provide (they upcast in-kernel); use "
+                f"accumulation='adama' or 'adama_layerwise'")
+        if self.grad_dtype == "fp8_e4m3" and not self.finite_guard:
+            raise ValueError(
+                "grad_dtype='fp8_e4m3' requires finite_guard=True: e4m3 "
+                "has no inf (overflow surfaces only as NaN codes, which "
+                "the fused guards catch) and the error-feedback residual "
+                "state['ef'] must be skip-predicated so a vetoed "
+                "micro-batch does not corrupt it; pass finite_guard=True")
         if self.finite_guard and not self.arena:
             raise ValueError(
                 "finite_guard=True requires arena=True: the per-fold finite "
@@ -181,12 +235,19 @@ class OptimizerConfig:
                     f"the dynamic backoff (and the ga wire is fp32-only "
                     f"anyway); use accumulation='adama' or "
                     f"'adama_layerwise'")
-            raise ValueError(
-                f"loss_scale={self.loss_scale!r} requires a reduced-"
-                f"precision gradient wire (grad_dtype='bf16' or "
-                f"'fp8_e4m3' — loss scaling protects the wire), got "
-                f"grad_dtype='fp32'; pass grad_dtype='bf16' "
-                f"or loss_scale='off'")
+            if self.grad_dtype not in ("bf16", "fp8_e4m3"):
+                raise ValueError(
+                    f"loss_scale={self.loss_scale!r} requires a reduced-"
+                    f"precision gradient wire (grad_dtype='bf16' or "
+                    f"'fp8_e4m3' — loss scaling protects the wire), got "
+                    f"grad_dtype={self.grad_dtype!r}; pass grad_dtype='bf16' "
+                    f"or loss_scale='off'")
+            if not self.finite_guard:
+                raise ValueError(
+                    f"loss_scale={self.loss_scale!r} requires "
+                    f"finite_guard=True: skipped micro-batches drive the "
+                    f"scale backoff, and an unguarded scaled run would fold "
+                    f"scaled NaN/Inf into the arena; pass finite_guard=True")
         if self.scaler_growth_interval <= 0:
             raise ValueError(f"scaler_growth_interval must be > 0, got "
                              f"{self.scaler_growth_interval}")

@@ -33,9 +33,17 @@ branch, the reference's line for line, through the guarded kernel forms:
   adama_layerwise  the same, the verdict ANDed over dx, the head's
                    gradients and every layer's slab as the backward goes.
 
+`OptimizerConfig.grad_dtype` (arena state, adama and adama_layerwise; the
+config refuses it for ga, whose accumulator sums raw gradients) is the
+gradient wire: each micro-batch's (or each layer's) gradient packs into a
+slab of that dtype (bf16: half the bytes), and the fold kernels upcast it
+to fp32 in-pass, so the moments accumulate in fp32 on either wire.
+
 The guarded state carries "scaler" (train/scaler.py). Its scale divides
 1/N in the fold's traced scale (scale_into_fold) and multiplies the loss
-(adama) or the backward's seed (adama_layerwise). Every verdict, count
+(adama) or the backward's seed (adama_layerwise), so the bf16 slab holds
+the scaled gradient and loss scaling ("dynamic" or static) keeps its small
+values out of bf16's subnormal range. Every verdict, count
 and scalar of the micro-batch loop lives on the device: the kernels read
 the guard vector [dm, dv, ok, scale] that the engine fills there and
 `finite_and` ANDs the flag into, and NOTHING reads a device value on the
@@ -54,7 +62,8 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch.configs.base import ModelConfig, OptimizerConfig
+from repro_torch.configs.base import (ModelConfig, OptimizerConfig,
+                                      grad_wire_dtype)
 from repro_torch.core import adama
 from repro_torch.core import arena as arena_mod
 from repro_torch.core import state_store
@@ -232,6 +241,7 @@ def make_adama_step(cfg: ModelConfig, opt: OptimizerConfig, *,
                     lr_schedule=None, fault=None):
     n = opt.micro_batches
     b1, b2 = opt.beta1, opt.beta2
+    wire = grad_wire_dtype(opt.grad_dtype)
     if opt.finite_guard:
         return _make_guarded_adama_step(cfg, opt, lr_schedule, fault)
 
@@ -246,7 +256,8 @@ def make_adama_step(cfg: ModelConfig, opt: OptimizerConfig, *,
             loss, g = _grads(cfg, params, leaves, mb)
             if opt.arena:
                 state = adama.accumulate(state, g, b1, b2, scale=1.0 / n,
-                                         decay=_fold_decay(i, b1, b2))
+                                         decay=_fold_decay(i, b1, b2),
+                                         grad_dtype=wire)
             else:
                 # Algorithm 1 line 6 as the reference's per-leaf path does
                 # it: a true division by N (a device scalar, so CUDA divides
@@ -268,12 +279,13 @@ def make_adama_step(cfg: ModelConfig, opt: OptimizerConfig, *,
 
 def _make_guarded_adama_step(cfg, opt, lr_schedule, fault):
     """Algorithm 1 guarded: per micro-batch, the loss times the live scale,
-    the packed slab's finite flag ANDed into a fresh guard vector [dm, dv,
-    ok, scale_into_fold(1/N, sc)], the guarded fold, the scaler's
-    transition; `good` counts the committed folds and moves the
-    begin-minibatch decay to the first of them."""
+    the gradient packed at the wire's dtype, the slab's finite flag ANDed
+    into a fresh guard vector [dm, dv, ok, scale_into_fold(1/N, sc)], the
+    guarded fold, the scaler's transition; `good` counts the committed
+    folds and moves the begin-minibatch decay to the first of them."""
     n = opt.micro_batches
     b1, b2 = opt.beta1, opt.beta2
+    wire = grad_wire_dtype(opt.grad_dtype)
     dyn = scaler_mod.is_dynamic(opt)
     gi = opt.scaler_growth_interval
     guard = _Guard(opt)
@@ -288,7 +300,7 @@ def _make_guarded_adama_step(cfg, opt, lr_schedule, fault):
         for i, mb in enumerate(_split_micro(batch, n)):
             loss, g = _grads(cfg, params, leaves, mb, sc)
             fault_mod.corrupt_tree(fault, g, micro=i, step=st0)
-            slab = arena_mod.pack(g, state["m"].layout)
+            slab = arena_mod.pack(g, state["m"].layout, dtype=wire)
             del g
             vec = guard.vector(guard.fold_decay(good), fault_mod.apply_skip(
                 fault, True, micro=i, step=st0),
@@ -318,6 +330,7 @@ def make_adama_layerwise_step(cfg: ModelConfig, opt: OptimizerConfig, *,
                               lr_schedule=None, fault=None):
     n = opt.micro_batches
     b1, b2 = opt.beta1, opt.beta2
+    wire = grad_wire_dtype(opt.grad_dtype)
     if opt.finite_guard:
         return _make_guarded_layerwise_step(cfg, opt, lr_schedule, fault)
 
@@ -334,7 +347,8 @@ def make_adama_layerwise_step(cfg: ModelConfig, opt: OptimizerConfig, *,
         for i, mb in enumerate(_split_micro(batch, n)):
             loss, state = layerwise_loss_and_fold(
                 cfg, params, mb, state, beta1=b1, beta2=b2, scale=1.0 / n,
-                decay=_fold_decay(i, b1, b2) if opt.arena else None)
+                decay=_fold_decay(i, b1, b2) if opt.arena else None,
+                grad_dtype=wire)
             lsum = lsum + loss
         lr = _lr(lr_schedule, opt, state["step"])
         params, state = adama.finalize(
@@ -352,6 +366,7 @@ def _make_guarded_layerwise_step(cfg, opt, lr_schedule, fault):
     layerwise_loss_and_fold ANDs every check of the micro-batch into it."""
     n = opt.micro_batches
     b1, b2 = opt.beta1, opt.beta2
+    wire = grad_wire_dtype(opt.grad_dtype)
     dyn = scaler_mod.is_dynamic(opt)
     gi = opt.scaler_growth_interval
     guard = _Guard(opt)
@@ -369,7 +384,7 @@ def _make_guarded_layerwise_step(cfg, opt, lr_schedule, fault):
                 fault, True, micro=i, step=st0), guard.one(dev) / sc["scale"])
             loss, state, ok = layerwise_loss_and_fold(
                 cfg, params, mb, state, beta1=b1, beta2=b2, scale=seed,
-                guard=vec)
+                grad_dtype=wire, guard=vec)
             ok = ok.reshape(()) != 0
             # the loss is the unscaled ce: the scale only seeds the backward
             lsum = lsum + torch.where(ok, loss, 0.0)

@@ -100,17 +100,20 @@ def begin_minibatch(state: State, beta1: float, beta2: float) -> State:
 
 @torch.no_grad()
 def accumulate(state: State, grads, beta1: float, beta2: float,
-               scale: float = 1.0, decay=None, guard=None) -> State:
+               scale: float = 1.0, decay=None, grad_dtype=torch.float32,
+               guard=None) -> State:
     """Fold one micro-batch's gradient tree into (m, v). Arena state: pack
-    it into one fp32 slab and run one fused fold, in the state's codecs.
-    Per-leaf state: one adama_accum_2d launch per leaf. `scale` multiplies
-    g in-kernel (Algorithm 1's 1/N); `decay=(dm, dv)` applies the
-    begin-minibatch decay first (fused into the fold on arena state; pass
-    it on the first micro-batch only). `guard` (arena state only): True or
-    a guard vector, as state_store.fold takes it; the return is then
-    (state, guard vector)."""
+    it into one slab of the gradient wire's dtype (`grad_dtype`: float32,
+    or bfloat16 for a half-size slab that the fold kernel upcasts in-pass,
+    the moments still accumulating in fp32) and run one fused fold, in the
+    state's codecs. Per-leaf state: one adama_accum_2d launch per leaf.
+    `scale` multiplies g in-kernel (Algorithm 1's 1/N); `decay=(dm, dv)`
+    applies the begin-minibatch decay first (fused into the fold on arena
+    state; pass it on the first micro-batch only). `guard` (arena state
+    only): True or a guard vector, as state_store.fold takes it; the return
+    is then (state, guard vector)."""
     if is_arena_state(state):
-        g = arena_mod.pack(grads, state["m"].layout)
+        g = arena_mod.pack(grads, state["m"].layout, dtype=grad_dtype)
         return state_store.fold_state(state, g, beta1=beta1, beta2=beta2,
                                       scale=scale, decay=decay, guard=guard)
     if guard is not None:

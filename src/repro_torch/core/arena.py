@@ -1,6 +1,8 @@
 """Flat optimizer-state arena: every leaf of a param tree packed once into
 one contiguous (rows, LANES) fp32 buffer with a static layout table, so the
-AdamA fold and apply each run as ONE kernel over the whole model.
+AdamA fold and apply each run as ONE kernel over the whole model. A
+gradient tree packs the same way into the gradient wire's dtype (fp32, or
+bf16 for the bf16 wire).
 
 The layout is the reference's (`repro/core/arena.py::build_layout`) row for
 row, so an arena packed here and one packed there hold the same values at
@@ -216,20 +218,38 @@ def _device_of(tree) -> torch.device:
     return tree_flatten(tree)[0][0].device
 
 
+def _check_pack_dtype(dtype) -> None:
+    """The pack helpers CAST (round to nearest even, as XLA's convert
+    does). A raw cast to e4m3 (range +-448, 3 mantissa bits) flushes most
+    of a gradient to zero or saturates it, so packing straight to fp8 is
+    refused, as the reference refuses it (the fp8 wire packs fp32 and then
+    encodes codes with per-row scales: ROADMAP queue 1, item 7.5)."""
+    if dtype == torch.float8_e4m3fn:
+        raise TypeError(
+            "cannot pack a tree directly to float8_e4m3fn: an unscaled "
+            "cast destroys the gradient. The fp8 wire packs fp32 and then "
+            "encodes codes + a per-row scale column (not ported: ROADMAP "
+            "queue 1, item 7.5)")
+
+
 def _fill_region(region: torch.Tensor, leaves, specs) -> None:
-    """Copy each leaf (cast to fp32) to its slot of a zeroed region,
-    flattened to (..., region_rows * LANES); a leading dim is the layer."""
+    """Copy each leaf (cast to the region's dtype) to its slot of a zeroed
+    region, flattened to (..., region_rows * LANES); a leading dim is the
+    layer."""
     lead = region.shape[:-1]
     for x, ls in zip(leaves, specs):
         region[..., ls.row * LANES:ls.row * LANES + ls.size].copy_(
             x.reshape(lead + (-1,)))
 
 
-def pack(tree, layout: ArenaLayout) -> torch.Tensor:
-    """Whole tree -> new (layout.rows, LANES) fp32 arena on the tree's
-    device (leaves cast to fp32, layer-major stacks, zero padding)."""
+def pack(tree, layout: ArenaLayout, dtype=torch.float32) -> torch.Tensor:
+    """Whole tree -> new (layout.rows, LANES) `dtype` arena on the tree's
+    device (leaves cast to `dtype`, layer-major stacks, zero padding).
+    `dtype` is the gradient wire's: float32, or bfloat16 for the bf16
+    wire, whose slab equals the reference's bit for bit."""
+    _check_pack_dtype(dtype)
     stack_items, rest_tree = split_tree(tree)
-    arena = torch.zeros((layout.rows, LANES), dtype=torch.float32,
+    arena = torch.zeros((layout.rows, LANES), dtype=dtype,
                         device=_device_of(tree))
     for (name, sub), spec in zip(stack_items, layout.stacks):
         assert name == spec.name, (name, spec.name)
@@ -243,26 +263,28 @@ def pack(tree, layout: ArenaLayout) -> torch.Tensor:
     return arena
 
 
-def _pack_region(leaves, specs, rows: int) -> torch.Tensor:
-    region = torch.zeros((rows, LANES), dtype=torch.float32,
-                         device=leaves[0].device)
+def _pack_region(leaves, specs, rows: int, dtype) -> torch.Tensor:
+    _check_pack_dtype(dtype)
+    region = torch.zeros((rows, LANES), dtype=dtype, device=leaves[0].device)
     _fill_region(region.view(-1), leaves, specs)
     return region
 
 
-def pack_layer(layer_tree, spec: StackSpec) -> torch.Tensor:
-    """One layer's (un-stacked) subtree -> new (layer_rows, LANES) fp32
+def pack_layer(layer_tree, spec: StackSpec,
+               dtype=torch.float32) -> torch.Tensor:
+    """One layer's (un-stacked) subtree -> new (layer_rows, LANES) `dtype`
     slab: rows [spec.row + j*layer_rows, ...) of `pack` for that layer j."""
     return _pack_region(flatten_up_to(layer_tree, spec.paths), spec.leaves,
-                        spec.layer_rows)
+                        spec.layer_rows, dtype)
 
 
-def pack_rest(rest_tree, layout: ArenaLayout) -> torch.Tensor:
-    """The non-stacked remainder -> new (rest.rows, LANES) fp32 slab: rows
-    [rest.row, rest.row + rest.rows) of `pack`."""
+def pack_rest(rest_tree, layout: ArenaLayout,
+              dtype=torch.float32) -> torch.Tensor:
+    """The non-stacked remainder -> new (rest.rows, LANES) `dtype` slab:
+    rows [rest.row, rest.row + rest.rows) of `pack`."""
     rest = layout.rest
     return _pack_region(flatten_up_to(rest_tree, rest.paths), rest.leaves,
-                        rest.rows)
+                        rest.rows, dtype)
 
 
 def unpack(arena: torch.Tensor, layout: ArenaLayout, dtype=None):

@@ -1,6 +1,6 @@
 """Algorithm 2: interleave the per-LAYER backward with the AdamA fold
-(`repro/core/layerwise.py`, dense and encoder families, one device, fp32
-wire, with or without the finite guard).
+(`repro/core/layerwise.py`, dense and encoder families, one device, the
+fp32 or bf16 gradient wire, with or without the finite guard).
 
 The port's block params are stacked: each leaf is one (L, ...) tensor. A
 gradient hook on such a leaf fires only once autograd has written the
@@ -24,8 +24,10 @@ embedding's), which is the paper's 1/M claim; the recompute in step 3 makes
 the engine activation checkpointing as well.
 
 Arena state: each layer's gradient tree is packed into one
-(layer_rows, LANES) slab and folded into the layer's row range with ONE
-`arena_fold_slice` launch; the rest region likewise, once per micro-batch.
+(layer_rows, LANES) slab of the wire's dtype (`grad_dtype`: float32, or
+bfloat16, which the kernel upcasts in-pass) and folded into the layer's
+row range with ONE `arena_fold_slice` launch; the rest region likewise,
+once per micro-batch.
 The launch carries every codec column of the slice (int8 codes and row
 scales, the factored statistic, rowcol's row sums) and adds into the
 columns every row shares (rowcol's column sums).
@@ -88,15 +90,15 @@ def _fold_slab(state, g2, row_offset, block, beta1, beta2, decay,
 
 
 def _fold_layer(state, dlp, j: int, name: str, beta1, beta2, decay,
-                guard=None) -> None:
-    """Fold layer j's gradient tree. Arena state: pack it into one slab and
-    fold it into the layer's arena rows with one slice fold (guarded: the
-    running verdict ANDed with the slab's). Per-leaf state: fold each leaf
-    into row j of the stacked moments."""
+                guard=None, grad_dtype=torch.float32) -> None:
+    """Fold layer j's gradient tree. Arena state: pack it into one slab of
+    the wire's dtype and fold it into the layer's arena rows with one slice
+    fold (guarded: the running verdict ANDed with the slab's). Per-leaf
+    state: fold each leaf into row j of the stacked moments."""
     if is_arena_state(state):
         lay = state["m"].layout
         spec = lay.stack(name)
-        _fold_slab(state, arena_mod.pack_layer(dlp, spec),
+        _fold_slab(state, arena_mod.pack_layer(dlp, spec, dtype=grad_dtype),
                    spec.row + j * spec.layer_rows, lay.slice_block(spec),
                    beta1, beta2, decay, guard)
         return
@@ -105,16 +107,18 @@ def _fold_layer(state, dlp, j: int, name: str, beta1, beta2, decay,
     _fold_tree(m_j, v_j, dlp, beta1, beta2)
 
 
-def _fold_rest(state, d_rest, beta1, beta2, decay, guard=None) -> None:
+def _fold_rest(state, d_rest, beta1, beta2, decay, guard=None,
+               grad_dtype=torch.float32) -> None:
     """Fold the non-stacked leaves' gradients. Arena state: one slice fold
-    over the contiguous rest region (guarded as `_fold_layer`). Per-leaf
-    state: leaf by leaf."""
+    over the contiguous rest region, its slab of the wire's dtype (guarded
+    as `_fold_layer`). Per-leaf state: leaf by leaf."""
     if is_arena_state(state):
         lay = state["m"].layout
         if not lay.rest.rows:
             return
-        _fold_slab(state, arena_mod.pack_rest(d_rest, lay), lay.rest.row,
-                   lay.slice_block(lay.rest), beta1, beta2, decay, guard)
+        _fold_slab(state, arena_mod.pack_rest(d_rest, lay, dtype=grad_dtype),
+                   lay.rest.row, lay.slice_block(lay.rest), beta1, beta2,
+                   decay, guard)
         return
     for k, g in d_rest.items():
         _fold_tree(state["m"][k], state["v"][k], g, beta1, beta2)
@@ -137,13 +141,14 @@ def _pre_guard(guard, dx, d_rest_post) -> None:
 
 def layerwise_loss_and_fold(cfg: ModelConfig, params, batch, state, *,
                             beta1: float, beta2: float, scale, decay=None,
-                            guard=None):
+                            grad_dtype=torch.float32, guard=None):
     """One micro-batch: forward, then layer-by-layer backward folding each
     layer's gradients into (m, v) in place. Gradients are scaled by `scale`
     (1/N, Algorithm 1 line 6; a host number or a 0-d float32 device tensor)
     through the backward's seed. `decay` (arena state only) fuses the
-    begin-minibatch decay into this micro-batch's folds. Returns (loss,
-    state).
+    begin-minibatch decay into this micro-batch's folds. `grad_dtype`
+    (arena state only) is the gradient wire the layer and rest slabs are
+    packed in. Returns (loss, state).
 
     `guard` (arena state only): the guard vector [dm, dv, ok, fold_scale]
     (kernels/fused_step.py), in place of `decay`: ok holds the engine's
@@ -207,14 +212,14 @@ def layerwise_loss_and_fold(cfg: ModelConfig, params, batch, state, *,
                                       grad_outputs=dx)
         del y, xin
         _fold_layer(state, dict(zip(keys, dl)), j, "blocks", beta1, beta2,
-                    decay, guard)
+                    decay, guard, grad_dtype)
         del dl
 
     # ---- embedding backward, rest-region fold ----
     (d_rest["embed"],) = torch.autograd.grad(x0, [rest["embed"]],
                                              grad_outputs=dx)
     del x0, dx
-    _fold_rest(state, d_rest, beta1, beta2, decay, guard)
+    _fold_rest(state, d_rest, beta1, beta2, decay, guard, grad_dtype)
     if guard is not None:
         return loss.detach(), state, guard[2:3]
     return loss.detach(), state

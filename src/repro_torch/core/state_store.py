@@ -30,6 +30,9 @@ shared by every row: the fold kernels add into it and leave its decay to
 the host, once per micro-batch (`begin_micro`, `begin_micro_state`), since
 the layer-wise engine folds a micro-batch in many slices.
 
+A fold's gradient slab is the wire's: float32, or bfloat16 upcast to
+float32 inside the kernel. The slab's dtype names the wire.
+
 The finite guard (`guard=`, the reference's): a fold's guard is True (the
 slab checks itself: `finite_and` into a fresh guard vector) or the caller's
 device vector [dm, dv, ok, scale] (kernels/fused_step.py::guard_scalars),
@@ -296,7 +299,8 @@ def _guarded_begin_micro(codec, parts, decay, flag):
 def fold(m_codec, v_codec, m_parts, v_parts, g, *, beta1, beta2, scale=1.0,
          decay=None, guard=None):
     """Whole-arena fold of one micro-batch's gradient arena into both
-    moments, in place: one fused kernel. `decay=(dm, dv)` fuses the
+    moments, in place: one fused kernel. `g` is the wire's slab (float32,
+    or bfloat16 upcast in the kernel). `decay=(dm, dv)` fuses the
     begin-minibatch decay into it for the row-indexed columns; the shared
     ones are decayed here first (`begin_micro`), as the reference's `fold`
     does. `guard` (True, or a guard vector, `_resolve_guard`) makes the

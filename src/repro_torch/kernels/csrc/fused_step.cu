@@ -1,8 +1,8 @@
 // Arena-wide fused AdamA optimizer kernels for Hopper (sm_90a), one
 // template on the (m codec, v codec) pair for each of the reference's three
-// Pallas kernels (repro/kernels/fused_step.py, fp32 gradient wire), each in
-// its unguarded static-scale form and its guarded traced-scale form, and the
-// finite flag the guard reads:
+// Pallas kernels (repro/kernels/fused_step.py), each in its unguarded
+// static-scale form and its guarded traced-scale form, the folds on the fp32
+// and the bf16 gradient wire, and the finite flag the guard reads:
 //
 // arena_fold  replaces fused_step.py::arena_fold (_fold_body):
 //               gs = g*s
@@ -39,6 +39,16 @@
 // kernel's with the vector's values. Each kernel template takes the form as
 // a flag (G), so the unguarded instantiations compile as they did before
 // the guard existed; a NULL vector launches them.
+//
+// The gradient wire (the reference's `_fold_body`, g.astype(float32) * s):
+// each fold template takes the wire of g as a parameter (W). On the fp32
+// wire a lane loads a float4 of g; on the bf16 wire the same 4 elements as
+// one 8-byte word and widens each exactly (a bf16 value is the high half of
+// a float32: __uint_as_float(bits << 16)). The row stays in registers with
+// the same lane mapping, so everything after the load is the fp32 wire's
+// arithmetic: a fold of a bf16 slab equals the fp32 fold of that slab
+// upcast on the host, bit for bit. A bf16 row is 2 KiB, so the wrapper's
+// 16-byte alignment check still covers every 8-byte load.
 //
 // Codecs (the reference's _KERNEL_CODECS; m in {fp32, int8}, v in {fp32,
 // int8, factored, rowcol}, eight pairs):
@@ -86,7 +96,11 @@
 // bandwidth.
 //
 // Bounds (bytes, each input read once, each output written once, at the
-// data sheet's 3.35 TB/s). fp32/fp32 at the bert-large arena (357,888 x
+// data sheet's 3.35 TB/s), for the fp32 wire, whose g is 4 B an element.
+// The bf16 wire's g is 2 B, so each fold moves 2 B an element less: at the
+// stablelm arena fp32/fp32 18 B, 29.63 GB, >= 8.84 ms; int8/int8 6 B,
+// >= 2.95 ms; int8/rowcol 4 B, >= 1.97 ms; and finite_and reads the bf16
+// slab (3.29 GB) in >= 0.983 ms. fp32/fp32 at the bert-large arena (357,888 x
 // 1024 = 366,477,312 elements): fold 20 B per element (m, v, g read, m, v
 // written) 7.33 GB, >= 2.19 ms; apply 16 B, 5.86 GB, >= 1.75 ms; a layer
 // slice of 12,352 rows 253 MB, >= 0.0755 ms; the rest region of 61,248
@@ -143,6 +157,7 @@ constexpr float kQ8Max = 127.0f;
 constexpr float kQ8Inv = 0x1.020408p-7f;    // float32(1/127)
 
 enum Kind { kFp32 = 0, kInt8 = 1, kFactored = 2, kRowCol = 3 };
+enum Wire { kWireF32 = 0, kWireBf16 = 1 };  // fused_step.py::WIRES
 constexpr int kVKinds = 4;                 // the launchers' key: mk * 4 + vk
 constexpr float kRcFloor = 1e-30f;          // rowcol's least column total
 
@@ -187,6 +202,23 @@ __device__ __forceinline__ bool apply_guard(const float* __restrict__ guard) {
 // lane's value j of a row lies at element 4 * ((j / 4) * 32 + lane) + j % 4
 __device__ __forceinline__ int64_t f4_index(int64_t row, int k, int lane) {
   return row * (kLanes / 4) + k * 32 + lane;
+}
+
+// Elements 4i .. 4i + 3 of the gradient slab g as fp32: one float4 on the
+// fp32 wire; on the bf16 wire one 8-byte word of four bf16 (element 4i + e
+// in bits 16e .. 16e + 15 of the little-endian word), each widened exactly.
+template <int W>
+__device__ __forceinline__ float4 load_g(const void* __restrict__ g,
+                                         int64_t i) {
+  if constexpr (W == kWireF32) {
+    return ((const float4*)g)[i];
+  } else {
+    const uint2 h = ((const uint2*)g)[i];
+    return make_float4(__uint_as_float(h.x << 16),
+                       __uint_as_float(h.x & 0xffff0000u),
+                       __uint_as_float(h.y << 16),
+                       __uint_as_float(h.y & 0xffff0000u));
+  }
 }
 
 // The row scale of the int8 codecs: rowmax * f32(1/127), flushed; a row
@@ -276,12 +308,12 @@ __device__ __forceinline__ void fold_moment(void* __restrict__ c0,
 
 // One warp per row of the slab; slab row r folds into arena row off + r.
 // G: the guarded form (guard is the vector; the unguarded form's code is
-// the same with the guard read compiled out).
-template <int MK, int VK, bool G>
+// the same with the guard read compiled out). W: g's wire (load_g).
+template <int MK, int VK, bool G, int W>
 __global__ void __launch_bounds__(kThreads)
 arena_fold_kernel(void* __restrict__ m0, void* __restrict__ m1,
                   void* __restrict__ v0, void* __restrict__ v1,
-                  const float4* __restrict__ g, int64_t off, int64_t rows_g,
+                  const void* __restrict__ g, int64_t off, int64_t rows_g,
                   float s, float c1, float c2, float dm, float dv,
                   const float4* __restrict__ guard) {
   constexpr bool F = MK != kFp32 || VK != kFp32;
@@ -298,7 +330,7 @@ arena_fold_kernel(void* __restrict__ m0, void* __restrict__ m1,
     const float sr = G ? gv[kGScale] : s;
 #pragma unroll
     for (int k = 0; k < kRowF4; ++k) {
-      const float4 a = g[f4_index(r, k, lane)];
+      const float4 a = load_g<W>(g, f4_index(r, k, lane));
       x[4 * k + 0] = fl<F>(fl<F>(a.x) * sr);
       x[4 * k + 1] = fl<F>(fl<F>(a.y) * sr);
       x[4 * k + 2] = fl<F>(fl<F>(a.z) * sr);
@@ -313,19 +345,8 @@ arena_fold_kernel(void* __restrict__ m0, void* __restrict__ m1,
   }
 }
 
-// Halving tree over the lane's 32 values (x[j] += x[j + h], h = 16 ... 1),
-// then shuffles down the lanes: the row's sum, valid in lane 0. x is
-// overwritten. The plain version (fused_step.py::_rowcol_row_sums) takes
-// the same tree.
-__device__ __forceinline__ float rowcol_row_sum(float* x) {
-#pragma unroll
-  for (int h = kRowVals / 2; h > 0; h >>= 1)
-#pragma unroll
-    for (int j = 0; j < h; ++j) x[j] = fl<true>(x[j] + x[j + h]);
-  float t = x[0];
-  for (int off = 16; off > 0; off >>= 1)
-    t = fl<true>(t + __shfl_down_sync(0xffffffffu, t, off));
-  return t;
+__device__ __forceinline__ float add1(float a, float b) {
+  return fl<true>(a + b);
 }
 
 __device__ __forceinline__ float4 add4(float4 a, float4 b) {
@@ -333,17 +354,44 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
                      fl<true>(a.z + b.z), fl<true>(a.w + b.w));
 }
 
+// A halving tree, x[j] = x[j] + x[j + h] for j < h, h = H, H / 2, ... 1,
+// each add flushed; x[0] ends as the sum. Every loop has a constant trip
+// count, so the tree unrolls fully and an array in registers stays there:
+// written as nested loops (the inner bounded by the outer's h), it left the
+// arrays in a local-memory depot that ptxas could not always lift (the
+// guarded bf16 int8-m rowcol fold kept a 128-B stack frame, 1.20x slower).
+template <int H, typename T>
+__device__ __forceinline__ void halving_tree(T* x) {
+#pragma unroll
+  for (int j = 0; j < H; ++j) {
+    if constexpr (sizeof(T) == sizeof(float4)) x[j] = add4(x[j], x[j + H]);
+    else x[j] = add1(x[j], x[j + H]);
+  }
+  if constexpr (H > 1) halving_tree<H / 2>(x);
+}
+
+// Halving tree over the lane's 32 values, then shuffles down the lanes: the
+// row's sum, valid in lane 0. x is overwritten. The plain version
+// (fused_step.py::_rowcol_row_sums) takes the same tree.
+__device__ __forceinline__ float rowcol_row_sum(float* x) {
+  halving_tree<kRowVals / 2>(x);
+  float t = x[0];
+  for (int off = 16; off > 0; off >>= 1)
+    t = add1(t, __shfl_down_sync(0xffffffffu, t, off));
+  return t;
+}
+
 // The rowcol fold (v = rowcol, every rowcol pair flushes): one CTA per range
 // [p * range_rows, min((p + 1) * range_rows, rows_g)) of the slab's rows.
 // m folds as in arena_fold_kernel; vr row by row; the column partials as
 // the header says, into partials[p], and the last CTA folds their ordered
-// sum into vc. ticket: an integer the launcher zeroes. G as in
+// sum into vc. ticket: an integer the launcher zeroes. G and W as in
 // arena_fold_kernel.
-template <int MK, bool G>
+template <int MK, bool G, int W>
 __global__ void __launch_bounds__(kThreads)
 rowcol_fold_kernel(void* __restrict__ m0, void* __restrict__ m1,
                    float* __restrict__ vr, float4* __restrict__ vc,
-                   const float4* __restrict__ g, int64_t off, int64_t rows_g,
+                   const void* __restrict__ g, int64_t off, int64_t rows_g,
                    int64_t range_rows, int ranges,
                    float4* __restrict__ partials,
                    unsigned int* __restrict__ ticket, float s, float c1,
@@ -378,7 +426,7 @@ rowcol_fold_kernel(void* __restrict__ m0, void* __restrict__ m1,
     const float sr = G ? gv[kGScale] : s;
 #pragma unroll
     for (int k = 0; k < kRowF4; ++k) {
-      const float4 a = g[f4_index(r, k, lane)];
+      const float4 a = load_g<W>(g, f4_index(r, k, lane));
       x[4 * k + 0] = fl<true>(fl<true>(a.x) * sr);
       x[4 * k + 1] = fl<true>(fl<true>(a.y) * sr);
       x[4 * k + 2] = fl<true>(fl<true>(a.z) * sr);
@@ -412,10 +460,7 @@ rowcol_fold_kernel(void* __restrict__ m0, void* __restrict__ m1,
   float4 w[kWarps];
 #pragma unroll
   for (int i = 0; i < kWarps; ++i) w[i] = red[i][t];
-#pragma unroll
-  for (int h = kWarps / 2; h > 0; h >>= 1)
-#pragma unroll
-    for (int i = 0; i < h; ++i) w[i] = add4(w[i], w[i + h]);
+  halving_tree<kWarps / 2>(w);
   partials[(int64_t)blockIdx.x * (kLanes / 4) + t] = w[0];
   __threadfence();
   __syncthreads();
@@ -484,10 +529,7 @@ __device__ __forceinline__ void rowcol_normalise(const float4* __restrict__ vc,
   if (lane == 0) ws[t / 32] = x;
   __syncthreads();
   if (t == 0) {
-#pragma unroll
-    for (int h = kWarps / 2; h > 0; h >>= 1)
-#pragma unroll
-      for (int i = 0; i < h; ++i) ws[i] = fl<true>(ws[i] + ws[i + h]);
+    halving_tree<kWarps / 2>(ws);
     total = fmaxf(ws[0], kRcFloor);
   }
   __syncthreads();
@@ -607,25 +649,23 @@ int rows_grid(int64_t rows) {
   return (int)(want < cap ? (want > 0 ? want : 1) : cap);
 }
 
-// The launch of one pair's fold. Rowcol takes one CTA per range and the
-// (ranges, 1024) fp32 scratch, its ticket right after it; the others a
-// grid of rows_grid and no scratch.
-template <int MK, int VK>
-cudaError_t fold(void* m0, void* m1, void* v0, void* v1, const void* g,
-                 int64_t off, int64_t rows_g, int64_t ranges,
-                 int64_t range_rows, void* scratch, float s, float c1,
-                 float c2, float dm, float dv, const float4* guard,
-                 cudaStream_t stream) {
+// The launch of one pair's fold on one wire. Rowcol takes one CTA per
+// range and the (ranges, 1024) fp32 scratch, its ticket right after it; the
+// others a grid of rows_grid and no scratch.
+template <int MK, int VK, int W>
+cudaError_t fold_wire(void* m0, void* m1, void* v0, void* v1, const void* g,
+                      int64_t off, int64_t rows_g, int64_t ranges,
+                      int64_t range_rows, void* scratch, float s, float c1,
+                      float c2, float dm, float dv, const float4* guard,
+                      cudaStream_t stream) {
   if constexpr (VK != kRowCol) {
     const int grid = rows_grid(rows_g);
     if (guard == nullptr)
-      arena_fold_kernel<MK, VK, false><<<grid, kThreads, 0, stream>>>(
-          m0, m1, v0, v1, (const float4*)g, off, rows_g, s, c1, c2, dm, dv,
-          nullptr);
+      arena_fold_kernel<MK, VK, false, W><<<grid, kThreads, 0, stream>>>(
+          m0, m1, v0, v1, g, off, rows_g, s, c1, c2, dm, dv, nullptr);
     else
-      arena_fold_kernel<MK, VK, true><<<grid, kThreads, 0, stream>>>(
-          m0, m1, v0, v1, (const float4*)g, off, rows_g, s, c1, c2, dm, dv,
-          guard);
+      arena_fold_kernel<MK, VK, true, W><<<grid, kThreads, 0, stream>>>(
+          m0, m1, v0, v1, g, off, rows_g, s, c1, c2, dm, dv, guard);
     return cudaSuccess;
   } else {
     if (ranges < 1 || ranges > 65535 || range_rows < 1 ||
@@ -638,17 +678,33 @@ cudaError_t fold(void* m0, void* m1, void* v0, void* v1, const void* g,
                                             stream);
     if (err != cudaSuccess) return err;
     if (guard == nullptr)
-      rowcol_fold_kernel<MK, false><<<(int)ranges, kThreads, 0, stream>>>(
-          m0, m1, (float*)v0, (float4*)v1, (const float4*)g, off, rows_g,
-          range_rows, (int)ranges, partials, ticket, s, c1, c2, dm, dv,
-          nullptr);
+      rowcol_fold_kernel<MK, false, W><<<(int)ranges, kThreads, 0, stream>>>(
+          m0, m1, (float*)v0, (float4*)v1, g, off, rows_g, range_rows,
+          (int)ranges, partials, ticket, s, c1, c2, dm, dv, nullptr);
     else
-      rowcol_fold_kernel<MK, true><<<(int)ranges, kThreads, 0, stream>>>(
-          m0, m1, (float*)v0, (float4*)v1, (const float4*)g, off, rows_g,
-          range_rows, (int)ranges, partials, ticket, s, c1, c2, dm, dv,
-          guard);
+      rowcol_fold_kernel<MK, true, W><<<(int)ranges, kThreads, 0, stream>>>(
+          m0, m1, (float*)v0, (float4*)v1, g, off, rows_g, range_rows,
+          (int)ranges, partials, ticket, s, c1, c2, dm, dv, guard);
     return cudaSuccess;
   }
+}
+
+// One pair's fold on g's wire (kWireF32, kWireBf16).
+template <int MK, int VK>
+cudaError_t fold(int wire, void* m0, void* m1, void* v0, void* v1,
+                 const void* g, int64_t off, int64_t rows_g, int64_t ranges,
+                 int64_t range_rows, void* scratch, float s, float c1,
+                 float c2, float dm, float dv, const float4* guard,
+                 cudaStream_t stream) {
+  if (wire == kWireF32)
+    return fold_wire<MK, VK, kWireF32>(m0, m1, v0, v1, g, off, rows_g,
+                                       ranges, range_rows, scratch, s, c1,
+                                       c2, dm, dv, guard, stream);
+  if (wire == kWireBf16)
+    return fold_wire<MK, VK, kWireBf16>(m0, m1, v0, v1, g, off, rows_g,
+                                        ranges, range_rows, scratch, s, c1,
+                                        c2, dm, dv, guard, stream);
+  return cudaErrorInvalidValue;
 }
 
 template <int MK, int VK>
@@ -678,8 +734,9 @@ void apply(void* p, const void* m0, const void* m1, const void* v0,
   X(kInt8, kFp32) X(kInt8, kInt8) X(kInt8, kFactored) X(kInt8, kRowCol)
 
 // g is the (rows_g, 1024) slab for arena rows [row_offset, row_offset +
-// rows_g), inside the arena (checked by the wrapper); the whole-arena fold
-// passes row_offset 0 and rows_g = the arena's rows. ranges, range_rows and
+// rows_g), inside the arena (checked by the wrapper), of fp32 (wire 0) or
+// bf16 (wire 1) elements; the whole-arena fold passes row_offset 0 and
+// rows_g = the arena's rows. ranges, range_rows and
 // scratch serve rowcol alone (rowcol_partition(rows_g) and a (ranges * 1024
 // + 4)-float buffer; 0, 0 and NULL for the other pairs). The guarded
 // launcher takes one more argument, the 16-byte-aligned device vector [dm,
@@ -687,16 +744,16 @@ void apply(void* p, const void* m0, const void* m1, const void* v0,
 // NULL to the same kernels.
 namespace {
 int fold_dispatch(int mk, int vk, void* m0, void* m1, void* v0, void* v1,
-                  const void* g, int64_t row_offset, int64_t rows_g,
-                  int64_t ranges, int64_t range_rows, void* scratch, float s,
-                  float c1, float c2, float dm, float dv, const void* guard,
-                  cudaStream_t st) {
+                  const void* g, int wire, int64_t row_offset,
+                  int64_t rows_g, int64_t ranges, int64_t range_rows,
+                  void* scratch, float s, float c1, float c2, float dm,
+                  float dv, const void* guard, cudaStream_t st) {
   cudaError_t err;
   switch (mk * kVKinds + vk) {
 #define FOLD(MK, VK)                                                     \
   case MK * kVKinds + VK:                                                \
-    err = fold<MK, VK>(m0, m1, v0, v1, g, row_offset, rows_g, ranges,    \
-                       range_rows, scratch, s, c1, c2, dm, dv,           \
+    err = fold<MK, VK>(wire, m0, m1, v0, v1, g, row_offset, rows_g,      \
+                       ranges, range_rows, scratch, s, c1, c2, dm, dv,   \
                        (const float4*)guard, st);                        \
     break;
     PAIRS(FOLD)
@@ -726,26 +783,27 @@ int apply_dispatch(int mk, int vk, void* p, const void* m0, const void* m1,
 }  // namespace
 
 extern "C" int arena_fold_launch(int mk, int vk, void* m0, void* m1,
-                                 void* v0, void* v1, const void* g,
+                                 void* v0, void* v1, const void* g, int wire,
                                  int64_t row_offset, int64_t rows_g,
                                  int64_t ranges, int64_t range_rows,
                                  void* scratch, float s, float c1, float c2,
                                  float dm, float dv, void* stream) {
-  return fold_dispatch(mk, vk, m0, m1, v0, v1, g, row_offset, rows_g, ranges,
-                       range_rows, scratch, s, c1, c2, dm, dv, nullptr,
-                       (cudaStream_t)stream);
+  return fold_dispatch(mk, vk, m0, m1, v0, v1, g, wire, row_offset, rows_g,
+                       ranges, range_rows, scratch, s, c1, c2, dm, dv,
+                       nullptr, (cudaStream_t)stream);
 }
 
 extern "C" int arena_fold_guarded_launch(int mk, int vk, void* m0, void* m1,
                                          void* v0, void* v1, const void* g,
-                                         int64_t row_offset, int64_t rows_g,
-                                         int64_t ranges, int64_t range_rows,
-                                         void* scratch, float s, float c1,
-                                         float c2, float dm, float dv,
+                                         int wire, int64_t row_offset,
+                                         int64_t rows_g, int64_t ranges,
+                                         int64_t range_rows, void* scratch,
+                                         float s, float c1, float c2,
+                                         float dm, float dv,
                                          const void* guard, void* stream) {
   if (guard == nullptr) return (int)cudaErrorInvalidValue;
-  return fold_dispatch(mk, vk, m0, m1, v0, v1, g, row_offset, rows_g, ranges,
-                       range_rows, scratch, s, c1, c2, dm, dv, guard,
+  return fold_dispatch(mk, vk, m0, m1, v0, v1, g, wire, row_offset, rows_g,
+                       ranges, range_rows, scratch, s, c1, c2, dm, dv, guard,
                        (cudaStream_t)stream);
 }
 

@@ -16,9 +16,21 @@ Each function has two forms, side by side:
   arena_apply_ref                   the CPU and as the kernels' oracle.
   finite_and / finite_and_ref       ok <- ok AND every element finite.
 
-They replace the Pallas kernels of `repro/kernels/fused_step.py` with the
-fp32 gradient wire, in two forms (the bf16 and e4m3 wires and master
-params are not ported):
+They replace the Pallas kernels of `repro/kernels/fused_step.py`, the
+folds on two gradient wires (the e4m3 wire and master params are not
+ported):
+
+  fp32        g is a float32 slab.
+  bf16        g is a bfloat16 slab (core/arena.py packs it at half the
+              bytes); the fold upcasts each value to float32 where it reads
+              it, exactly (a bf16 value is a float32 whose low 16 bits are
+              zero), and then runs the fp32 wire's arithmetic, so a fold of
+              a bf16 slab equals the fp32 fold of the same slab upcast on
+              the host bit for bit (the reference's `_fold_body`:
+              `g.astype(float32) * s`). `grad_dtype=` declares the wire the
+              caller packed; a slab of another dtype raises TypeError.
+
+and in two forms:
 
   unguarded   host scalars: the static scale and the decay pair.
   guarded     `guard=`: a device float32 vector [dm, dv, ok, scale] for a
@@ -243,7 +255,7 @@ def _rowcol_col_sums(g, s, fl):
     for p0 in range(0, ranges, group):
         n = min(ranges, p0 + group) - p0
         lo, hi = p0 * rr, min((p0 + n) * rr, rows)
-        x = fl(fl(g[lo:hi]) * s)
+        x = fl(fl(g[lo:hi].float()) * s)        # a bf16 wire upcast first
         xp = x.new_zeros((n * rr, LANES))        # zero rows add exactly 0
         xp[:hi - lo] = fl(x * x)
         xp = torch.nn.functional.pad(xp.view(n, rr, LANES),
@@ -323,10 +335,29 @@ def _check_parts(fn: str, parts, kc: KernelCodec, rows: int, device) -> None:
             raise ValueError(f"{fn}: CUDA operands must be 16-byte aligned")
 
 
-def _check_lead(fn: str, t: torch.Tensor) -> None:
-    """g (or p, for the apply): fp32, (rows, LANES), contiguous, on the CPU
-    or CUDA (16-byte aligned there, for float4 access)."""
-    if t.dtype != torch.float32:
+# the gradient wires the folds take, each dtype's number in
+# csrc/fused_step.cu (the reference's GRAD_WIRE_DTYPES but e4m3: ROADMAP
+# queue 1, item 7.5)
+WIRES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check_grad_dtype(fn: str, g: torch.Tensor, grad_dtype) -> None:
+    """The reference's `_check_grad_dtype`: a declared wire (`grad_dtype`,
+    a torch dtype; None infers it from the slab) must be the slab's, and
+    the slab's dtype one of WIRES."""
+    if grad_dtype is not None and g.dtype != grad_dtype:
+        raise TypeError(f"{fn}: gradient slab dtype {g.dtype} != declared "
+                        f"grad_dtype {grad_dtype}")
+    if g.dtype not in WIRES:
+        raise TypeError(f"{fn}: unsupported gradient wire dtype {g.dtype}; "
+                        f"expected one of {tuple(WIRES)}")
+
+
+def _check_lead(fn: str, t: torch.Tensor, wire: bool = False) -> None:
+    """g (or p, for the apply): fp32 (g: a dtype of WIRES), (rows, LANES),
+    contiguous, on the CPU or CUDA (16-byte aligned there, for vector
+    access)."""
+    if t.dtype not in (WIRES if wire else (torch.float32,)):
         raise TypeError(f"{fn}: expected float32 operands, got {t.dtype}")
     if t.dim() != 2 or t.shape[1] != LANES:
         raise ValueError(f"{fn}: expected (rows, {LANES}) operands, got "
@@ -339,10 +370,12 @@ def _check_lead(fn: str, t: torch.Tensor) -> None:
         raise ValueError(f"{fn}: CUDA operands must be 16-byte aligned")
 
 
-def _check_state(fn, mk, vk, m_parts, v_parts, lead, rows) -> None:
+def _check_state(fn, mk, vk, m_parts, v_parts, lead, rows,
+                 wire: bool = False) -> None:
     """`lead` (g, or p for the apply), then the m and v columns over
-    `rows` arena rows on its device."""
-    _check_lead(fn, lead)
+    `rows` arena rows on its device. `wire`: lead is a fold's g, whose
+    dtype `_check_grad_dtype` has checked."""
+    _check_lead(fn, lead, wire)
     _check_parts(fn, m_parts, mk, rows, lead.device)
     _check_parts(fn, v_parts, vk, rows, lead.device)
 
@@ -352,13 +385,14 @@ _P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
 # C signatures of the launchers in csrc/fused_step.cu: the two codecs'
 # kinds, two column pointers per moment (the second NULL for a one-column
 # codec), ..., the CUDA stream. arena_fold_launch serves the whole-arena
-# fold (row offset 0) and the slice fold; its (ranges, range_rows, scratch)
-# serve rowcol's column sums (0, 0, NULL for the other codecs). A guarded
+# fold (row offset 0) and the slice fold; g's pointer is followed by its
+# wire (WIRES); its (ranges, range_rows, scratch) serve rowcol's column
+# sums (0, 0, NULL for the other codecs). A guarded
 # launcher takes the unguarded one's arguments and then the guard's
 # pointer. finite_and_launch: x, its element bytes, (head, n16, tail) of
 # `_finite_split`, ok, the stream.
-_FOLD_ARGS = (_I, _I, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _F, _F,
-              _F, _F, _F)
+_FOLD_ARGS = (_I, _I, _P, _P, _P, _P, _P, _I, _I64, _I64, _I64, _I64, _P, _F,
+              _F, _F, _F, _F)
 _APPLY_ARGS = (_I, _I, _P, _P, _P, _P, _P, _I64, _F, _F, _F, _F, _F)
 SIGNATURES = {
     "arena_fold_launch": _FOLD_ARGS + (_P,),
@@ -537,7 +571,7 @@ def fold_args(mk, vk, m_parts, v_parts, g, row_offset, beta1, beta2,
     fold_scratch's triple."""
     ranges, range_rows, buf = scratch
     return (mk.kind, vk.kind, *_ptrs(m_parts), *_ptrs(v_parts), g.data_ptr(),
-            row_offset, g.shape[0], ranges, range_rows,
+            WIRES[g.dtype], row_offset, g.shape[0], ranges, range_rows,
             None if buf is None else buf.data_ptr(),
             *_fold_scalars(beta1, beta2, scale, decay))
 
@@ -545,7 +579,8 @@ def fold_args(mk, vk, m_parts, v_parts, g, row_offset, beta1, beta2,
 def arena_fold_ref(m, v, g, *, beta1: float, beta2: float, scale=1.0,
                    decay=None, m_codec="fp32", v_codec="fp32", guard=None):
     """Plain version of `arena_fold` (same operations, same order; guarded,
-    every write where-predicated on ok)."""
+    every write where-predicated on ok). A bf16 `g` is upcast first, then
+    scaled, as the kernel and the reference's `_fold_body` do."""
     mk, vk = kernel_codec("m", m_codec), kernel_codec("v", v_codec)
     (m_parts, _), (v_parts, _) = _as_parts(m), _as_parts(v)
     s, c1, c2, dm, dv, ok = _guard_values(g, guard, beta1, beta2, scale,
@@ -553,7 +588,7 @@ def arena_fold_ref(m, v, g, *, beta1: float, beta2: float, scale=1.0,
     fl = _flush(mk, vk)
     for lo in range(0, g.shape[0], _PLAIN_CHUNK_ROWS):
         hi = lo + _PLAIN_CHUNK_ROWS
-        gs = fl(fl(g[lo:hi]) * s)
+        gs = fl(fl(g[lo:hi].float()) * s)
         mp, vp = _rows(mk, m_parts, lo, hi), _rows(vk, v_parts, lo, hi)
         _write(mp, mk.update(mp, gs, dm, c1, fl), ok)
         _write(vp, vk.update(vp, fl(gs * gs), dv, c2, fl), ok)
@@ -563,19 +598,25 @@ def arena_fold_ref(m, v, g, *, beta1: float, beta2: float, scale=1.0,
 
 
 def arena_fold(m, v, g, *, beta1: float, beta2: float, scale=1.0,
-               decay=None, m_codec="fp32", v_codec="fp32", guard=None):
+               decay=None, m_codec="fp32", v_codec="fp32", grad_dtype=None,
+               guard=None):
     """Fold one micro-batch's packed gradient `g` into both moments, in
     place: m = dm*m + (1-beta1)*(scale*g), v = dv*v + (1-beta2)*(scale*g)^2,
     each in its codec's space. `m`/`v` are the codecs' column tuples (bare
-    tensors for fp32). `decay=(dm, dv)` fuses the begin-minibatch decay
-    into this fold for the row-indexed columns (pass (beta1, beta2) on the
-    first micro-batch); None means (1, 1). A shared column (rowcol's column
-    sums) is decayed by the caller. `guard` (the guarded form): the device
-    vector [dm, dv, ok, scale] (`guard_scalars`) in place of `scale` and
-    `decay`; with ok == 0 nothing is written. Returns (m, v)."""
+    tensors for fp32). `g` is a float32 or bfloat16 wire slab (bf16 is
+    upcast in the kernel); `grad_dtype`, if given, is the wire the caller
+    declares, checked against g's dtype. `decay=(dm, dv)` fuses the
+    begin-minibatch decay into this fold for the row-indexed columns (pass
+    (beta1, beta2) on the first micro-batch); None means (1, 1). A shared
+    column (rowcol's column sums) is decayed by the caller. `guard` (the
+    guarded form): the device vector [dm, dv, ok, scale] (`guard_scalars`)
+    in place of `scale` and `decay`; with ok == 0 nothing is written.
+    Returns (m, v)."""
     mk, vk = kernel_codec("m", m_codec), kernel_codec("v", v_codec)
     (m_parts, _), (v_parts, _) = _as_parts(m), _as_parts(v)
-    _check_state("arena_fold", mk, vk, m_parts, v_parts, g, g.shape[0])
+    _check_grad_dtype("arena_fold", g, grad_dtype)
+    _check_state("arena_fold", mk, vk, m_parts, v_parts, g, g.shape[0],
+                 wire=True)
     if guard is not None:
         _check_guard("arena_fold", guard, 4, g.device, scale, decay)
     if g.device.type == "cpu":
@@ -593,12 +634,14 @@ arena_fold.launches = 0
 
 
 def _check_slice(mk, vk, m_parts, v_parts, g, row_offset: int,
-                 block: int) -> None:
-    """The reference's checks (fused_step.py::arena_fold_slice): whole
-    blocks of rows, a block-aligned offset, and the slice inside the
+                 block: int, grad_dtype=None) -> None:
+    """The reference's checks (fused_step.py::arena_fold_slice): g's wire,
+    whole blocks of rows, a block-aligned offset, and the slice inside the
     arena."""
     rows = m_parts[0].shape[0]
-    _check_state("arena_fold_slice", mk, vk, m_parts, v_parts, g, rows)
+    _check_grad_dtype("arena_fold_slice", g, grad_dtype)
+    _check_state("arena_fold_slice", mk, vk, m_parts, v_parts, g, rows,
+                 wire=True)
     rows_g = g.shape[0]
     if block < 1 or rows_g % block or row_offset % block:
         raise ValueError(f"arena_fold_slice: slab rows {rows_g} and row "
@@ -629,15 +672,16 @@ def arena_fold_slice_ref(m, v, g, row_offset: int, *, beta1: float,
 
 def arena_fold_slice(m, v, g, row_offset: int, *, beta1: float, beta2: float,
                      block: int, scale=1.0, decay=None, m_codec="fp32",
-                     v_codec="fp32", guard=None):
+                     v_codec="fp32", grad_dtype=None, guard=None):
     """Fold a (rows_g, LANES) gradient slab into arena rows
     [row_offset, row_offset + rows_g) of both moments, in place, with the
     arena_fold arithmetic; every other row is left untouched. `block` is
     the layout's `slice_block` for the region: rows_g and row_offset must
-    be multiples of it. `guard` as in arena_fold. Returns (m, v)."""
+    be multiples of it. `g`'s wire, `grad_dtype` and `guard` as in
+    arena_fold. Returns (m, v)."""
     mk, vk = kernel_codec("m", m_codec), kernel_codec("v", v_codec)
     (m_parts, _), (v_parts, _) = _as_parts(m), _as_parts(v)
-    _check_slice(mk, vk, m_parts, v_parts, g, row_offset, block)
+    _check_slice(mk, vk, m_parts, v_parts, g, row_offset, block, grad_dtype)
     if guard is not None:
         _check_guard("arena_fold_slice", guard, 4, g.device, scale, decay)
     if g.device.type == "cpu":

@@ -20,6 +20,11 @@
       --reduced --steps 3 --global-batch 8 --micro-batches 2 --seq-len 32 \
       --finite-guard --inject-fault nan@micro=1,step=1 --log-every 1 \
       --device cpu
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \
+      --reduced --steps 3 --global-batch 8 --micro-batches 2 --seq-len 32 \
+      --grad-dtype bf16 --loss-scale dynamic \
+      --inject-fault nan@micro=1,step=1 --log-every 1 --device cpu
 """
 from __future__ import annotations
 
@@ -27,7 +32,7 @@ import argparse
 
 import torch
 
-from repro_torch.configs.base import (ACCUM_ENGINES, M_CODECS,
+from repro_torch.configs.base import (ACCUM_ENGINES, GRAD_DTYPES, M_CODECS,
                                       STATE_CODECS, OptimizerConfig,
                                       RunConfig, get_config)
 from repro_torch.optim import schedule as sched
@@ -60,9 +65,20 @@ def main(argv=None):
                     help="per-leaf optimizer state (arena=False): adama and "
                          "adama_layerwise fold and apply leaf by leaf")
     add_codec_args(ap)
+    ap.add_argument("--grad-dtype", default="fp32",
+                    choices=list(GRAD_DTYPES),
+                    help="gradient wire dtype of the arena folds (bf16 "
+                         "halves the packed gradient slab; the fold kernels "
+                         "upcast in-kernel); requires arena state, not "
+                         "'ga'; fp8_e4m3 is not ported")
     ap.add_argument("--finite-guard", action="store_true",
                     help="fused finite guards: skip non-finite micro-batches "
                          "bitwise (arena state)")
+    ap.add_argument("--loss-scale", default="off",
+                    help="'off', 'dynamic', or a positive float: loss "
+                         "scaling undone in the fold kernels; implies "
+                         "--finite-guard, requires --grad-dtype bf16 and a "
+                         "non-'ga' accumulation")
     ap.add_argument("--scaler-abort-after", type=int, default=0,
                     help="abort after this many consecutive skipped "
                          "micro-batches (0 = never)")
@@ -88,7 +104,10 @@ def main(argv=None):
                                   lr=args.lr, arena=not args.per_leaf,
                                   state_codec=args.state_codec,
                                   m_codec=args.m_codec,
-                                  finite_guard=args.finite_guard,
+                                  grad_dtype=args.grad_dtype,
+                                  finite_guard=(args.finite_guard
+                                                or args.loss_scale != "off"),
+                                  loss_scale=args.loss_scale,
                                   scaler_abort_after=args.scaler_abort_after),
         seq_len=args.seq_len, global_batch=args.global_batch, seed=args.seed,
         steps=args.steps, log_every=args.log_every,
@@ -99,8 +118,13 @@ def main(argv=None):
     if out["params"]["embed"].is_cuda:
         peak = (f"; peak device memory {torch.cuda.max_memory_allocated()} B "
                 f"on {torch.cuda.get_device_name(0)}")
+    scaler = ""
+    if "loss_scale" in out["metrics"]:
+        m = out["metrics"]
+        scaler = (f"; loss_scale {m['loss_scale']:g}, skipped "
+                  f"{int(m['skipped_micro_batches'])} micro-batches")
     print(f"[train] done; final loss {out['losses'][-1]:.4f} "
-          f"(first {out['losses'][0]:.4f}){peak}")
+          f"(first {out['losses'][0]:.4f}){scaler}{peak}")
 
 
 if __name__ == "__main__":

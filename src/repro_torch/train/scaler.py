@@ -16,9 +16,9 @@ micro-batch whose gradient is not finite. This module is the policy on top:
 All four ride in the optimizer state dict under "scaler" as 0-d tensors on
 the state's device, so the engines update them without reading them on the
 host. Every guarded run carries them; the scale stays 1.0 unless loss
-scaling is on, which the port's config refuses until a reduced-precision
-gradient wire exists (only the static "off" transition is reachable from
-the engines).
+scaling is on (OptimizerConfig.loss_scale, on the bf16 gradient wire): a
+static scale stays, a "dynamic" one starts at DYNAMIC_INIT, halves on every
+skipped micro-batch and doubles after growth_interval good ones.
 """
 from __future__ import annotations
 

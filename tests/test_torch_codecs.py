@@ -371,9 +371,9 @@ def test_codec_forms_reject_malformed_columns(m_codec, v_codec):
 @pytest.mark.parametrize("m_codec,v_codec", CODEC_PAIRS)
 def test_codec_launch_arguments_match_the_declared_c_signatures(m_codec,
                                                                 v_codec):
-    """ctypes converts every argument the codec wrappers pass: the kinds as
-    int, a one-column codec's second pointer as NULL, the slice's offset
-    and rows as int64, the scalars as float32."""
+    """ctypes converts every argument the codec wrappers pass: the kinds
+    and g's wire as int, a one-column codec's second pointer as NULL, the
+    slice's offset and rows as int64, the scalars as float32."""
     import ctypes
     mk, vk = tfs.kernel_codec("m", m_codec), tfs.kernel_codec("v", v_codec)
     tm, tv, g, p = _port_arenas(m_codec, v_codec, 8)
@@ -398,11 +398,12 @@ def test_codec_launch_arguments_match_the_declared_c_signatures(m_codec,
         assert sum(x is None for x in ptrs) == 4 - len(mp) - len(vp)
         assert got[0][len(args) - 5:len(args)] == tuple(
             float(np.float32(s)) for s in args[-5:])
-    assert cases["arena_fold_launch"][7:9] == (4, 4)
+    # g's wire (0: fp32), then the slice's offset and rows
+    assert cases["arena_fold_launch"][7:10] == (0, 4, 4)
     # rowcol's partition of the 4 rows and its scratch; none for the others
     want = ((1, 64, scratch[2].data_ptr()) if v_codec == "rowcol"
             else (0, 0, None))
-    assert calls["arena_fold_launch"][9:12] == want
+    assert calls["arena_fold_launch"][10:13] == want
 
 
 def test_cpu_codec_forms_count_no_launch(monkeypatch):

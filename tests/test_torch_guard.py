@@ -688,10 +688,22 @@ def _jax_config_error(**kw):
     dict(arena=True, loss_scale="banana"),
     dict(arena=True, loss_scale="-2"),
     dict(arena=True, finite_guard=True, scaler_growth_interval=0),
-    dict(arena=True, finite_guard=True, scaler_abort_after=-1)])
+    dict(arena=True, finite_guard=True, scaler_abort_after=-1),
+    # the bf16 wire: loss scaling without the guard, the wire without the
+    # arena or with ga, an unknown wire
+    dict(arena=True, grad_dtype="bf16", loss_scale="dynamic"),
+    dict(arena=True, grad_dtype="bf16", loss_scale="1024",
+         accumulation="adama_layerwise"),
+    dict(arena=False, grad_dtype="bf16", finite_guard=True,
+         loss_scale="dynamic"),
+    dict(arena=True, grad_dtype="bf16", finite_guard=True,
+         loss_scale="dynamic", accumulation="ga"),
+    dict(arena=True, grad_dtype="fp16", finite_guard=True)])
 def test_guard_config_checks_match_the_reference(kw):
-    """The port's only wire is fp32, so every loss scale but "off" raises
-    the reference's message for an fp32 wire."""
+    """Each refusal raises the reference's message: a loss scale on the
+    fp32 wire or without the guard, the guard without the arena, the bf16
+    wire without the arena or with ga (tests/test_torch_wire.py walks the
+    whole grid)."""
     with pytest.raises(ValueError) as t:
         OptimizerConfig(**kw)
     assert str(t.value) == _jax_config_error(**kw)

@@ -131,9 +131,9 @@ def test_cpu_wrappers_run_the_plain_version_and_count_no_launch(monkeypatch):
                                    "arena_apply"])
 def test_launch_arguments_match_the_declared_c_signatures(entry):
     """ctypes converts every argument the fp32/fp32 wrappers pass (the
-    kinds as int, pointers as c_void_p, a one-column codec's second pointer
-    as NULL, the row offset and rows as int64, scalars as float32); the
-    whole-arena fold passes row offset 0."""
+    kinds and g's wire as int, pointers as c_void_p, a one-column codec's
+    second pointer as NULL, the row offset and rows as int64, scalars as
+    float32); the whole-arena fold passes row offset 0."""
     x = torch.zeros(8, tfs.LANES)
     fp32 = tfs.kernel_codec("m", "fp32"), tfs.kernel_codec("v", "fp32")
     if entry == "arena_apply":
@@ -146,9 +146,9 @@ def test_launch_arguments_match_the_declared_c_signatures(entry):
         off, g = (0, x) if entry == "arena_fold" else (2, x[:4])
         args = tfs.fold_args(*fp32, (x,), (x,), g, off, B1, B2, 0.125,
                              (B1, B2))
-        # the row offset and rows; rowcol's partition (none here) and its
-        # scratch pointer (NULL)
-        ints = (off, g.shape[0], 0, 0, None)
+        # g's wire (0: fp32), the row offset and rows; rowcol's partition
+        # (none here) and its scratch pointer (NULL)
+        ints = (0, off, g.shape[0], 0, 0, None)
     got = []
     proto = ctypes.CFUNCTYPE(ctypes.c_int, *tfs.SIGNATURES[name])
     assert proto(lambda *a: got.append(a) or 0)(*args, 0) == 0
