@@ -77,6 +77,17 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      bit for bit both ways over the whole arena, timed in turns beside the
      fp32-wire kernel against the bound of a 2-byte g; finite_and on the
      bf16 slab, timed beside torch.isfinite(x).all().
+   - the master form of arena_apply (master params: p the fp32 master, a
+     bf16 work output): every pair, unguarded, guarded ok = 1 and ok = 0
+     at bc1 = 0, weight decay 0 and 0.01, on the 64-row edge arena whose p
+     holds bf16 rounding edges (ties of both parities, carries, values
+     rounding past bf16's largest finite value, subnormals, zeros) and for
+     the rowcol pairs on 1,000 rows: the master against the plain-form
+     kernel and the plain version, the work against torch's cast of the
+     master on the card and the plain version's work, bit for bit; with
+     ok = 0 the master keeps every byte and the work is bf16 of it. Then
+     fp32/fp32 and int8/rowcol at the stablelm arena, bit for bit over the
+     whole arena, timed in turns beside the plain-form apply.
 4. A small-input check: reduced bert-large trained 2 steps on the card
    (kernels) and on the CPU (plain versions) from the same params agree,
    for adama, adama_layerwise (arena and per-leaf state) and per-leaf
@@ -122,6 +133,17 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    of the twin's and at most CODE_FLIP_FRAC of them beyond
    SMALL_PARAM_TOL (compared against a host copy), and the dynamic scale
    at 2^14 after the skip with the step counter full.
+   Then master params (master_params=True), each beside its twin without
+   them: `adama` fp32 (3 steps; its step-1 loss and its master after step
+   1 the twin's, bit for bit, by a digest on the card), `adama_layerwise`
+   int8/rowcol on the bf16 wire with the bf16 working-param cache (3
+   steps; the apply writes into the cache and allocates nothing), and
+   guarded `ga` with a NaN at micro-batch 0 of step 0 (2 steps, both
+   skipped: the master stays pack(initial params), the leaves become
+   bf16(initial params)). After every step the param leaves are exactly
+   bf16(master), and the cache too; each path launches its twin's kernels
+   per step and peaks at most its twin's peak + its new regions' bytes
+   (as the caching allocator holds them: rounded up to 2 MiB) + 1 MiB.
 
 The last three lines are a JSON object with every kernel's numbers, the
 card's name and power limit, and the JSON result line
@@ -211,7 +233,42 @@ PATHS = {"adama": ("bert_large", "adama", True, 5, FP32),
          "stablelm_adama_layerwise_int8_rowcol_bf16": (
              "stablelm_1_6b", "adama_layerwise", True, 3, ("int8", "rowcol")),
          "stablelm_adama_guarded_bf16_dynamic_nan": (
-             "stablelm_1_6b", "adama", True, 3, FP32)}
+             "stablelm_1_6b", "adama", True, 3, FP32),
+         "stablelm_adama_master": ("stablelm_1_6b", "adama", True, 3, FP32),
+         "stablelm_adama_layerwise_int8_rowcol_bf16_master_wp": (
+             "stablelm_1_6b", "adama_layerwise", True, 3, ("int8", "rowcol")),
+         "stablelm_ga_guarded_master_nan": ("stablelm_1_6b", "ga", True, 2,
+                                            FP32)}
+# the master-param paths (master_params=True): path -> (work_param_cache,
+# gradient wire, its twin without master params). Each must launch what its
+# twin launches per step, hold its param leaves at exactly bf16(master)
+# after every step (and the cache at it too), and peak at most its twin's
+# peak + the bytes of its new regions (MASTER_REGION_BYTES) as the caching
+# allocator holds them (`_allocator_bytes`) + MASTER_PEAK_SLACK. The fp32
+# adama path's master after step 1 must be its twin's
+# params after step 1 bit for bit (a digest on the card), and its step-1
+# loss the twin's; the guarded ga path, every step skipped, must keep the
+# master at pack(initial params) and the leaves at bf16(initial params)
+MASTER = {"stablelm_adama_master": (False, "fp32", "stablelm_adama"),
+          "stablelm_adama_layerwise_int8_rowcol_bf16_master_wp": (
+              True, "bf16", "stablelm_adama_layerwise_int8_rowcol_bf16"),
+          "stablelm_ga_guarded_master_nan": (False, "fp32",
+                                             "stablelm_ga_guarded_nan")}
+MASTER_PEAK_SLACK = 1 << 20
+# the stablelm arena's fp32 master (1,607,424 x 1024 x 4 B) and bf16 cache
+MASTER_REGION_BYTES = {"p": 6_584_008_704, "wp": 3_292_004_352}
+# PyTorch's CUDA caching allocator cuts a large block from a segment it
+# rounds to 2 MiB and leaves a tail of at most 1 MiB unsplit, in the block:
+# the fp32 arena is held as 6,585,057,280 B (ga's accumulator too: ga peaks
+# one arena + 1 MiB above adama on stablelm-1.6b)
+ALLOCATOR_SEGMENT = 2 << 20
+
+
+def _allocator_bytes(n: int) -> int:
+    """The bytes a fresh block of n bytes counts in
+    torch.cuda.max_memory_allocated: n rounded up to the segment
+    granularity."""
+    return -(-n // ALLOCATOR_SEGMENT) * ALLOCATOR_SEGMENT
 # the bf16-wire paths: path -> (loss_scale, its fp32-wire twin). Each must
 # peak at most WIRE_PEAK_SLACK above its twin, launch what it launches,
 # reach its step-1 loss bit for bit (the forward never sees the wire) and
@@ -246,7 +303,9 @@ GUARDED = {
         "skip@micro=3,step=1", "stablelm_adama_layerwise_int8_rowcol"),
     "stablelm_ga_guarded_nan": ("nan@micro=0,step=0", "stablelm_ga"),
     "stablelm_adama_guarded_bf16_dynamic_nan": (
-        "nan@micro=3,step=1", "stablelm_adama_guarded_nan")}
+        "nan@micro=3,step=1", "stablelm_adama_guarded_nan"),
+    # its peak is held by MASTER, against stablelm_ga_guarded_nan's
+    "stablelm_ga_guarded_master_nan": ("nan@micro=0,step=0", "stablelm_ga")}
 GUARD_PEAK_SLACK = 1 << 20
 # the bitwise claims on the guarded paths, over a digest of the params, m
 # and v bytes computed on the card: (path, path, equal?)
@@ -271,7 +330,8 @@ GUARD_SKIPS = {"stablelm_adama_guarded": (0, 3),
                # ga's one verdict per step; its step counter stays, so the
                # fault fires again
                "stablelm_ga_guarded_nan": (2, 0),
-               "stablelm_adama_guarded_bf16_dynamic_nan": (1, 3)}
+               "stablelm_adama_guarded_bf16_dynamic_nan": (1, 3),
+               "stablelm_ga_guarded_master_nan": (2, 0)}
 # the compressed-state pairs timed at the full stablelm arena, and the main
 # path each one's launches are read from
 TIMED_CODEC_PAIRS = {("int8", "int8"): "stablelm_adama_int8",
@@ -838,7 +898,8 @@ def check_codec_timed(torch, fused_step, layout):
             n = n_rows * LANES
             entry = _kernel_entry(
                 name, f"{pair} {label}",
-                timed_ms(torch, lambda: run(kern, m, v), reps=KERNEL_REPS),
+                timed_ms(torch, lambda: run(kern, m, v), runs=WIRE_TIMED_RUNS,
+                         reps=KERNEL_REPS),
                 timed_ms(torch, lambda: run(plain, m, v),
                          runs=CODEC_PLAIN_RUNS, warmup=1),
                 # g read once; the slice's state columns read and written
@@ -862,7 +923,7 @@ def check_codec_timed(torch, fused_step, layout):
             "arena_apply", f"{pair} whole arena",
             timed_ms(torch, lambda: fused_step.arena_apply(p, m, v,
                                                            **apply_kw),
-                     reps=KERNEL_REPS),
+                     runs=WIRE_TIMED_RUNS, reps=KERNEL_REPS),
             timed_ms(torch, lambda: fused_step.arena_apply_ref(p, m, v,
                                                                **apply_kw),
                      runs=CODEC_PLAIN_RUNS, warmup=1),
@@ -1201,13 +1262,13 @@ def check_guard_timed(torch, fused_step, layout):
             del mk, vk, mu, vu
             n = n_rows * LANES
             t_u1 = timed_ms(torch, lambda: run(kern, m, v, scale=0.125),
-                            reps=KERNEL_REPS)
+                            runs=WIRE_TIMED_RUNS, reps=KERNEL_REPS)
             t_g1 = timed_ms(torch, lambda: run(kern, m, v, guard=vec),
-                            reps=KERNEL_REPS)
+                            runs=WIRE_TIMED_RUNS, reps=KERNEL_REPS)
             t_g2 = timed_ms(torch, lambda: run(kern, m, v, guard=vec),
-                            reps=KERNEL_REPS)
+                            runs=WIRE_TIMED_RUNS, reps=KERNEL_REPS)
             t_u2 = timed_ms(torch, lambda: run(kern, m, v, scale=0.125),
-                            reps=KERNEL_REPS)
+                            runs=WIRE_TIMED_RUNS, reps=KERNEL_REPS)
             entry = _kernel_entry(
                 name, f"guarded {pair} {label}", statistics.median(
                     [t_g1, t_g2]),
@@ -1237,7 +1298,8 @@ def check_guard_timed(torch, fused_step, layout):
         n = rows * LANES
         apply_ops = _DECODE_OPS[m_codec] + _DECODE_OPS[v_codec] + 7
         t = [timed_ms(torch, lambda g_=gd: fused_step.arena_apply(
-                 p, m, v, guard=g_, **akw), reps=KERNEL_REPS)
+                 p, m, v, guard=g_, **akw), runs=WIRE_TIMED_RUNS,
+                 reps=KERNEL_REPS)
              for gd in (None, ok1, ok1, None)]
         entry = _kernel_entry(
             "arena_apply", f"guarded {pair} whole arena",
@@ -1513,8 +1575,9 @@ def check_wire_small(torch, fused_step, adama_accum):
 # the pairs whose bf16-wire folds are timed at the stablelm-1.6b arena
 WIRE_TIMED_PAIRS = (FP32, ("int8", "int8"), ("int8", "rowcol"))
 # CUDA-event-timed runs (of KERNEL_REPS launches each) per figure of the
-# wire phase, which times every case in turns four times over: its runs
-# spread by under 0.1% on an H100, and TIMED_RUNS' 25 cost a minute more
+# stablelm-arena phases (codec, guarded, wire and master forms), which
+# time many cases, most in turns four times over: their runs spread by
+# under 0.1% on an H100, and TIMED_RUNS' 25 cost up to a minute a phase
 WIRE_TIMED_RUNS = 8
 
 
@@ -1709,6 +1772,190 @@ def _wire_forms(name, checked, timed, counts):
                       for pair, entries in timed.items()],
             "launches_by_wire_path": {p: counts[p][name]
                                       for p in WIRE if p in counts}}
+
+
+# ---------------------------------------------------------------------------
+# The master form of the apply (master params, bf16 working params)
+# ---------------------------------------------------------------------------
+
+
+def _edge_p(torch):
+    """float32 values at bf16's rounding edges, both signs: exact ties (low
+    half 0x8000) on even and odd bf16 mantissas, one ulp either side of a
+    tie, carries into the exponent, values that round past bf16's largest
+    finite value, the largest finite bf16, subnormals and zeros
+    (tests/test_torch_master.py's)."""
+    bits = []
+    for hi in (0x3F80, 0x3F81, 0x3C23, 0x3C24, 0x3FFF, 0x3C7F, 0x7F7F):
+        bits += [(hi << 16) | lo for lo in (0x8000, 0x7FFF, 0x8001, 0x0000,
+                                            0xFFFF)]
+    bits += [0x7F7FFFFF, 0x7F7F0000, 0x00000000, 0x00008000, 0x00408000,
+             0x00018000, 0x00000001, 0x007FFFFF]
+    bits += [b | 0x80000000 for b in bits]
+    return torch.tensor([b - (1 << 32) if b >= 1 << 31 else b for b in bits],
+                        dtype=torch.int32, device="cuda").view(torch.float32)
+
+
+# the master form's cases: (label, guarded ok or None, bc1)
+MASTER_FORMS = (("unguarded", None, 0.19), ("ok=1", True, 0.19),
+                ("ok=0, bc1=0", False, 0.0))
+
+
+def _check_master_arena(torch, fused_step, adama_accum, m_codec, v_codec,
+                        rows, seed, checked):
+    """A pair's master-form apply on an arena of `rows` rows with the edge
+    rows, p's row 0 (where m = v = 0, so the update is 0) holding
+    `_edge_p`: each form of MASTER_FORMS with weight decay 0 and 0.01, the
+    master against the plain-form kernel's p and the plain version's p,
+    the work against torch's cast of the master on the card and the plain
+    version's work, bit for bit; with ok = 0 the master keeps every byte
+    and the work is bf16 of it."""
+    pair = f"{m_codec}/{v_codec}"
+    m, v, _, p = _edge_arenas(torch, rows, seed)
+    edge = _edge_p(torch)
+    p[0, :edge.numel()] = edge
+    mk, vk = _encode(adama_accum, "m", m_codec, m), \
+        _encode(adama_accum, "v", v_codec, v)
+    bf16 = torch.bfloat16
+    for label, ok, bc1 in MASTER_FORMS:
+        for wd in (0.0, 0.01):
+            guard = ({} if ok is None else dict(guard=torch.tensor(
+                [1.0 if ok else 0.0], device="cuda")))
+            kw = dict(lr=1e-3, bc1=bc1, bc2=0.001999, eps=1e-8,
+                      weight_decay=wd, m_codec=m_codec, v_codec=v_codec,
+                      **guard)
+            pk, pp, pr = p.clone(), p.clone(), p.clone()
+            _, wk = fused_step.arena_apply(pk, mk, vk, work_dtype=bf16, **kw)
+            fused_step.arena_apply(pp, mk, vk, **kw)
+            _, wr = fused_step.arena_apply_ref(pr, mk, vk, work_dtype=bf16,
+                                               **kw)
+            torch.cuda.synchronize()
+            case = f"{pair} {rows} rows {label} wd={wd}"
+            _compare_bits(torch, "arena_apply master", case,
+                          [(pk, pp), (pk, pr), (wk, pk.to(bf16)), (wk, wr)])
+            if ok is False and not (_bits_equal(torch, pk, p) and
+                                    _bits_equal(torch, wk, p.to(bf16))):
+                raise AssertionError(f"arena_apply master {case}: ok = 0 "
+                                     f"changed the master or its work is "
+                                     f"not bf16 of it")
+            checked.append(("arena_apply", pair, case))
+
+
+def check_master_small(torch, fused_step, adama_accum):
+    """Phase 3, the master form of arena_apply: every (m, v) pair on the
+    64-row edge arena, the rowcol pairs also on RC_RANGE_ROWS rows
+    (`_check_master_arena`). Returns the checked cases."""
+    from repro_torch.core import state_store
+    checked = []
+    for m_codec, v_codec in state_store.registered_combinations():
+        _check_master_arena(torch, fused_step, adama_accum, m_codec, v_codec,
+                            CODEC_SMALL_ROWS, 41, checked)
+        if v_codec == "rowcol":
+            _check_master_arena(torch, fused_step, adama_accum, m_codec,
+                                v_codec, RC_RANGE_ROWS, 42, checked)
+    log(json.dumps({"phase": "kernel", "case": "master form of arena_apply "
+                    "(bf16 work): every pair, unguarded, ok = 1 and ok = 0 "
+                    "at bc1 = 0, weight decay 0 and 0.01, on the 64-row edge "
+                    f"arena (rowcol also at {RC_RANGE_ROWS} rows) with bf16 "
+                    "rounding edges in p, bit for bit against the plain-form "
+                    "kernel, torch's cast and the plain version",
+                    "checked": len(checked)}))
+    return checked
+
+
+# the pairs whose master form is timed at the stablelm-1.6b arena
+MASTER_TIMED_PAIRS = (FP32, ("int8", "rowcol"))
+
+
+def check_master_timed(torch, fused_step, layout):
+    """Phase 3, the master form at the full stablelm-1.6b arena: for each of
+    MASTER_TIMED_PAIRS, the master-form apply against the plain-form kernel
+    (p) and the plain version (p and work), and its work against torch's
+    cast of its master, over the whole arena bit for bit; then timed in
+    turns beside the plain-form apply (plain, master, master, plain), the
+    work written into one buffer, against the bound of 2 more bytes an
+    element. Returns {pair: entry}."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(43)
+    rows = layout.rows
+    bf16 = torch.bfloat16
+    p = torch.randn((rows, LANES), generator=gen, device="cuda") * 0.02
+    work = torch.empty((rows, LANES), dtype=bf16, device="cuda")
+    out = {}
+    for m_codec, v_codec in MASTER_TIMED_PAIRS:
+        pair = f"{m_codec}/{v_codec}"
+        m, v = _wire_state(torch, gen, m_codec, v_codec, rows)
+        kw = dict(lr=1e-3, bc1=0.19, bc2=0.001999, eps=1e-8,
+                  m_codec=m_codec, v_codec=v_codec)
+        pk, pp = p.clone(), p.clone()
+        fused_step.arena_apply(pk, m, v, work_dtype=bf16, work=work, **kw)
+        fused_step.arena_apply(pp, m, v, **kw)
+        torch.cuda.synchronize()
+        err = _compare_bits(torch, "arena_apply master", f"{pair} whole "
+                            "arena vs plain form", [(pk, pp)])
+        del pp
+        for lo in range(0, rows, 1 << 16):
+            _compare_bits(torch, "arena_apply master", f"{pair} work vs "
+                          "torch's cast", [(work[lo:lo + (1 << 16)],
+                                            pk[lo:lo + (1 << 16)].to(bf16))])
+        pr = p.clone()
+        _, wr = fused_step.arena_apply_ref(pr, m, v, work_dtype=bf16, **kw)
+        torch.cuda.synchronize()
+        _compare_bits(torch, "arena_apply master", f"{pair} whole arena vs "
+                      "the plain version", [(pk, pr), (work, wr)])
+        del pk, pr, wr
+        n = rows * LANES
+        apply_ops = _DECODE_OPS[m_codec] + _DECODE_OPS[v_codec] + 7
+        master = dict(work_dtype=bf16, work=work)
+        t = [timed_ms(torch, lambda wd=wd: fused_step.arena_apply(
+                 p, m, v, **wd, **kw), runs=WIRE_TIMED_RUNS,
+                 reps=KERNEL_REPS)
+             for wd in ({}, master, master, {})]
+        plain_bytes = 8 * n + _codec_bytes(m_codec, v_codec, rows)
+        entry = _kernel_entry(
+            "arena_apply", f"master {pair} whole arena",
+            statistics.median(t[1:3]),
+            timed_ms(torch, lambda: fused_step.arena_apply_ref(
+                p, m, v, work_dtype=bf16, work=work, **kw),
+                runs=CODEC_PLAIN_RUNS, warmup=1),
+            # p read and written, the state read, the bf16 work written
+            bound_ms(plain_bytes + 2 * n, apply_ops * n),
+            {"pair": pair, "rows": rows, "work_dtype": "bfloat16",
+             "max_abs_err": err},
+            logged={"plain_form_ms_in_turns": [t[0], t[3]],
+                    "master_ms_in_turns": t[1:3]})
+        plain_ms = statistics.median([t[0], t[3]])
+        entry.update(plain_form_ms=plain_ms,
+                     plain_form_bound_ms=bound_ms(plain_bytes,
+                                                  apply_ops * n)[0],
+                     master_over_plain_form=entry["ms"] / plain_ms)
+        out[pair] = entry
+        for x in (*_cols(m), *_cols(v), p):
+            if x.is_floating_point() and not torch.isfinite(x).all():
+                raise AssertionError(f"master {pair}: non-finite state or "
+                                     f"master after the timed runs")
+        del m, v
+    del p, work
+    torch.cuda.empty_cache()
+    return out
+
+
+def _master_forms(checked, timed, counts, transient):
+    """The `kernels` line's master form of arena_apply: the pairs and cases
+    checked bit for bit on the small arenas; the timed pairs' numbers at
+    the stablelm arena beside the plain-form apply's; the launches of the
+    master paths, and the bytes one apply allocates for its work on each
+    (0 where the cache receives it)."""
+    return {"work_dtype": "bfloat16",
+            "bitwise_pairs": sorted({pr for k, pr, _ in checked
+                                     if k == "arena_apply"}),
+            "bitwise_cases": len(checked),
+            "timed": [dict({k: x for k, x in e.items() if k != "case"},
+                           library_ms=None, by_case=[e])
+                      for e in timed.values()],
+            "launches_by_master_path": {p: counts[p]["arena_apply"]
+                                        for p in MASTER if p in counts},
+            "work_bytes_allocated_per_apply": transient}
 
 
 def _leaf_cases(cfg):
@@ -2259,18 +2506,113 @@ def _engine_twins(p, q):
     return ({a[1], b[1]} == {"adama", "adama_layerwise"} and a[2] and b[2]
             and a[0] == b[0] and a[4] == b[4]
             and GUARDED.get(p, (0,))[0] == GUARDED.get(q, (0,))[0]
-            and WIRE.get(p) == WIRE.get(q))
+            and WIRE.get(p) == WIRE.get(q) and (p in MASTER) == (q in MASTER))
 
 
-def _after_step_one(action):
-    """A train() step_context that runs `action` once step 1 has ended and
-    been timed."""
+def _after_steps(actions):
+    """A train() step_context that runs each action(i) once step i (0-based)
+    has ended and been timed."""
     @contextlib.contextmanager
     def ctx(i):
         yield
-        if i == 0:
-            action()
+        for action in actions:
+            action(i)
     return ctx
+
+
+@contextlib.contextmanager
+def _holding_state(held):
+    """While a path runs, every arena state the engines initialise is also
+    kept in held["state"] (the master and the cache are updated in place, so
+    a step_context action reads them after each step)."""
+    from repro_torch.core import adama
+    init = adama.init_arena
+
+    def keep(*a, **kw):
+        held["state"] = init(*a, **kw)
+        return held["state"]
+    adama.init_arena = keep
+    try:
+        yield
+    finally:
+        adama.init_arena = init
+
+
+def _master_leaves(state):
+    """The master region's values as leaves (fp32, sorted paths, views of
+    the arena where contiguous): what the param leaves would hold without
+    the bf16 cast."""
+    from repro_torch.core import arena as arena_mod
+    return _tree_leaves(arena_mod.unpack(state["p"].data, state["p"].layout))
+
+
+def _check_master_step(torch, path, i, leaves, state):
+    """After step i of a master path: every param leaf is exactly
+    bf16(master), and the cache, where there is one, holds bf16(master)
+    too (so the leaves equal its upcast)."""
+    bf16 = torch.bfloat16
+    for k, (leaf, x) in enumerate(zip(leaves, _master_leaves(state))):
+        if not leaf.detach().equal(x.to(bf16).float()):
+            raise AssertionError(f"{path}: after step {i + 1} param leaf {k} "
+                                 f"is not bf16(master)")
+    if "wp" in state:
+        p, wp = state["p"].data, state["wp"].data
+        for lo in range(0, p.shape[0], 1 << 16):
+            if not wp[lo:lo + (1 << 16)].view(torch.int16).equal(
+                    p[lo:lo + (1 << 16)].to(bf16).view(torch.int16)):
+                raise AssertionError(f"{path}: after step {i + 1} the cache "
+                                     f"is not bf16(master)")
+
+
+def _work_bytes_per_apply(torch, state):
+    """One more master apply on a path's final state (lr 0, after its
+    launches were read): the bytes it allocates for its work output (0
+    when the kernel writes into the cache), after checking that with a
+    cache the work it returns is the cache."""
+    from repro_torch.core import state_store
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    work, _ = state_store.apply_master_state(state, lr=0.0, bc1=0.19,
+                                             bc2=0.001999)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - before
+    if "wp" in state and (work.data_ptr() != state["wp"].data.data_ptr()
+                          or extra):
+        raise AssertionError(f"the cached master apply allocated {extra} B "
+                             f"or wrote its work elsewhere than the cache")
+    del work
+    return extra
+
+
+def _check_master_path(path, peak, peaks, counts, regions, info):
+    """A master path against its twin (MASTER): the same launches per step,
+    its new regions' bytes, and a peak at most the twin's + those bytes +
+    MASTER_PEAK_SLACK. Returns what is logged."""
+    cache, wire, twin = MASTER[path]
+    want = dict(p=MASTER_REGION_BYTES["p"],
+                **({"wp": MASTER_REGION_BYTES["wp"]} if cache else {}))
+    if regions != want:
+        raise AssertionError(f"{path}: master regions {regions} B; expected "
+                             f"{want}")
+    added = sum(_allocator_bytes(b) for b in regions.values())
+    info.update({"work_param_cache": cache, "grad_dtype": wire,
+                 "master_twin": twin, "master_twin_peak": peaks[twin],
+                 "region_bytes": regions, "region_allocator_bytes": added,
+                 "peak_minus_master_twin": peak - peaks[twin],
+                 "peak_minus_master_twin_minus_regions":
+                     peak - peaks[twin] - sum(regions.values())})
+    if peak > peaks[twin] + added + MASTER_PEAK_SLACK:
+        raise AssertionError(f"{path}: peak {peak} is more than "
+                             f"{MASTER_PEAK_SLACK} B above {twin}'s "
+                             f"{peaks[twin]} + its regions' {added} B (as "
+                             f"allocated)")
+    per_step = {p: {k: c / PATHS[p][3] for k, c in counts[p].items()}
+                for p in (path, twin)}
+    if per_step[path] != per_step[twin]:
+        raise AssertionError(f"{path}: launches per step {per_step[path]} "
+                             f"!= {twin}'s {per_step[twin]}")
+    return info
 
 
 def _param_diff(torch, leaves, host_leaves, chunk=1 << 26):
@@ -2341,9 +2683,11 @@ def _check_wire_path(path, out, peak, counts, all_losses, peaks, diff, tol):
 
 def run_main_paths(torch, wrappers, arch):
     """Phase 5: one arch at full width, each of its main paths; returns
-    each path's launch counts per kernel and peak memory. Every arena path
-    must have the arch's arena rows."""
+    each path's launch counts per kernel and peak memory, and the bytes a
+    master path's apply allocates for its work. Every arena path must have
+    the arch's arena rows."""
     from repro_torch.configs.base import OptimizerConfig, RunConfig
+    from repro_torch.core import arena as arena_mod
     from repro_torch.core import state_store
     from repro_torch.train.loop import train
 
@@ -2353,21 +2697,32 @@ def run_main_paths(torch, wrappers, arch):
     main = MAIN[arch]
     ln_v = math.log(cfg.padded_vocab())
     counts, peaks, all_losses, digests = {}, {}, {}, {}
+    work_bytes = {}
     paths = [p for p, spec in PATHS.items() if spec[0] == arch]
     digested = {p for d in GUARD_DIGESTS for p in d[:2]}
     # params after step 1 of each bf16-wire path's twin, on the host
     wire_twins = {twin for _, twin in WIRE.values()}
     step1 = {}
+    # a master path without the cache runs its twin's step 1 (the same
+    # fp32 leaves, the same wire): its master after step 1 is the twin's
+    # params then, held by digests on the card
+    master_twins = {twin: p for p, (cache, _, twin) in MASTER.items()
+                    if not cache}
+    step1_digest = {}
     for path in paths:
         _, engine, arena, steps, codecs = PATHS[path]
         fault, twin = GUARDED.get(path, (None, None))
         loss_scale = WIRE.get(path, ("off",))[0]
+        cache, master_wire, _ = MASTER.get(path, (False, "fp32", None))
+        bf16_wire = path in WIRE or master_wire == "bf16"
         run = RunConfig(model=cfg,
                         optimizer=OptimizerConfig(
                             accumulation=engine, arena=arena,
                             micro_batches=main["micro_batches"],
                             m_codec=codecs[0], state_codec=codecs[1],
-                            grad_dtype="bf16" if path in WIRE else "fp32",
+                            grad_dtype="bf16" if bf16_wire else "fp32",
+                            master_params=path in MASTER,
+                            work_param_cache=cache,
                             finite_guard=path in GUARDED,
                             loss_scale=loss_scale),
                         seq_len=main["seq_len"],
@@ -2375,32 +2730,62 @@ def run_main_paths(torch, wrappers, arch):
                         seed=main["seed"], steps=steps, log_every=1,
                         inject_fault=fault)
         torch.cuda.empty_cache()
-        params, before, context, diff = None, None, None, []
+        params, before, packed, diff = None, None, None, []
         if (engine == "ga" and path in GUARDED) or path in WIRE or \
-                path in wire_twins:
+                path in wire_twins or path in MASTER or path in master_twins:
             # the params train() would make, which it updates in place
             gen = torch.Generator(device="cuda")
             gen.manual_seed(main["seed"])
             params = init_params(cfg, gen)
         if engine == "ga" and path in GUARDED:
-            before = _digest(torch, _tree_leaves(params))
-        # the param leaves, for the step-1 actions; cleared after the run
+            # every step skips: the leaves stay, or with master params
+            # become bf16 of themselves, the master pack(initial params)
+            # (no name may keep the leaves past the run: the next path's
+            # peak would count them)
+            before = _digest(torch, _tree_leaves(params)
+                             if path not in MASTER else (
+                                 x.detach().to(torch.bfloat16).float()
+                                 for x in _tree_leaves(params)))
+            if path in MASTER:
+                packed = _digest(torch, [arena_mod.pack(
+                    params, arena_mod.build_layout(params))])
+        # the param leaves (and a master path's state), for the actions
+        # after each step; cleared after the run
         held = {"leaves": _tree_leaves(params) if params else None}
+        actions = []
         if path in wire_twins:
-            def snapshot(path=path):
-                step1[path] = [x.detach().to("cpu", copy=True)
-                               for x in held["leaves"]]
-            context = _after_step_one(snapshot)
+            def snapshot(i, path=path):
+                if i == 0:
+                    step1[path] = [x.detach().to("cpu", copy=True)
+                                   for x in held["leaves"]]
+            actions.append(snapshot)
         elif path in WIRE:
-            def compare(twin=WIRE[path][1]):
-                diff.append(_param_diff(torch, held["leaves"],
-                                        step1[twin]))
-            context = _after_step_one(compare)
+            def compare(i, twin=WIRE[path][1]):
+                if i == 0:
+                    diff.append(_param_diff(torch, held["leaves"],
+                                            step1[twin]))
+            actions.append(compare)
+        if path in master_twins:
+            def twin_digest(i, path=path):
+                if i == 0:
+                    step1_digest[path] = _digest(torch, held["leaves"])
+            actions.append(twin_digest)
+        if path in MASTER:
+            def master_step(i, path=path):
+                _check_master_step(torch, path, i, held["leaves"],
+                                   held["state"])
+                if i == 0 and not MASTER[path][0]:
+                    step1_digest[path] = _digest(
+                        torch, _master_leaves(held["state"]))
+            actions.append(master_step)
         torch.cuda.reset_peak_memory_stats()
         for fn in wrappers.values():
             fn.launches = 0
-        out = train(run, device="cuda", log_fn=log, params=params,
-                    step_context=context)
+        with (_holding_state(held) if path in MASTER
+              else contextlib.nullcontext()):
+            out = train(run, device="cuda", log_fn=log, params=params,
+                        step_context=_after_steps(actions) if actions
+                        else None)
         counts[path] = {k: fn.launches for k, fn in wrappers.items()}
         peaks[path] = torch.cuda.max_memory_allocated()
         # drop every reference to the param leaves, or the next path's
@@ -2421,7 +2806,8 @@ def run_main_paths(torch, wrappers, arch):
                     f"{path}: skipped {skipped}, step "
                     f"{out['opt_state']['step']}; expected "
                     f"{GUARD_SKIPS[path]}")
-            if peaks[path] > peaks[twin] + GUARD_PEAK_SLACK:
+            if path not in MASTER and \
+                    peaks[path] > peaks[twin] + GUARD_PEAK_SLACK:
                 raise AssertionError(
                     f"{path}: peak {peaks[path]} is more than "
                     f"{GUARD_PEAK_SLACK} B above {twin}'s {peaks[twin]}")
@@ -2429,8 +2815,42 @@ def run_main_paths(torch, wrappers, arch):
                 after = _digest(torch, _tree_leaves(out["params"]))
                 guard_info["params_unchanged"] = after == before
                 if after != before:
-                    raise AssertionError(f"{path}: the params changed; every "
-                                         f"step was skipped")
+                    raise AssertionError(
+                        f"{path}: the params changed; every step was "
+                        f"skipped" + (", so they must be bf16 of the "
+                                      "initial params" if path in MASTER
+                                      else ""))
+            if packed is not None:
+                master = _digest(torch, [out["opt_state"]["p"].data])
+                guard_info["master_unchanged"] = master == packed
+                if master != packed:
+                    raise AssertionError(f"{path}: the master is not "
+                                         f"pack(initial params); every step "
+                                         f"was skipped")
+        master_info = {}
+        if path in MASTER:
+            state = out["opt_state"]
+            work_bytes[path] = _work_bytes_per_apply(torch, state)
+            master_info = _check_master_path(
+                path, peaks[path], peaks, counts,
+                state_store.param_region_bytes(state),
+                {"work_bytes_allocated_per_apply": work_bytes[path]})
+            twin = MASTER[path][2]
+            if not MASTER[path][0]:
+                master_info.update(
+                    step1_loss=out["losses"][0],
+                    master_twin_step1_loss=all_losses[twin][0],
+                    master_after_step_1_digest=step1_digest[path],
+                    twin_params_after_step_1_digest=step1_digest[twin])
+                if out["losses"][0] != all_losses[twin][0]:
+                    raise AssertionError(f"{path}: step-1 loss "
+                                         f"{out['losses'][0]} != {twin}'s "
+                                         f"{all_losses[twin][0]}")
+                if step1_digest[path] != step1_digest[twin]:
+                    raise AssertionError(f"{path}: the master after step 1 "
+                                         f"is not {twin}'s params after "
+                                         f"step 1 bit for bit")
+            del state
         wire_info = {}
         if path in WIRE:
             wire_info = _check_wire_path(
@@ -2454,7 +2874,8 @@ def run_main_paths(torch, wrappers, arch):
                         "max_memory_allocated_bytes": peaks[path],
                         "launches": counts[path],
                         "launches_per_step": want, **guard_info,
-                        **wire_info, "digest": digests.get(path), **main}))
+                        **wire_info, **master_info,
+                        "digest": digests.get(path), **main}))
         losses = out["losses"]
         all_losses[path] = losses
         first = all_losses[paths[0]][0]
@@ -2496,7 +2917,7 @@ def run_main_paths(torch, wrappers, arch):
                         "digest_claims": [[a, b, "equal" if e else "differ"]
                                           for a, b, e in GUARD_DIGESTS],
                         "met": True}))
-    return counts, peaks
+    return counts, peaks, work_bytes
 
 
 def check_memory(arch, peaks):
@@ -2506,7 +2927,7 @@ def check_memory(arch, peaks):
     same engine's fp32 path by at least the state bytes it saves."""
     path = {spec[1]: p for p, spec in PATHS.items()
             if spec[0] == arch and spec[2] and spec[4] == FP32
-            and p not in GUARDED and p not in WIRE}
+            and p not in GUARDED and p not in WIRE and p not in MASTER}
     adama, ga, lw = (peaks[path[e]] for e in ("adama", "ga",
                                               "adama_layerwise"))
     arena_bytes = MAIN[arch]["arena_rows"] * LANES * 4
@@ -2525,7 +2946,8 @@ def check_memory(arch, peaks):
                              f"({2 * arena_bytes} B)")
     rows = MAIN[arch]["arena_rows"]
     for p, (a, engine, arena, _, codecs) in PATHS.items():
-        if a != arch or codecs == FP32 or p in GUARDED or p in WIRE:
+        if a != arch or codecs == FP32 or p in GUARDED or p in WIRE or \
+                p in MASTER:
             continue
         base = path[engine]
         saved = _codec_bytes(*FP32, rows) - _codec_bytes(*codecs, rows)
@@ -2638,14 +3060,17 @@ def main() -> int:
     wire_checked = check_wire_small(torch, fused_step, adama_accum)
     wire_timed, kernels["finite_and"]["bf16_slab"] = check_wire_timed(
         torch, fused_step, stablelm_layout)
+    master_checked = check_master_small(torch, fused_step, adama_accum)
+    master_timed = check_master_timed(torch, fused_step, stablelm_layout)
     log(json.dumps({"phase": "kernels_checked",
                     "seconds": time.perf_counter() - t_start}))
     check_small_input(torch)
-    counts = {}
+    counts, work_bytes = {}, {}
     for arch in MAIN:
-        c, peaks = run_main_paths(torch, wrappers, arch)
+        c, peaks, w = run_main_paths(torch, wrappers, arch)
         check_memory(arch, peaks)
         counts.update(c)
+        work_bytes.update(w)
     for name in CODEC_FORMS:
         kernels[name]["codec_forms"] = _codec_forms(
             name, codec_checked, codec_timed[name], counts)
@@ -2659,6 +3084,8 @@ def main() -> int:
                 name, wire_checked, wire_timed[name], counts)
     kernels["finite_and"]["bitwise_cases"] = sum(
         k == "finite_and" for k, _, _ in guard_checked)
+    kernels["arena_apply"]["master_forms"] = _master_forms(
+        master_checked, master_timed, counts, work_bytes)
 
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": source,

@@ -112,9 +112,9 @@ def parse_loss_scale(value: str):
 @dataclass(frozen=True)
 class OptimizerConfig:
     """The kernel paths of the reference's OptimizerConfig (use_pallas=True),
-    with its m and v codecs, its gradient wire (fp32 or bf16), its finite
-    guard and its loss-scale fields validated as its
-    `optimizer_capability` does.
+    with its m and v codecs, its gradient wire (fp32 or bf16), its fp32
+    master params and bf16 working-param cache, its finite guard and its
+    loss-scale fields validated as its `optimizer_capability` does.
 
     `arena` selects the state form, as in the reference: True (the default
     here, the reference's `arena=True`) keeps m and v in flat arenas folded
@@ -159,6 +159,19 @@ class OptimizerConfig:
     # train/loop.py raises after this many consecutive skipped
     # micro-batches; 0 never
     scaler_abort_after: int = 0
+    # fp32 MASTER params in the arena (the AMP contract): the state gains a
+    # packed fp32 region "p", which the apply kernel updates in place while
+    # it writes bf16 WORKING params (bf16 of the new master) in the same
+    # pass; the param leaves are refreshed from them, so they hold
+    # bf16-rounded values and the fp32 truth lives in "p". Requires
+    # arena=True.
+    master_params: bool = False
+    # the bf16 working-param cache: the state keeps the working params the
+    # master apply writes as a packed bf16 region "wp" (the kernel writes
+    # straight into it), and every engine loads its param leaves from it at
+    # step start, so step 1 already runs on bf16-cast params. Requires
+    # master_params=True.
+    work_param_cache: bool = False
 
     def __post_init__(self):
         if self.accumulation not in ACCUM_ENGINES:
@@ -194,8 +207,8 @@ class OptimizerConfig:
                 "item 7.5); use grad_dtype='bf16'")
 
     def _check_wire_and_guard_fields(self):
-        """The reference's checks of the wire, guard and scaler fields, in
-        its order and with its messages."""
+        """The reference's checks of the wire, master-param, guard and
+        scaler fields, in its order and with its messages."""
         if self.grad_dtype not in GRAD_DTYPES:
             raise ValueError(f"unknown grad_dtype {self.grad_dtype!r}; "
                              f"expected one of {GRAD_DTYPES}")
@@ -219,6 +232,19 @@ class OptimizerConfig:
                 "the fused guards catch) and the error-feedback residual "
                 "state['ef'] must be skip-predicated so a vetoed "
                 "micro-batch does not corrupt it; pass finite_guard=True")
+        if self.master_params and not self.arena:
+            raise ValueError(
+                "master_params=True requires arena=True: the fp32 master "
+                "region is a packed arena alongside m/v "
+                "(core/state_store.py); pass arena=True use_pallas=True")
+        if self.work_param_cache and not self.master_params:
+            raise ValueError(
+                "work_param_cache=True requires master_params=True: the "
+                "cache holds BF16 working params, so the fp32 truth must "
+                "live in the master region 'p' — caching without a master "
+                "would make the bf16 cast the stored truth and the "
+                "precision loss would compound every step; pass "
+                "master_params=True (or drop work_param_cache)")
         if self.finite_guard and not self.arena:
             raise ValueError(
                 "finite_guard=True requires arena=True: the per-fold finite "

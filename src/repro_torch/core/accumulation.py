@@ -39,6 +39,15 @@ gradient wire: each micro-batch's (or each layer's) gradient packs into a
 slab of that dtype (bf16: half the bytes), and the fold kernels upcast it
 to fp32 in-pass, so the moments accumulate in fp32 on either wire.
 
+`OptimizerConfig.master_params` (arena state, every engine) adds the fp32
+master region "p": `adama.finalize` then updates it and writes the bf16
+working params into the param leaves from the same apply kernel, and never
+packs the params. With `work_param_cache` the working params are kept in
+the state ("wp", written by the kernel), and every engine loads its param
+leaves from them at step start (`adama.load_working_params`, the
+reference's `params = adama.working_params(opt_state)`), so step 1 too
+runs on bf16-cast params.
+
 The guarded state carries "scaler" (train/scaler.py). Its scale divides
 1/N in the fold's traced scale (scale_into_fold) and multiplies the loss
 (adama) or the backward's seed (adama_layerwise), so the bf16 slab holds
@@ -162,6 +171,7 @@ def make_ga_step(cfg: ModelConfig, opt: OptimizerConfig, *, lr_schedule=None,
         return _make_guarded_ga_step(cfg, opt, lr_schedule, fault)
 
     def step(params, opt_state, batch):
+        adama.load_working_params(params, opt_state)
         layout = opt_state["m"].layout
         leaves, _ = arena_mod.tree_flatten(params)
         acc = torch.zeros((layout.rows, arena_mod.LANES), dtype=torch.float32,
@@ -199,6 +209,7 @@ def _make_guarded_ga_step(cfg, opt, lr_schedule, fault):
     guard = _Guard(opt)
 
     def step(params, opt_state, batch):
+        adama.load_working_params(params, opt_state)
         layout = opt_state["m"].layout
         leaves, _ = arena_mod.tree_flatten(params)
         dev = leaves[0].device
@@ -246,6 +257,7 @@ def make_adama_step(cfg: ModelConfig, opt: OptimizerConfig, *,
         return _make_guarded_adama_step(cfg, opt, lr_schedule, fault)
 
     def step(params, opt_state, batch):
+        adama.load_working_params(params, opt_state)
         leaves, _ = arena_mod.tree_flatten(params)
         if opt.arena:
             state = dict(opt_state, step=opt_state["step"] + 1)
@@ -291,6 +303,7 @@ def _make_guarded_adama_step(cfg, opt, lr_schedule, fault):
     guard = _Guard(opt)
 
     def step(params, opt_state, batch):
+        adama.load_working_params(params, opt_state)
         leaves, _ = arena_mod.tree_flatten(params)
         dev = leaves[0].device
         st0 = opt_state["step"]
@@ -335,6 +348,7 @@ def make_adama_layerwise_step(cfg: ModelConfig, opt: OptimizerConfig, *,
         return _make_guarded_layerwise_step(cfg, opt, lr_schedule, fault)
 
     def step(params, opt_state, batch):
+        adama.load_working_params(params, opt_state)
         if opt.arena:
             # each arena row is folded exactly once per micro-batch (each
             # layer's slice in the backward, the rest region after it), so
@@ -372,6 +386,7 @@ def _make_guarded_layerwise_step(cfg, opt, lr_schedule, fault):
     guard = _Guard(opt)
 
     def step(params, opt_state, batch):
+        adama.load_working_params(params, opt_state)
         dev = batch["tokens"].device
         st0 = opt_state["step"]
         state, sc = opt_state, opt_state["scaler"]
@@ -407,7 +422,12 @@ def _init(opt: OptimizerConfig):
     init = adama.init_arena if opt.arena else adama.init
 
     def init_state(params):
-        state = init(params, codec=opt.state_codec, m_codec=opt.m_codec)
+        if opt.arena:
+            state = init(params, codec=opt.state_codec, m_codec=opt.m_codec,
+                         master_params=opt.master_params,
+                         work_param_cache=opt.work_param_cache)
+        else:
+            state = init(params, codec=opt.state_codec, m_codec=opt.m_codec)
         if opt.finite_guard:
             state["scaler"] = scaler_mod.init_scaler(
                 opt, arena_mod.tree_flatten(params)[0][0].device)

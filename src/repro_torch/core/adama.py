@@ -26,6 +26,14 @@ arenas, int8 codes with row scales, or the factored row statistic; the
 fold and apply kernels take every pair. Per-leaf state is fp32 only, as
 the reference's config requires.
 
+Master params (`init_arena(master_params=True)`): the state also holds the
+fp32 master region "p", packed from the params. `finalize` then never packs
+the params: the apply updates the master and writes bf16 working params in
+the same kernel, and the param leaves are refreshed from them, so they hold
+bf16(master). With the working-param cache ("wp", a bf16 arena) the kernel
+writes into the cache, and the engines load the leaves from it at step
+start (`load_working_params`).
+
 Unlike the reference, whose arrays are immutable and whose kernels alias
 input to output, the port updates the moments and the params IN PLACE: a
 "new" state returned here shares its tensors with the old one.
@@ -62,17 +70,58 @@ def init(params, codec: str = "fp32", m_codec: str = "fp32") -> State:
     return {"m": zeros(), "v": zeros(), "step": 0}
 
 
-def init_arena(params, codec: str = "fp32", m_codec: str = "fp32") -> State:
+def init_arena(params, codec: str = "fp32", m_codec: str = "fp32",
+               master_params: bool = False,
+               work_param_cache: bool = False) -> State:
     """Arena-backed state on the params' device, laid out as the reference
     lays it out: m in `m_codec`, v in `codec` (fp32 moments are Arenas,
     the others MomentStates of the reference's column shapes), zeroed;
-    `step` is a host int."""
+    `step` is a host int. `master_params` adds the fp32 master region
+    state["p"] = pack(params); `work_param_cache` the bf16 working-param
+    cache state["wp"] = pack(params, dtype=bfloat16) (the reference's
+    regions, bit for bit)."""
     mc = state_store.get_codec(m_codec, "m")
     vc = state_store.get_codec(codec, "v")
     layout = arena_mod.build_layout(params)
     device = arena_mod.tree_flatten(params)[0][0].device
-    return {"m": mc.init(layout, device), "v": vc.init(layout, device),
-            "step": 0}
+    state = {"m": mc.init(layout, device), "v": vc.init(layout, device),
+             "step": 0}
+    with torch.no_grad():
+        if master_params:
+            state["p"] = arena_mod.Arena(arena_mod.pack(params, layout),
+                                         layout)
+        if work_param_cache:
+            state["wp"] = arena_mod.Arena(arena_mod.pack(
+                params, layout, dtype=torch.bfloat16), layout)
+    return state
+
+
+def working_params(state: State):
+    """The param tree held by the working-param cache state["wp"], its
+    leaves cast to their recorded dtypes (the reference's
+    `working_params`)."""
+    wp = state["wp"]
+    return arena_mod.unpack(wp.data, wp.layout)
+
+
+@torch.no_grad()
+def load_working_params(params, state: State):
+    """The engines' form of `working_params`, at step start: when the state
+    has the cache, each param leaf, in place, from its bf16 view of it (no
+    fp32 copy of the tree is made). Returns params."""
+    if "wp" in state:
+        _copy_leaves(params, state["wp"].data, state["wp"].layout,
+                     torch.bfloat16)
+    return params
+
+
+def _copy_leaves(params, arena: torch.Tensor, layout, dtype=None) -> None:
+    """leaf <- its slot of `arena`, in place; `dtype` the arena's, whose
+    views then need no cast before the copy."""
+    leaves, _ = arena_mod.tree_flatten(params)
+    new, _ = arena_mod.tree_flatten(arena_mod.unpack(arena, layout, dtype))
+    for leaf, x in zip(leaves, new):
+        leaf.copy_(x)
 
 
 def is_arena_state(state: State) -> bool:
@@ -146,10 +195,14 @@ def finalize(params, state: State, *, lr, beta1: float, beta2: float,
              eps: float = 1e-8, weight_decay: float = 0.0, guard=None):
     """Bias-correct and apply (Algorithm 1's update). `state['step']` must
     already count this mini-batch. Arena state: packs the params, runs one
-    fused apply, and copies the result back into the param leaves in place.
-    Per-leaf state: one adam_apply_2d launch per param leaf, in place.
-    `guard` (arena state only; a (1,) device flag, e.g. good > 0 after the
-    guarded folds): when 0 the params keep every byte, whatever bc1 is."""
+    fused apply, and copies the result back into the param leaves in place;
+    with a master region (state["p"]) the params are not packed: the master
+    apply updates the master and writes bf16 working params (into the
+    cache state["wp"] if there is one), and each leaf is copied from its
+    bf16 view of them. Per-leaf state: one adam_apply_2d launch per param
+    leaf, in place. `guard` (arena state only; a (1,) device flag, e.g.
+    good > 0 after the guarded folds): when 0 the params (or the master)
+    keep every byte, whatever bc1 is; the leaves then take bf16(master)."""
     bc1, bc2 = bias_corrections(state["step"], beta1, beta2)
     if not is_arena_state(state):
         if guard is not None:
@@ -159,11 +212,14 @@ def finalize(params, state: State, *, lr, beta1: float, beta2: float,
                             bc2=bc2, eps=eps, weight_decay=weight_decay)
         return params, state
     layout = state["m"].layout
+    if state_store.has_master(state):
+        work, state = state_store.apply_master_state(
+            state, lr=lr, bc1=bc1, bc2=bc2, eps=eps,
+            weight_decay=weight_decay, guard=guard)
+        _copy_leaves(params, work, layout, work.dtype)
+        return params, state
     p = state_store.apply_state(arena_mod.pack(params, layout), state, lr=lr,
                                 bc1=bc1, bc2=bc2, eps=eps,
                                 weight_decay=weight_decay, guard=guard)
-    leaves, _ = arena_mod.tree_flatten(params)
-    new, _ = arena_mod.tree_flatten(arena_mod.unpack(p, layout))
-    for leaf, x in zip(leaves, new):
-        leaf.copy_(x)
+    _copy_leaves(params, p, layout)
     return params, state

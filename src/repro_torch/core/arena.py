@@ -311,7 +311,8 @@ def unpack(arena: torch.Tensor, layout: ArenaLayout, dtype=None):
 
 @dataclass
 class Arena:
-    """A (rows, LANES) fp32 buffer and its static layout."""
+    """A (rows, LANES) buffer and its static layout: fp32 (moments, the
+    master params), or bf16 for the working-param cache."""
     data: torch.Tensor
     layout: ArenaLayout
 

@@ -38,8 +38,14 @@ slab checks itself: `finite_and` into a fresh guard vector) or the caller's
 device vector [dm, dv, ok, scale] (kernels/fused_step.py::guard_scalars),
 which then also carries the decay of the shared columns; the apply's is a
 (1,) device flag. With ok == 0 the call is a bitwise no-op, the shared
-columns' host-side decay included (`_guarded_begin_micro`). Master params
-and the ZeRO-1 collectives wait for their slices.
+columns' host-side decay included (`_guarded_begin_micro`). The ZeRO-1
+collectives wait for their slice.
+
+Master params (OptimizerConfig.master_params): the state dict carries the
+fp32 master region "p" (an Arena) and, with the working-param cache, the
+bf16 region "wp". `apply_master_state` updates the master in place and
+writes bf16(master) as the working params in the same kernel, into "wp"
+when the state has it.
 
 The port updates state IN PLACE: the codec columns a fold or apply is
 given are the ones written, and a "new" state shares them with the old.
@@ -349,16 +355,19 @@ def fold_slice(m_codec, v_codec, m_parts, v_parts, g, row_offset, *,
 
 
 def apply(m_codec, v_codec, p, m_parts, v_parts, *, lr, bc1, bc2, eps=1e-8,
-          weight_decay=0.0, guard=None):
+          weight_decay=0.0, work_dtype=None, work=None, guard=None):
     """Bias-corrected apply over the packed param arena, decoding both
     moments in-pass; p updated in place. `guard` (a (1,) device flag): when
     0 the params keep every byte (an all-skipped mini-batch applies
-    nothing)."""
+    nothing). `work_dtype` selects the master form (p the fp32 master; the
+    return is (p, work), work = bf16 of the new p, written into `work` if
+    given)."""
     mc, vc = get_codec(m_codec, "m"), get_codec(v_codec, "v")
     return fused_step.arena_apply(p, tuple(m_parts), tuple(v_parts), lr=lr,
                                   bc1=bc1, bc2=bc2, eps=eps,
                                   weight_decay=weight_decay,
                                   m_codec=mc.kernel, v_codec=vc.kernel,
+                                  work_dtype=work_dtype, work=work,
                                   guard=guard)
 
 
@@ -369,6 +378,12 @@ def apply(m_codec, v_codec, p, m_parts, v_parts, *, lr, bc1, bc2, eps=1e-8,
 
 def state_codecs(state) -> Tuple[MomentCodec, MomentCodec]:
     return codec_of(state["m"], "m"), codec_of(state["v"], "v")
+
+
+def has_master(state) -> bool:
+    """Whether the state dict carries the fp32 master-param region
+    (OptimizerConfig.master_params; see apply_master_state)."""
+    return "p" in state
 
 
 def fold_state(state, g, *, beta1, beta2, scale=1.0, decay=None,
@@ -421,8 +436,38 @@ def apply_state(p, state, *, lr, bc1, bc2, eps=1e-8, weight_decay=0.0,
                  guard=guard)
 
 
+def apply_master_state(state, *, lr, bc1, bc2, eps=1e-8, weight_decay=0.0,
+                       work_dtype=torch.bfloat16, guard=None):
+    """Master-param apply: one fused kernel updates the fp32 master region
+    state["p"] in place AND writes the `work_dtype` working params, bf16 of
+    the new master, which the next forward reads. With the working-param
+    cache (state["wp"]) the kernel writes straight into it, so no work
+    buffer is allocated and nothing is copied. `guard` as in `apply`: when
+    0 the master keeps every byte and work is still bf16(master). Returns
+    (work, state): the (rows, LANES) working-param arena and the state,
+    whose regions were updated in place."""
+    mc, vc = state_codecs(state)
+    _, work = apply(mc, vc, state["p"].data, mc.parts_of(state["m"]),
+                    vc.parts_of(state["v"]), lr=lr, bc1=bc1, bc2=bc2,
+                    eps=eps, weight_decay=weight_decay, work_dtype=work_dtype,
+                    work=state["wp"].data if "wp" in state else None,
+                    guard=guard)
+    return work, state
+
+
+def _bytes(t: torch.Tensor) -> int:
+    return int(np.prod(t.shape)) * t.element_size()
+
+
 def optimizer_state_bytes(state) -> int:
     """Bytes of the state's m and v columns."""
     mc, vc = state_codecs(state)
-    return sum(int(np.prod(p.shape)) * p.element_size()
+    return sum(_bytes(p)
                for p in mc.parts_of(state["m"]) + vc.parts_of(state["v"]))
+
+
+def param_region_bytes(state) -> dict:
+    """Bytes of the state's param regions, beside the m and v columns of
+    `optimizer_state_bytes`: the fp32 master "p" and the bf16 working-param
+    cache "wp", each where the state has it."""
+    return {k: _bytes(state[k].data) for k in ("p", "wp") if k in state}

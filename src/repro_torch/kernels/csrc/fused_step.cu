@@ -17,9 +17,12 @@
 //             other row is read or written. Algorithm 2 launches it once
 //             per layer and once for the rest region. It is the fold's
 //             kernel with a row offset (the whole-arena fold passes 0).
-// arena_apply replaces fused_step.py::arena_apply (_apply_body, no master
-//             params), decoding both moments in-pass:
+// arena_apply replaces fused_step.py::arena_apply (_apply_body), decoding
+//             both moments in-pass:
 //               p = p - lr*(m/bc1 / (sqrt(v/bc2) + eps) + wd*p)   in place
+//             and, in its master form (work_dtype=bf16: p is the fp32
+//             master), also work = bf16(p) of the new p, rounded to
+//             nearest even, in the same pass.
 // finite_and  ok <- ok AND (every element of x is finite), over a contiguous
 //             fp32 or bf16 tensor, in place. The reference computes this
 //             flag outside its kernels (jnp.isfinite(g).all() in
@@ -39,6 +42,15 @@
 // kernel's with the vector's values. Each kernel template takes the form as
 // a flag (G), so the unguarded instantiations compile as they did before
 // the guard existed; a NULL vector launches them.
+//
+// The master form (the reference's `emit_work`): each apply template takes
+// a flag (E) that adds the (rows, 1024) bf16 output `work`. A lane rounds
+// the 4 values of each float4 of the new p (already flushed by `fl`) with
+// __float2bfloat16_rn and stores them as one 8-byte word, the mirror of the
+// bf16 wire's load. The guarded master form with ok == 0 does not return
+// early: p keeps every byte, and work is still written, as bf16(p) of the
+// unchanged p (the reference's where(ok, p_new, p) is cast to work after
+// the select), so a skipped step's working params are the master's.
 //
 // The gradient wire (the reference's `_fold_body`, g.astype(float32) * s):
 // each fold template takes the wire of g as a parameter (W). On the fp32
@@ -114,6 +126,9 @@
 // fp32/rowcol apply 12 B, >= 5.90 ms; int8/rowcol apply 9 B, >= 4.42 ms.
 // A guarded form moves the same bytes and 16 more (the vector). finite_and
 // reads each element once: the stablelm slab (6.58 GB fp32) >= 1.965 ms.
+// The master form of the apply writes 2 B an element more (work): at the
+// stablelm arena fp32/fp32 18 B, 29.63 GB, >= 8.84 ms; int8/rowcol 11 B,
+// >= 5.40 ms.
 //
 // Rounding. The reference's CPU lowering (XLA) contracts
 //   fp32      d*m + c*x       as fma(d, m, c*x)
@@ -141,6 +156,7 @@
 // version (the same partition and trees) agree bit for bit, and both lie
 // within a stated tolerance of the reference (tests/test_torch_codecs.py).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -549,24 +565,49 @@ __device__ __forceinline__ float apply1(float p, float m, float v, float lr,
   return fl<F>(fmaf(-lr, u, p));
 }
 
-template <int MK, int VK, bool G>
+// Four fp32 values rounded to bf16 (nearest even) as one 8-byte word:
+// element e in bits 16e .. 16e + 15 of the little-endian word (load_g's
+// layout of the bf16 wire).
+__device__ __forceinline__ uint32_t bf16_bits(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ uint2 bf16x4(float4 a) {
+  return make_uint2(bf16_bits(a.x) | (bf16_bits(a.y) << 16),
+                    bf16_bits(a.z) | (bf16_bits(a.w) << 16));
+}
+
+// E: the master form (work is the bf16 output, NULL otherwise). G as in
+// arena_fold_kernel; with ok == 0 the plain form returns before any write,
+// the master form writes work = bf16(p) and leaves p.
+template <int MK, int VK, bool G, bool E>
 __global__ void __launch_bounds__(kThreads)
-arena_apply_kernel(float4* __restrict__ p, const void* __restrict__ m0,
-                   const void* __restrict__ m1, const void* __restrict__ v0,
-                   const void* v1, int64_t rows, float lr,
-                   float bc1, float bc2, float eps, float wd,
+arena_apply_kernel(float4* __restrict__ p, uint2* __restrict__ work,
+                   const void* __restrict__ m0, const void* __restrict__ m1,
+                   const void* __restrict__ v0, const void* v1, int64_t rows,
+                   float lr, float bc1, float bc2, float eps, float wd,
                    const float* __restrict__ guard) {
   constexpr bool F = MK != kFp32 || VK != kFp32;
+  const int lane = threadIdx.x & 31;
+  const int64_t warps = (int64_t)gridDim.x * kWarps;
   if constexpr (G) {
-    if (!apply_guard(guard)) return;
+    if (!apply_guard(guard)) {
+      if constexpr (E) {
+        for (int64_t r = (int64_t)blockIdx.x * kWarps + threadIdx.x / 32;
+             r < rows; r += warps) {
+#pragma unroll
+          for (int k = 0; k < kRowF4; ++k)
+            work[f4_index(r, k, lane)] = bf16x4(p[f4_index(r, k, lane)]);
+        }
+      }
+      return;
+    }
   }
   __shared__ float4 nc[VK == kRowCol ? kLanes / 4 : 1];
   if constexpr (VK == kRowCol) {
     rowcol_normalise((const float4*)v1, nc);
     v1 = nc;
   }
-  const int lane = threadIdx.x & 31;
-  const int64_t warps = (int64_t)gridDim.x * kWarps;
   for (int64_t r = (int64_t)blockIdx.x * kWarps + threadIdx.x / 32;
        r < rows; r += warps) {
 #pragma unroll
@@ -579,6 +620,7 @@ arena_apply_kernel(float4* __restrict__ p, const void* __restrict__ m0,
       pp.z = apply1<F>(pp.z, mm.z, vv.z, lr, bc1, bc2, eps, wd);
       pp.w = apply1<F>(pp.w, mm.w, vv.w, lr, bc1, bc2, eps, wd);
       p[f4_index(r, k, lane)] = pp;
+      if constexpr (E) work[f4_index(r, k, lane)] = bf16x4(pp);
     }
   }
 }
@@ -707,17 +749,35 @@ cudaError_t fold(int wire, void* m0, void* m1, void* v0, void* v1,
   return cudaErrorInvalidValue;
 }
 
-template <int MK, int VK>
-void apply(void* p, const void* m0, const void* m1, const void* v0,
-           const void* v1, int64_t rows, float lr, float bc1, float bc2,
-           float eps, float wd, const float* guard, cudaStream_t stream) {
+// One pair's apply, guarded or not (guard NULL), in its plain or master
+// form (E: work non-NULL).
+template <int MK, int VK, bool E>
+void apply_form(void* p, void* work, const void* m0, const void* m1,
+                const void* v0, const void* v1, int64_t rows, float lr,
+                float bc1, float bc2, float eps, float wd, const float* guard,
+                cudaStream_t stream) {
   const int grid = rows_grid(rows);
   if (guard == nullptr)
-    arena_apply_kernel<MK, VK, false><<<grid, kThreads, 0, stream>>>(
-        (float4*)p, m0, m1, v0, v1, rows, lr, bc1, bc2, eps, wd, nullptr);
+    arena_apply_kernel<MK, VK, false, E><<<grid, kThreads, 0, stream>>>(
+        (float4*)p, (uint2*)work, m0, m1, v0, v1, rows, lr, bc1, bc2, eps,
+        wd, nullptr);
   else
-    arena_apply_kernel<MK, VK, true><<<grid, kThreads, 0, stream>>>(
-        (float4*)p, m0, m1, v0, v1, rows, lr, bc1, bc2, eps, wd, guard);
+    arena_apply_kernel<MK, VK, true, E><<<grid, kThreads, 0, stream>>>(
+        (float4*)p, (uint2*)work, m0, m1, v0, v1, rows, lr, bc1, bc2, eps,
+        wd, guard);
+}
+
+template <int MK, int VK>
+void apply(void* p, void* work, const void* m0, const void* m1,
+           const void* v0, const void* v1, int64_t rows, float lr, float bc1,
+           float bc2, float eps, float wd, const float* guard,
+           cudaStream_t stream) {
+  if (work == nullptr)
+    apply_form<MK, VK, false>(p, work, m0, m1, v0, v1, rows, lr, bc1, bc2,
+                              eps, wd, guard, stream);
+  else
+    apply_form<MK, VK, true>(p, work, m0, m1, v0, v1, rows, lr, bc1, bc2,
+                             eps, wd, guard, stream);
 }
 
 }  // namespace
@@ -764,14 +824,14 @@ int fold_dispatch(int mk, int vk, void* m0, void* m1, void* v0, void* v1,
   return (int)cudaGetLastError();
 }
 
-int apply_dispatch(int mk, int vk, void* p, const void* m0, const void* m1,
-                   const void* v0, const void* v1, int64_t rows, float lr,
-                   float bc1, float bc2, float eps, float wd,
-                   const void* guard, cudaStream_t st) {
+int apply_dispatch(int mk, int vk, void* p, void* work, const void* m0,
+                   const void* m1, const void* v0, const void* v1,
+                   int64_t rows, float lr, float bc1, float bc2, float eps,
+                   float wd, const void* guard, cudaStream_t st) {
   switch (mk * kVKinds + vk) {
 #define APPLY(MK, VK)                                                   \
   case MK * kVKinds + VK:                                               \
-    apply<MK, VK>(p, m0, m1, v0, v1, rows, lr, bc1, bc2, eps, wd,     \
+    apply<MK, VK>(p, work, m0, m1, v0, v1, rows, lr, bc1, bc2, eps, wd, \
                   (const float*)guard, st);                             \
     break;
     PAIRS(APPLY)
@@ -807,26 +867,30 @@ extern "C" int arena_fold_guarded_launch(int mk, int vk, void* m0, void* m1,
                        (cudaStream_t)stream);
 }
 
-// The guarded apply's extra argument: the device float ok (0 leaves p
-// untouched).
-extern "C" int arena_apply_launch(int mk, int vk, void* p, const void* m0,
-                                  const void* m1, const void* v0,
-                                  const void* v1, int64_t rows, float lr,
-                                  float bc1, float bc2, float eps, float wd,
+// The apply: p (the fp32 arena, or the master) and then work, the
+// (rows, 1024) bf16 working-param output of the master form, or NULL for
+// the plain form. The guarded apply's extra argument: the device float ok
+// (0 leaves p untouched; the master form still writes work = bf16(p)).
+extern "C" int arena_apply_launch(int mk, int vk, void* p, void* work,
+                                  const void* m0, const void* m1,
+                                  const void* v0, const void* v1,
+                                  int64_t rows, float lr, float bc1,
+                                  float bc2, float eps, float wd,
                                   void* stream) {
-  return apply_dispatch(mk, vk, p, m0, m1, v0, v1, rows, lr, bc1, bc2, eps,
-                        wd, nullptr, (cudaStream_t)stream);
+  return apply_dispatch(mk, vk, p, work, m0, m1, v0, v1, rows, lr, bc1, bc2,
+                        eps, wd, nullptr, (cudaStream_t)stream);
 }
 
 extern "C" int arena_apply_guarded_launch(int mk, int vk, void* p,
-                                          const void* m0, const void* m1,
-                                          const void* v0, const void* v1,
-                                          int64_t rows, float lr, float bc1,
-                                          float bc2, float eps, float wd,
+                                          void* work, const void* m0,
+                                          const void* m1, const void* v0,
+                                          const void* v1, int64_t rows,
+                                          float lr, float bc1, float bc2,
+                                          float eps, float wd,
                                           const void* guard, void* stream) {
   if (guard == nullptr) return (int)cudaErrorInvalidValue;
-  return apply_dispatch(mk, vk, p, m0, m1, v0, v1, rows, lr, bc1, bc2, eps,
-                        wd, guard, (cudaStream_t)stream);
+  return apply_dispatch(mk, vk, p, work, m0, m1, v0, v1, rows, lr, bc1, bc2,
+                        eps, wd, guard, (cudaStream_t)stream);
 }
 
 // x: the tensor's first byte; elem_bytes 4 (fp32) or 2 (bf16); head, n16 and

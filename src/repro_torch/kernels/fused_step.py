@@ -1,9 +1,9 @@
 """Arena-wide fused AdamA kernels: the whole-arena m/v fold (one launch per
 micro-batch), the slice fold of Algorithm 2 (one launch per layer and one
 for the rest region, per micro-batch) and the bias-corrected apply (one
-launch per mini-batch), for every ported (m codec, v codec) pair, each in
-an unguarded and a guarded form; and `finite_and`, the finite flag that
-the guarded forms read.
+launch per mini-batch, in a plain and a master-param form), for every
+ported (m codec, v codec) pair, each in an unguarded and a guarded form;
+and `finite_and`, the finite flag that the guarded forms read.
 
 Each function has two forms, side by side:
 
@@ -17,8 +17,7 @@ Each function has two forms, side by side:
   finite_and / finite_and_ref       ok <- ok AND every element finite.
 
 They replace the Pallas kernels of `repro/kernels/fused_step.py`, the
-folds on two gradient wires (the e4m3 wire and master params are not
-ported):
+folds on two gradient wires (the e4m3 wire is not ported):
 
   fp32        g is a float32 slab.
   bf16        g is a bfloat16 slab (core/arena.py packs it at half the
@@ -30,7 +29,14 @@ ported):
               `g.astype(float32) * s`). `grad_dtype=` declares the wire the
               caller packed; a slab of another dtype raises TypeError.
 
-and in two forms:
+The apply has a master-param form (`work_dtype=torch.bfloat16`, the
+reference's `emit_work`): p is the fp32 MASTER region, updated in place,
+and the same pass writes `work`, a (rows, LANES) bfloat16 arena of the new
+master rounded to nearest even (torch's and XLA's cast): the working params
+the next forward reads. The caller may pass the buffer (the engines' bf16
+working-param cache), or the wrapper allocates it.
+
+Every form comes unguarded and guarded:
 
   unguarded   host scalars: the static scale and the decay pair.
   guarded     `guard=`: a device float32 vector [dm, dv, ok, scale] for a
@@ -39,7 +45,8 @@ and in two forms:
               and with ok == 0 the call is a bitwise no-op on every state
               column, rowcol's column sums included, and on p (the
               reference's `_GuardedRef` and the apply's `where`, which also
-              drop the NaNs of a bc1 = 0 apply). The engines fill the
+              drop the NaNs of a bc1 = 0 apply); the master form then still
+              writes work = bf16(p) of the unchanged p. The engines fill the
               vector on the device and AND the finite flag into its ok
               with `finite_and`, so no flag is read on the host.
 
@@ -387,13 +394,15 @@ _P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
 # codec), ..., the CUDA stream. arena_fold_launch serves the whole-arena
 # fold (row offset 0) and the slice fold; g's pointer is followed by its
 # wire (WIRES); its (ranges, range_rows, scratch) serve rowcol's column
-# sums (0, 0, NULL for the other codecs). A guarded
+# sums (0, 0, NULL for the other codecs). arena_apply_launch takes p and
+# then the master form's bf16 work arena (NULL for the plain form) before
+# the moments' columns. A guarded
 # launcher takes the unguarded one's arguments and then the guard's
 # pointer. finite_and_launch: x, its element bytes, (head, n16, tail) of
 # `_finite_split`, ok, the stream.
 _FOLD_ARGS = (_I, _I, _P, _P, _P, _P, _P, _I, _I64, _I64, _I64, _I64, _P, _F,
               _F, _F, _F, _F)
-_APPLY_ARGS = (_I, _I, _P, _P, _P, _P, _P, _I64, _F, _F, _F, _F, _F)
+_APPLY_ARGS = (_I, _I, _P, _P, _P, _P, _P, _P, _I64, _F, _F, _F, _F, _F)
 SIGNATURES = {
     "arena_fold_launch": _FOLD_ARGS + (_P,),
     "arena_apply_launch": _APPLY_ARGS + (_P,),
@@ -710,19 +719,55 @@ def _apply_scalars(lr, bc1, bc2, eps, weight_decay):
 
 
 def apply_args(mk, vk, p, m_parts, v_parts, lr, bc1, bc2, eps,
-               weight_decay):
-    """Arguments of arena_apply_launch, the stream excepted."""
-    return (mk.kind, vk.kind, p.data_ptr(), *_ptrs(m_parts), *_ptrs(v_parts),
-            p.shape[0], *_apply_scalars(lr, bc1, bc2, eps, weight_decay))
+               weight_decay, work=None):
+    """Arguments of arena_apply_launch, the stream excepted; `work` is the
+    master form's bf16 output (None: the plain form, a NULL pointer)."""
+    return (mk.kind, vk.kind, p.data_ptr(),
+            None if work is None else work.data_ptr(), *_ptrs(m_parts),
+            *_ptrs(v_parts), p.shape[0],
+            *_apply_scalars(lr, bc1, bc2, eps, weight_decay))
+
+
+def _work_buffer(fn: str, p: torch.Tensor, work_dtype, work):
+    """The master form's output: None for the plain form (then `work` must
+    be None too); else the caller's `work`, checked (bfloat16, the kernel's
+    store; p's shape, contiguous, on p's device, 16-byte aligned on CUDA),
+    or a new torch.empty one. p must be the fp32 master (the reference's
+    assertion, made before any other check)."""
+    if work_dtype is None:
+        if work is not None:
+            raise ValueError(f"{fn}: work= is the master form's output; pass "
+                             f"work_dtype=torch.bfloat16 with it")
+        return None
+    if p.dtype != torch.float32:
+        raise TypeError(f"master-param apply requires an fp32 master region, "
+                        f"got {p.dtype}")
+    if work_dtype != torch.bfloat16:
+        raise TypeError(f"{fn}: work_dtype must be torch.bfloat16, got "
+                        f"{work_dtype}")
+    if work is None:
+        return torch.empty(p.shape, dtype=work_dtype, device=p.device)
+    if work.dtype != work_dtype or work.shape != p.shape:
+        raise ValueError(f"{fn}: work must be a {tuple(p.shape)} "
+                         f"{work_dtype} tensor, got {tuple(work.shape)} "
+                         f"{work.dtype}")
+    if not work.is_contiguous() or work.device != p.device:
+        raise ValueError(f"{fn}: work must be contiguous, on {p.device}")
+    if work.device.type == "cuda" and work.data_ptr() % 16:
+        raise ValueError(f"{fn}: CUDA operands must be 16-byte aligned")
+    return work
 
 
 def arena_apply_ref(p, m, v, *, lr, bc1, bc2, eps: float = 1e-8,
                     weight_decay: float = 0.0, m_codec="fp32",
-                    v_codec="fp32", guard=None):
+                    v_codec="fp32", work_dtype=None, work=None, guard=None):
     """Plain version of `arena_apply` (same operations, same order;
-    guarded, p is where-selected on ok)."""
+    guarded, p is where-selected on ok). The master form then writes
+    work = p.to(work_dtype) of the final p (bf16(p) where ok is 0) and
+    returns (p, work)."""
     mk, vk = kernel_codec("m", m_codec), kernel_codec("v", v_codec)
     (m_parts, _), (v_parts, _) = _as_parts(m), _as_parts(v)
+    work = _work_buffer("arena_apply", p, work_dtype, work)
     lr, bc1, bc2, eps, wd = _scalars_on(p.device, *_apply_scalars(
         lr, bc1, bc2, eps, weight_decay))
     ok = None if guard is None else guard.reshape(()) != 0
@@ -737,31 +782,41 @@ def arena_apply_ref(p, m, v, *, lr, bc1, bc2, eps: float = 1e-8,
         if weight_decay:
             u = fl(_fma32(wd, pf, u))
         _write((pc,), (fl(_fma32(-lr, u, pf)),), ok)
-    return p
+        if work is not None:
+            work[lo:hi].copy_(pc.to(work.dtype))
+    return p if work is None else (p, work)
 
 
 def arena_apply(p, m, v, *, lr, bc1, bc2, eps: float = 1e-8,
                 weight_decay: float = 0.0, m_codec="fp32", v_codec="fp32",
-                guard=None):
+                work_dtype=None, work=None, guard=None):
     """Bias-corrected Adam apply over the packed param arena, in place,
     decoding both moments in-pass:
     p = p - lr*(m/bc1 / (sqrt(v/bc2) + eps) + weight_decay*p). `guard` (the
     guarded form): a (1,) float32 device tensor; with 0.0 p keeps every
-    byte, whatever bc1 is. Returns p."""
+    byte, whatever bc1 is. Returns p.
+
+    `work_dtype=torch.bfloat16` selects the master-param form: p is the
+    fp32 master, and the same launch also writes the working params
+    work = bf16(p_new) (bf16(p) when the guard's ok is 0) into `work` (the
+    caller's (rows, LANES) bf16 buffer, e.g. the working-param cache) or
+    into a new one. Returns (p, work)."""
     mk, vk = kernel_codec("m", m_codec), kernel_codec("v", v_codec)
     (m_parts, _), (v_parts, _) = _as_parts(m), _as_parts(v)
+    work = _work_buffer("arena_apply", p, work_dtype, work)
     _check_state("arena_apply", mk, vk, m_parts, v_parts, p, p.shape[0])
     if guard is not None:
         _check_guard("arena_apply", guard, 1, p.device)
     if p.device.type == "cpu":
         return arena_apply_ref(p, m, v, lr=lr, bc1=bc1, bc2=bc2, eps=eps,
                                weight_decay=weight_decay, m_codec=mk,
-                               v_codec=vk, guard=guard)
+                               v_codec=vk, work_dtype=work_dtype, work=work,
+                               guard=guard)
     _launch("arena_apply", "arena_apply_launch", p,
             apply_args(mk, vk, p, m_parts, v_parts, lr, bc1, bc2, eps,
-                       weight_decay), guard)
+                       weight_decay, work), guard)
     arena_apply.launches += 1
-    return p
+    return p if work is None else (p, work)
 
 
 arena_apply.launches = 0

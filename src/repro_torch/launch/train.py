@@ -25,6 +25,10 @@
       --reduced --steps 3 --global-batch 8 --micro-batches 2 --seq-len 32 \
       --grad-dtype bf16 --loss-scale dynamic \
       --inject-fault nan@micro=1,step=1 --log-every 1 --device cpu
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \
+      --reduced --steps 3 --global-batch 8 --micro-batches 2 --seq-len 32 \
+      --master-params --work-param-cache --log-every 1 --device cpu
 """
 from __future__ import annotations
 
@@ -71,6 +75,15 @@ def main(argv=None):
                          "halves the packed gradient slab; the fold kernels "
                          "upcast in-kernel); requires arena state, not "
                          "'ga'; fp8_e4m3 is not ported")
+    ap.add_argument("--master-params", action="store_true",
+                    help="fp32 master params packed in the arena; the fused "
+                         "apply emits bf16 working params (AMP contract); "
+                         "requires arena state (not --per-leaf)")
+    ap.add_argument("--work-param-cache", action="store_true",
+                    help="bf16 working-param cache in the arena "
+                         "(state['wp']): the engines source step params "
+                         "from it, skipping the per-step pack of the "
+                         "params; requires --master-params")
     ap.add_argument("--finite-guard", action="store_true",
                     help="fused finite guards: skip non-finite micro-batches "
                          "bitwise (arena state)")
@@ -105,6 +118,8 @@ def main(argv=None):
                                   state_codec=args.state_codec,
                                   m_codec=args.m_codec,
                                   grad_dtype=args.grad_dtype,
+                                  master_params=args.master_params,
+                                  work_param_cache=args.work_param_cache,
                                   finite_guard=(args.finite_guard
                                                 or args.loss_scale != "off"),
                                   loss_scale=args.loss_scale,

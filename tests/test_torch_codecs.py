@@ -373,7 +373,9 @@ def test_codec_launch_arguments_match_the_declared_c_signatures(m_codec,
                                                                 v_codec):
     """ctypes converts every argument the codec wrappers pass: the kinds
     and g's wire as int, a one-column codec's second pointer as NULL, the
-    slice's offset and rows as int64, the scalars as float32."""
+    slice's offset and rows as int64, the scalars as float32. The apply's
+    p is followed by the master form's work pointer (NULL for the plain
+    form), so its moments' pointers sit one position later."""
     import ctypes
     mk, vk = tfs.kernel_codec("m", m_codec), tfs.kernel_codec("v", v_codec)
     tm, tv, g, p = _port_arenas(m_codec, v_codec, 8)
@@ -392,9 +394,13 @@ def test_codec_launch_arguments_match_the_declared_c_signatures(m_codec,
         assert proto(lambda *a: got.append(a) or 0)(*args, 0) == 0
         calls[name] = got[0]
         assert got[0][:2] == (mk.kind, vk.kind)
-        ptrs = got[0][2:7]
-        assert ptrs[0] == (mp[0].data_ptr() if name.startswith("arena_fold")
-                           else p.data_ptr())
+        if name.startswith("arena_fold"):
+            ptrs = got[0][2:7]
+            assert ptrs[0] == mp[0].data_ptr()
+        else:
+            assert got[0][2:4] == (p.data_ptr(), None)
+            ptrs = (p.data_ptr(),) + got[0][4:8]
+            assert got[0][8] == p.shape[0]
         assert sum(x is None for x in ptrs) == 4 - len(mp) - len(vp)
         assert got[0][len(args) - 5:len(args)] == tuple(
             float(np.float32(s)) for s in args[-5:])

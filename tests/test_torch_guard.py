@@ -698,12 +698,17 @@ def _jax_config_error(**kw):
          loss_scale="dynamic"),
     dict(arena=True, grad_dtype="bf16", finite_guard=True,
          loss_scale="dynamic", accumulation="ga"),
-    dict(arena=True, grad_dtype="fp16", finite_guard=True)])
+    dict(arena=True, grad_dtype="fp16", finite_guard=True),
+    # master params without the arena (checked before the guard's
+    # refusal), the working-param cache without master params
+    dict(arena=False, master_params=True, finite_guard=True),
+    dict(arena=True, work_param_cache=True, finite_guard=True)])
 def test_guard_config_checks_match_the_reference(kw):
     """Each refusal raises the reference's message: a loss scale on the
     fp32 wire or without the guard, the guard without the arena, the bf16
-    wire without the arena or with ga (tests/test_torch_wire.py walks the
-    whole grid)."""
+    wire without the arena or with ga, master params without the arena,
+    the cache without master params (tests/test_torch_wire.py and
+    tests/test_torch_master.py walk the whole grids)."""
     with pytest.raises(ValueError) as t:
         OptimizerConfig(**kw)
     assert str(t.value) == _jax_config_error(**kw)

@@ -133,7 +133,10 @@ def test_launch_arguments_match_the_declared_c_signatures(entry):
     """ctypes converts every argument the fp32/fp32 wrappers pass (the
     kinds and g's wire as int, pointers as c_void_p, a one-column codec's
     second pointer as NULL, the row offset and rows as int64, scalars as
-    float32); the whole-arena fold passes row offset 0."""
+    float32); the whole-arena fold passes row offset 0. The apply's p is
+    followed by the master form's work pointer, NULL for the plain form,
+    so its moments' pointers and what follows them sit one position
+    later."""
     x = torch.zeros(8, tfs.LANES)
     fp32 = tfs.kernel_codec("m", "fp32"), tfs.kernel_codec("v", "fp32")
     if entry == "arena_apply":
@@ -154,11 +157,13 @@ def test_launch_arguments_match_the_declared_c_signatures(entry):
     assert proto(lambda *a: got.append(a) or 0)(*args, 0) == 0
     assert got[0][:2] == (0, 0)
     x0 = x.data_ptr()
-    assert got[0][2:7] == ((x0, x0, None, x0, None) if entry == "arena_apply"
-                           else (x0, None, x0, None, x0))
-    assert got[0][7:7 + len(ints)] == ints
-    assert got[0][7 + len(ints):len(args)] == tuple(
-        float(np.float32(s)) for s in args[7 + len(ints):])
+    ptrs = (x0, None, x0, None, x0, None) if entry == "arena_apply" \
+        else (x0, None, x0, None, x0)
+    assert got[0][2:2 + len(ptrs)] == ptrs
+    at = 2 + len(ptrs)
+    assert got[0][at:at + len(ints)] == ints
+    assert got[0][at + len(ints):len(args)] == tuple(
+        float(np.float32(s)) for s in args[at + len(ints):])
 
 
 def test_first_moment_coefficient_is_rounded_from_double():
