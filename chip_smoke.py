@@ -88,6 +88,23 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      ok = 0 the master keeps every byte and the work is bf16 of it. Then
      fp32/fp32 and int8/rowcol at the stablelm arena, bit for bit over the
      whole arena, timed in turns beside the plain-form apply.
+   - the fp8 (e4m3) gradient wire: fp8_encode (the error-feedback residual
+     injected at S = 1, 2^15 and 1000, and without it) on 64-row slabs with
+     the codec edge rows, a row whose max is 1e-37 (the scale's fallback),
+     a row of e4m3 ties +-1 ulp whose max lands on 448 (scale 1.0), a NaN
+     row beside a finite 1000 and +inf and -inf rows, codes (NaN codes
+     compared as NaN), scales and the finite flag bit for bit against the
+     plain version; the kernel's conversion against the card's torch cast
+     on the tie row; fp8_ef_update with ok = 1 and ok = 0; every pair's
+     e4m3 fold and slice fold of those codes (zero, subnormal and +-448
+     codes, scales 1.0 and 1e-37), unguarded, guarded ok = 1 at the traced
+     scale and ok = 0 on NaN codes, on the 64-row edge arena and for the
+     rowcol pairs on 1,000 rows, bit for bit. Then at the stablelm arena:
+     fp8_encode with the residual and fp8_ef_update, bit for bit over the
+     whole arena and timed; the e4m3 fold, a layer slice and the rest slice
+     for fp32/fp32 and int8/rowcol, bit for bit and timed in turns beside
+     the bf16 wire; torch.profiler counts one device kernel per call of the
+     encode, the update and each pair's e4m3 fold.
 4. A small-input check: reduced bert-large trained 2 steps on the card
    (kernels) and on the CPU (plain versions) from the same params agree,
    for adama, adama_layerwise (arena and per-leaf state) and per-leaf
@@ -144,6 +161,19 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    bf16(master), and the cache too; each path launches its twin's kernels
    per step and peaks at most its twin's peak + its new regions' bytes
    (as the caching allocator holds them: rounded up to 2 MiB) + 1 MiB.
+   Last, the fp8 e4m3 gradient wire with its error-feedback residual
+   (grad_dtype="fp8_e4m3", guarded), 3 steps each: `adama` fp32 clean,
+   with a NaN and with a forced skip at micro-batch 3 of step 1, and
+   `adama_layerwise` int8/rowcol with dynamic loss scaling and a NaN there,
+   each beside its fp32-wire guarded twin: the twin's step-1 loss bit for
+   bit; per micro-batch an encode, a fold and a residual update per slab
+   (and the layer-wise pre-backward finite_and); params after step 1
+   within the pair's declared fp8_wire_lr x lr of the twin's, the update's
+   sign the twin's on at least 99% of the params whose twin update exceeds
+   lr / 2; NaN == skip bit for bit on params, m, v and ef (digests); a
+   finite, non-zero residual; the dynamic scale at 2^14; a peak at most the
+   twin's + the residual + the largest codes buffer (each as allocated) +
+   1 MiB.
 
 The last three lines are a JSON object with every kernel's numbers, the
 card's name and power limit, and the JSON result line
@@ -238,7 +268,15 @@ PATHS = {"adama": ("bert_large", "adama", True, 5, FP32),
          "stablelm_adama_layerwise_int8_rowcol_bf16_master_wp": (
              "stablelm_1_6b", "adama_layerwise", True, 3, ("int8", "rowcol")),
          "stablelm_ga_guarded_master_nan": ("stablelm_1_6b", "ga", True, 2,
-                                            FP32)}
+                                            FP32),
+         "stablelm_adama_guarded_fp8": ("stablelm_1_6b", "adama", True, 3,
+                                        FP32),
+         "stablelm_adama_guarded_fp8_nan": ("stablelm_1_6b", "adama", True,
+                                            3, FP32),
+         "stablelm_adama_guarded_fp8_skip": ("stablelm_1_6b", "adama", True,
+                                             3, FP32),
+         "stablelm_adama_layerwise_int8_rowcol_guarded_fp8_dynamic_nan": (
+             "stablelm_1_6b", "adama_layerwise", True, 3, ("int8", "rowcol"))}
 # the master-param paths (master_params=True): path -> (work_param_cache,
 # gradient wire, its twin without master params). Each must launch what its
 # twin launches per step, hold its param leaves at exactly bf16(master)
@@ -286,8 +324,40 @@ WIRE_PEAK_SLACK = 1 << 20
 # once by the skipped micro-batch, and no growth in the step after it
 # (scaler_growth_interval 200 good micro-batches)
 WIRE_LOSS_SCALE = {"stablelm_adama_guarded_bf16_dynamic_nan": 2.0 ** 14}
+# the fp8-wire paths (grad_dtype="fp8_e4m3" with error feedback, guarded):
+# path -> (loss_scale, its fp32-wire twin). Each must reach its twin's
+# step-1 loss bit for bit (the forward never sees the wire), launch per
+# step an encode, a fold and a residual update per slab where the twin
+# launches finite_and and a fold (`_expected_launches`), hold its params
+# after step 1 within the pair's declared (fp8_wire_lr of m + of v) x lr
+# of the twin's and agree with the sign of the twin's step-1 update on at
+# least FP8_SIGN_SHARE of the params whose twin update exceeds lr / 2 (a
+# missing, doubled or unscaled grad_scale moves the update by a factor, so
+# the bound alone would not catch it), keep a finite, non-zero residual,
+# and peak at most its twin's peak + the residual (FP8_EF_BYTES) + the
+# largest codes buffer (FP8_CODES_BYTES: the whole arena's codes for
+# adama, the rest slab's for adama_layerwise), each as the caching
+# allocator holds it (`_allocator_bytes`), + FP8_PEAK_SLACK
+FP8 = {"stablelm_adama_guarded_fp8": ("off", "stablelm_adama_guarded"),
+       "stablelm_adama_guarded_fp8_nan": ("off",
+                                          "stablelm_adama_guarded_nan"),
+       "stablelm_adama_guarded_fp8_skip": ("off",
+                                           "stablelm_adama_guarded_skip"),
+       "stablelm_adama_layerwise_int8_rowcol_guarded_fp8_dynamic_nan": (
+           "dynamic", "stablelm_adama_layerwise_int8_rowcol_guarded_nan")}
+FP8_PEAK_SLACK = 1 << 20
+FP8_SIGN_SHARE = 0.99
+# the stablelm arena's fp32 residual (1,607,424 x 1024 x 4 B), and the
+# largest e4m3 codes buffer of each engine: the whole arena's (adama), the
+# rest region's slab of 401,472 rows (adama_layerwise)
+FP8_EF_BYTES = 6_584_008_704
+FP8_CODES_BYTES = {"adama": 1_646_002_176, "adama_layerwise": 411_107_328}
+# the dynamic path's loss scale after its steps (2^15 halved once)
+FP8_LOSS_SCALE = {
+    "stablelm_adama_layerwise_int8_rowcol_guarded_fp8_dynamic_nan": 2.0 ** 14}
 # the guarded paths (finite_guard=True): path -> (the fault injected, its
-# unguarded twin); each must peak at most GUARD_PEAK_SLACK above its twin.
+# unguarded twin); each must peak at most GUARD_PEAK_SLACK above its twin
+# (the master and fp8 paths excepted: MASTER and FP8 hold theirs).
 # The faults fire in step 1 (0-based) of 3, so a step runs after each skip
 # and the digests see what the guard left for it (the good count moving
 # the decay, the step counter)
@@ -305,7 +375,10 @@ GUARDED = {
     "stablelm_adama_guarded_bf16_dynamic_nan": (
         "nan@micro=3,step=1", "stablelm_adama_guarded_nan"),
     # its peak is held by MASTER, against stablelm_ga_guarded_nan's
-    "stablelm_ga_guarded_master_nan": ("nan@micro=0,step=0", "stablelm_ga")}
+    "stablelm_ga_guarded_master_nan": ("nan@micro=0,step=0", "stablelm_ga"),
+    **{p: (f"{'skip' if p.endswith('skip') else 'nan'}@micro=3,step=1"
+           if p.endswith(("nan", "skip")) else None, twin)
+       for p, (_, twin) in FP8.items()}}
 GUARD_PEAK_SLACK = 1 << 20
 # the bitwise claims on the guarded paths, over a digest of the params, m
 # and v bytes computed on the card: (path, path, equal?)
@@ -318,7 +391,11 @@ GUARD_DIGESTS = (
     ("stablelm_adama_layerwise_int8_rowcol_guarded_nan",
      "stablelm_adama_layerwise_int8_rowcol_guarded_skip", True),
     ("stablelm_adama_layerwise_int8_rowcol_guarded_nan",
-     "stablelm_adama_layerwise_int8_rowcol", False))
+     "stablelm_adama_layerwise_int8_rowcol", False),
+    # the fp8 wire: the digest covers the residual "ef" too
+    ("stablelm_adama_guarded_fp8_nan", "stablelm_adama_guarded_fp8_skip",
+     True),
+    ("stablelm_adama_guarded_fp8_nan", "stablelm_adama_guarded_fp8", False))
 # skipped micro-batches each guarded path must report after its steps, and
 # its final step counter
 GUARD_SKIPS = {"stablelm_adama_guarded": (0, 3),
@@ -331,7 +408,12 @@ GUARD_SKIPS = {"stablelm_adama_guarded": (0, 3),
                # fault fires again
                "stablelm_ga_guarded_nan": (2, 0),
                "stablelm_adama_guarded_bf16_dynamic_nan": (1, 3),
-               "stablelm_ga_guarded_master_nan": (2, 0)}
+               "stablelm_ga_guarded_master_nan": (2, 0),
+               "stablelm_adama_guarded_fp8": (0, 3),
+               "stablelm_adama_guarded_fp8_nan": (1, 3),
+               "stablelm_adama_guarded_fp8_skip": (1, 3),
+               "stablelm_adama_layerwise_int8_rowcol_guarded_fp8_dynamic_nan":
+                   (1, 3)}
 # the compressed-state pairs timed at the full stablelm arena, and the main
 # path each one's launches are read from
 TIMED_CODEC_PAIRS = {("int8", "int8"): "stablelm_adama_int8",
@@ -384,6 +466,14 @@ KERNELS = {
     "finite_and": ("fused_step", "src/repro_torch/kernels/csrc/fused_step.cu",
                    "src/repro/kernels/fused_step.py:396",
                    "stablelm_adama_guarded"),
+    # the fp8 wire's encode (the residual injected first) and the
+    # residual's update; the TPU package computes both in plain jnp
+    "fp8_encode": ("fp8_wire", "src/repro_torch/kernels/csrc/fp8_wire.cu",
+                   "src/repro/kernels/adama_accum.py:99",
+                   "stablelm_adama_guarded_fp8"),
+    "fp8_ef_update": ("fp8_wire", "src/repro_torch/kernels/csrc/fp8_wire.cu",
+                      "src/repro/core/accumulation.py:340",
+                      "stablelm_adama_guarded_fp8"),
 }
 
 
@@ -1163,12 +1253,14 @@ def _tree_leaves(tree):
 
 def _state_tensors(out):
     """The tensors a run's digest covers: the param leaves (sorted paths),
-    then every column of m and v."""
+    then every column of m and v, then the fp8 wire's residual where the
+    state has one."""
     from repro_torch.core import state_store
     state = out["opt_state"]
     cols = [x for mo in ("m", "v")
             for x in state_store.codec_of(state[mo], mo).parts_of(state[mo])]
-    return _tree_leaves(out["params"]) + cols
+    ef = [state["ef"].data] if "ef" in state else []
+    return _tree_leaves(out["params"]) + cols + ef
 
 
 # the guarded forms timed at the stablelm-1.6b arena beside the unguarded
@@ -1328,16 +1420,18 @@ def check_guard_timed(torch, fused_step, layout):
     return out, fin
 
 
-PROFILE_GUARD_FLAG = "--profile-guard"
+PROFILE_FLAG = "--profile-kernels"
 
 
-def profile_guard_child(torch, fused_step):
-    """(Run by guard_kernels_per_call in a fresh process, whose profiler
+def profile_child(torch, fused_step, fp8_wire):
+    """(Run by child_kernels_per_call in a fresh process, whose profiler
     session is its first: in a process that has run for minutes,
     torch.profiler delivered no records at all to a session, three
-    attempts in a row, on the H100.) The device kernels of finite_and plus
-    one guarded fold, fp32/fp32 and int8/rowcol, at the bert-large arena's
-    rows; prints them as one JSON line."""
+    attempts in a row, on the H100.) At the bert-large arena's rows, the
+    device kernels of finite_and plus one guarded fold, fp32/fp32 and
+    int8/rowcol; and of one fp8_encode (with the residual), one
+    fp8_ef_update and one e4m3 fold of each of FP8_TIMED_PAIRS; prints them
+    as one JSON line."""
     rows = MAIN["bert_large"]["arena_rows"]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(24)
@@ -1363,24 +1457,46 @@ def profile_guard_child(torch, fused_step):
         out[f"{m_codec}/{v_codec}"] = _profile_expect(
             torch, f"finite_and + guarded fold {m_codec}/{v_codec}",
             guarded_fold, {"finite_and_kernel": 1, fold_kernel: 1})
-    print(json.dumps({"guard_kernels": out}), flush=True)
+    ef = torch.randn((rows, LANES), generator=gen, device="cuda") * 1e-5
+    s = torch.tensor([2.0 ** 15], device="cuda")
+    ok = torch.ones(1, device="cuda")
+    q, gs = fp8_wire.fp8_encode(g, ef=ef, scale=s, ok=ok)
+    fp8 = {"fp8_encode": _profile_expect(
+               torch, "fp8_encode", lambda: fp8_wire.fp8_encode(
+                   g, ef=ef, scale=s, ok=ok), {"fp8_encode_kernel": 1}),
+           "fp8_ef_update": _profile_expect(
+               torch, "fp8_ef_update", lambda: fp8_wire.fp8_ef_update(
+                   ef, g, q, gs, scale=s, ok=ok), {"fp8_ef_update_kernel": 1})}
+    del ef
+    for m_codec, v_codec in FP8_TIMED_PAIRS:
+        m, v = _wire_state(torch, gen, m_codec, v_codec, rows)
+        fold_kernel = ("rowcol_fold_kernel" if v_codec == "rowcol"
+                       else "arena_fold_kernel")
+        fp8[f"arena_fold e4m3 {m_codec}/{v_codec}"] = _profile_expect(
+            torch, f"e4m3 fold {m_codec}/{v_codec}",
+            lambda: fused_step.arena_fold(
+                m, v, q, beta1=0.9, beta2=0.999, scale=0.125, grad_scale=gs,
+                m_codec=m_codec, v_codec=v_codec), {fold_kernel: 1})
+    print(json.dumps({"guard_kernels": out, "fp8_kernels": fp8}), flush=True)
 
 
-def guard_kernels_per_call():
+def child_kernels_per_call():
     """finite_and + one guarded fold run two device kernels (the guard adds
-    none to the fold), counted by torch.profiler in a fresh process
-    (profile_guard_child). Returns {pair: {kernel: device ms}}."""
+    none to the fold), and fp8_encode, fp8_ef_update and an e4m3 fold one
+    each, counted by torch.profiler in a fresh process (profile_child).
+    Returns ({pair: {kernel: device ms}}, {call: {kernel: device ms}})."""
     proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                           PROFILE_GUARD_FLAG], capture_output=True,
+                           PROFILE_FLAG], capture_output=True,
                           text=True, timeout=600)
     for line in proc.stdout.splitlines():
         if line.startswith('{"phase"'):
             log(line)
     if proc.returncode != 0:
-        raise AssertionError(f"the guard's profiler check failed (exit "
+        raise AssertionError(f"the profiler check failed (exit "
                              f"{proc.returncode}):\n{proc.stdout[-3000:]}"
                              f"\n{proc.stderr[-3000:]}")
-    return json.loads(proc.stdout.strip().splitlines()[-1])["guard_kernels"]
+    found = json.loads(proc.stdout.strip().splitlines()[-1])
+    return found["guard_kernels"], found["fp8_kernels"]
 
 
 # finite_and's slabs: the stablelm-1.6b arena (its first), a layer's and the
@@ -1483,20 +1599,28 @@ def _kernels_of_calls(torch, calls):
 
 
 def _wire_cases(torch, rows, b1, b2):
-    """The calls each pair runs on the bf16 wire: (form, label, guarded ok
-    or None, call(fn, state, slab)) for the whole-arena fold (with the
-    decay at scale 1, and at scale 0.25), the slice fold of rows [lo, hi)
-    (decay, scale 1/8) and both guarded at the traced scale, ok = 1 and
-    ok = 0."""
+    """The calls each pair runs on the bf16 or the e4m3 wire: (form, label,
+    guarded ok or None, call(fn, state, slab, scales=None)) for the
+    whole-arena fold (with the decay at scale 1, and at scale 0.25), the
+    slice fold of rows [lo, hi) (decay, scale 1/8) and both guarded at the
+    traced scale, ok = 1 and ok = 0; `scales`, the e4m3 slab's scale
+    column, goes in as grad_scale (its rows taken as the slab's are)."""
     block = 8
     lo, hi = block * (rows // (4 * block)), block * (3 * rows // (4 * block))
 
+    def gs(scales, rows_of=lambda x: x):
+        return {} if scales is None else {"grad_scale": rows_of(scales)}
+
+    def flipped(x):
+        return x[:hi - lo].flip(0).contiguous()
+
     def fold(**kw):
-        return lambda fn, st, gg: fn(*st, gg, **kw)
+        return lambda fn, st, gg, scales=None: fn(*st, gg, **gs(scales),
+                                                  **kw)
 
     def slice_fold(**kw):
-        return lambda fn, st, gg: fn(*st, gg[:hi - lo].flip(0).contiguous(),
-                                     lo, block=block, **kw)
+        return lambda fn, st, gg, scales=None: fn(
+            *st, flipped(gg), lo, block=block, **gs(scales, flipped), **kw)
     cases = [("arena_fold", "decay, scale 1", None,
               fold(scale=1.0, decay=(b1, b2))),
              ("arena_fold", "scale 0.25", None, fold(scale=0.25)),
@@ -1757,12 +1881,12 @@ def _time_finite_and_bf16(torch, fused_step, x):
     return entry
 
 
-def _wire_forms(name, checked, timed, counts):
-    """The `kernels` line's bf16-wire forms of one fold kernel: the pairs
-    and cases checked bit for bit on the small arenas; the timed pairs'
-    numbers at the stablelm arena beside the fp32-wire kernel's; the
-    launches of the bf16-wire main paths."""
-    return {"wire": "bf16",
+def _wire_forms(name, checked, timed, counts, wire="bf16", paths=WIRE):
+    """The `kernels` line's forms of one fold kernel on a narrower wire
+    (bf16: WIRE's paths; e4m3: FP8's): the pairs and cases checked bit for
+    bit on the small arenas; the timed pairs' numbers at the stablelm arena
+    beside the wider wire's; the launches of the wire's main paths."""
+    return {"wire": wire,
             "bitwise_pairs": sorted({pr for k, pr, _ in checked
                                      if k == name}),
             "bitwise_cases": sum(k == name for k, _, _ in checked),
@@ -1771,7 +1895,7 @@ def _wire_forms(name, checked, timed, counts):
                            by_case=entries)
                       for pair, entries in timed.items()],
             "launches_by_wire_path": {p: counts[p][name]
-                                      for p in WIRE if p in counts}}
+                                      for p in paths if p in counts}}
 
 
 # ---------------------------------------------------------------------------
@@ -1956,6 +2080,350 @@ def _master_forms(checked, timed, counts, transient):
             "launches_by_master_path": {p: counts[p]["arena_apply"]
                                         for p in MASTER if p in counts},
             "work_bytes_allocated_per_apply": transient}
+
+
+# ---------------------------------------------------------------------------
+# The fp8 (e4m3) gradient wire
+# ---------------------------------------------------------------------------
+
+FP8_MAX = 448.0
+# the residual's injection scales of the encode and update checks: none,
+# the dynamic scaler's start, a static scale that is no power of two
+FP8_SCALES = (1.0, 2.0 ** 15, 1000.0)
+
+
+def _e4m3_row(torch):
+    """A row of LANES float32 values at e4m3's rounding edges: 448 first
+    (so that the row's scale is 448 * f32(1/448) = 1.0 exactly and x / s is
+    x), then the midpoint of every two neighbouring finite e4m3 values (0
+    and the least subnormal code included) and one float32 ulp either side
+    of it, both signs; zeros after them."""
+    v = torch.arange(0x7f, dtype=torch.uint8, device="cuda").view(
+        torch.float8_e4m3fn).float()
+    mid = (v[:-1] + v[1:]) / 2                  # exact: 4 significant bits
+    pos = torch.cat([mid, torch.nextafter(mid, mid + 1.0),
+                     torch.nextafter(mid, mid - 1.0)])
+    row = torch.zeros(LANES, device="cuda")
+    row[0] = FP8_MAX
+    row[1:1 + 2 * pos.numel()] = torch.cat([pos, -pos])
+    return row
+
+
+def _fp8_slabs(torch, rows, seed):
+    """A finite fp32 slab of `rows` rows and its copy with non-finite rows:
+    rows 0-5 the codec edge rows of `_edge_arenas` (row 0 zero: scale 1.0),
+    row 6 a row whose max is 1e-37 (its max / 448 is subnormal: the scale
+    falls back to the max), row 7 `_e4m3_row` (ties +-1 ulp, the max on
+    448, subnormal codes); in the copy, row 8 holds a NaN and a finite
+    1000.0 (scale 1.0, the code saturates at 448), rows 9 and 10 a +inf
+    and a -inf."""
+    _, _, g, _ = _edge_arenas(torch, rows, seed)
+    g[6] = g[6].clamp(-1.0, 1.0) * 1e-37
+    g[6, 0] = 1e-37
+    g[7] = _e4m3_row(torch)
+    bad = g.clone()
+    bad[8, 5] = float("nan")
+    bad[8, 9] = 1000.0
+    bad[9, 3] = float("inf")
+    bad[10, 700] = -float("inf")
+    return g, bad
+
+
+def _codes_equal(torch, a, b):
+    """e4m3 codes equal bit for bit, or both NaN (a NaN's sign bit is the
+    divide's on each side)."""
+    x, y = a.view(torch.uint8), b.view(torch.uint8)
+    nan_x, nan_y = (x & 0x7F) == 0x7F, (y & 0x7F) == 0x7F
+    return bool(nan_x.equal(nan_y)) and bool(x[~nan_x].equal(y[~nan_y]))
+
+
+def _check_encode(torch, fp8_wire, label, slab, ef, s, checked):
+    """fp8_encode against its plain version on `slab` (the residual `ef`
+    injected at the scale s, or none): codes (NaN-aware), scales and the
+    flag bit for bit; the flag clear exactly where the slab or the
+    injection holds a non-finite value. Returns (codes, scales)."""
+    scale = torch.tensor([s], device="cuda")
+    ok, okr = torch.ones(1, device="cuda"), torch.ones(1, device="cuda")
+    qk, sk = fp8_wire.fp8_encode(slab, ef=ef, scale=scale, ok=ok)
+    qr, sr = fp8_wire.fp8_encode_ref(slab, ef=ef, scale=scale, ok=okr)
+    torch.cuda.synchronize()
+    if not _codes_equal(torch, qk, qr):
+        diff = int((qk.view(torch.uint8) != qr.view(torch.uint8)).sum())
+        raise AssertionError(f"fp8_encode {label}: codes differ at {diff} "
+                             f"elements")
+    _compare_bits(torch, "fp8_encode", f"{label} scales", [(sk, sr)])
+    x = slab if ef is None else torch.addcmul(slab, ef, scale)
+    want = float(bool(torch.isfinite(x).all()))
+    if ok.item() != okr.item() or ok.item() != want:
+        raise AssertionError(f"fp8_encode {label}: flag {ok.item()}, plain "
+                             f"{okr.item()}, expected {want}")
+    checked.append(("fp8_encode", label))
+    return qk, sk
+
+
+def _check_ef_update(torch, fp8_wire, label, slab, ef, codes, gs, s, ok,
+                     checked):
+    """fp8_ef_update against its plain version, bit for bit; with ok = 0
+    the residual keeps every byte."""
+    scale = torch.tensor([s], device="cuda")
+    flag = torch.tensor([1.0 if ok else 0.0], device="cuda")
+    ek, er = ef.clone(), ef.clone()
+    fp8_wire.fp8_ef_update(ek, slab, codes, gs, scale=scale, ok=flag)
+    fp8_wire.fp8_ef_update_ref(er, slab, codes, gs, scale=scale, ok=flag)
+    torch.cuda.synchronize()
+    _compare_bits(torch, "fp8_ef_update", label, [(ek, er)])
+    if not ok and not _bits_equal(torch, ek, ef):
+        raise AssertionError(f"fp8_ef_update {label}: ok = 0 changed ef")
+    checked.append(("fp8_ef_update", label))
+
+
+def check_fp8_encode_small(torch, fp8_wire, checked):
+    """The encode with and without the residual at each of FP8_SCALES and
+    the residual's update with ok = 1 and ok = 0, on the 64-row edge slabs
+    (`_fp8_slabs`); and the kernel's conversion against the card's own
+    torch cast on `_e4m3_row`."""
+    g, bad = _fp8_slabs(torch, CODEC_SMALL_ROWS, 51)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(52)
+    ef = torch.randn(g.shape, generator=gen, device="cuda") * 1e-3
+    ef[0] = 0.0
+    q, s = _check_encode(torch, fp8_wire, "no residual", g, None, 1.0,
+                         checked)
+    _check_encode(torch, fp8_wire, "no residual, non-finite rows", bad, None,
+                  1.0, checked)
+    want = [1.0, g[6].abs().max().item(), 1.0]
+    if [s[0].item(), s[6].item(), s[7].item()] != want:
+        raise AssertionError(f"fp8_encode: the zero, 1e-37 and tie rows' "
+                             f"scales are {s[0].item()}, {s[6].item()}, "
+                             f"{s[7].item()}; expected {want} (1.0, the "
+                             f"row's max, 1.0)")
+    cast = g[7].to(torch.float8_e4m3fn)
+    if not q[7].view(torch.uint8).equal(cast.view(torch.uint8)):
+        raise AssertionError("fp8_encode: the kernel's conversion != torch's "
+                             "cast on the card at e4m3's rounding edges")
+    checked.append(("fp8_encode", "tie sweep vs torch's cast on the card"))
+    for sc in FP8_SCALES:
+        qe, se = _check_encode(torch, fp8_wire, f"residual at S={sc:g}", g,
+                               ef, sc, checked)
+        qb, sb = _check_encode(torch, fp8_wire, f"residual at S={sc:g}, "
+                               "non-finite rows", bad, ef, sc, checked)
+        _check_ef_update(torch, fp8_wire, f"S={sc:g} ok=1", g, ef, qe, se,
+                         sc, True, checked)
+        _check_ef_update(torch, fp8_wire, f"S={sc:g} ok=0, non-finite rows",
+                         bad, ef, qb, sb, sc, False, checked)
+
+
+def _check_fp8_fold_arena(torch, fused_step, fp8_wire, adama_accum, m_codec,
+                          v_codec, rows, seed, checked):
+    """A pair's folds of e4m3 codes (`_wire_cases`) on an arena of
+    `rows` rows with the edge rows, each from the same state, the kernel
+    against its plain version bit for bit; ok = 0 (codes holding NaN codes)
+    writes nothing. The codes are the encode of `_fp8_slabs`' slabs: zero
+    codes, subnormal codes, +-448, the scale 1.0 of the zero and tie rows
+    and the 1e-37 of the fallback row."""
+    pair = f"{m_codec}/{v_codec}"
+    b1, b2 = 0.9, 0.999
+    m, v, _, _ = _edge_arenas(torch, rows, seed)
+    g, bad = _fp8_slabs(torch, rows, seed + 1)
+    q, s = fp8_wire.fp8_encode(g)
+    qb, sb = fp8_wire.fp8_encode(bad)
+    mk, vk = _encode(adama_accum, "m", m_codec, m), \
+        _encode(adama_accum, "v", v_codec, v)
+    kw = dict(beta1=b1, beta2=b2, m_codec=m_codec, v_codec=v_codec)
+    fns = {"arena_fold": (fused_step.arena_fold, fused_step.arena_fold_ref),
+           "arena_fold_slice": (fused_step.arena_fold_slice,
+                                fused_step.arena_fold_slice_ref)}
+    for name, label, ok, call in _wire_cases(torch, rows, b1, b2):
+        kern, plain = fns[name]
+        codes, scales = (q, s) if ok is not False else (qb, sb)
+        sk, sr = ((_clone(mk), _clone(vk)) for _ in range(2))
+        call(functools.partial(kern, grad_dtype=torch.float8_e4m3fn, **kw),
+             sk, codes, scales)
+        call(functools.partial(plain, **kw), sr, codes, scales)
+        torch.cuda.synchronize()
+        _compare_bits(torch, name, f"e4m3 {pair} {rows} rows {label}",
+                      list(zip(sk, sr)))
+        if ok is False and not all(_bits_equal(torch, x, y)
+                                   for x, y in zip(sk, (mk, vk))):
+            raise AssertionError(f"{name} e4m3 {pair} {label}: ok = 0 "
+                                 f"changed the state")
+        checked.append((name, pair, f"e4m3 {rows} rows {label}"))
+
+
+def check_fp8_small(torch, fused_step, fp8_wire, adama_accum):
+    """Phase 3, the fp8 wire: the encode and the residual's update
+    (`check_fp8_encode_small`), then every (m, v) pair's e4m3 folds on the
+    64-row edge arena, the rowcol pairs also on RC_RANGE_ROWS rows
+    (`_check_fp8_fold_arena`). Returns the checked cases."""
+    from repro_torch.core import state_store
+    wire_checked, checked = [], []
+    check_fp8_encode_small(torch, fp8_wire, wire_checked)
+    for m_codec, v_codec in state_store.registered_combinations():
+        _check_fp8_fold_arena(torch, fused_step, fp8_wire, adama_accum,
+                              m_codec, v_codec, CODEC_SMALL_ROWS, 53, checked)
+        if v_codec == "rowcol":
+            _check_fp8_fold_arena(torch, fused_step, fp8_wire, adama_accum,
+                                  m_codec, v_codec, RC_RANGE_ROWS, 55,
+                                  checked)
+    log(json.dumps({"phase": "kernel", "case": "fp8 wire: fp8_encode (with "
+                    "and without the residual at S = 1, 2^15, 1000; zero, "
+                    "1e-37, tie, NaN and +-inf rows) and fp8_ef_update (ok "
+                    "= 1, ok = 0) bit for bit against their plain versions, "
+                    "the conversion against torch's cast on the card; every "
+                    "pair's e4m3 folds and slice folds, unguarded and "
+                    "guarded (ok = 1 at f32(1/8)/f32(3), ok = 0 on NaN "
+                    "codes), on the 64-row edge arena (rowcol also at "
+                    f"{RC_RANGE_ROWS} rows), bit for bit against the plain "
+                    "versions", "checked_wire": len(wire_checked),
+                    "checked_folds": len(checked)}))
+    return wire_checked, checked
+
+
+# the pairs whose e4m3 folds are timed at the stablelm-1.6b arena
+FP8_TIMED_PAIRS = (FP32, ("int8", "rowcol"))
+# the encode's and the update's operations per element, each value formed
+# once: the encode an FMA (2), |x| and its max (2), the divide and the
+# conversion (2), the finite test (1); the update the same FMA (2), the
+# decode (1), an FMA (2) and a divide (1)
+FP8_ENCODE_OPS, FP8_UPDATE_OPS = 7, 6
+
+
+def _time_fp8_pass(torch, name, label, kern, plain, n, n_bytes, ops,
+                   err, info):
+    """One fp8 pass timed (KERNEL_REPS launches, WIRE_TIMED_RUNS runs)
+    beside its plain version; its entry."""
+    return _kernel_entry(
+        name, label, timed_ms(torch, kern, runs=WIRE_TIMED_RUNS,
+                              reps=KERNEL_REPS),
+        timed_ms(torch, plain, runs=CODEC_PLAIN_RUNS, warmup=1),
+        bound_ms(n_bytes, ops * n), dict(info, max_abs_err=err))
+
+
+def check_fp8_timed(torch, fused_step, fp8_wire, layout):
+    """Phase 3, the fp8 wire at the full stablelm-1.6b arena: fp8_encode
+    with the residual at S = 2^15 and fp8_ef_update, each once against its
+    plain version over the whole arena (bit for bit), then timed; then for
+    each of FP8_TIMED_PAIRS the e4m3 fold, a layer slice and the rest slice
+    of the encoded slab, bit for bit against the plain version and timed in
+    turns beside the bf16 wire (bf16, e4m3, e4m3, bf16) (torch.profiler
+    counts one device kernel per call of each in `profile_child`). Returns
+    ({kernel: entry} of the two passes, {fold kernel: {pair: [entry per
+    case]}})."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(57)
+    rows = layout.rows
+    n = rows * LANES
+    g = torch.randn((rows, LANES), generator=gen, device="cuda")
+    ef = torch.randn((rows, LANES), generator=gen, device="cuda") * 1e-5
+    s = torch.tensor([2.0 ** 15], device="cuda")
+    ok, okr = torch.ones(1, device="cuda"), torch.ones(1, device="cuda")
+    q, gs = fp8_wire.fp8_encode(g, ef=ef, scale=s, ok=ok)
+    qr, gsr = fp8_wire.fp8_encode_ref(g, ef=ef, scale=s, ok=okr)
+    torch.cuda.synchronize()
+    if not _codes_equal(torch, q, qr) or ok.item() != 1.0 or \
+            okr.item() != 1.0:
+        raise AssertionError("fp8_encode at the stablelm arena: codes or "
+                             "flag differ from the plain version's")
+    err = _compare_bits(torch, "fp8_encode", "stablelm arena scales",
+                        [(gs, gsr)])
+    del qr, gsr
+    info = {"rows": rows, "scale": 2.0 ** 15}
+    passes = {"fp8_encode": _time_fp8_pass(
+        torch, "fp8_encode", "stablelm arena, with the residual",
+        lambda: fp8_wire.fp8_encode(g, ef=ef, scale=s, ok=ok),
+        lambda: fp8_wire.fp8_encode_ref(g, ef=ef, scale=s, ok=ok), n,
+        # slab and ef read (4 + 4 B), a code written (1 B), the scales
+        9 * n + 4 * rows, FP8_ENCODE_OPS, err, info)}
+    ek, er = ef.clone(), ef.clone()
+    fp8_wire.fp8_ef_update(ek, g, q, gs, scale=s, ok=ok)
+    fp8_wire.fp8_ef_update_ref(er, g, q, gs, scale=s, ok=ok)
+    torch.cuda.synchronize()
+    err = _compare_bits(torch, "fp8_ef_update", "stablelm arena", [(ek, er)])
+    if not torch.isfinite(ek).all() or ek.equal(ef):
+        raise AssertionError("fp8_ef_update at the stablelm arena: the "
+                             "residual is not finite or did not move")
+    del ek, er
+    passes["fp8_ef_update"] = _time_fp8_pass(
+        torch, "fp8_ef_update", "stablelm arena",
+        lambda: fp8_wire.fp8_ef_update(ef, g, q, gs, scale=s, ok=ok),
+        lambda: fp8_wire.fp8_ef_update_ref(ef, g, q, gs, scale=s, ok=ok),
+        n,
+        # slab, ef and a code read (4 + 4 + 1 B), ef written (4 B)
+        13 * n + 4 * rows, FP8_UPDATE_OPS, err, info)
+    for entry in passes.values():
+        entry["library_ms"] = None
+    g16 = g.to(torch.bfloat16)
+    del g, ef
+    torch.cuda.empty_cache()
+    folds = _time_fp8_folds(torch, fused_step, layout, q, gs, g16, gen)
+    del q, gs, g16
+    torch.cuda.empty_cache()
+    return passes, folds
+
+
+def _time_fp8_folds(torch, fused_step, layout, q, gs, g16, gen):
+    """`check_fp8_timed`'s e4m3 folds (see there)."""
+    rows = layout.rows
+    spec, rest = layout.stack("blocks"), layout.rest
+    out = {"arena_fold": {}, "arena_fold_slice": {}}
+    for m_codec, v_codec in FP8_TIMED_PAIRS:
+        pair = f"{m_codec}/{v_codec}"
+        m, v = _wire_state(torch, gen, m_codec, v_codec, rows)
+        kw = dict(beta1=0.9, beta2=0.999, scale=1.0 / 8, m_codec=m_codec,
+                  v_codec=v_codec)
+        ops = 3 + _FOLD_OPS[m_codec] + _FOLD_OPS[v_codec]
+        cases = [("arena_fold", "whole arena", rows, 0, None),
+                 ("arena_fold_slice", "layer 0", spec.layer_rows, spec.row,
+                  layout.slice_block(spec)),
+                 ("arena_fold_slice", "rest", rest.rows, rest.row,
+                  layout.slice_block(rest))]
+        for name, label, n_rows, off, block in cases:
+            if name == "arena_fold":
+                def run(fn, mm, vv, gg, sc, n_rows=n_rows):
+                    fn(mm, vv, gg[:n_rows], grad_scale=sc, **kw)
+                kern, plain = fused_step.arena_fold, fused_step.arena_fold_ref
+            else:
+                def run(fn, mm, vv, gg, sc, n_rows=n_rows, off=off,
+                        block=block):
+                    fn(mm, vv, gg[:n_rows], off, block=block, grad_scale=sc,
+                       **kw)
+                kern, plain = (fused_step.arena_fold_slice,
+                               fused_step.arena_fold_slice_ref)
+            sc = gs[:n_rows]
+            mk, vk, mr, vr = _clone(m), _clone(v), _clone(m), _clone(v)
+            run(kern, mk, vk, q, sc)
+            run(plain, mr, vr, q, sc)
+            torch.cuda.synchronize()
+            err = _compare_bits(torch, name, f"e4m3 {pair} {label}",
+                                [(mk, mr), (vk, vr)])
+            del mk, vk, mr, vr
+            n = n_rows * LANES
+            args = ((g16, None), (q, sc), (q, sc), (g16, None))
+            t = [timed_ms(torch, lambda a=a: run(kern, m, v, *a),
+                          runs=WIRE_TIMED_RUNS, reps=KERNEL_REPS)
+                 for a in args]
+            state_bytes = 2 * _codec_bytes(m_codec, v_codec, n_rows)
+            entry = _kernel_entry(
+                name, f"e4m3 {pair} {label}", statistics.median(t[1:3]),
+                timed_ms(torch, lambda: run(plain, m, v, q, sc),
+                         runs=CODEC_PLAIN_RUNS, warmup=1),
+                # the codes read once at 1 B and the scales; the slice's
+                # state read and written
+                bound_ms(n + 4 * n_rows + state_bytes, ops * n),
+                {"pair": pair, "wire": "e4m3", "rows": n_rows,
+                 "row_offset": off, "max_abs_err": err},
+                logged={"bf16_wire_ms_in_turns": [t[0], t[3]],
+                        "e4m3_ms_in_turns": t[1:3]})
+            bf16_ms = statistics.median([t[0], t[3]])
+            entry.update(bf16_wire_ms=bf16_ms,
+                         e4m3_over_bf16_wire=entry["ms"] / bf16_ms)
+            out[name].setdefault(pair, []).append(entry)
+        for x in (*_cols(m), *_cols(v)):
+            if x.is_floating_point() and not torch.isfinite(x).all():
+                raise AssertionError(f"e4m3 {pair}: non-finite state after "
+                                     f"the timed runs")
+        del m, v
+    return out
 
 
 def _leaf_cases(cfg):
@@ -2468,6 +2936,12 @@ def _expected_launches(path, tree):
         # head's gradients: every rest leaf but the embedding)
         want["finite_and"] = {"adama": n, "ga": 1}.get(
             engine, n * (n_layers + 1) + n * (1 + n_rest - 1))
+    if path in FP8:
+        # the encode ANDs each slab's flag: finite_and is left to the
+        # layer-wise pre-backward guard
+        slabs = n if engine == "adama" else n * (n_layers + 1)
+        want["fp8_encode"] = want["fp8_ef_update"] = slabs
+        want["finite_and"] = 0 if engine == "adama" else n * n_rest
     if arena:
         want["arena_apply"] = 1
         if engine == "adama":
@@ -2506,7 +2980,8 @@ def _engine_twins(p, q):
     return ({a[1], b[1]} == {"adama", "adama_layerwise"} and a[2] and b[2]
             and a[0] == b[0] and a[4] == b[4]
             and GUARDED.get(p, (0,))[0] == GUARDED.get(q, (0,))[0]
-            and WIRE.get(p) == WIRE.get(q) and (p in MASTER) == (q in MASTER))
+            and WIRE.get(p) == WIRE.get(q) and FP8.get(p) == FP8.get(q)
+            and (p in MASTER) == (q in MASTER))
 
 
 def _after_steps(actions):
@@ -2631,13 +3106,14 @@ def _param_diff(torch, leaves, host_leaves, chunk=1 << 26):
     return worst, beyond, total
 
 
-def _wire_tolerance(codecs, lr):
-    """Params after one step, bf16 wire against fp32 wire: the pair's
-    declared bf16_wire_lr (summed over its codecs, as the reference's
+def _wire_tolerance(codecs, lr, field="bf16_wire_lr"):
+    """Params after one step, a narrower wire against the fp32 wire: the
+    pair's declared drift for it (`field`: bf16_wire_lr or fp8_wire_lr,
+    summed over its codecs, as the reference's
     tests/test_codec_conformance.py sums them) x lr."""
     from repro_torch.core import state_store
-    return lr * sum(state_store.get_codec(name, moment).conformance
-                    .bf16_wire_lr for moment, name in zip(("m", "v"), codecs))
+    return lr * sum(getattr(state_store.get_codec(name, moment).conformance,
+                            field) for moment, name in zip(("m", "v"), codecs))
 
 
 def _check_wire_path(path, out, peak, counts, all_losses, peaks, diff, tol):
@@ -2681,6 +3157,84 @@ def _check_wire_path(path, out, peak, counts, all_losses, peaks, diff, tol):
     return info
 
 
+def _fp8_param_diff(torch, leaves, twin_leaves, initial, lr,
+                    chunk=1 << 26):
+    """An fp8 path's params after step 1 against its twin's and the initial
+    params (host copies), on the card a chunk at a time: (largest |p -
+    twin|, params whose twin update |twin - p0| exceeds lr / 2, of those
+    the ones whose update p - p0 has the twin's sign)."""
+    worst, big, agree = 0.0, 0, 0
+    for a, b, c in zip(leaves, twin_leaves, initial):
+        a = a.detach().reshape(-1)
+        b, c = b.reshape(-1), c.reshape(-1)
+        for lo in range(0, a.numel(), chunk):
+            p = a[lo:lo + chunk]
+            t = b[lo:lo + chunk].to(p.device)
+            p0 = c[lo:lo + chunk].to(p.device)
+            worst = max(worst, float((p - t).abs().max()))
+            u, ut = p - p0, t - p0
+            mask = ut.abs() > lr / 2
+            big += int(mask.sum())
+            agree += int((mask & (torch.sign(u) == torch.sign(ut))).sum())
+    return worst, big, agree
+
+
+def _check_fp8_path(torch, path, out, peaks, counts, all_losses, diff,
+                    tol):
+    """An fp8-wire path against its fp32-wire twin (FP8); returns what is
+    logged."""
+    from repro_torch.core import state_store
+    loss_scale, twin = FP8[path]
+    engine = PATHS[path][1]
+    state = out["opt_state"]
+    regions = state_store.wire_region_bytes(state)
+    ef = state["ef"].data
+    finite, nonzero = bool(torch.isfinite(ef).all()), bool((ef != 0).any())
+    added = {"ef": _allocator_bytes(FP8_EF_BYTES),
+             "codes": _allocator_bytes(FP8_CODES_BYTES[engine]),
+             "slack": FP8_PEAK_SLACK}
+    info = {"grad_dtype": "fp8_e4m3", "loss_scale_config": loss_scale,
+            "fp8_twin": twin, "fp8_twin_peak": peaks[twin],
+            "peak_minus_fp8_twin": peaks[path] - peaks[twin],
+            "peak_limit_terms": added, "region_bytes": regions,
+            "ef_finite": finite, "ef_nonzero": nonzero,
+            "step1_loss": out["losses"][0],
+            "fp8_twin_step1_loss": all_losses[twin][0],
+            "params_after_step_1_max_abs_diff": diff[0],
+            "params_after_step_1_tolerance": tol,
+            "twin_updates_beyond_half_lr": diff[1],
+            "update_sign_agreement": diff[2] / max(diff[1], 1),
+            "sign_share_limit": FP8_SIGN_SHARE, "metrics": out["metrics"]}
+    log(json.dumps({"phase": "fp8_peak", "path": path, "peak": peaks[path],
+                    "twin_peak": peaks[twin], **added,
+                    "limit": peaks[twin] + sum(added.values())}))
+    if regions != {"ef": FP8_EF_BYTES}:
+        raise AssertionError(f"{path}: residual regions {regions} B; "
+                             f"expected {FP8_EF_BYTES}")
+    if not (finite and nonzero):
+        raise AssertionError(f"{path}: the residual is not finite or is all "
+                             f"zero (finite {finite}, non-zero {nonzero})")
+    if peaks[path] > peaks[twin] + sum(added.values()):
+        raise AssertionError(f"{path}: peak {peaks[path]} is more than "
+                             f"{twin}'s {peaks[twin]} + {added}")
+    if out["losses"][0] != all_losses[twin][0]:
+        raise AssertionError(f"{path}: step-1 loss {out['losses'][0]} != "
+                             f"{twin}'s {all_losses[twin][0]}")
+    if not diff[0] <= tol:
+        raise AssertionError(f"{path}: params after step 1 differ from "
+                             f"{twin}'s by up to {diff[0]} (tolerance {tol})")
+    if not diff[2] >= FP8_SIGN_SHARE * diff[1] or not diff[1]:
+        raise AssertionError(f"{path}: the step-1 update has the sign of "
+                             f"{twin}'s on {diff[2]} of the {diff[1]} params "
+                             f"whose twin update exceeds lr / 2 (at least "
+                             f"{FP8_SIGN_SHARE} required)")
+    want = FP8_LOSS_SCALE.get(path)
+    if want is not None and out["metrics"].get("loss_scale") != want:
+        raise AssertionError(f"{path}: loss scale "
+                             f"{out['metrics'].get('loss_scale')} != {want}")
+    return info
+
+
 def run_main_paths(torch, wrappers, arch):
     """Phase 5: one arch at full width, each of its main paths; returns
     each path's launch counts per kernel and peak memory, and the bytes a
@@ -2700,9 +3254,15 @@ def run_main_paths(torch, wrappers, arch):
     work_bytes = {}
     paths = [p for p, spec in PATHS.items() if spec[0] == arch]
     digested = {p for d in GUARD_DIGESTS for p in d[:2]}
-    # params after step 1 of each bf16-wire path's twin, on the host
-    wire_twins = {twin for _, twin in WIRE.values()}
-    step1 = {}
+    # params after step 1 of each bf16- or fp8-wire path's twin, on the
+    # host: step1[twin] is the digest of its params then, snaps[digest] one
+    # host copy of each distinct set (the guarded twins' step-1 params are
+    # their unguarded twins', bit for bit: two copies on stablelm-1.6b)
+    wire_twins = {twin for _, twin in (*WIRE.values(), *FP8.values())}
+    step1, snaps = {}, {}
+    # the fp8 paths' initial params on the host (the same seed for every
+    # path), for the sign of their step-1 update
+    initial = {}
     # a master path without the cache runs its twin's step 1 (the same
     # fp32 leaves, the same wire): its master after step 1 is the twin's
     # params then, held by digests on the card
@@ -2712,7 +3272,7 @@ def run_main_paths(torch, wrappers, arch):
     for path in paths:
         _, engine, arena, steps, codecs = PATHS[path]
         fault, twin = GUARDED.get(path, (None, None))
-        loss_scale = WIRE.get(path, ("off",))[0]
+        loss_scale = (WIRE.get(path) or FP8.get(path) or ("off",))[0]
         cache, master_wire, _ = MASTER.get(path, (False, "fp32", None))
         bf16_wire = path in WIRE or master_wire == "bf16"
         run = RunConfig(model=cfg,
@@ -2720,7 +3280,8 @@ def run_main_paths(torch, wrappers, arch):
                             accumulation=engine, arena=arena,
                             micro_batches=main["micro_batches"],
                             m_codec=codecs[0], state_codec=codecs[1],
-                            grad_dtype="bf16" if bf16_wire else "fp32",
+                            grad_dtype=("fp8_e4m3" if path in FP8 else
+                                        "bf16" if bf16_wire else "fp32"),
                             master_params=path in MASTER,
                             work_param_cache=cache,
                             finite_guard=path in GUARDED,
@@ -2732,7 +3293,8 @@ def run_main_paths(torch, wrappers, arch):
         torch.cuda.empty_cache()
         params, before, packed, diff = None, None, None, []
         if (engine == "ga" and path in GUARDED) or path in WIRE or \
-                path in wire_twins or path in MASTER or path in master_twins:
+                path in wire_twins or path in MASTER or \
+                path in master_twins or path in FP8:
             # the params train() would make, which it updates in place
             gen = torch.Generator(device="cuda")
             gen.manual_seed(main["seed"])
@@ -2756,15 +3318,31 @@ def run_main_paths(torch, wrappers, arch):
         if path in wire_twins:
             def snapshot(i, path=path):
                 if i == 0:
-                    step1[path] = [x.detach().to("cpu", copy=True)
-                                   for x in held["leaves"]]
+                    d = step1[path] = _digest(torch, held["leaves"])
+                    if d not in snaps:
+                        snaps[d] = [x.detach().to("cpu", copy=True)
+                                    for x in held["leaves"]]
             actions.append(snapshot)
         elif path in WIRE:
             def compare(i, twin=WIRE[path][1]):
                 if i == 0:
                     diff.append(_param_diff(torch, held["leaves"],
-                                            step1[twin]))
+                                            snaps[step1[twin]]))
             actions.append(compare)
+        elif path in FP8:
+            d0 = _digest(torch, held["leaves"])
+            if d0 not in initial:
+                initial.clear()
+                initial[d0] = [x.detach().to("cpu", copy=True)
+                               for x in held["leaves"]]
+
+            def compare_fp8(i, twin=FP8[path][1], d0=d0,
+                            lr=run.optimizer.lr):
+                if i == 0:
+                    diff.append(_fp8_param_diff(
+                        torch, held["leaves"], snaps[step1[twin]],
+                        initial[d0], lr))
+            actions.append(compare_fp8)
         if path in master_twins:
             def twin_digest(i, path=path):
                 if i == 0:
@@ -2806,7 +3384,7 @@ def run_main_paths(torch, wrappers, arch):
                     f"{path}: skipped {skipped}, step "
                     f"{out['opt_state']['step']}; expected "
                     f"{GUARD_SKIPS[path]}")
-            if path not in MASTER and \
+            if path not in MASTER and path not in FP8 and \
                     peaks[path] > peaks[twin] + GUARD_PEAK_SLACK:
                 raise AssertionError(
                     f"{path}: peak {peaks[path]} is more than "
@@ -2856,7 +3434,11 @@ def run_main_paths(torch, wrappers, arch):
             wire_info = _check_wire_path(
                 path, out, peaks[path], counts, all_losses, peaks, diff[0],
                 _wire_tolerance(codecs, run.optimizer.lr))
-            del step1[WIRE[path][1]]
+        fp8_info = {}
+        if path in FP8:
+            fp8_info = _check_fp8_path(
+                torch, path, out, peaks, counts, all_losses, diff[0],
+                _wire_tolerance(codecs, run.optimizer.lr, "fp8_wire_lr"))
         n_params = sum(x.numel() for x in out["model"].parameters())
         state = out["opt_state"]
         rows = state["m"].layout.rows if arena else None
@@ -2874,7 +3456,7 @@ def run_main_paths(torch, wrappers, arch):
                         "max_memory_allocated_bytes": peaks[path],
                         "launches": counts[path],
                         "launches_per_step": want, **guard_info,
-                        **wire_info, **master_info,
+                        **wire_info, **master_info, **fp8_info,
                         "digest": digests.get(path), **main}))
         losses = out["losses"]
         all_losses[path] = losses
@@ -3013,11 +3595,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(src))
     from repro_torch.kernels import (adam_apply, adama_accum, build,
-                                     fused_step, rwkv6_chunk)
+                                     fp8_wire, fused_step, rwkv6_chunk)
     from repro_torch.train.loop import resolve_device
-    if sys.argv[1:] == [PROFILE_GUARD_FLAG]:
+    if sys.argv[1:] == [PROFILE_FLAG]:
         resolve_device("cuda")
-        profile_guard_child(torch, fused_step)
+        profile_child(torch, fused_step, fp8_wire)
         return 0
 
     t_start = time.perf_counter()
@@ -3040,7 +3622,8 @@ def main() -> int:
                 log(f"[ptxas {name}] {line.strip()}")
 
     modules = {"fused_step": fused_step, "adama_accum": adama_accum,
-               "adam_apply": adam_apply, "rwkv6_chunk": rwkv6_chunk}
+               "adam_apply": adam_apply, "rwkv6_chunk": rwkv6_chunk,
+               "fp8_wire": fp8_wire}
     wrappers = {k: getattr(modules[mod], k)
                 for k, (mod, _, _, _) in KERNELS.items()}
     kernels = check_kernels(torch, fused_step)
@@ -3055,14 +3638,24 @@ def main() -> int:
     guard_checked = check_guard_small(torch, fused_step, adama_accum)
     guard_timed, kernels["finite_and"] = check_guard_timed(
         torch, fused_step, stablelm_layout)
-    kernels["finite_and"]["device_ms_with_guarded_fold"] = \
-        guard_kernels_per_call()
+    guard_per_call, fp8_per_call = child_kernels_per_call()
+    kernels["finite_and"]["device_ms_with_guarded_fold"] = guard_per_call
     wire_checked = check_wire_small(torch, fused_step, adama_accum)
     wire_timed, kernels["finite_and"]["bf16_slab"] = check_wire_timed(
         torch, fused_step, stablelm_layout)
     master_checked = check_master_small(torch, fused_step, adama_accum)
     master_timed = check_master_timed(torch, fused_step, stablelm_layout)
-    log(json.dumps({"phase": "kernels_checked",
+    fp8_wire_checked, fp8_checked = check_fp8_small(torch, fused_step,
+                                                    fp8_wire, adama_accum)
+    fp8_passes, fp8_timed = check_fp8_timed(torch, fused_step, fp8_wire,
+                                            stablelm_layout)
+    for name, entry in fp8_passes.items():
+        entry["device_ms_per_call"] = fp8_per_call[name]
+    for pair, entries in fp8_timed["arena_fold"].items():
+        entries[0]["device_ms_per_call"] = fp8_per_call[
+            f"arena_fold e4m3 {pair}"]
+    kernels.update(fp8_passes)
+    log(json.dumps({"phase": "kernels_checked", "kernels": list(KERNELS),
                     "seconds": time.perf_counter() - t_start}))
     check_small_input(torch)
     counts, work_bytes = {}, {}
@@ -3082,6 +3675,12 @@ def main() -> int:
         if name in wire_timed:
             kernels[name]["wire_forms"] = _wire_forms(
                 name, wire_checked, wire_timed[name], counts)
+        if name in fp8_timed:
+            kernels[name]["fp8_forms"] = _wire_forms(
+                name, fp8_checked, fp8_timed[name], counts, "e4m3", FP8)
+    for name in fp8_passes:
+        kernels[name]["bitwise_cases"] = sum(k == name
+                                             for k, _ in fp8_wire_checked)
     kernels["finite_and"]["bitwise_cases"] = sum(
         k == "finite_and" for k, _, _ in guard_checked)
     kernels["arena_apply"]["master_forms"] = _master_forms(

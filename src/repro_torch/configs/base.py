@@ -112,9 +112,10 @@ def parse_loss_scale(value: str):
 @dataclass(frozen=True)
 class OptimizerConfig:
     """The kernel paths of the reference's OptimizerConfig (use_pallas=True),
-    with its m and v codecs, its gradient wire (fp32 or bf16), its fp32
-    master params and bf16 working-param cache, its finite guard and its
-    loss-scale fields validated as its `optimizer_capability` does.
+    with its m and v codecs, its gradient wire (fp32, bf16, or fp8 e4m3 with
+    its error-feedback residual), its fp32 master params and bf16
+    working-param cache, its finite guard and its loss-scale fields
+    validated as its `optimizer_capability` does.
 
     `arena` selects the state form, as in the reference: True (the default
     here, the reference's `arena=True`) keeps m and v in flat arenas folded
@@ -136,10 +137,20 @@ class OptimizerConfig:
     # the gradient wire: the dtype each micro-batch's (or each layer's)
     # gradient is packed in (core/arena.py). "bf16" halves the packed slab;
     # the fold kernels upcast it to fp32 in-pass, so the moments still
-    # accumulate in fp32. Requires arena=True and an AdamA engine (ga sums
-    # raw gradients in its wire buffer). "fp8_e4m3" (codes + per-row
-    # scales, with error feedback) is not ported: ROADMAP queue 1, item 7.5
-    grad_dtype: str = "fp32"             # fp32 | bf16 (| fp8_e4m3)
+    # accumulate in fp32. "fp8_e4m3" packs fp32 and encodes the slab as
+    # e4m3 codes with a per-row fp32 scale column (kernels/fp8_wire.py),
+    # which the fold kernels decode in-pass; it requires finite_guard=True
+    # (e4m3 has no inf: an overflow shows as NaN codes, which the guard
+    # catches). Both require arena=True and an AdamA engine (ga sums raw
+    # gradients in its wire buffer).
+    grad_dtype: str = "fp32"             # fp32 | bf16 | fp8_e4m3
+    # the fp8 wire's error-feedback residual (inert on fp32 and bf16): each
+    # fold's quantization error is kept in state["ef"], an fp32 arena in
+    # unscaled gradient units, and added into the next micro-batch's
+    # gradient before it is encoded. False drops the residual (the
+    # reference's ablation knob): the wire still quantizes, and nothing
+    # recovers the error.
+    error_feedback: bool = True
     # the fused finite guard (core/accumulation.py): a micro-batch whose
     # gradient holds an Inf or a NaN folds nothing (ga: a step whose
     # accumulated gradient does applies nothing), and the skip counters
@@ -151,8 +162,8 @@ class OptimizerConfig:
     # fold kernels divide it back out through their traced scale; "dynamic"
     # starts at 2^15, halves on every skipped micro-batch (floor 1) and
     # doubles after scaler_growth_interval good ones (train/scaler.py).
-    # Requires the bf16 wire (the wire it protects), finite_guard=True
-    # (skips drive the backoff) and an AdamA engine.
+    # Requires the bf16 or fp8 wire (the wire it protects),
+    # finite_guard=True (skips drive the backoff) and an AdamA engine.
     loss_scale: str = "off"
     # good micro-batches before a dynamic scale doubles
     scaler_growth_interval: int = 200
@@ -200,11 +211,6 @@ class OptimizerConfig:
                 "ga with arena=False runs the reference's plain optim/adam.py "
                 "(no kernel), which is not ported (ROADMAP queue 1, item 12: "
                 "the optim/ baselines); use arena=True")
-        if self.grad_dtype == "fp8_e4m3":
-            raise NotImplementedError(
-                "grad_dtype='fp8_e4m3' (fp8 codes with per-row scales and an "
-                "error-feedback residual) is not ported (ROADMAP queue 1, "
-                "item 7.5); use grad_dtype='bf16'")
 
     def _check_wire_and_guard_fields(self):
         """The reference's checks of the wire, master-param, guard and
@@ -280,6 +286,20 @@ class OptimizerConfig:
         if self.scaler_abort_after < 0:
             raise ValueError(f"scaler_abort_after must be >= 0 (0 disables "
                              f"the abort), got {self.scaler_abort_after}")
+
+
+def is_fp8_wire(opt: OptimizerConfig) -> bool:
+    """The fp8_e4m3 gradient wire: slabs move as e4m3 codes with a per-row
+    fp32 scale column, decoded inside the fold kernels (`grad_scale`)."""
+    return opt.grad_dtype == "fp8_e4m3"
+
+
+def use_error_feedback(opt: OptimizerConfig) -> bool:
+    """Whether the state carries the fp8 wire's error-feedback residual
+    "ef" (the reference's `use_error_feedback`): only the fp8 wire
+    quantizes coarsely enough to need one, and error_feedback=False
+    ablates it."""
+    return is_fp8_wire(opt) and opt.error_feedback
 
 
 @dataclass(frozen=True)

@@ -37,7 +37,17 @@ branch, the reference's line for line, through the guarded kernel forms:
 config refuses it for ga, whose accumulator sums raw gradients) is the
 gradient wire: each micro-batch's (or each layer's) gradient packs into a
 slab of that dtype (bf16: half the bytes), and the fold kernels upcast it
-to fp32 in-pass, so the moments accumulate in fp32 on either wire.
+to fp32 in-pass, so the moments accumulate in fp32 on either wire. The fp8
+wire ("fp8_e4m3", guarded engines only, as the config requires) packs
+fp32 and runs three kernels per slab (kernels/fp8_wire.py): the encode,
+which injects the error-feedback residual state["ef"] at the live loss
+scale (x = fma(ef, S, slab)), writes the e4m3 codes and their per-row
+scale column and ANDs finite(x) into the guard's ok (the wire's finite
+flag: no finite_and pass); the guarded fold of the codes, decoded in-pass
+(`grad_scale`); and the residual's update, ef = fma(-code, scale, x) / S,
+predicated on the same ok, so a skipped micro-batch leaves ef bitwise.
+Without error feedback (error_feedback=False) the state has no "ef" and
+the encode reads the slab alone.
 
 `OptimizerConfig.master_params` (arena state, every engine) adds the fp32
 master region "p": `adama.finalize` then updates it and writes the bf16
@@ -72,12 +82,13 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import (ModelConfig, OptimizerConfig,
-                                      grad_wire_dtype)
+                                      grad_wire_dtype, is_fp8_wire,
+                                      use_error_feedback)
 from repro_torch.core import adama
 from repro_torch.core import arena as arena_mod
 from repro_torch.core import state_store
 from repro_torch.core.layerwise import layerwise_loss_and_fold
-from repro_torch.kernels import fused_step
+from repro_torch.kernels import fp8_wire, fused_step
 from repro_torch.models.model import loss_fn
 from repro_torch.train import faults as fault_mod
 from repro_torch.train import scaler as scaler_mod
@@ -289,15 +300,33 @@ def make_adama_step(cfg: ModelConfig, opt: OptimizerConfig, *,
     return step, _init(opt)
 
 
+def _fold_fp8(state, slab, vec, sc, b1, b2):
+    """The fp8 wire's fold of one fp32 slab (Algorithm 1): encode with the
+    residual injected at the live scale (its finite flag ANDed into the
+    guard vector's ok), the guarded fold of the codes, the residual's
+    update on the same ok. The codes are the one arena-sized transient
+    beside the slab."""
+    ef = state["ef"].data if "ef" in state else None
+    s = sc["scale"]
+    codes, gs = fp8_wire.fp8_encode(slab, ef=ef, scale=s, ok=vec[2:3])
+    state, _ = state_store.fold_state(state, codes, beta1=b1, beta2=b2,
+                                      grad_scale=gs, guard=vec)
+    if ef is not None:
+        fp8_wire.fp8_ef_update(ef, slab, codes, gs, scale=s, ok=vec[2:3])
+    return state
+
+
 def _make_guarded_adama_step(cfg, opt, lr_schedule, fault):
     """Algorithm 1 guarded: per micro-batch, the loss times the live scale,
     the gradient packed at the wire's dtype, the slab's finite flag ANDed
     into a fresh guard vector [dm, dv, ok, scale_into_fold(1/N, sc)], the
     guarded fold, the scaler's transition; `good` counts the committed
-    folds and moves the begin-minibatch decay to the first of them."""
+    folds and moves the begin-minibatch decay to the first of them. The
+    fp8 wire packs fp32 and folds through `_fold_fp8`."""
     n = opt.micro_batches
     b1, b2 = opt.beta1, opt.beta2
-    wire = grad_wire_dtype(opt.grad_dtype)
+    fp8 = is_fp8_wire(opt)
+    wire = torch.float32 if fp8 else grad_wire_dtype(opt.grad_dtype)
     dyn = scaler_mod.is_dynamic(opt)
     gi = opt.scaler_growth_interval
     guard = _Guard(opt)
@@ -318,9 +347,12 @@ def _make_guarded_adama_step(cfg, opt, lr_schedule, fault):
             vec = guard.vector(guard.fold_decay(good), fault_mod.apply_skip(
                 fault, True, micro=i, step=st0),
                 scaler_mod.scale_into_fold(guard.inv_n(dev), sc))
-            fused_step.finite_and(slab, vec[2:3])
-            state, _ = state_store.fold_state(state, slab, beta1=b1,
-                                              beta2=b2, guard=vec)
+            if fp8:
+                state = _fold_fp8(state, slab, vec, sc, b1, b2)
+            else:
+                fused_step.finite_and(slab, vec[2:3])
+                state, _ = state_store.fold_state(state, slab, beta1=b1,
+                                                  beta2=b2, guard=vec)
             del slab
             ok = vec[2] != 0
             lsum = lsum + torch.where(ok, loss, 0.0) / sc["scale"]
@@ -425,7 +457,8 @@ def _init(opt: OptimizerConfig):
         if opt.arena:
             state = init(params, codec=opt.state_codec, m_codec=opt.m_codec,
                          master_params=opt.master_params,
-                         work_param_cache=opt.work_param_cache)
+                         work_param_cache=opt.work_param_cache,
+                         error_feedback=use_error_feedback(opt))
         else:
             state = init(params, codec=opt.state_codec, m_codec=opt.m_codec)
         if opt.finite_guard:

@@ -34,6 +34,11 @@ bf16(master). With the working-param cache ("wp", a bf16 arena) the kernel
 writes into the cache, and the engines load the leaves from it at step
 start (`load_working_params`).
 
+The fp8 wire's error-feedback residual (`init_arena(error_feedback=True)`):
+the state also holds "ef", a zeroed fp32 arena that the guarded engines
+read and update around each fold (core/accumulation.py,
+core/layerwise.py).
+
 Unlike the reference, whose arrays are immutable and whose kernels alias
 input to output, the port updates the moments and the params IN PLACE: a
 "new" state returned here shares its tensors with the old one.
@@ -71,15 +76,16 @@ def init(params, codec: str = "fp32", m_codec: str = "fp32") -> State:
 
 
 def init_arena(params, codec: str = "fp32", m_codec: str = "fp32",
-               master_params: bool = False,
-               work_param_cache: bool = False) -> State:
+               master_params: bool = False, work_param_cache: bool = False,
+               error_feedback: bool = False) -> State:
     """Arena-backed state on the params' device, laid out as the reference
     lays it out: m in `m_codec`, v in `codec` (fp32 moments are Arenas,
     the others MomentStates of the reference's column shapes), zeroed;
     `step` is a host int. `master_params` adds the fp32 master region
     state["p"] = pack(params); `work_param_cache` the bf16 working-param
     cache state["wp"] = pack(params, dtype=bfloat16) (the reference's
-    regions, bit for bit)."""
+    regions, bit for bit); `error_feedback` the fp8 wire's residual
+    state["ef"], a zeroed fp32 arena."""
     mc = state_store.get_codec(m_codec, "m")
     vc = state_store.get_codec(codec, "v")
     layout = arena_mod.build_layout(params)
@@ -90,6 +96,8 @@ def init_arena(params, codec: str = "fp32", m_codec: str = "fp32",
         if master_params:
             state["p"] = arena_mod.Arena(arena_mod.pack(params, layout),
                                          layout)
+        if error_feedback:
+            state["ef"] = arena_mod.Arena.zeros(layout, device)
         if work_param_cache:
             state["wp"] = arena_mod.Arena(arena_mod.pack(
                 params, layout, dtype=torch.bfloat16), layout)

@@ -1,6 +1,6 @@
 """Algorithm 2: interleave the per-LAYER backward with the AdamA fold
 (`repro/core/layerwise.py`, dense and encoder families, one device, the
-fp32 or bf16 gradient wire, with or without the finite guard).
+fp32, bf16 or fp8 gradient wire, with or without the finite guard).
 
 The port's block params are stacked: each leaf is one (L, ...) tensor. A
 gradient hook on such a leaf fires only once autograd has written the
@@ -49,6 +49,17 @@ running verdict (once false, every later fold is off). A loss-originated
 NaN reaches dx and so every slab: the whole micro-batch is a bitwise
 no-op. All of it is `finite_and` on the one device vector: no flag is read
 on the host.
+
+The fp8 wire (grad_dtype=float8_e4m3fn; guarded arena state only, as the
+config requires): each layer's and the rest region's slab packs fp32 and
+runs the reference's single-device front and back halves
+(`_fp8_wire_slab`, `_fp8_ef_update`) as kernels/fp8_wire.py's two passes
+around its guarded slice fold: the encode injects the slab's rows of the
+error-feedback residual state["ef"] at S = 1 / fold_scale (formed on the
+device, as the reference's `ef_scale = 1.0 / fold_scale`) and ANDs the
+slab's finite flag into the running verdict in place of `finite_and`; the
+slice fold decodes the codes in-pass; the residual's update is predicated
+on the same verdict.
 """
 from __future__ import annotations
 
@@ -61,7 +72,7 @@ from repro_torch.core import arena as arena_mod
 from repro_torch.core import state_store
 from repro_torch.core.adama import accumulate_leaf, is_arena_state
 from repro_torch.core.arena import STACK_KEYS
-from repro_torch.kernels import fused_step
+from repro_torch.kernels import fp8_wire, fused_step
 from repro_torch.models import modules as md
 from repro_torch.models.model import apply_block, cross_entropy, embed_tokens
 
@@ -77,30 +88,44 @@ def _fold_tree(m, v, g, beta1, beta2) -> None:
 
 
 def _fold_slab(state, g2, row_offset, block, beta1, beta2, decay,
-               guard) -> None:
+               guard, ef_scale=None) -> None:
     """One slice fold of a packed slab; guarded, the slab's finite flag is
-    ANDed into the guard vector's ok first."""
+    ANDed into the guard vector's ok first. `ef_scale` (the fp8 wire: S, a
+    (1,) device tensor) encodes the fp32 slab with the residual's rows
+    injected first, folds the codes and updates the residual's rows."""
     if guard is None:
         state_store.fold_slice_state(state, g2, row_offset, beta1=beta1,
                                      beta2=beta2, block=block, decay=decay)
         return
-    fused_step.finite_and(g2, guard[2:3])
-    state_store.fold_slice_state(state, g2, row_offset, beta1=beta1,
-                                 beta2=beta2, block=block, guard=guard)
+    ok = guard[2:3]
+    if ef_scale is None:
+        fused_step.finite_and(g2, ok)
+        state_store.fold_slice_state(state, g2, row_offset, beta1=beta1,
+                                     beta2=beta2, block=block, guard=guard)
+        return
+    ef = (state["ef"].data[row_offset:row_offset + g2.shape[0]]
+          if "ef" in state else None)
+    codes, gs = fp8_wire.fp8_encode(g2, ef=ef, scale=ef_scale, ok=ok)
+    state_store.fold_slice_state(state, codes, row_offset, beta1=beta1,
+                                 beta2=beta2, block=block, grad_scale=gs,
+                                 guard=guard)
+    if ef is not None:
+        fp8_wire.fp8_ef_update(ef, g2, codes, gs, scale=ef_scale, ok=ok)
 
 
 def _fold_layer(state, dlp, j: int, name: str, beta1, beta2, decay,
-                guard=None, grad_dtype=torch.float32) -> None:
+                guard=None, grad_dtype=torch.float32, ef_scale=None) -> None:
     """Fold layer j's gradient tree. Arena state: pack it into one slab of
-    the wire's dtype and fold it into the layer's arena rows with one slice
-    fold (guarded: the running verdict ANDed with the slab's). Per-leaf
-    state: fold each leaf into row j of the stacked moments."""
+    the wire's dtype (`grad_dtype`: the pack's; fp32 on the fp8 wire) and
+    fold it into the layer's arena rows with one slice fold (guarded: the
+    running verdict ANDed with the slab's; `ef_scale` as in `_fold_slab`).
+    Per-leaf state: fold each leaf into row j of the stacked moments."""
     if is_arena_state(state):
         lay = state["m"].layout
         spec = lay.stack(name)
         _fold_slab(state, arena_mod.pack_layer(dlp, spec, dtype=grad_dtype),
                    spec.row + j * spec.layer_rows, lay.slice_block(spec),
-                   beta1, beta2, decay, guard)
+                   beta1, beta2, decay, guard, ef_scale)
         return
     m_j = {k: x[j] for k, x in state["m"][name].items()}
     v_j = {k: x[j] for k, x in state["v"][name].items()}
@@ -108,17 +133,18 @@ def _fold_layer(state, dlp, j: int, name: str, beta1, beta2, decay,
 
 
 def _fold_rest(state, d_rest, beta1, beta2, decay, guard=None,
-               grad_dtype=torch.float32) -> None:
+               grad_dtype=torch.float32, ef_scale=None) -> None:
     """Fold the non-stacked leaves' gradients. Arena state: one slice fold
-    over the contiguous rest region, its slab of the wire's dtype (guarded
-    as `_fold_layer`). Per-leaf state: leaf by leaf."""
+    over the contiguous rest region, its slab of the wire's dtype (guarded,
+    and on the fp8 wire, as `_fold_layer`). Per-leaf state: leaf by
+    leaf."""
     if is_arena_state(state):
         lay = state["m"].layout
         if not lay.rest.rows:
             return
         _fold_slab(state, arena_mod.pack_rest(d_rest, lay, dtype=grad_dtype),
                    lay.rest.row, lay.slice_block(lay.rest), beta1, beta2,
-                   decay, guard)
+                   decay, guard, ef_scale)
         return
     for k, g in d_rest.items():
         _fold_tree(state["m"][k], state["v"][k], g, beta1, beta2)
@@ -148,7 +174,8 @@ def layerwise_loss_and_fold(cfg: ModelConfig, params, batch, state, *,
     through the backward's seed. `decay` (arena state only) fuses the
     begin-minibatch decay into this micro-batch's folds. `grad_dtype`
     (arena state only) is the gradient wire the layer and rest slabs are
-    packed in. Returns (loss, state).
+    packed in; float8_e4m3fn (guarded only) packs fp32 and encodes each
+    slab (see the module's docstring). Returns (loss, state).
 
     `guard` (arena state only): the guard vector [dm, dv, ok, fold_scale]
     (kernels/fused_step.py), in place of `decay`: ok holds the engine's
@@ -162,6 +189,16 @@ def layerwise_loss_and_fold(cfg: ModelConfig, params, batch, state, *,
                          "state")
     if guard is not None and decay is not None:
         raise ValueError("with guard=, the decay rides in the guard vector")
+    ef_scale = None
+    if grad_dtype == torch.float8_e4m3fn:
+        if guard is None or not is_arena_state(state):
+            raise ValueError("the fp8 wire requires finite guards over arena "
+                             "state (OptimizerConfig enforces finite_guard "
+                             "for grad_dtype='fp8_e4m3')")
+        # the residual is stored unscaled and the slabs carry the loss scale
+        # S: the encode multiplies by S = 1 / fold_scale, the update divides
+        ef_scale = torch.ones_like(guard[3:4]) / guard[3:4]
+        grad_dtype = torch.float32
     causal = cfg.arch_type != "encoder"
     tokens = batch["tokens"]
     b, s = tokens.shape
@@ -212,14 +249,15 @@ def layerwise_loss_and_fold(cfg: ModelConfig, params, batch, state, *,
                                       grad_outputs=dx)
         del y, xin
         _fold_layer(state, dict(zip(keys, dl)), j, "blocks", beta1, beta2,
-                    decay, guard, grad_dtype)
+                    decay, guard, grad_dtype, ef_scale)
         del dl
 
     # ---- embedding backward, rest-region fold ----
     (d_rest["embed"],) = torch.autograd.grad(x0, [rest["embed"]],
                                              grad_outputs=dx)
     del x0, dx
-    _fold_rest(state, d_rest, beta1, beta2, decay, guard, grad_dtype)
+    _fold_rest(state, d_rest, beta1, beta2, decay, guard, grad_dtype,
+               ef_scale)
     if guard is not None:
         return loss.detach(), state, guard[2:3]
     return loss.detach(), state

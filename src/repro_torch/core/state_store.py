@@ -30,8 +30,10 @@ shared by every row: the fold kernels add into it and leave its decay to
 the host, once per micro-batch (`begin_micro`, `begin_micro_state`), since
 the layer-wise engine folds a micro-batch in many slices.
 
-A fold's gradient slab is the wire's: float32, or bfloat16 upcast to
-float32 inside the kernel. The slab's dtype names the wire.
+A fold's gradient slab is the wire's: float32, bfloat16 upcast to float32
+inside the kernel, or float8_e4m3fn codes with their (rows, 1) scale column
+(`grad_scale=`, kernels/fp8_wire.py encodes both) decoded inside it. The
+slab's dtype names the wire.
 
 The finite guard (`guard=`, the reference's): a fold's guard is True (the
 slab checks itself: `finite_and` into a fresh guard vector) or the caller's
@@ -40,6 +42,11 @@ which then also carries the decay of the shared columns; the apply's is a
 (1,) device flag. With ok == 0 the call is a bitwise no-op, the shared
 columns' host-side decay included (`_guarded_begin_micro`). The ZeRO-1
 collectives wait for their slice.
+
+The fp8 wire's error-feedback residual (OptimizerConfig.error_feedback):
+the state dict carries "ef", an fp32 Arena in unscaled gradient units,
+which the engines read and update around each fold (kernels/fp8_wire.py);
+`wire_region_bytes` reports it.
 
 Master params (OptimizerConfig.master_params): the state dict carries the
 fp32 master region "p" (an Arena) and, with the working-param cache, the
@@ -303,10 +310,11 @@ def _guarded_begin_micro(codec, parts, decay, flag):
 
 
 def fold(m_codec, v_codec, m_parts, v_parts, g, *, beta1, beta2, scale=1.0,
-         decay=None, guard=None):
+         decay=None, grad_scale=None, guard=None):
     """Whole-arena fold of one micro-batch's gradient arena into both
     moments, in place: one fused kernel. `g` is the wire's slab (float32,
-    or bfloat16 upcast in the kernel). `decay=(dm, dv)` fuses the
+    bfloat16 upcast in the kernel, or e4m3 codes decoded in it by their
+    scale column `grad_scale`). `decay=(dm, dv)` fuses the
     begin-minibatch decay into it for the row-indexed columns; the shared
     ones are decayed here first (`begin_micro`), as the reference's `fold`
     does. `guard` (True, or a guard vector, `_resolve_guard`) makes the
@@ -324,7 +332,7 @@ def fold(m_codec, v_codec, m_parts, v_parts, g, *, beta1, beta2, scale=1.0,
         m, v = fused_step.arena_fold(tuple(m_parts), tuple(v_parts), g,
                                      beta1=beta1, beta2=beta2,
                                      m_codec=mc.kernel, v_codec=vc.kernel,
-                                     guard=vec)
+                                     grad_scale=grad_scale, guard=vec)
         return m, v, vec
     if decay is not None:
         mc.begin_micro(tuple(m_parts), decay[0])
@@ -332,17 +340,18 @@ def fold(m_codec, v_codec, m_parts, v_parts, g, *, beta1, beta2, scale=1.0,
     return fused_step.arena_fold(tuple(m_parts), tuple(v_parts), g,
                                  beta1=beta1, beta2=beta2, scale=scale,
                                  decay=decay, m_codec=mc.kernel,
-                                 v_codec=vc.kernel)
+                                 v_codec=vc.kernel, grad_scale=grad_scale)
 
 
 def fold_slice(m_codec, v_codec, m_parts, v_parts, g, row_offset, *,
-               beta1, beta2, block, scale=1.0, decay=None, guard=None):
+               beta1, beta2, block, scale=1.0, decay=None, grad_scale=None,
+               guard=None):
     """Fold a gradient slab into rows [row_offset, row_offset + rows_g) of
     both moments, in place: one slice-fold kernel. Unlike `fold`, the
     shared columns are not decayed here: a micro-batch is many slice folds,
     and the engine decays them once before them (`begin_micro_state`, with
-    the same flag when guarded). `guard` as in `fold`; the return gains the
-    guard vector when guarded."""
+    the same flag when guarded). `grad_scale` and `guard` as in `fold`; the
+    return gains the guard vector when guarded."""
     mc, vc = get_codec(m_codec, "m"), get_codec(v_codec, "v")
     vec = _resolve_guard(guard, g, scale, decay)
     kw = (dict(scale=scale, decay=decay) if vec is None
@@ -350,7 +359,8 @@ def fold_slice(m_codec, v_codec, m_parts, v_parts, g, row_offset, *,
     out = fused_step.arena_fold_slice(tuple(m_parts), tuple(v_parts), g,
                                       row_offset, beta1=beta1, beta2=beta2,
                                       block=block, m_codec=mc.kernel,
-                                      v_codec=vc.kernel, **kw)
+                                      v_codec=vc.kernel,
+                                      grad_scale=grad_scale, **kw)
     return out if vec is None else (*out, vec)
 
 
@@ -387,14 +397,14 @@ def has_master(state) -> bool:
 
 
 def fold_state(state, g, *, beta1, beta2, scale=1.0, decay=None,
-               guard=None):
+               grad_scale=None, guard=None):
     """One fused fold of a packed gradient arena into the state dict, in
-    place. With `guard` the return is (state, guard vector) — see
-    `fold`."""
+    place (`grad_scale`: the e4m3 wire's scale column). With `guard` the
+    return is (state, guard vector) — see `fold`."""
     mc, vc = state_codecs(state)
     out = fold(mc, vc, mc.parts_of(state["m"]), vc.parts_of(state["v"]), g,
                beta1=beta1, beta2=beta2, scale=scale, decay=decay,
-               guard=guard)
+               grad_scale=grad_scale, guard=guard)
     return (state, out[2]) if len(out) == 3 else state
 
 
@@ -414,15 +424,16 @@ def begin_micro_state(state, decay, guard=None):
 
 
 def fold_slice_state(state, g, row_offset, *, beta1, beta2, block,
-                     scale=1.0, decay=None, guard=None):
+                     scale=1.0, decay=None, grad_scale=None, guard=None):
     """One fused slice fold of a gradient slab into rows
-    [row_offset, row_offset + g.shape[0]) of the state dict, in place.
-    With `guard` the return is (state, guard vector)."""
+    [row_offset, row_offset + g.shape[0]) of the state dict, in place
+    (`grad_scale`: the e4m3 wire's scale column). With `guard` the return
+    is (state, guard vector)."""
     mc, vc = state_codecs(state)
     out = fold_slice(mc, vc, mc.parts_of(state["m"]),
                      vc.parts_of(state["v"]), g, row_offset, beta1=beta1,
                      beta2=beta2, block=block, scale=scale, decay=decay,
-                     guard=guard)
+                     grad_scale=grad_scale, guard=guard)
     return (state, out[2]) if len(out) == 3 else state
 
 
@@ -471,3 +482,10 @@ def param_region_bytes(state) -> dict:
     `optimizer_state_bytes`: the fp32 master "p" and the bf16 working-param
     cache "wp", each where the state has it."""
     return {k: _bytes(state[k].data) for k in ("p", "wp") if k in state}
+
+
+def wire_region_bytes(state) -> dict:
+    """Bytes of the fp8 wire's error-feedback residual "ef" (an fp32
+    arena), where the state has it: beside `param_region_bytes`, what the
+    wire keeps on the device between steps."""
+    return {"ef": _bytes(state["ef"].data)} if "ef" in state else {}

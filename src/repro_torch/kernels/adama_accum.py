@@ -14,7 +14,10 @@ adama_accum_2d` for fp32 m, v and g (a bf16 g is queued).
 The module also holds the row helpers of the reference's int8, factored and
 rowcol state codecs (`q8_encode_rows`, `q8s_encode_rows`, their decodes,
 `fac_row_stat` and `rowcol_decode`): the building blocks of the codec
-forms' plain versions in fused_step.py and the decode used on the host.
+forms' plain versions in fused_step.py and the decode used on the host;
+and those of its fp8 (e4m3) gradient wire (`fp8_encode_rows`,
+`fp8_scale_rows`, `fp8_quantize_rows`, `fp8_decode_rows`), the plain
+encode of kernels/fp8_wire.py.
 The reference pads each leaf to (R, 1024) rows first
 (`kernels/ops.py::_to_2d`); the fold is elementwise, so the port skips
 the padding and folds the leaf's own memory in place: m, v and g are
@@ -49,12 +52,14 @@ def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     a*b is exact in float64 (24+24 significant bits). The float64 sum is
     kept exact as s + err (TwoSum), rounded to odd (if inexact, the last
     bit of s is forced odd toward err), and then rounded to float32; with
-    53 >= 24 + 2 bits that double rounding is correct."""
+    53 >= 24 + 2 bits that double rounding is correct. An infinite or NaN
+    sum is the result as it stands (TwoSum's error term is NaN there)."""
     prod = a.double() * b.double()
     c = c.double()
     s = prod + c
     bb = s - prod
     err = (prod - (s - bb)) + (c - bb)
+    err = torch.where(torch.isfinite(s), err, torch.zeros_like(err))
     bits = s.view(torch.int64)
     toward = torch.where((err > 0) == (s > 0), 1, -1)
     bits = torch.where((err != 0) & ((bits & 1) == 0), bits + toward, bits)
@@ -131,6 +136,68 @@ q8s_decode_rows = q8_decode_rows
 def fac_row_stat(g2: torch.Tensor) -> torch.Tensor:
     """The factored codec's per-row statistic: the row max of g^2."""
     return ftz(g2).amax(dim=-1, keepdim=True)
+
+
+# ---------------------------------------------------------------------------
+# Row helpers of the fp8 (e4m3) gradient wire
+# ---------------------------------------------------------------------------
+#
+# The reference's `fp8_*` helpers: a (R, LANES) fp32 slab becomes
+# float8_e4m3fn codes and a (R, 1) fp32 scale column, scale = rowmax(|g|) *
+# n_summands / FP8_MAX, so that the sum of n_summands codes (what a
+# reduce-scatter adds; n_summands is kept for the ZeRO-1 wire) stays inside
+# e4m3's finite range. XLA CPU's flush is spelled out as for the int8
+# helpers: the scale's fallback for a row whose scale flushes to zero (a
+# max below 2^-126 * 448) relies on it. A NaN in a row makes its max NaN
+# (torch's amax propagates it, as jnp.max does), and the scale falls back
+# to 1.0, so the NaN codes carry the signal to the finite guard.
+#
+# The cast. Up to 464 in magnitude, torch's float32 -> float8_e4m3fn cast
+# and XLA's agree bit for bit (round to nearest even, the subnormal codes
+# included; 464 itself, the tie between 448 and the NaN pattern, rounds to
+# 448). Above 464, and for +-inf, XLA gives NaN, torch saturates to +-448,
+# and so does Hopper's cvt.rn.satfinite.e4m3x2.f32 (the CUDA encoder's).
+# The encoder's scale puts a finite row's max at 448, so only a finite
+# element of a row that also holds a NaN (whose scale fell back to 1.0)
+# can pass 464: the port's code is then +-448 where the reference's is
+# NaN. That micro-batch is skipped (its NaN code fails the guard), so no
+# state ever sees the difference. The plain version clamps to +-448 before
+# torch's cast, so that it saturates on every torch build as the card
+# does.
+
+FP8_MAX = 448.0       # largest finite float8_e4m3fn value
+
+
+def fp8_scale_rows(rowmax: torch.Tensor, n_summands: int = 1) -> torch.Tensor:
+    """(R, 1) per-row maxima of |g| -> the (R, 1) fp32 scale column:
+    rowmax * f32(n_summands / 448), flushed; a row whose scale flushed to
+    zero while its max did not takes the max itself; a zero or NaN max
+    takes 1.0."""
+    rowmax = ftz(rowmax)
+    s = ftz(rowmax * _f32(n_summands / FP8_MAX))
+    s = torch.where((s == 0.0) & (rowmax > 0.0), rowmax, s)
+    return torch.where(s > 0.0, s, torch.ones_like(s))
+
+
+def fp8_quantize_rows(g: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Codes of a slab under a scale column from fp8_scale_rows: g / s
+    (IEEE divide) rounded to nearest even, saturating at +-448."""
+    return torch.clamp(g / s, -FP8_MAX, FP8_MAX).to(torch.float8_e4m3fn)
+
+
+def fp8_decode_rows(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Codes (exact in fp32) times their row's scale, flushed."""
+    return ftz(q.to(torch.float32) * ftz(s))
+
+
+def fp8_encode_rows(g: torch.Tensor, n_summands: int = 1):
+    """(R, LANES) fp32 -> ((R, LANES) float8_e4m3fn codes, (R, 1) fp32
+    scales): the scale from the row's max of |g| (NaN-propagating), then
+    the codes. A NaN element stays NaN through the divide; an inf element
+    makes its row's scale inf and its own code inf/inf = NaN."""
+    g = ftz(g)
+    s = fp8_scale_rows(g.abs().amax(dim=-1, keepdim=True), n_summands)
+    return fp8_quantize_rows(g, s), s
 
 
 # rowcol's least column total (float32(1e-30), a normal number)

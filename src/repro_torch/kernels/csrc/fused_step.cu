@@ -1,8 +1,8 @@
 // Arena-wide fused AdamA optimizer kernels for Hopper (sm_90a), one
 // template on the (m codec, v codec) pair for each of the reference's three
 // Pallas kernels (repro/kernels/fused_step.py), each in its unguarded
-// static-scale form and its guarded traced-scale form, the folds on the fp32
-// and the bf16 gradient wire, and the finite flag the guard reads:
+// static-scale form and its guarded traced-scale form, the folds on the
+// fp32, bf16 and e4m3 gradient wires, and the finite flag the guard reads:
 //
 // arena_fold  replaces fused_step.py::arena_fold (_fold_body):
 //               gs = g*s
@@ -60,7 +60,17 @@
 // the same lane mapping, so everything after the load is the fp32 wire's
 // arithmetic: a fold of a bf16 slab equals the fp32 fold of that slab
 // upcast on the host, bit for bit. A bf16 row is 2 KiB, so the wrapper's
-// 16-byte alignment check still covers every 8-byte load.
+// 16-byte alignment check still covers every 8-byte load. On the e4m3 wire
+// (the reference's `grad_scale` operand) a lane loads the same 4 elements
+// as one 4-byte word of float8_e4m3fn codes and widens each exactly (every
+// e4m3 value is a float32); the row's scale column entry gs[r] is read once
+// per row, and the decode takes the reference's order, x = (code * s) * gs
+// (`_fold_body`: the upcast times s, then times the scale column), flushed
+// after each product in the flushing pairs. Everything after it is again
+// the fp32 wire's arithmetic, and rowcol's column partials take the same x
+// as its row sums. A NaN code (the encoder's signal of a non-finite
+// gradient) widens to NaN: only a guarded fold with ok == 0 (the encoder
+// ANDs that flag) ever sees one, and it writes nothing.
 //
 // Codecs (the reference's _KERNEL_CODECS; m in {fp32, int8}, v in {fp32,
 // int8, factored, rowcol}, eight pairs):
@@ -124,7 +134,10 @@
 // (vr, vc and the 3 MiB scratch negligible): fp32/rowcol fold 12 B (g 4, m
 // 4 + 4) 19.75 GB, >= 5.90 ms; int8/rowcol fold 6 B, 9.88 GB, >= 2.95 ms;
 // fp32/rowcol apply 12 B, >= 5.90 ms; int8/rowcol apply 9 B, >= 4.42 ms.
-// A guarded form moves the same bytes and 16 more (the vector). finite_and
+// The e4m3 wire's g is 1 B an element (its scale column negligible): at
+// the stablelm arena fp32/fp32 17 B, 27.98 GB, >= 8.36 ms; int8/rowcol 3 B,
+// >= 1.47 ms. A guarded form moves the same bytes and 16 more (the
+// vector). finite_and
 // reads each element once: the stablelm slab (6.58 GB fp32) >= 1.965 ms.
 // The master form of the apply writes 2 B an element more (work): at the
 // stablelm arena fp32/fp32 18 B, 29.63 GB, >= 8.84 ms; int8/rowcol 11 B,
@@ -132,7 +145,8 @@
 //
 // Rounding. The reference's CPU lowering (XLA) contracts
 //   fp32      d*m + c*x       as fma(d, m, c*x)
-//   int8 m    d*(q*s) + c*x   as fma(c, x, d*(q*s))
+//   int8 m    d*(q*s) + c*x   as fma(c, x, d*(q*s)); on the e4m3 wire as
+//             fma(d, q*s, c*x), int8 v's
 //   int8 v    d*(q*s) + c*x   as fma(d, q*s, c*x)
 //   factored  d*f + c*max(x)  as fma(d, f, c*max(x))
 //   rowcol    d*vr + c*sum(x) as fma(d, vr, c*sum(x)); vc + c*sum(x) as
@@ -173,7 +187,8 @@ constexpr float kQ8Max = 127.0f;
 constexpr float kQ8Inv = 0x1.020408p-7f;    // float32(1/127)
 
 enum Kind { kFp32 = 0, kInt8 = 1, kFactored = 2, kRowCol = 3 };
-enum Wire { kWireF32 = 0, kWireBf16 = 1 };  // fused_step.py::WIRES
+// fused_step.py::WIRES
+enum Wire { kWireF32 = 0, kWireBf16 = 1, kWireE4m3 = 2 };
 constexpr int kVKinds = 4;                 // the launchers' key: mk * 4 + vk
 constexpr float kRcFloor = 1e-30f;          // rowcol's least column total
 
@@ -220,14 +235,35 @@ __device__ __forceinline__ int64_t f4_index(int64_t row, int k, int lane) {
   return row * (kLanes / 4) + k * 32 + lane;
 }
 
+// A float8_e4m3fn code (1 sign, 4 exponent bits of bias 7, 3 mantissa
+// bits; S.1111.111 is NaN, there is no inf) as the float32 of the same
+// value, exactly: a subnormal code is m * 2^-9, a normal one has the float32
+// exponent e + 120 and the mantissa bits on top (csrc/fp8_wire.cu decodes
+// the same way).
+__device__ __forceinline__ float e4m3_to_f32(uint32_t b) {
+  const uint32_t sign = (b & 0x80u) << 24, e = (b >> 3) & 0xfu, m = b & 7u;
+  float x;
+  if (e == 0xfu && m == 7u) x = __uint_as_float(0x7fc00000u);
+  else if (e == 0u) x = (float)m * 0x1p-9f;
+  else x = __uint_as_float(((e + 120u) << 23) | (m << 20));
+  return __uint_as_float(__float_as_uint(x) | sign);
+}
+
 // Elements 4i .. 4i + 3 of the gradient slab g as fp32: one float4 on the
 // fp32 wire; on the bf16 wire one 8-byte word of four bf16 (element 4i + e
-// in bits 16e .. 16e + 15 of the little-endian word), each widened exactly.
+// in bits 16e .. 16e + 15 of the little-endian word), each widened exactly;
+// on the e4m3 wire one 4-byte word of four codes (element 4i + e in bits
+// 8e .. 8e + 7), each widened exactly (still to be decoded by the row's
+// scale).
 template <int W>
 __device__ __forceinline__ float4 load_g(const void* __restrict__ g,
                                          int64_t i) {
   if constexpr (W == kWireF32) {
     return ((const float4*)g)[i];
+  } else if constexpr (W == kWireE4m3) {
+    const uint32_t c = ((const uint32_t*)g)[i];
+    return make_float4(e4m3_to_f32(c & 0xffu), e4m3_to_f32((c >> 8) & 0xffu),
+                       e4m3_to_f32((c >> 16) & 0xffu), e4m3_to_f32(c >> 24));
   } else {
     const uint2 h = ((const uint2*)g)[i];
     return make_float4(__uint_as_float(h.x << 16),
@@ -274,8 +310,10 @@ __device__ __forceinline__ void q8_store(const float* x,
 }
 
 // Fold contributions x[] (the lane's 32 values of s*g, or of (s*g)^2 for
-// v) into one moment's row, in its codec's space. F: flush (see fl).
-template <int K, bool V, bool F>
+// v) into one moment's row, in its codec's space. F: flush (see fl). DF:
+// int8's d-first contraction fma(d, q*s, c*x), which XLA CPU takes for v
+// and, on the e4m3 wire, for m too (the header's Rounding).
+template <int K, bool V, bool F, bool DF = V>
 __device__ __forceinline__ void fold_moment(void* __restrict__ c0,
                                             void* __restrict__ c1,
                                             const float* x, float d,
@@ -306,8 +344,8 @@ __device__ __forceinline__ void fold_moment(void* __restrict__ c0,
       for (int e = 0; e < 4; ++e) {
         const int j = 4 * k + e;
         const float dec = fl<true>((float)qs[e] * s);
-        y[j] = V ? fl<true>(fmaf(d, dec, fl<true>(c * x[j])))
-                 : fl<true>(fmaf(c, x[j], fl<true>(d * dec)));
+        y[j] = DF ? fl<true>(fmaf(d, dec, fl<true>(c * x[j])))
+                  : fl<true>(fmaf(c, x[j], fl<true>(d * dec)));
       }
     }
     q8_store<V>(y, codes, scales, row, lane);
@@ -322,16 +360,39 @@ __device__ __forceinline__ void fold_moment(void* __restrict__ c0,
   }
 }
 
+// x[] = the lane's 32 values of s*g of slab row r: g widened (load_g),
+// times s, and on the e4m3 wire times the row's scale gs[r] (fl after each
+// product).
+template <int W, bool F>
+__device__ __forceinline__ void load_row(float* x, const void* __restrict__ g,
+                                         const float* __restrict__ gs,
+                                         int64_t r, int lane, float s) {
+#pragma unroll
+  for (int k = 0; k < kRowF4; ++k) {
+    const float4 a = load_g<W>(g, f4_index(r, k, lane));
+    x[4 * k + 0] = fl<F>(fl<F>(a.x) * s);
+    x[4 * k + 1] = fl<F>(fl<F>(a.y) * s);
+    x[4 * k + 2] = fl<F>(fl<F>(a.z) * s);
+    x[4 * k + 3] = fl<F>(fl<F>(a.w) * s);
+  }
+  if constexpr (W == kWireE4m3) {
+    const float gr = fl<F>(gs[r]);
+#pragma unroll
+    for (int j = 0; j < kRowVals; ++j) x[j] = fl<F>(x[j] * gr);
+  }
+}
+
 // One warp per row of the slab; slab row r folds into arena row off + r.
 // G: the guarded form (guard is the vector; the unguarded form's code is
-// the same with the guard read compiled out). W: g's wire (load_g).
+// the same with the guard read compiled out). W: g's wire (load_g); gs the
+// e4m3 wire's (rows_g, 1) scale column (NULL on the others).
 template <int MK, int VK, bool G, int W>
 __global__ void __launch_bounds__(kThreads)
 arena_fold_kernel(void* __restrict__ m0, void* __restrict__ m1,
                   void* __restrict__ v0, void* __restrict__ v1,
-                  const void* __restrict__ g, int64_t off, int64_t rows_g,
-                  float s, float c1, float c2, float dm, float dv,
-                  const float4* __restrict__ guard) {
+                  const void* __restrict__ g, const float* __restrict__ gs,
+                  int64_t off, int64_t rows_g, float s, float c1, float c2,
+                  float dm, float dv, const float4* __restrict__ guard) {
   constexpr bool F = MK != kFp32 || VK != kFp32;
   const volatile float* gv = nullptr;
   if constexpr (G) {
@@ -343,17 +404,9 @@ arena_fold_kernel(void* __restrict__ m0, void* __restrict__ m1,
   for (int64_t r = (int64_t)blockIdx.x * kWarps + threadIdx.x / 32;
        r < rows_g; r += warps) {
     float x[kRowVals];
-    const float sr = G ? gv[kGScale] : s;
-#pragma unroll
-    for (int k = 0; k < kRowF4; ++k) {
-      const float4 a = load_g<W>(g, f4_index(r, k, lane));
-      x[4 * k + 0] = fl<F>(fl<F>(a.x) * sr);
-      x[4 * k + 1] = fl<F>(fl<F>(a.y) * sr);
-      x[4 * k + 2] = fl<F>(fl<F>(a.z) * sr);
-      x[4 * k + 3] = fl<F>(fl<F>(a.w) * sr);
-    }
-    fold_moment<MK, false, F>(m0, m1, x, G ? gv[kGDm] : dm, c1, off + r,
-                              lane);
+    load_row<W, F>(x, g, gs, r, lane, G ? gv[kGScale] : s);
+    fold_moment<MK, false, F, W == kWireE4m3>(m0, m1, x, G ? gv[kGDm] : dm,
+                                              c1, off + r, lane);
 #pragma unroll
     for (int j = 0; j < kRowVals; ++j) x[j] = fl<F>(x[j] * x[j]);
     fold_moment<VK, true, F>(v0, v1, x, G ? gv[kGDv] : dv, c2, off + r,
@@ -401,13 +454,14 @@ __device__ __forceinline__ float rowcol_row_sum(float* x) {
 // [p * range_rows, min((p + 1) * range_rows, rows_g)) of the slab's rows.
 // m folds as in arena_fold_kernel; vr row by row; the column partials as
 // the header says, into partials[p], and the last CTA folds their ordered
-// sum into vc. ticket: an integer the launcher zeroes. G and W as in
+// sum into vc. ticket: an integer the launcher zeroes. G, W and gs as in
 // arena_fold_kernel.
 template <int MK, bool G, int W>
 __global__ void __launch_bounds__(kThreads)
 rowcol_fold_kernel(void* __restrict__ m0, void* __restrict__ m1,
                    float* __restrict__ vr, float4* __restrict__ vc,
-                   const void* __restrict__ g, int64_t off, int64_t rows_g,
+                   const void* __restrict__ g, const float* __restrict__ gs,
+                   int64_t off, int64_t rows_g,
                    int64_t range_rows, int ranges,
                    float4* __restrict__ partials,
                    unsigned int* __restrict__ ticket, float s, float c1,
@@ -439,17 +493,9 @@ rowcol_fold_kernel(void* __restrict__ m0, void* __restrict__ m1,
   }
   for (int64_t r = lo + warp; r < hi; r += kWarps) {
     float x[kRowVals];
-    const float sr = G ? gv[kGScale] : s;
-#pragma unroll
-    for (int k = 0; k < kRowF4; ++k) {
-      const float4 a = load_g<W>(g, f4_index(r, k, lane));
-      x[4 * k + 0] = fl<true>(fl<true>(a.x) * sr);
-      x[4 * k + 1] = fl<true>(fl<true>(a.y) * sr);
-      x[4 * k + 2] = fl<true>(fl<true>(a.z) * sr);
-      x[4 * k + 3] = fl<true>(fl<true>(a.w) * sr);
-    }
-    fold_moment<MK, false, true>(m0, m1, x, G ? gv[kGDm] : dm, c1, off + r,
-                                 lane);
+    load_row<W, true>(x, g, gs, r, lane, G ? gv[kGScale] : s);
+    fold_moment<MK, false, true, W == kWireE4m3>(
+        m0, m1, x, G ? gv[kGDm] : dm, c1, off + r, lane);
 #pragma unroll
     for (int k = 0; k < kRowF4; ++k) {
       float* e = x + 4 * k;
@@ -696,7 +742,8 @@ int rows_grid(int64_t rows) {
 // others a grid of rows_grid and no scratch.
 template <int MK, int VK, int W>
 cudaError_t fold_wire(void* m0, void* m1, void* v0, void* v1, const void* g,
-                      int64_t off, int64_t rows_g, int64_t ranges,
+                      const float* gs, int64_t off, int64_t rows_g,
+                      int64_t ranges,
                       int64_t range_rows, void* scratch, float s, float c1,
                       float c2, float dm, float dv, const float4* guard,
                       cudaStream_t stream) {
@@ -704,10 +751,10 @@ cudaError_t fold_wire(void* m0, void* m1, void* v0, void* v1, const void* g,
     const int grid = rows_grid(rows_g);
     if (guard == nullptr)
       arena_fold_kernel<MK, VK, false, W><<<grid, kThreads, 0, stream>>>(
-          m0, m1, v0, v1, g, off, rows_g, s, c1, c2, dm, dv, nullptr);
+          m0, m1, v0, v1, g, gs, off, rows_g, s, c1, c2, dm, dv, nullptr);
     else
       arena_fold_kernel<MK, VK, true, W><<<grid, kThreads, 0, stream>>>(
-          m0, m1, v0, v1, g, off, rows_g, s, c1, c2, dm, dv, guard);
+          m0, m1, v0, v1, g, gs, off, rows_g, s, c1, c2, dm, dv, guard);
     return cudaSuccess;
   } else {
     if (ranges < 1 || ranges > 65535 || range_rows < 1 ||
@@ -721,29 +768,35 @@ cudaError_t fold_wire(void* m0, void* m1, void* v0, void* v1, const void* g,
     if (err != cudaSuccess) return err;
     if (guard == nullptr)
       rowcol_fold_kernel<MK, false, W><<<(int)ranges, kThreads, 0, stream>>>(
-          m0, m1, (float*)v0, (float4*)v1, g, off, rows_g, range_rows,
+          m0, m1, (float*)v0, (float4*)v1, g, gs, off, rows_g, range_rows,
           (int)ranges, partials, ticket, s, c1, c2, dm, dv, nullptr);
     else
       rowcol_fold_kernel<MK, true, W><<<(int)ranges, kThreads, 0, stream>>>(
-          m0, m1, (float*)v0, (float4*)v1, g, off, rows_g, range_rows,
+          m0, m1, (float*)v0, (float4*)v1, g, gs, off, rows_g, range_rows,
           (int)ranges, partials, ticket, s, c1, c2, dm, dv, guard);
     return cudaSuccess;
   }
 }
 
-// One pair's fold on g's wire (kWireF32, kWireBf16).
+// One pair's fold on g's wire (kWireF32, kWireBf16; kWireE4m3 with its
+// scale column gs, which only that wire takes).
 template <int MK, int VK>
 cudaError_t fold(int wire, void* m0, void* m1, void* v0, void* v1,
-                 const void* g, int64_t off, int64_t rows_g, int64_t ranges,
-                 int64_t range_rows, void* scratch, float s, float c1,
-                 float c2, float dm, float dv, const float4* guard,
+                 const void* g, const float* gs, int64_t off, int64_t rows_g,
+                 int64_t ranges, int64_t range_rows, void* scratch, float s,
+                 float c1, float c2, float dm, float dv, const float4* guard,
                  cudaStream_t stream) {
+  if ((wire == kWireE4m3) != (gs != nullptr)) return cudaErrorInvalidValue;
   if (wire == kWireF32)
-    return fold_wire<MK, VK, kWireF32>(m0, m1, v0, v1, g, off, rows_g,
+    return fold_wire<MK, VK, kWireF32>(m0, m1, v0, v1, g, gs, off, rows_g,
                                        ranges, range_rows, scratch, s, c1,
                                        c2, dm, dv, guard, stream);
   if (wire == kWireBf16)
-    return fold_wire<MK, VK, kWireBf16>(m0, m1, v0, v1, g, off, rows_g,
+    return fold_wire<MK, VK, kWireBf16>(m0, m1, v0, v1, g, gs, off, rows_g,
+                                        ranges, range_rows, scratch, s, c1,
+                                        c2, dm, dv, guard, stream);
+  if (wire == kWireE4m3)
+    return fold_wire<MK, VK, kWireE4m3>(m0, m1, v0, v1, g, gs, off, rows_g,
                                         ranges, range_rows, scratch, s, c1,
                                         c2, dm, dv, guard, stream);
   return cudaErrorInvalidValue;
@@ -794,17 +847,19 @@ void apply(void* p, void* work, const void* m0, const void* m1,
   X(kInt8, kFp32) X(kInt8, kInt8) X(kInt8, kFactored) X(kInt8, kRowCol)
 
 // g is the (rows_g, 1024) slab for arena rows [row_offset, row_offset +
-// rows_g), inside the arena (checked by the wrapper), of fp32 (wire 0) or
-// bf16 (wire 1) elements; the whole-arena fold passes row_offset 0 and
-// rows_g = the arena's rows. ranges, range_rows and
+// rows_g), inside the arena (checked by the wrapper), of fp32 (wire 0), bf16
+// (wire 1) or e4m3 (wire 2) elements; the whole-arena fold passes
+// row_offset 0 and rows_g = the arena's rows. ranges, range_rows and
 // scratch serve rowcol alone (rowcol_partition(rows_g) and a (ranges * 1024
 // + 4)-float buffer; 0, 0 and NULL for the other pairs). The guarded
 // launcher takes one more argument, the 16-byte-aligned device vector [dm,
 // dv, ok, s], whose values replace s, dm and dv; the unguarded one passes
-// NULL to the same kernels.
+// NULL to the same kernels. The e4m3 wire's launchers (arena_fold_e4m3_*)
+// take the same arguments and then grad_scale, the slab's (rows_g, 1) fp32
+// scale column, before the guard; the others refuse wire 2.
 namespace {
 int fold_dispatch(int mk, int vk, void* m0, void* m1, void* v0, void* v1,
-                  const void* g, int wire, int64_t row_offset,
+                  const void* g, int wire, const void* gs, int64_t row_offset,
                   int64_t rows_g, int64_t ranges, int64_t range_rows,
                   void* scratch, float s, float c1, float c2, float dm,
                   float dv, const void* guard, cudaStream_t st) {
@@ -812,9 +867,9 @@ int fold_dispatch(int mk, int vk, void* m0, void* m1, void* v0, void* v1,
   switch (mk * kVKinds + vk) {
 #define FOLD(MK, VK)                                                     \
   case MK * kVKinds + VK:                                                \
-    err = fold<MK, VK>(wire, m0, m1, v0, v1, g, row_offset, rows_g,      \
-                       ranges, range_rows, scratch, s, c1, c2, dm, dv,   \
-                       (const float4*)guard, st);                        \
+    err = fold<MK, VK>(wire, m0, m1, v0, v1, g, (const float*)gs,        \
+                       row_offset, rows_g, ranges, range_rows, scratch,  \
+                       s, c1, c2, dm, dv, (const float4*)guard, st);     \
     break;
     PAIRS(FOLD)
 #undef FOLD
@@ -848,9 +903,9 @@ extern "C" int arena_fold_launch(int mk, int vk, void* m0, void* m1,
                                  int64_t ranges, int64_t range_rows,
                                  void* scratch, float s, float c1, float c2,
                                  float dm, float dv, void* stream) {
-  return fold_dispatch(mk, vk, m0, m1, v0, v1, g, wire, row_offset, rows_g,
-                       ranges, range_rows, scratch, s, c1, c2, dm, dv,
-                       nullptr, (cudaStream_t)stream);
+  return fold_dispatch(mk, vk, m0, m1, v0, v1, g, wire, nullptr, row_offset,
+                       rows_g, ranges, range_rows, scratch, s, c1, c2, dm,
+                       dv, nullptr, (cudaStream_t)stream);
 }
 
 extern "C" int arena_fold_guarded_launch(int mk, int vk, void* m0, void* m1,
@@ -862,9 +917,35 @@ extern "C" int arena_fold_guarded_launch(int mk, int vk, void* m0, void* m1,
                                          float dm, float dv,
                                          const void* guard, void* stream) {
   if (guard == nullptr) return (int)cudaErrorInvalidValue;
-  return fold_dispatch(mk, vk, m0, m1, v0, v1, g, wire, row_offset, rows_g,
-                       ranges, range_rows, scratch, s, c1, c2, dm, dv, guard,
-                       (cudaStream_t)stream);
+  return fold_dispatch(mk, vk, m0, m1, v0, v1, g, wire, nullptr, row_offset,
+                       rows_g, ranges, range_rows, scratch, s, c1, c2, dm,
+                       dv, guard, (cudaStream_t)stream);
+}
+
+extern "C" int arena_fold_e4m3_launch(int mk, int vk, void* m0, void* m1,
+                                      void* v0, void* v1, const void* g,
+                                      int wire, int64_t row_offset,
+                                      int64_t rows_g, int64_t ranges,
+                                      int64_t range_rows, void* scratch,
+                                      float s, float c1, float c2, float dm,
+                                      float dv, const void* grad_scale,
+                                      void* stream) {
+  if (grad_scale == nullptr) return (int)cudaErrorInvalidValue;
+  return fold_dispatch(mk, vk, m0, m1, v0, v1, g, wire, grad_scale,
+                       row_offset, rows_g, ranges, range_rows, scratch, s,
+                       c1, c2, dm, dv, nullptr, (cudaStream_t)stream);
+}
+
+extern "C" int arena_fold_e4m3_guarded_launch(
+    int mk, int vk, void* m0, void* m1, void* v0, void* v1, const void* g,
+    int wire, int64_t row_offset, int64_t rows_g, int64_t ranges,
+    int64_t range_rows, void* scratch, float s, float c1, float c2, float dm,
+    float dv, const void* grad_scale, const void* guard, void* stream) {
+  if (grad_scale == nullptr || guard == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return fold_dispatch(mk, vk, m0, m1, v0, v1, g, wire, grad_scale,
+                       row_offset, rows_g, ranges, range_rows, scratch, s,
+                       c1, c2, dm, dv, guard, (cudaStream_t)stream);
 }
 
 // The apply: p (the fp32 arena, or the master) and then work, the

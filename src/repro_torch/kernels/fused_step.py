@@ -17,7 +17,7 @@ Each function has two forms, side by side:
   finite_and / finite_and_ref       ok <- ok AND every element finite.
 
 They replace the Pallas kernels of `repro/kernels/fused_step.py`, the
-folds on two gradient wires (the e4m3 wire is not ported):
+folds on the reference's three gradient wires:
 
   fp32        g is a float32 slab.
   bf16        g is a bfloat16 slab (core/arena.py packs it at half the
@@ -28,6 +28,13 @@ folds on two gradient wires (the e4m3 wire is not ported):
               the host bit for bit (the reference's `_fold_body`:
               `g.astype(float32) * s`). `grad_dtype=` declares the wire the
               caller packed; a slab of another dtype raises TypeError.
+  e4m3        g is a float8_e4m3fn slab of codes and `grad_scale` its
+              (rows_g, 1) float32 scale column (kernels/fp8_wire.py encodes
+              both); the fold widens each code exactly and decodes it in
+              the reference's order, (code * s) * grad_scale[row], and then
+              runs the fp32 wire's arithmetic. Codes and their scale come
+              in a pair: either one alone raises TypeError, as in the
+              reference.
 
 The apply has a master-param form (`work_dtype=torch.bfloat16`, the
 reference's `emit_work`): p is the fp32 MASTER region, updated in place,
@@ -90,7 +97,8 @@ The reference's CPU lowering (XLA) contracts some multiply-add pairs into
 fused multiply-adds, and which operand it fuses depends on the codec:
 
   fp32 moment    d*m + c*x          as fma(d, m, c*x)
-  int8 m         d*(q*s) + c*x      as fma(c, x, d*(q*s))
+  int8 m         d*(q*s) + c*x      as fma(c, x, d*(q*s)); on the e4m3
+                                    wire as fma(d, q*s, c*x)
   int8 v         d*(q*s) + c*x      as fma(d, q*s, c*x)
   factored v     d*f + c*max(x)     as fma(d, f, c*max(x))
   rowcol v       d*vr + c*sum(x)    as fma(d, vr, c*sum(x))
@@ -171,11 +179,15 @@ class KernelCodec:
     # chunk of rows: decay*moment + coeff*x; `fl` is the pair's flush
     # (`_flush`)
     update: Callable = field(repr=False)
-    # fold_columns(parts, g, scale, coeff, ok): adds coeff * the column sums
-    # of (scale*g)^2 over all of g's rows into the shared columns, in place
-    # (where the bool tensor ok holds, if given); None for a codec whose
-    # columns are all row-indexed
+    # fold_columns(parts, g, scale, coeff, ok, gs): adds coeff * the column
+    # sums of x^2 over all of g's rows into the shared columns, in place
+    # (where the bool tensor ok holds, if given), x being g decoded and
+    # scaled (`_scaled_g`; gs: the e4m3 wire's scale column); None for a
+    # codec whose columns are all row-indexed
     fold_columns: Optional[Callable] = field(default=None, repr=False)
+    # the update on the e4m3 wire, where the reference contracts the fold
+    # otherwise (int8 m); None: `update`
+    e4m3_update: Optional[Callable] = field(default=None, repr=False)
 
 
 def _ieee(x):
@@ -211,6 +223,12 @@ def _q8s_update(parts, x, decay, coeff, fl):
         ftz(_fma32(coeff, x, ftz(decay * _q8_decode(parts, fl)))))
 
 
+def _q8s_update_e4m3(parts, x, decay, coeff, fl):
+    # on the e4m3 wire XLA CPU contracts int8 m's fold as it does int8 v's
+    return q8s_encode_rows(
+        ftz(_fma32(decay, _q8_decode(parts, fl), ftz(coeff * x))))
+
+
 def _fac_update(parts, x, decay, coeff, fl):
     return (ftz(_fma32(decay, ftz(parts[0]), ftz(coeff * fac_row_stat(x)))),)
 
@@ -225,10 +243,10 @@ def _rowcol_update(parts, x, decay, coeff, fl):
                        ftz(coeff * _rowcol_row_sums(x)))),)
 
 
-def _rowcol_fold_columns(parts, g, s, coeff, ok=None):
+def _rowcol_fold_columns(parts, g, s, coeff, ok=None, gs=None):
     vc = parts[1]
-    _write((vc,), (ftz(_fma32(coeff, _rowcol_col_sums(g, s, ftz), ftz(vc))),),
-           ok)
+    _write((vc,), (ftz(_fma32(coeff, _rowcol_col_sums(g, s, ftz, gs),
+                              ftz(vc))),), ok)
 
 
 def rowcol_partition(rows: int) -> Tuple[int, int]:
@@ -249,8 +267,17 @@ def _rowcol_row_sums(x):
     return halving_sum(halving_sum(t, 2), 1).reshape(n, 1)
 
 
-def _rowcol_col_sums(g, s, fl):
-    """(1, LANES) column sums of fl((fl(g)*s)^2) in the kernel's order:
+def _scaled_g(g, s, gs, fl):
+    """The fold's x = s*g of slab rows `g` as float32: a bf16 slab upcast
+    first; e4m3 codes widened and decoded in the reference's order,
+    (code * s) * gs (gs: their rows of the scale column, else None)."""
+    x = fl(fl(g.float()) * s)
+    return x if gs is None else fl(x * fl(gs))
+
+
+def _rowcol_col_sums(g, s, fl, gs=None):
+    """(1, LANES) column sums of fl(x^2), x = `_scaled_g`, in the kernel's
+    order:
     per range, warp w adds rows w, w + 8, ... one after another, the 8
     warps meet in a halving tree, and the ranges' sums are added in
     order."""
@@ -262,7 +289,7 @@ def _rowcol_col_sums(g, s, fl):
     for p0 in range(0, ranges, group):
         n = min(ranges, p0 + group) - p0
         lo, hi = p0 * rr, min((p0 + n) * rr, rows)
-        x = fl(fl(g[lo:hi].float()) * s)        # a bf16 wire upcast first
+        x = _scaled_g(g[lo:hi], s, None if gs is None else gs[lo:hi], fl)
         xp = x.new_zeros((n * rr, LANES))        # zero rows add exactly 0
         xp[:hi - lo] = fl(x * x)
         xp = torch.nn.functional.pad(xp.view(n, rr, LANES),
@@ -284,7 +311,8 @@ _Q8_COLS = (Col(LANES, torch.int8), Col(1, torch.float32))
 _KERNEL_CODECS = {
     "m": {
         "fp32": KernelCodec("fp32", _F32_COLS, 0, _fp32_decode, _fp32_update),
-        "int8": KernelCodec("int8", _Q8_COLS, 1, _q8_decode, _q8s_update),
+        "int8": KernelCodec("int8", _Q8_COLS, 1, _q8_decode, _q8s_update,
+                            e4m3_update=_q8s_update_e4m3),
     },
     "v": {
         "fp32": KernelCodec("fp32", _F32_COLS, 0, _fp32_decode, _fp32_update),
@@ -342,22 +370,48 @@ def _check_parts(fn: str, parts, kc: KernelCodec, rows: int, device) -> None:
             raise ValueError(f"{fn}: CUDA operands must be 16-byte aligned")
 
 
-# the gradient wires the folds take, each dtype's number in
-# csrc/fused_step.cu (the reference's GRAD_WIRE_DTYPES but e4m3: ROADMAP
-# queue 1, item 7.5)
-WIRES = {torch.float32: 0, torch.bfloat16: 1}
+# the gradient wires the folds take (the reference's GRAD_WIRE_DTYPES),
+# each dtype's number in csrc/fused_step.cu
+WIRES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 
 
-def _check_grad_dtype(fn: str, g: torch.Tensor, grad_dtype) -> None:
-    """The reference's `_check_grad_dtype`: a declared wire (`grad_dtype`,
-    a torch dtype; None infers it from the slab) must be the slab's, and
-    the slab's dtype one of WIRES."""
+def _dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def _check_grad_dtype(fn: str, g: torch.Tensor, grad_dtype,
+                      grad_scale=None) -> None:
+    """The reference's `_check_grad_dtype`, with its messages: a declared
+    wire (`grad_dtype`, a torch dtype; None infers it from the slab) must
+    be the slab's, the slab's dtype one of WIRES, and an e4m3 slab and a
+    `grad_scale` column come in a pair, the column (rows_g, 1) float32; on
+    the operands' device and contiguous besides, for the kernel."""
     if grad_dtype is not None and g.dtype != grad_dtype:
         raise TypeError(f"{fn}: gradient slab dtype {g.dtype} != declared "
                         f"grad_dtype {grad_dtype}")
     if g.dtype not in WIRES:
         raise TypeError(f"{fn}: unsupported gradient wire dtype {g.dtype}; "
                         f"expected one of {tuple(WIRES)}")
+    is_fp8 = g.dtype == torch.float8_e4m3fn
+    if is_fp8 and grad_scale is None:
+        raise TypeError(f"{fn}: fp8 gradient slab requires its per-row "
+                        f"grad_scale column (see "
+                        f"kernels/adama_accum.fp8_encode_rows); codes without "
+                        f"the scale would fold garbage")
+    if grad_scale is None:
+        return
+    if not is_fp8:
+        raise TypeError(f"{fn}: grad_scale column passed with a "
+                        f"{_dtype_name(g.dtype)} slab; the scale column pairs "
+                        f"only with an fp8 (float8_e4m3fn) wire")
+    if (tuple(grad_scale.shape) != (g.shape[0], 1)
+            or grad_scale.dtype != torch.float32):
+        raise TypeError(f"{fn}: grad_scale must be ({g.shape[0]}, 1) fp32, "
+                        f"got {tuple(grad_scale.shape)} "
+                        f"{_dtype_name(grad_scale.dtype)}")
+    if not grad_scale.is_contiguous() or grad_scale.device != g.device:
+        raise ValueError(f"{fn}: grad_scale must be contiguous, on "
+                         f"{g.device}")
 
 
 def _check_lead(fn: str, t: torch.Tensor, wire: bool = False) -> None:
@@ -398,7 +452,9 @@ _P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
 # then the master form's bf16 work arena (NULL for the plain form) before
 # the moments' columns. A guarded
 # launcher takes the unguarded one's arguments and then the guard's
-# pointer. finite_and_launch: x, its element bytes, (head, n16, tail) of
+# pointer. The e4m3 wire's launchers (`_e4m3` in the name) take the
+# fp32/bf16 ones' arguments and then grad_scale's pointer (before the
+# guard's). finite_and_launch: x, its element bytes, (head, n16, tail) of
 # `_finite_split`, ok, the stream.
 _FOLD_ARGS = (_I, _I, _P, _P, _P, _P, _P, _I, _I64, _I64, _I64, _I64, _P, _F,
               _F, _F, _F, _F)
@@ -408,6 +464,8 @@ SIGNATURES = {
     "arena_apply_launch": _APPLY_ARGS + (_P,),
     "arena_fold_guarded_launch": _FOLD_ARGS + (_P, _P),
     "arena_apply_guarded_launch": _APPLY_ARGS + (_P, _P),
+    "arena_fold_e4m3_launch": _FOLD_ARGS + (_P, _P),
+    "arena_fold_e4m3_guarded_launch": _FOLD_ARGS + (_P, _P, _P),
     "finite_and_launch": (_P, _I, _I64, _I64, _I64, _P, _P),
 }
 
@@ -575,46 +633,60 @@ def fold_scratch(vk: KernelCodec, rows_g: int, device):
 
 
 def fold_args(mk, vk, m_parts, v_parts, g, row_offset, beta1, beta2,
-              scale, decay, scratch=(0, 0, None)):
-    """Arguments of arena_fold_launch, the stream excepted. `scratch` is
-    fold_scratch's triple."""
+              scale, decay, scratch=(0, 0, None), grad_scale=None):
+    """Arguments of arena_fold_launch, the stream excepted; with the e4m3
+    wire's `grad_scale`, of arena_fold_e4m3_launch (its pointer last).
+    `scratch` is fold_scratch's triple."""
     ranges, range_rows, buf = scratch
+    gs = () if grad_scale is None else (grad_scale.data_ptr(),)
     return (mk.kind, vk.kind, *_ptrs(m_parts), *_ptrs(v_parts), g.data_ptr(),
             WIRES[g.dtype], row_offset, g.shape[0], ranges, range_rows,
             None if buf is None else buf.data_ptr(),
-            *_fold_scalars(beta1, beta2, scale, decay))
+            *_fold_scalars(beta1, beta2, scale, decay), *gs)
+
+
+def _fold_launcher(grad_scale) -> str:
+    return "arena_fold_launch" if grad_scale is None else \
+        "arena_fold_e4m3_launch"
 
 
 def arena_fold_ref(m, v, g, *, beta1: float, beta2: float, scale=1.0,
-                   decay=None, m_codec="fp32", v_codec="fp32", guard=None):
+                   decay=None, m_codec="fp32", v_codec="fp32",
+                   grad_scale=None, guard=None):
     """Plain version of `arena_fold` (same operations, same order; guarded,
     every write where-predicated on ok). A bf16 `g` is upcast first, then
-    scaled, as the kernel and the reference's `_fold_body` do."""
+    scaled; e4m3 codes are scaled and then decoded by `grad_scale`, as the
+    kernel and the reference's `_fold_body` do (`_scaled_g`)."""
     mk, vk = kernel_codec("m", m_codec), kernel_codec("v", v_codec)
     (m_parts, _), (v_parts, _) = _as_parts(m), _as_parts(v)
     s, c1, c2, dm, dv, ok = _guard_values(g, guard, beta1, beta2, scale,
                                           decay)
     fl = _flush(mk, vk)
+    m_update = mk.update if grad_scale is None or mk.e4m3_update is None \
+        else mk.e4m3_update
     for lo in range(0, g.shape[0], _PLAIN_CHUNK_ROWS):
         hi = lo + _PLAIN_CHUNK_ROWS
-        gs = fl(fl(g[lo:hi].float()) * s)
+        x = _scaled_g(g[lo:hi], s, None if grad_scale is None
+                      else grad_scale[lo:hi], fl)
         mp, vp = _rows(mk, m_parts, lo, hi), _rows(vk, v_parts, lo, hi)
-        _write(mp, mk.update(mp, gs, dm, c1, fl), ok)
-        _write(vp, vk.update(vp, fl(gs * gs), dv, c2, fl), ok)
+        _write(mp, m_update(mp, x, dm, c1, fl), ok)
+        _write(vp, vk.update(vp, fl(x * x), dv, c2, fl), ok)
     if vk.fold_columns is not None:
-        vk.fold_columns(v_parts, g, s, c2, ok)
+        vk.fold_columns(v_parts, g, s, c2, ok, grad_scale)
     return m, v
 
 
 def arena_fold(m, v, g, *, beta1: float, beta2: float, scale=1.0,
                decay=None, m_codec="fp32", v_codec="fp32", grad_dtype=None,
-               guard=None):
+               grad_scale=None, guard=None):
     """Fold one micro-batch's packed gradient `g` into both moments, in
     place: m = dm*m + (1-beta1)*(scale*g), v = dv*v + (1-beta2)*(scale*g)^2,
     each in its codec's space. `m`/`v` are the codecs' column tuples (bare
     tensors for fp32). `g` is a float32 or bfloat16 wire slab (bf16 is
-    upcast in the kernel); `grad_dtype`, if given, is the wire the caller
-    declares, checked against g's dtype. `decay=(dm, dv)` fuses the
+    upcast in the kernel), or float8_e4m3fn codes with their (rows, 1)
+    float32 scale column `grad_scale` (decoded in the kernel);
+    `grad_dtype`, if given, is the wire the caller declares, checked
+    against g's dtype. `decay=(dm, dv)` fuses the
     begin-minibatch decay into this fold for the row-indexed columns (pass
     (beta1, beta2) on the first micro-batch); None means (1, 1). A shared
     column (rowcol's column sums) is decayed by the caller. `guard` (the
@@ -623,7 +695,7 @@ def arena_fold(m, v, g, *, beta1: float, beta2: float, scale=1.0,
     Returns (m, v)."""
     mk, vk = kernel_codec("m", m_codec), kernel_codec("v", v_codec)
     (m_parts, _), (v_parts, _) = _as_parts(m), _as_parts(v)
-    _check_grad_dtype("arena_fold", g, grad_dtype)
+    _check_grad_dtype("arena_fold", g, grad_dtype, grad_scale)
     _check_state("arena_fold", mk, vk, m_parts, v_parts, g, g.shape[0],
                  wire=True)
     if guard is not None:
@@ -631,10 +703,11 @@ def arena_fold(m, v, g, *, beta1: float, beta2: float, scale=1.0,
     if g.device.type == "cpu":
         return arena_fold_ref(m, v, g, beta1=beta1, beta2=beta2, scale=scale,
                               decay=decay, m_codec=mk, v_codec=vk,
-                              guard=guard)
-    _launch("arena_fold", "arena_fold_launch", g,
+                              grad_scale=grad_scale, guard=guard)
+    _launch("arena_fold", _fold_launcher(grad_scale), g,
             fold_args(mk, vk, m_parts, v_parts, g, 0, beta1, beta2, scale,
-                      decay, fold_scratch(vk, g.shape[0], g.device)), guard)
+                      decay, fold_scratch(vk, g.shape[0], g.device),
+                      grad_scale), guard)
     arena_fold.launches += 1
     return m, v
 
@@ -643,12 +716,12 @@ arena_fold.launches = 0
 
 
 def _check_slice(mk, vk, m_parts, v_parts, g, row_offset: int,
-                 block: int, grad_dtype=None) -> None:
+                 block: int, grad_dtype=None, grad_scale=None) -> None:
     """The reference's checks (fused_step.py::arena_fold_slice): g's wire,
     whole blocks of rows, a block-aligned offset, and the slice inside the
     arena."""
     rows = m_parts[0].shape[0]
-    _check_grad_dtype("arena_fold_slice", g, grad_dtype)
+    _check_grad_dtype("arena_fold_slice", g, grad_dtype, grad_scale)
     _check_state("arena_fold_slice", mk, vk, m_parts, v_parts, g, rows,
                  wire=True)
     rows_g = g.shape[0]
@@ -664,7 +737,8 @@ def _check_slice(mk, vk, m_parts, v_parts, g, row_offset: int,
 
 def arena_fold_slice_ref(m, v, g, row_offset: int, *, beta1: float,
                          beta2: float, block: int, scale=1.0, decay=None,
-                         m_codec="fp32", v_codec="fp32", guard=None):
+                         m_codec="fp32", v_codec="fp32", grad_scale=None,
+                         guard=None):
     """Plain version of `arena_fold_slice`: `arena_fold_ref` on the rows
     of the slice (views of every column). `block` is checked by the
     wrapper."""
@@ -675,33 +749,35 @@ def arena_fold_slice_ref(m, v, g, row_offset: int, *, beta1: float,
     vs = _rows(vk, v_parts, row_offset, hi)
     arena_fold_ref(ms[0] if m_bare else ms, vs[0] if v_bare else vs, g,
                    beta1=beta1, beta2=beta2, scale=scale, decay=decay,
-                   m_codec=mk, v_codec=vk, guard=guard)
+                   m_codec=mk, v_codec=vk, grad_scale=grad_scale, guard=guard)
     return m, v
 
 
 def arena_fold_slice(m, v, g, row_offset: int, *, beta1: float, beta2: float,
                      block: int, scale=1.0, decay=None, m_codec="fp32",
-                     v_codec="fp32", grad_dtype=None, guard=None):
+                     v_codec="fp32", grad_dtype=None, grad_scale=None,
+                     guard=None):
     """Fold a (rows_g, LANES) gradient slab into arena rows
     [row_offset, row_offset + rows_g) of both moments, in place, with the
     arena_fold arithmetic; every other row is left untouched. `block` is
     the layout's `slice_block` for the region: rows_g and row_offset must
-    be multiples of it. `g`'s wire, `grad_dtype` and `guard` as in
-    arena_fold. Returns (m, v)."""
+    be multiples of it. `g`'s wire, `grad_dtype`, `grad_scale` and `guard`
+    as in arena_fold. Returns (m, v)."""
     mk, vk = kernel_codec("m", m_codec), kernel_codec("v", v_codec)
     (m_parts, _), (v_parts, _) = _as_parts(m), _as_parts(v)
-    _check_slice(mk, vk, m_parts, v_parts, g, row_offset, block, grad_dtype)
+    _check_slice(mk, vk, m_parts, v_parts, g, row_offset, block, grad_dtype,
+                 grad_scale)
     if guard is not None:
         _check_guard("arena_fold_slice", guard, 4, g.device, scale, decay)
     if g.device.type == "cpu":
         return arena_fold_slice_ref(m, v, g, row_offset, beta1=beta1,
                                     beta2=beta2, block=block, scale=scale,
                                     decay=decay, m_codec=mk, v_codec=vk,
-                                    guard=guard)
-    _launch("arena_fold_slice", "arena_fold_launch", g,
+                                    grad_scale=grad_scale, guard=guard)
+    _launch("arena_fold_slice", _fold_launcher(grad_scale), g,
             fold_args(mk, vk, m_parts, v_parts, g, row_offset, beta1, beta2,
-                      scale, decay, fold_scratch(vk, g.shape[0], g.device)),
-            guard)
+                      scale, decay, fold_scratch(vk, g.shape[0], g.device),
+                      grad_scale), guard)
     arena_fold_slice.launches += 1
     return m, v
 

@@ -29,6 +29,11 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \
       --reduced --steps 3 --global-batch 8 --micro-batches 2 --seq-len 32 \
       --master-params --work-param-cache --log-every 1 --device cpu
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \
+      --reduced --steps 3 --global-batch 8 --micro-batches 2 --seq-len 32 \
+      --grad-dtype fp8_e4m3 --loss-scale dynamic \
+      --inject-fault nan@micro=1,step=1 --log-every 1 --device cpu
 """
 from __future__ import annotations
 
@@ -72,9 +77,17 @@ def main(argv=None):
     ap.add_argument("--grad-dtype", default="fp32",
                     choices=list(GRAD_DTYPES),
                     help="gradient wire dtype of the arena folds (bf16 "
-                         "halves the packed gradient slab; the fold kernels "
-                         "upcast in-kernel); requires arena state, not "
-                         "'ga'; fp8_e4m3 is not ported")
+                         "halves the packed gradient slab; fp8_e4m3 packs "
+                         "1-byte codes + per-row scale columns and recovers "
+                         "accuracy with an error-feedback residual, "
+                         "requires --finite-guard; the fold kernels "
+                         "decode/upcast in-kernel); requires arena state, "
+                         "not 'ga'")
+    ap.add_argument("--no-error-feedback", action="store_true",
+                    help="ablate the fp8 error-feedback residual "
+                         "(state['ef']) — convergence degrades to raw fp8 "
+                         "rounding; only meaningful with --grad-dtype "
+                         "fp8_e4m3")
     ap.add_argument("--master-params", action="store_true",
                     help="fp32 master params packed in the arena; the fused "
                          "apply emits bf16 working params (AMP contract); "
@@ -90,8 +103,8 @@ def main(argv=None):
     ap.add_argument("--loss-scale", default="off",
                     help="'off', 'dynamic', or a positive float: loss "
                          "scaling undone in the fold kernels; implies "
-                         "--finite-guard, requires --grad-dtype bf16 and a "
-                         "non-'ga' accumulation")
+                         "--finite-guard, requires --grad-dtype bf16 or "
+                         "fp8_e4m3 and a non-'ga' accumulation")
     ap.add_argument("--scaler-abort-after", type=int, default=0,
                     help="abort after this many consecutive skipped "
                          "micro-batches (0 = never)")
@@ -118,6 +131,7 @@ def main(argv=None):
                                   state_codec=args.state_codec,
                                   m_codec=args.m_codec,
                                   grad_dtype=args.grad_dtype,
+                                  error_feedback=not args.no_error_feedback,
                                   master_params=args.master_params,
                                   work_param_cache=args.work_param_cache,
                                   finite_guard=(args.finite_guard

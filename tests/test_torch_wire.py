@@ -367,21 +367,17 @@ def _outcome(make, kw):
 def test_wire_config_checks_match_the_reference(kw):
     """Every wire x engine x state form x guard x loss scale: where the
     reference refuses, the port raises its ValueError with the same
-    message; where it accepts, the port accepts too, but for its own two
-    refusals, each a NotImplementedError naming its ROADMAP item: the fp8
-    wire (item 7.5) and per-leaf ga (item 12)."""
+    message; where it accepts, the port accepts too (the fp8 wire
+    included), but for its own refusal, a NotImplementedError naming its
+    ROADMAP item: per-leaf ga (item 12)."""
     want = _outcome(lambda **k: JaxOptimizerConfig(
         name="adama", use_pallas=True, **k), kw)
     got = _outcome(OptimizerConfig, kw)
     if want is not None:
         assert got == want
-    elif kw["grad_dtype"] == "fp8_e4m3" or (kw["accumulation"] == "ga"
-                                            and not kw["arena"]):
+    elif kw["accumulation"] == "ga" and not kw["arena"]:
         assert got is not None and got[0] is NotImplementedError
-        assert "ROADMAP" in got[1]
-        assert ("7.5" in got[1]) == (kw["grad_dtype"] == "fp8_e4m3"
-                                     and (kw["arena"]
-                                          or kw["accumulation"] != "ga"))
+        assert "ROADMAP" in got[1] and "item 12" in got[1]
     else:
         assert got is None
 
