@@ -175,6 +175,23 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    twin's + the residual + the largest codes buffer (each as allocated) +
    1 MiB.
 
+6. Checkpoints (train/checkpoint.py) on full bert-large, as in phase 5:
+   `adama` fp32/fp32 and `adama_layerwise` int8/rowcol on the fp8 wire
+   with its residual, dynamic loss scaling, master params and the cache
+   (a NaN at micro-batch 3 of step 3). Each runs 3 steps clean, then
+   crashed by crash@step=1 between step 2's update and its save (saving
+   every step, keeping one: step 1 must be the newest), then resumed from
+   that directory for steps 2-3: the resumed run must log its restore of
+   step 1, equal the clean run's losses of steps 2-3, end on its params, m
+   and v columns, p, wp, ef, scaler (16384, one skip) and step bit for bit
+   (digests on the card), launch its kernels in each step, and peak at
+   most 1 MiB above it. On the adama path a bit flipped mid-file in the
+   step-1 checkpoint must be refused (CheckpointCorruptError naming
+   arrays.npz) with the live state's digest unchanged, and flipped back.
+   The free disk space, each save's and restore's bytes, seconds and
+   GB/s, and the phase's seconds are logged; the directory
+   (`chip_smoke_ckpt/` in the checkout) is deleted at the end.
+
 The last three lines are a JSON object with every kernel's numbers, the
 card's name and power limit, and the JSON result line
 `{"ok": true, "device": {...}}`.
@@ -183,8 +200,10 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -475,6 +494,34 @@ KERNELS = {
                       "src/repro/core/accumulation.py:340",
                       "stablelm_adama_guarded_fp8"),
 }
+
+# the checkpoint phase (full bert-large): path -> (engine, (m codec, v
+# codec), further OptimizerConfig fields, the fault of its clean and
+# resumed runs). Each path runs clean for CKPT_STEPS steps, then crashed by
+# CKPT_CRASH between step 2's update and its save (saving every step,
+# keeping one), then resumed from that directory; the resumed run must end
+# on the clean run's params and state bit for bit (digests on the card),
+# launch the clean run's kernels in each step it runs, and peak at most
+# CKPT_PEAK_SLACK above the clean run. Path A is the main path; path B
+# carries every region (int8 m, rowcol v, p, wp, ef, the scaler), and its
+# NaN on step 3 lands after the resume, so the scaler's state has to come
+# back: scale and skips CKPT_SCALER after step 3 in both runs
+CKPT_PATHS = {
+    "checkpoint_adama": ("adama", FP32, {}, None),
+    "checkpoint_adama_layerwise_int8_rowcol_fp8_master_wp": (
+        "adama_layerwise", ("int8", "rowcol"),
+        dict(grad_dtype="fp8_e4m3", finite_guard=True, loss_scale="dynamic",
+             master_params=True, work_param_cache=True),
+        "nan@micro=3,step=2")}
+CKPT_STEPS = 3
+CKPT_CRASH = "crash@step=1"
+CKPT_PEAK_SLACK = 1 << 20
+CKPT_SCALER = {"checkpoint_adama_layerwise_int8_rowcol_fp8_master_wp":
+               (16384.0, 1)}
+# the path whose step-1 checkpoint is corrupted, refused and repaired
+CKPT_CORRUPT = "checkpoint_adama"
+# written under the checkout (listed in .gitignore), deleted after the phase
+CKPT_DIR = "chip_smoke_ckpt"
 
 
 def log(msg) -> None:
@@ -3582,6 +3629,237 @@ def _guarded_forms(name, checked, timed, counts):
                                          for p in GUARDED if p in counts}}
 
 
+@contextlib.contextmanager
+def _timed_checkpoint_io(ckpt, io):
+    """While the phase runs, every save and restore the loop makes is timed
+    (host clock; a save ends in fsync, a restore has copied every leaf to
+    the card, which needs no synchronize: a copy from pageable memory
+    returns when done) and logged with the bytes of the step's files."""
+    save, restore = ckpt.save, ckpt.restore
+
+    def record(op, step, d, t0):
+        sec = time.perf_counter() - t0
+        n = sum(f.stat().st_size for f in Path(d).iterdir())
+        io.append({"op": op, "step": step, "bytes": n, "seconds": sec,
+                   "GB_per_s": n / sec / 1e9})
+        log(json.dumps({"phase": "checkpoint_io", **io[-1]}))
+
+    def timed_save(ckpt_dir, step, tree, **kw):
+        t0 = time.perf_counter()
+        out = save(ckpt_dir, step, tree, **kw)
+        record("save", step, out, t0)
+        return out
+
+    def timed_restore(ckpt_dir, step, tree, **kw):
+        t0 = time.perf_counter()
+        out = restore(ckpt_dir, step, tree, **kw)
+        record("restore", step, Path(ckpt_dir) / f"step_{step:08d}", t0)
+        return out
+    ckpt.save, ckpt.restore = timed_save, timed_restore
+    try:
+        yield
+    finally:
+        ckpt.save, ckpt.restore = save, restore
+
+
+def _run_counted(torch, wrappers, run, logs):
+    """train() on the card with every launch count set to 0 just before it:
+    (its result, or the InjectedCrash it raised; launches per step index;
+    peak device memory)."""
+    from repro_torch.train import faults
+    from repro_torch.train.loop import train
+    cum = {}
+
+    def snap(i):
+        cum[i] = {k: fn.launches for k, fn in wrappers.items()}
+    def log_both(msg):
+        logs.append(msg)
+        log(msg)
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        out = train(run, device="cuda", log_fn=log_both,
+                    step_context=_after_steps([snap]))
+    except faults.InjectedCrash as e:
+        out = str(e)
+    peak = torch.cuda.max_memory_allocated()
+    per_step, prev = {}, {k: 0 for k in wrappers}
+    for i in sorted(cum):
+        per_step[i] = {k: cum[i][k] - prev[k] for k in wrappers
+                       if cum[i][k] - prev[k]}
+        prev = cum[i]
+    return out, per_step, peak
+
+
+def _run_state(torch, ckpt, out):
+    """(digest on the card of every tensor a checkpoint of the run holds:
+    the params, every column of m and v, p, wp, ef and the scaler; the
+    host-int step; their bytes)."""
+    leaves = ckpt.tree_leaves({"params": out["params"],
+                               "opt": out["opt_state"]})
+    tensors = [x for x in leaves if not isinstance(x, int)]
+    return (_digest(torch, tensors), out["opt_state"]["step"],
+            sum(x.numel() * x.element_size() for x in tensors))
+
+
+def _check_resume_path(torch, wrappers, path, ckpt_dir):
+    """One path of the checkpoint phase: clean, crashed, (path A) the
+    corruption check on the crashed run's step-1 checkpoint with the clean
+    run's state as the live target, resumed; the claims of CKPT_PATHS."""
+    from repro_torch.configs.base import OptimizerConfig, RunConfig
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import faults
+    engine, codecs, extra, fault = CKPT_PATHS[path]
+    main = MAIN["bert_large"]
+
+    def run(fault, **kw):
+        return RunConfig(
+            model=_main_config("bert_large"),
+            optimizer=OptimizerConfig(
+                accumulation=engine, micro_batches=main["micro_batches"],
+                m_codec=codecs[0], state_codec=codecs[1], **extra),
+            seq_len=main["seq_len"], global_batch=main["global_batch"],
+            seed=main["seed"], steps=CKPT_STEPS, log_every=1,
+            inject_fault=fault, **kw)
+    saving = dict(checkpoint_dir=str(ckpt_dir), checkpoint_every=1,
+                  keep_last_n=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    logs = []
+    clean, clean_steps, clean_peak = _run_counted(torch, wrappers,
+                                                  run(fault), logs)
+    clean_digest, clean_step, n_bytes = _run_state(torch, ckpt, clean)
+    clean_losses, clean_metrics = clean["losses"], clean["metrics"]
+    free = shutil.disk_usage(ckpt_dir.parent).free
+    if free < 2 * n_bytes:
+        raise AssertionError(
+            f"{path}: {free} B free under {ckpt_dir.parent}; a save that "
+            f"keeps one step holds two checkpoints of {n_bytes} B at once")
+    crashed, _, _ = _run_counted(torch, wrappers, run(CKPT_CRASH, **saving),
+                                 logs)
+    if not isinstance(crashed, str):
+        raise AssertionError(f"{path}: {CKPT_CRASH} did not raise "
+                             f"InjectedCrash")
+    del crashed
+    listing = sorted(p.name for p in ckpt_dir.iterdir())
+    if ckpt.latest_step(ckpt_dir) != 1 or listing != ["step_00000001"]:
+        raise AssertionError(f"{path}: after the crash {ckpt_dir} holds "
+                             f"{listing}; expected step 1 alone")
+    corrupt = None
+    if path == CKPT_CORRUPT:
+        corrupt = _check_corrupt_refused(torch, ckpt, faults, clean,
+                                         ckpt_dir)
+    del clean
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the peaks compare only if nothing of the clean run is still held
+    bases = [base, torch.cuda.memory_allocated()]
+    logs.clear()
+    resumed, resumed_steps, resumed_peak = _run_counted(
+        torch, wrappers, run(fault, **saving), logs)
+    digest, step, _ = _run_state(torch, ckpt, resumed)
+    info = {"phase": "checkpoint", "path": path, "engine": engine,
+            "m_codec": codecs[0], "v_codec": codecs[1], **extra,
+            "fault": fault, "crash": CKPT_CRASH, "checkpoint_bytes": n_bytes,
+            "clean_losses": clean_losses, "resumed_losses": resumed["losses"],
+            "clean_digest": clean_digest, "resumed_digest": digest,
+            "final_step": [clean_step, step],
+            "clean_launches_per_step": clean_steps,
+            "resumed_launches_per_step": resumed_steps,
+            "clean_peak": clean_peak, "resumed_peak": resumed_peak,
+            "allocated_before_clean_and_resumed": bases,
+            "corrupted_checkpoint": corrupt}
+    if path in CKPT_SCALER:
+        info["scaler"] = [[m["loss_scale"], m["skipped_micro_batches"]]
+                          for m in (clean_metrics, resumed["metrics"])]
+    log(json.dumps(info))
+    del resumed
+    if logs[0] != "[train] restored step 1":
+        raise AssertionError(f"{path}: the resumed run logged {logs[0]!r} "
+                             f"first, not its restore of step 1")
+    if (digest, step) != (clean_digest, clean_step) or step != CKPT_STEPS:
+        raise AssertionError(f"{path}: the resumed run ends on digest "
+                             f"{digest} at step {step}, the clean run on "
+                             f"{clean_digest} at step {clean_step}")
+    if info["resumed_losses"] != clean_losses[1:]:
+        raise AssertionError(f"{path}: resumed losses "
+                             f"{info['resumed_losses']} != the clean run's "
+                             f"steps 2-3 {clean_losses[1:]}")
+    if resumed_steps != {i: clean_steps[i] for i in (1, 2)} or \
+            not all(clean_steps[i] for i in (1, 2)):
+        raise AssertionError(f"{path}: launches per step {resumed_steps}, "
+                             f"the clean run's {clean_steps}")
+    if resumed_peak > clean_peak + CKPT_PEAK_SLACK:
+        raise AssertionError(f"{path}: resumed peak {resumed_peak} is more "
+                             f"than {CKPT_PEAK_SLACK} B above the clean "
+                             f"run's {clean_peak}")
+    if path in CKPT_SCALER and any(tuple(x) != CKPT_SCALER[path]
+                                   for x in info["scaler"]):
+        raise AssertionError(f"{path}: scale and skips {info['scaler']}, "
+                             f"expected {CKPT_SCALER[path]} in both runs")
+    return info
+
+
+def _check_corrupt_refused(torch, ckpt, faults, clean, ckpt_dir):
+    """Flip one bit in the middle of the step-1 checkpoint's arrays.npz:
+    restoring it into a live state (the clean run's) must raise
+    CheckpointCorruptError naming the file and leave the state's digest as
+    it was (the checksums come before any copy). The same flip again
+    restores the file for the resumed run."""
+    target = {"params": clean["params"], "opt": clean["opt_state"]}
+    tensors = [x for x in ckpt.tree_leaves(target) if not isinstance(x, int)]
+    before = _digest(torch, tensors)
+    npz = ckpt_dir / "step_00000001" / "arrays.npz"
+    offset = npz.stat().st_size // 2
+    faults.corrupt_checkpoint_array(ckpt_dir, 1, offset=offset)
+    t0 = time.perf_counter()
+    try:
+        ckpt.restore(ckpt_dir, 1, target)
+    except ckpt.CheckpointCorruptError as e:
+        message = str(e)
+    else:
+        raise AssertionError("a checkpoint with a flipped bit restored")
+    seconds = time.perf_counter() - t0
+    after = _digest(torch, tensors)
+    faults.corrupt_checkpoint_array(ckpt_dir, 1, offset=offset)
+    if "arrays.npz" not in message or after != before:
+        raise AssertionError(f"corrupted checkpoint: {message!r}; state "
+                             f"digest {before} -> {after}")
+    return {"offset": offset, "error": message[:200],
+            "refused_after_seconds": seconds, "state_unchanged": True}
+
+
+def check_checkpoints(torch, wrappers):
+    """Phase 6: the checkpoint paths on full bert-large (CKPT_PATHS), in a
+    directory of the checkout that is deleted afterwards; the free disk
+    space before, every save's and restore's bytes, seconds and GB/s, and
+    the phase's seconds are logged."""
+    from repro_torch.train import checkpoint as ckpt
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent / CKPT_DIR
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir()
+    log(json.dumps({"phase": "checkpoint", "dir": str(root),
+                    "free_disk_bytes": shutil.disk_usage(root).free}))
+    io, results = [], {}
+    try:
+        with _timed_checkpoint_io(ckpt, io):
+            for path in CKPT_PATHS:
+                results[path] = _check_resume_path(torch, wrappers, path,
+                                                   root / path)
+                shutil.rmtree(root / path)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(json.dumps({"phase": "checkpoint_done",
+                    "seconds": time.perf_counter() - t0,
+                    "saves": sum(x["op"] == "save" for x in io),
+                    "restores": sum(x["op"] == "restore" for x in io),
+                    "met": True}))
+    return results
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3664,6 +3942,7 @@ def main() -> int:
         check_memory(arch, peaks)
         counts.update(c)
         work_bytes.update(w)
+    check_checkpoints(torch, wrappers)
     for name in CODEC_FORMS:
         kernels[name]["codec_forms"] = _codec_forms(
             name, codec_checked, codec_timed[name], counts)

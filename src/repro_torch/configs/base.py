@@ -311,6 +311,11 @@ class RunConfig:
     seed: int = 0
     steps: int = 100
     log_every: int = 10
+    checkpoint_dir: Optional[str] = None
+    # checkpoint cadence in steps; 0 = max(log_every * 5, 50)
+    checkpoint_every: int = 0
+    # checkpoint retention (train/checkpoint.py _gc)
+    keep_last_n: int = 3
     # fault-injection spec (train/faults.py parse_fault), test-only:
     # e.g. "nan@micro=1", "skip@micro=3,step=1", "crash@step=3"
     inject_fault: Optional[str] = None

@@ -34,6 +34,13 @@
       --reduced --steps 3 --global-batch 8 --micro-batches 2 --seq-len 32 \
       --grad-dtype fp8_e4m3 --loss-scale dynamic \
       --inject-fault nan@micro=1,step=1 --log-every 1 --device cpu
+
+  # saves every step; run again with more --steps to resume
+  # ("[train] restored step 2")
+  PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \
+      --reduced --steps 2 --global-batch 8 --micro-batches 2 --seq-len 32 \
+      --checkpoint-dir /tmp/ckpt --checkpoint-every 1 --log-every 1 \
+      --device cpu
 """
 from __future__ import annotations
 
@@ -108,6 +115,13 @@ def main(argv=None):
     ap.add_argument("--scaler-abort-after", type=int, default=0,
                     help="abort after this many consecutive skipped "
                          "micro-batches (0 = never)")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="save checkpoints here (train/checkpoint.py) and "
+                         "resume from the newest one found")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="save every N steps (0 = max(5 * log-every, 50))")
+    ap.add_argument("--keep-last-n", type=int, default=3,
+                    help="checkpoint retention: keep only the newest N steps")
     ap.add_argument("--inject-fault", default=None,
                     help="fault injection (train/faults.py grammar), e.g. "
                          "nan@micro=1, skip@micro=0,step=2, crash@step=3")
@@ -140,7 +154,9 @@ def main(argv=None):
                                   scaler_abort_after=args.scaler_abort_after),
         seq_len=args.seq_len, global_batch=args.global_batch, seed=args.seed,
         steps=args.steps, log_every=args.log_every,
-        inject_fault=args.inject_fault)
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every,
+        keep_last_n=args.keep_last_n, inject_fault=args.inject_fault)
     lr_fn = sched.warmup_cosine(args.lr, args.warmup, args.steps)
     out = train(run, lr_schedule=lr_fn, device=args.device)
     peak = ""
@@ -152,6 +168,10 @@ def main(argv=None):
         m = out["metrics"]
         scaler = (f"; loss_scale {m['loss_scale']:g}, skipped "
                   f"{int(m['skipped_micro_batches'])} micro-batches")
+    if not out["losses"]:
+        print(f"[train] done; no step left to run (step {args.steps} "
+              f"restored){peak}")
+        return
     print(f"[train] done; final loss {out['losses'][-1]:.4f} "
           f"(first {out['losses'][0]:.4f}){scaler}{peak}")
 

@@ -18,13 +18,18 @@ A `FaultSpec` names what goes wrong and where:
 Selectors default to -1, every value. The engines pass the micro-batch
 index and their step counter as host ints, so a hit is decided on the host
 and the injection itself is a device write where a real NaN would appear.
-The `device` selector raises: the port has no multi-device engine yet. The
-checkpoint-damage helpers wait for train/checkpoint.py.
+The `device` selector raises: the port has no multi-device engine yet.
+
+`corrupt_checkpoint_array` and `truncate_checkpoint` damage a checkpoint
+on disk (train/checkpoint.py) as a failing disk or a torn write would, for
+the tests of `CheckpointCorruptError`.
 """
 from __future__ import annotations
 
+import os
 import re
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Optional
 
 import torch
@@ -135,6 +140,35 @@ def apply_skip(spec: Optional[FaultSpec], ok: bool, *, micro: int,
 
 def crash_due(spec: Optional[FaultSpec], step: int) -> bool:
     """Should train/loop.py raise InjectedCrash after this step's update
-    (0-based step index)?"""
+    (0-based step index), before its checkpoint is saved?"""
     return (spec is not None and spec.kind == "crash"
             and (spec.step < 0 or spec.step == step))
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint damage (CheckpointCorruptError tests)
+# ---------------------------------------------------------------------------
+
+
+def corrupt_checkpoint_array(ckpt_dir, step: int, *, offset: int = -64) -> str:
+    """Flip one bit inside <ckpt_dir>/step_<n>/arrays.npz (at `offset`
+    bytes from the end by default, in the zip trailer; a positive mid-file
+    offset lands in array data) and return the damaged path. A second call
+    with the same offset flips it back. restore() must raise
+    CheckpointCorruptError naming the file."""
+    path = Path(ckpt_dir) / f"step_{step:08d}" / "arrays.npz"
+    with open(path, "r+b") as f:
+        f.seek(offset, 0 if offset >= 0 else 2)
+        pos = f.tell()
+        byte = f.read(1)[0]
+        f.seek(pos)
+        f.write(bytes([byte ^ 0x01]))
+    return str(path)
+
+
+def truncate_checkpoint(ckpt_dir, step: int, *, keep_bytes: int = 128) -> str:
+    """Truncate arrays.npz to its first `keep_bytes` bytes (a torn write
+    that the atomic rename prevents, made on purpose)."""
+    path = Path(ckpt_dir) / f"step_{step:08d}" / "arrays.npz"
+    os.truncate(path, min(keep_bytes, path.stat().st_size))
+    return str(path)
