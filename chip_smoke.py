@@ -175,7 +175,26 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    twin's + the residual + the largest codes buffer (each as allocated) +
    1 MiB.
 
-6. Checkpoints (train/checkpoint.py) on full bert-large, as in phase 5:
+6. Activation checkpointing (RunConfig.remat: each layer under
+   torch.utils.checkpoint, recomputed in the backward), each path with
+   every launch count set to 0 just before it: bert-large `adama` and `ga`
+   with remat (5 steps) and rwkv6-7b `adama` with remat (3 steps), as in
+   phase 5, each equal to its phase-5 twin bit for bit (losses; params, m
+   and v by digests on the card), launching its twin's kernels per step
+   (rwkv6: the forward scan twice per layer and micro-batch, the backward
+   scan once) and peaking below it; then stablelm-1.6b at its published
+   max_seq_len 4096 (the cut to 1024 lifted), global batch 16, 8
+   micro-batches: `ga` and `adama` with remat and `adama_layerwise`, 2
+   steps each: finite losses, each step-1 loss within 10% of ln(V_pad) and
+   the three within 1e-4 relative. ga + remat peaks at least one fp32
+   arena above adama + remat on bert-large and on stablelm-1.6b, and
+   adama_layerwise below adama + remat (by less than an arena at seq
+   4096, where both peaks lie in the backward's activations). Last,
+   launch.memory_split (one micro-batch: full, every layer checkpointed,
+   Algorithm 2) on bert-large and on rwkv6-7b cut to 4 layers. Each path's
+   peak, launches and step seconds and the phase's seconds are logged.
+
+7. Checkpoints (train/checkpoint.py) on full bert-large, as in phase 5:
    `adama` fp32/fp32 and `adama_layerwise` int8/rowcol on the fp8 wire
    with its residual, dynamic loss scaling, master params and the cache
    (a NaN at micro-batch 3 of step 3). Each runs 3 steps clean, then
@@ -522,6 +541,26 @@ CKPT_SCALER = {"checkpoint_adama_layerwise_int8_rowcol_fp8_master_wp":
 CKPT_CORRUPT = "checkpoint_adama"
 # written under the checkout (listed in .gitignore), deleted after the phase
 CKPT_DIR = "chip_smoke_ckpt"
+# the activation-checkpointing phase (RunConfig.remat): path -> (the main
+# path whose arch, engine, arena state and codecs it runs, remat, seq_len
+# (None: the main path's), steps). A path at its main path's seq_len is
+# that path's remat twin: its losses, params, m and v must be the main
+# path's bit for bit (digests on the card), its launches per step the main
+# path's (an rwkv6 model's forward scan twice: forward and recompute) and
+# its peak below the main path's. The stablelm-1.6b paths run at its
+# published max_seq_len 4096 (the main paths' cut to 1024 is lifted for
+# them); adama_layerwise recomputes every layer without remat
+REMAT = {"adama_remat": ("adama", True, None, 5),
+         "ga_remat": ("ga", True, None, 5),
+         "stablelm_4096_ga_remat": ("stablelm_ga", True, 4096, 2),
+         "stablelm_4096_adama_remat": ("stablelm_adama", True, 4096, 2),
+         "stablelm_4096_adama_layerwise": ("stablelm_adama_layerwise",
+                                           False, 4096, 2),
+         "rwkv6_adama_remat": ("rwkv6_adama", True, None, 3)}
+# launch.memory_split's runs in the phase: arch -> its arguments (one
+# micro-batch of the main path)
+REMAT_SPLIT = {"bert-large": dict(seq_len=128, micro_batch=32),
+               "rwkv6-7b": dict(seq_len=4096, micro_batch=2, num_layers=4)}
 
 
 def log(msg) -> None:
@@ -3284,9 +3323,10 @@ def _check_fp8_path(torch, path, out, peaks, counts, all_losses, diff,
 
 def run_main_paths(torch, wrappers, arch):
     """Phase 5: one arch at full width, each of its main paths; returns
-    each path's launch counts per kernel and peak memory, and the bytes a
-    master path's apply allocates for its work. Every arena path must have
-    the arch's arena rows."""
+    each path's launch counts per kernel and peak memory, the bytes a
+    master path's apply allocates for its work, the digests taken (the
+    guard's claims and the remat phase's twins) and each path's losses.
+    Every arena path must have the arch's arena rows."""
     from repro_torch.configs.base import OptimizerConfig, RunConfig
     from repro_torch.core import arena as arena_mod
     from repro_torch.core import state_store
@@ -3300,7 +3340,8 @@ def run_main_paths(torch, wrappers, arch):
     counts, peaks, all_losses, digests = {}, {}, {}, {}
     work_bytes = {}
     paths = [p for p, spec in PATHS.items() if spec[0] == arch]
-    digested = {p for d in GUARD_DIGESTS for p in d[:2]}
+    digested = {p for d in GUARD_DIGESTS for p in d[:2]} | {
+        base for base, _, seq, _ in REMAT.values() if seq is None}
     # params after step 1 of each bf16- or fp8-wire path's twin, on the
     # host: step1[twin] is the digest of its params then, snaps[digest] one
     # host copy of each distinct set (the guarded twins' step-1 params are
@@ -3546,7 +3587,7 @@ def run_main_paths(torch, wrappers, arch):
                         "digest_claims": [[a, b, "equal" if e else "differ"]
                                           for a, b, e in GUARD_DIGESTS],
                         "met": True}))
-    return counts, peaks, work_bytes
+    return counts, peaks, work_bytes, digests, all_losses
 
 
 def check_memory(arch, peaks):
@@ -3627,6 +3668,129 @@ def _guarded_forms(name, checked, timed, counts):
                       for pair, entries in timed.items()],
             "launches_by_guarded_path": {p: counts[p][name]
                                          for p in GUARDED if p in counts}}
+
+
+def _remat_run(torch, wrappers, path):
+    """One path of the remat phase through train(), with every launch count
+    set to 0 just before it: (its result, launches, peak, seconds)."""
+    from repro_torch.configs.base import OptimizerConfig, RunConfig
+    from repro_torch.train.loop import train
+    base, remat, seq_len, steps = REMAT[path]
+    arch, engine, arena, _, codecs = PATHS[base]
+    main = MAIN[arch]
+    run = RunConfig(model=_main_config(arch),
+                    optimizer=OptimizerConfig(
+                        accumulation=engine, arena=arena,
+                        micro_batches=main["micro_batches"],
+                        m_codec=codecs[0], state_codec=codecs[1]),
+                    seq_len=seq_len or main["seq_len"],
+                    global_batch=main["global_batch"], seed=main["seed"],
+                    steps=steps, log_every=1, remat=remat)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = train(run, device="cuda", log_fn=log)
+    seconds = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in wrappers.items()}
+    return out, counts, torch.cuda.max_memory_allocated(), seconds
+
+
+def check_remat(torch, wrappers, main_runs):
+    """Phase 6: the REMAT paths, then launch.memory_split on REMAT_SPLIT;
+    `main_runs` holds each main path's (digest or None, losses, peak).
+    Returns each remat path's launch counts."""
+    from repro_torch.launch.memory_split import memory_split
+    t0 = time.perf_counter()
+    counts, peaks, first_loss = {}, {}, {}
+    for path, (base, remat, seq_len, steps) in REMAT.items():
+        arch = PATHS[base][0]
+        out, counts[path], peaks[path], seconds = _remat_run(torch, wrappers,
+                                                             path)
+        losses = out["losses"]
+        first_loss[path] = losses[0]
+        want = _expected_launches(base, out["params"])
+        if remat and arch == "rwkv6_7b":
+            want["rwkv6_chunk_scan"] *= 2         # forward and recompute
+        info = {"phase": "remat", "path": path, "main_path": base,
+                "remat": remat, "arch": arch,
+                "seq_len": seq_len or MAIN[arch]["seq_len"],
+                "losses": losses, "step_seconds": out["step_seconds"],
+                "seconds": seconds, "max_memory_allocated_bytes": peaks[path],
+                "launches": counts[path], "launches_per_step": want}
+        digest = twin = None
+        if seq_len is None:
+            digest = _digest(torch, _state_tensors(out))
+            twin = main_runs[base]
+            info.update(digest=digest, main_path_digest=twin[0],
+                        main_path_losses=twin[1], main_path_peak=twin[2])
+        del out
+        log(json.dumps(info))
+        ln_v = math.log(_main_config(arch).padded_vocab())
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{path}: non-finite loss {losses}")
+        if abs(losses[0] - ln_v) > 0.1 * ln_v:
+            raise AssertionError(f"{path}: step-1 loss {losses[0]} is not "
+                                 f"within 10% of ln(V)={ln_v:.4f}")
+        want = {k: c * steps for k, c in want.items()}
+        if counts[path] != want:
+            raise AssertionError(f"{path}: kernel launches {counts[path]} "
+                                 f"!= {want}")
+        if twin is not None:
+            if (digest, losses) != (twin[0], twin[1][:steps]):
+                raise AssertionError(
+                    f"{path}: losses {losses} and digest {digest} are not "
+                    f"{base}'s {twin[1]} and {twin[0]} bit for bit")
+            if not peaks[path] < twin[2]:
+                raise AssertionError(f"{path}: peak {peaks[path]} is not "
+                                     f"below {base}'s {twin[2]}")
+    pairs = {"bert_large": ("ga_remat", "adama_remat", None),
+             "stablelm_1_6b": ("stablelm_4096_ga_remat",
+                               "stablelm_4096_adama_remat",
+                               "stablelm_4096_adama_layerwise")}
+    for arch, (ga, adama, lw) in pairs.items():
+        arena_bytes = MAIN[arch]["arena_rows"] * LANES * 4
+        info = {"phase": "remat_memory", "arch": arch, "arena_bytes":
+                arena_bytes, "ga_minus_adama": peaks[ga] - peaks[adama]}
+        if lw:
+            info["adama_minus_adama_layerwise"] = peaks[adama] - peaks[lw]
+            info["step1_losses"] = [first_loss[p] for p in (ga, adama, lw)]
+        log(json.dumps(info))
+        if peaks[ga] - peaks[adama] < arena_bytes:
+            raise AssertionError(f"{arch}: {adama}'s peak {peaks[adama]} is "
+                                 f"only {peaks[ga] - peaks[adama]} B below "
+                                 f"{ga}'s {peaks[ga]}; expected at least one "
+                                 f"fp32 arena ({arena_bytes} B)")
+        if lw is None:
+            continue
+        # Algorithm 2 never holds the gradient tree, but at seq 4096 both
+        # engines' peaks lie in the backward's activations: adama + remat
+        # at layer 0's recompute with the layers' gradients, Algorithm 2 in
+        # the head's cross-entropy backward (fp32 logits of 2 x 4096 x
+        # 100,352), which both run. The gap is below one arena there
+        # (launch/memory_split.py --peak-sites shows the sites), so the
+        # claim is that Algorithm 2 peaks lower
+        if peaks[lw] >= peaks[adama]:
+            raise AssertionError(f"{arch}: {lw}'s peak {peaks[lw]} is not "
+                                 f"below {adama}'s {peaks[adama]}")
+        first = first_loss[ga]
+        if any(abs(first_loss[p] - first) > 1e-4 * first
+               for p in (adama, lw)):
+            raise AssertionError(f"{arch}: step-1 losses "
+                                 f"{info['step1_losses']} differ by more "
+                                 f"than 1e-4 relative")
+    for arch, kw in REMAT_SPLIT.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        split = memory_split(arch, **kw)
+        log(json.dumps({"phase": "remat_memory_split", **split,
+                        "seconds": time.perf_counter() - t1}))
+    log(json.dumps({"phase": "remat_done",
+                    "seconds": time.perf_counter() - t0, "met": True}))
+    return counts
 
 
 @contextlib.contextmanager
@@ -3832,7 +3996,7 @@ def _check_corrupt_refused(torch, ckpt, faults, clean, ckpt_dir):
 
 
 def check_checkpoints(torch, wrappers):
-    """Phase 6: the checkpoint paths on full bert-large (CKPT_PATHS), in a
+    """Phase 7: the checkpoint paths on full bert-large (CKPT_PATHS), in a
     directory of the checkout that is deleted afterwards; the free disk
     space before, every save's and restore's bytes, seconds and GB/s, and
     the phase's seconds are logged."""
@@ -3936,12 +4100,14 @@ def main() -> int:
     log(json.dumps({"phase": "kernels_checked", "kernels": list(KERNELS),
                     "seconds": time.perf_counter() - t_start}))
     check_small_input(torch)
-    counts, work_bytes = {}, {}
+    counts, work_bytes, main_runs = {}, {}, {}
     for arch in MAIN:
-        c, peaks, w = run_main_paths(torch, wrappers, arch)
+        c, peaks, w, d, losses = run_main_paths(torch, wrappers, arch)
         check_memory(arch, peaks)
         counts.update(c)
         work_bytes.update(w)
+        main_runs.update({p: (d.get(p), losses[p], peaks[p]) for p in c})
+    counts.update(check_remat(torch, wrappers, main_runs))
     check_checkpoints(torch, wrappers)
     for name in CODEC_FORMS:
         kernels[name]["codec_forms"] = _codec_forms(

@@ -311,6 +311,7 @@ class RunConfig:
     seed: int = 0
     steps: int = 100
     log_every: int = 10
+    remat: bool = False          # activation checkpointing per layer
     checkpoint_dir: Optional[str] = None
     # checkpoint cadence in steps; 0 = max(log_every * 5, 50)
     checkpoint_every: int = 0

@@ -17,6 +17,12 @@
                    gradient is ever live.
 
 All consume a global batch (GB, ...) split into N micro-batches of GB/N.
+`remat` (the reference's keyword; RunConfig.remat in train()) runs ga's
+and adama's forward with each layer checkpointed (make_loss): the forward
+keeps layer inputs only and the backward recomputes each layer. It
+changes no value: the recompute repeats the forward's operations on the
+same inputs. adama_layerwise takes it and ignores it, its schedule
+already recomputing every layer.
 `OptimizerConfig.arena` selects the state form. Params and state are
 updated in place; `step` returns them for symmetry with the reference.
 
@@ -77,7 +83,8 @@ those host ints.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+import functools
+from typing import Any, Callable, Dict
 
 import torch
 
@@ -109,10 +116,17 @@ def _split_micro(batch: Dict[str, Any], n: int):
              batch.items()} for i in range(n)]
 
 
-def _grads(cfg, params, leaves, mb, sc=None):
-    """(loss, gradient tree) of one micro-batch; with a scaler `sc`, of the
-    loss times its scale (scaler.scale_loss)."""
-    loss = scaler_mod.scale_loss(loss_fn(cfg, params, mb), sc)
+def make_loss(cfg: ModelConfig, *, remat: bool = False) -> Callable:
+    """The loss of a param tree and a batch; `remat` checkpoints each
+    layer (models.model.run_blocks)."""
+    return functools.partial(loss_fn, cfg, remat=remat)
+
+
+def _grads(loss_of, params, leaves, mb, sc=None):
+    """(loss, gradient tree) of one micro-batch under the loss `loss_of`
+    (make_loss); with a scaler `sc`, of the loss times its scale
+    (scaler.scale_loss)."""
+    loss = scaler_mod.scale_loss(loss_of(params, mb), sc)
     grads = torch.autograd.grad(loss, leaves)
     _, paths = arena_mod.tree_flatten(params)
     return loss.detach(), arena_mod.tree_unflatten(paths, list(grads))
@@ -175,11 +189,12 @@ class _Guard:
             for k, x in zip(named, vals[2:])}}
 
 
-def make_ga_step(cfg: ModelConfig, opt: OptimizerConfig, *, lr_schedule=None,
-                 fault=None):
+def make_ga_step(cfg: ModelConfig, opt: OptimizerConfig, *, remat=False,
+                 lr_schedule=None, fault=None):
+    loss_of = make_loss(cfg, remat=remat)
     n = opt.micro_batches
     if opt.finite_guard:
-        return _make_guarded_ga_step(cfg, opt, lr_schedule, fault)
+        return _make_guarded_ga_step(loss_of, opt, lr_schedule, fault)
 
     def step(params, opt_state, batch):
         adama.load_working_params(params, opt_state)
@@ -189,7 +204,7 @@ def make_ga_step(cfg: ModelConfig, opt: OptimizerConfig, *, lr_schedule=None,
                           device=leaves[0].device)
         lsum = torch.zeros((), dtype=torch.float32, device=acc.device)
         for mb in _split_micro(batch, n):
-            loss, g = _grads(cfg, params, leaves, mb)
+            loss, g = _grads(loss_of, params, leaves, mb)
             acc += arena_mod.pack(g, layout) / n
             del g
             lsum = lsum + loss
@@ -211,7 +226,7 @@ def make_ga_step(cfg: ModelConfig, opt: OptimizerConfig, *, lr_schedule=None,
     return step, _init(opt)
 
 
-def _make_guarded_ga_step(cfg, opt, lr_schedule, fault):
+def _make_guarded_ga_step(loss_of, opt, lr_schedule, fault):
     """ga's whole-step guard: one verdict over the accumulated slab (checked
     before the clip) predicates the single fold, the apply and the step
     counter. The step does not advance on a skip, so a fault selecting
@@ -229,7 +244,7 @@ def _make_guarded_ga_step(cfg, opt, lr_schedule, fault):
                           device=dev)
         lsum = torch.zeros((), dtype=torch.float32, device=dev)
         for i, mb in enumerate(_split_micro(batch, n)):
-            loss, g = _grads(cfg, params, leaves, mb)
+            loss, g = _grads(loss_of, params, leaves, mb)
             fault_mod.corrupt_tree(fault, g, micro=i, step=st0)
             acc += arena_mod.pack(g, layout) / n
             del g
@@ -259,13 +274,14 @@ def _make_guarded_ga_step(cfg, opt, lr_schedule, fault):
     return step, _init(opt)
 
 
-def make_adama_step(cfg: ModelConfig, opt: OptimizerConfig, *,
+def make_adama_step(cfg: ModelConfig, opt: OptimizerConfig, *, remat=False,
                     lr_schedule=None, fault=None):
+    loss_of = make_loss(cfg, remat=remat)
     n = opt.micro_batches
     b1, b2 = opt.beta1, opt.beta2
     wire = grad_wire_dtype(opt.grad_dtype)
     if opt.finite_guard:
-        return _make_guarded_adama_step(cfg, opt, lr_schedule, fault)
+        return _make_guarded_adama_step(loss_of, opt, lr_schedule, fault)
 
     def step(params, opt_state, batch):
         adama.load_working_params(params, opt_state)
@@ -276,7 +292,7 @@ def make_adama_step(cfg: ModelConfig, opt: OptimizerConfig, *,
             state = adama.begin_minibatch(opt_state, b1, b2)
         lsum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
         for i, mb in enumerate(_split_micro(batch, n)):
-            loss, g = _grads(cfg, params, leaves, mb)
+            loss, g = _grads(loss_of, params, leaves, mb)
             if opt.arena:
                 state = adama.accumulate(state, g, b1, b2, scale=1.0 / n,
                                          decay=_fold_decay(i, b1, b2),
@@ -316,7 +332,7 @@ def _fold_fp8(state, slab, vec, sc, b1, b2):
     return state
 
 
-def _make_guarded_adama_step(cfg, opt, lr_schedule, fault):
+def _make_guarded_adama_step(loss_of, opt, lr_schedule, fault):
     """Algorithm 1 guarded: per micro-batch, the loss times the live scale,
     the gradient packed at the wire's dtype, the slab's finite flag ANDed
     into a fresh guard vector [dm, dv, ok, scale_into_fold(1/N, sc)], the
@@ -340,7 +356,7 @@ def _make_guarded_adama_step(cfg, opt, lr_schedule, fault):
         good = torch.zeros((), dtype=torch.int32, device=dev)
         lsum = torch.zeros((), dtype=torch.float32, device=dev)
         for i, mb in enumerate(_split_micro(batch, n)):
-            loss, g = _grads(cfg, params, leaves, mb, sc)
+            loss, g = _grads(loss_of, params, leaves, mb, sc)
             fault_mod.corrupt_tree(fault, g, micro=i, step=st0)
             slab = arena_mod.pack(g, state["m"].layout, dtype=wire)
             del g
@@ -372,7 +388,10 @@ def _make_guarded_adama_step(cfg, opt, lr_schedule, fault):
 
 
 def make_adama_layerwise_step(cfg: ModelConfig, opt: OptimizerConfig, *,
-                              lr_schedule=None, fault=None):
+                              remat=False, lr_schedule=None, fault=None):
+    """Algorithm 2. `remat` is accepted and unused, as in the reference:
+    the engine already recomputes every layer from its saved input
+    (core/layerwise.py), which is activation checkpointing."""
     n = opt.micro_batches
     b1, b2 = opt.beta1, opt.beta2
     wire = grad_wire_dtype(opt.grad_dtype)

@@ -15,6 +15,9 @@ card with their fp32 params, m and v; chip_smoke.py trains it at 4):
 
   PYTHONPATH=src python -m repro_torch.launch.profile_step --arch rwkv6-7b \
       --num-layers 4 --seq-len 4096 --global-batch 16 --micro-batches 8
+
+`--remat` profiles the step under RunConfig(remat=True): ga and adama
+checkpoint each layer (adama_layerwise already recomputes every layer).
 """
 from __future__ import annotations
 
@@ -55,6 +58,8 @@ def main(argv=None):
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--num-layers", type=int, default=None,
                     help="cut the depth to this many layers")
+    ap.add_argument("--remat", action="store_true",
+                    help="checkpoint each layer (RunConfig.remat)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -67,7 +72,8 @@ def main(argv=None):
                                               state_codec=args.state_codec,
                                               m_codec=args.m_codec),
                     seq_len=args.seq_len, global_batch=args.global_batch,
-                    seed=args.seed, steps=2, log_every=1)
+                    seed=args.seed, steps=2, log_every=1,
+                    remat=args.remat)
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     out = train(run, device="cuda",
                 step_context=lambda i: (prof if i == 1
@@ -81,7 +87,7 @@ def main(argv=None):
     print(json.dumps({
         "arch": cfg.name, "num_layers": cfg.num_layers,
         "accumulation": args.accumulation,
-        "per_leaf": args.per_leaf,
+        "per_leaf": args.per_leaf, "remat": args.remat,
         "m_codec": args.m_codec, "state_codec": args.state_codec,
         "seq_len": args.seq_len, "global_batch": args.global_batch,
         "micro_batches": args.micro_batches,

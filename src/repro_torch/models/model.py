@@ -20,6 +20,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.arena import tree_flatten, tree_unflatten
@@ -203,15 +204,30 @@ def apply_block(cfg, p, x, positions, *, causal=True):
     return x + md.mlp(cfg, p, m_in)
 
 
-def run_blocks(cfg, stack, x, positions, *, causal=True):
+def run_blocks(cfg, stack, x, positions, *, causal=True, remat=False):
     """The layer loop over a stacked subtree (the reference scans it).
     `unbind` splits each stacked leaf once, so the backward writes each
-    leaf's gradient as one stacked tensor."""
+    leaf's gradient as one stacked tensor.
+
+    With `remat`, each layer runs under non-reentrant
+    torch.utils.checkpoint (the reference's `jax.checkpoint` of the scan
+    body): the forward keeps only the layer's input, and the backward
+    recomputes the layer, saving what its own backward reads (for rwkv6,
+    the scan's chunk states come from that recompute). The layer's param
+    views are explicit inputs, so their gradients still reach the stacked
+    leaves. The non-reentrant form is the one `torch.autograd.grad`, which
+    every engine calls, supports."""
     keys = sorted(stack)
     per_leaf = [torch.unbind(stack[k], 0) for k in keys]
+
+    def block(h, *layer):
+        return apply_block(cfg, dict(zip(keys, layer)), h, positions,
+                           causal=causal)
     for layer in zip(*per_leaf):
-        x = apply_block(cfg, dict(zip(keys, layer)), x, positions,
-                        causal=causal)
+        if remat:
+            x = checkpoint(block, x, *layer, use_reentrant=False)
+        else:
+            x = block(x, *layer)
     return x
 
 
@@ -226,15 +242,17 @@ def embed_tokens(cfg, params, tokens, positions):
     return x
 
 
-def forward(cfg: ModelConfig, params: Params, batch):
-    """Training forward. Returns (logits fp32 (B, S, V_pad), aux loss)."""
+def forward(cfg: ModelConfig, params: Params, batch, *, remat: bool = False):
+    """Training forward. Returns (logits fp32 (B, S, V_pad), aux loss).
+    `remat` checkpoints each layer (`run_blocks`)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     causal = cfg.arch_type != "encoder"
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device).expand(b, s)
     x = embed_tokens(cfg, params, tokens, positions)
-    x = run_blocks(cfg, params["blocks"], x, positions, causal=causal)
+    x = run_blocks(cfg, params["blocks"], x, positions, causal=causal,
+                   remat=remat)
     x = md.apply_norm(cfg, params, x, "final_norm_")
     logits = (x @ params["lm_head"].to(x.dtype)).float()
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
@@ -251,6 +269,6 @@ def cross_entropy(logits, labels):
     return nll.sum() / torch.clamp(mask.sum(), min=1)
 
 
-def loss_fn(cfg: ModelConfig, params: Params, batch):
-    logits, aux = forward(cfg, params, batch)
+def loss_fn(cfg: ModelConfig, params: Params, batch, *, remat: bool = False):
+    logits, aux = forward(cfg, params, batch, remat=remat)
     return cross_entropy(logits, batch["labels"]) + aux

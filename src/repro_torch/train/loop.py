@@ -1,5 +1,8 @@
 """Training loop (`repro/train/loop.py`, without a mesh): init, data,
 the engine's step, per-step loss and time, checkpoints and auto-resume.
+`run.remat` checkpoints each layer's activations (the engines' `remat`);
+like the reference, nothing of it goes into a checkpoint, so a resumed run
+takes it from its own RunConfig.
 
 With `run.checkpoint_dir` the loop resumes from the newest step saved
 there (train/checkpoint.py): the params and the optimizer state are
@@ -70,8 +73,8 @@ def train(run: RunConfig, *, lr_schedule=None, log_fn=print, params=None,
     tree = model.tree()
     opt = run.optimizer
     fault = faults_mod.parse_fault(run.inject_fault)
-    step_fn, opt_init = make_train_step(cfg, opt, lr_schedule=lr_schedule,
-                                        fault=fault)
+    step_fn, opt_init = make_train_step(cfg, opt, remat=run.remat,
+                                        lr_schedule=lr_schedule, fault=fault)
     opt_state = opt_init(tree)
     start = 0
     if run.checkpoint_dir:

@@ -2,7 +2,8 @@
 reference's arena engines (make_adama_step / make_ga_step with
 OptimizerConfig(use_pallas=True, arena=True)), step for step on the reduced
 models: losses, params and the m/v arenas, and one fold per micro-batch
-(one per step for ga) and one apply per step."""
+(one per step for ga) and one apply per step; with activation
+checkpointing too (the reference's `remat=True` against the port's)."""
 import dataclasses
 import functools
 
@@ -72,14 +73,15 @@ def _data(arch):
 
 
 @functools.lru_cache(maxsize=None)
-def _reference_run(case):
+def _reference_run(case, remat=False):
     """The reference's trajectory: per step (loss, packed params, m, v)."""
     arch, engine, sched, clip = CASES[case]
     cfg = tiny(arch)
     opt = JaxOptimizerConfig(name="adama", accumulation=engine,
                              micro_batches=N_MICRO, use_pallas=True,
                              arena=True, grad_clip=clip)
-    step, init = jax_make_train_step(cfg, opt, lr_schedule=_schedules(sched)[0])
+    step, init = jax_make_train_step(cfg, opt, remat=remat,
+                                     lr_schedule=_schedules(sched)[0])
     step = jax.jit(step)
     params = jmodel.init_params(cfg, jax.random.key(0))
     init_params = jax.tree.map(np.asarray, params)
@@ -96,11 +98,17 @@ def _reference_run(case):
     return init_params, out
 
 
-@pytest.mark.parametrize("n_steps", [1, STEPS])
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_engine_matches_reference(case, n_steps, monkeypatch):
+# (case, n_steps, remat); the remat cases' ids end in "-remat"
+RUNS = [pytest.param(case, n, remat,
+                     id=f"{case}-{n}" + ("-remat" if remat else ""))
+        for remat in (False, True) for case in sorted(CASES)
+        for n in (1, STEPS)]
+
+
+@pytest.mark.parametrize("case, n_steps, remat", RUNS)
+def test_engine_matches_reference(case, n_steps, remat, monkeypatch):
     arch, engine, sched, clip = CASES[case]
-    init_params, want = _reference_run(case)
+    init_params, want = _reference_run(case, remat)
     calls = {"fold": 0, "apply": 0}
 
     def counted(name, fn):
@@ -118,7 +126,8 @@ def test_engine_matches_reference(case, n_steps, monkeypatch):
     opt = OptimizerConfig(accumulation=engine, micro_batches=N_MICRO,
                           grad_clip=clip)
     model = tmodel.Model(cfg, tmodel.params_from_jax(init_params, "cpu"))
-    step, init = make_train_step(cfg, opt, lr_schedule=_schedules(sched)[1])
+    step, init = make_train_step(cfg, opt, remat=remat,
+                                 lr_schedule=_schedules(sched)[1])
     tree = model.tree()
     state = init(tree)
     for i, batch in enumerate(_data(arch)[:n_steps]):

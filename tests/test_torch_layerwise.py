@@ -4,7 +4,9 @@ version against the Pallas `arena_fold_slice` (interpret mode) bit for bit,
 the slice pack helpers against the reference's, and the engine step for
 step against `make_adama_layerwise_step` in both state forms. Also the
 engine's fold schedule (one slice fold per layer, in reverse, then the rest
-region) and its agreement with the port's Algorithm-1 `adama`."""
+region) and its agreement with the port's Algorithm-1 `adama`. With
+`remat=True` on both sides the engine accepts the keyword and ignores it,
+as the reference's does."""
 import dataclasses
 import functools
 
@@ -166,14 +168,14 @@ def _data(arch):
 
 
 @functools.lru_cache(maxsize=None)
-def _reference_run(arch, arena):
+def _reference_run(arch, arena, remat=False):
     """The reference's adama_layerwise trajectory: per step (loss, params,
     m, v) as numpy leaves (m, v: the arenas, or per-leaf trees)."""
     cfg = tiny(arch)
     opt = JaxOptimizerConfig(name="adama", accumulation="adama_layerwise",
                              micro_batches=N_MICRO, use_pallas=True,
                              arena=arena)
-    step, init = jax_make_train_step(cfg, opt)
+    step, init = jax_make_train_step(cfg, opt, remat=remat)
     step = jax.jit(step)
     params = jmodel.init_params(cfg, jax.random.key(0))
     init_params = jax.tree.map(np.asarray, params)
@@ -191,12 +193,13 @@ def _reference_run(arch, arena):
     return init_params, out
 
 
-def _port(arch, engine, init_params, arena=True):
+def _port(arch, engine, init_params, arena=True, remat=False):
     cfg = dataclasses.replace(get_config(arch).reduced(),
                               compute_dtype="float32")
     model = tmodel.Model(cfg, tmodel.params_from_jax(init_params, "cpu"))
     step, init = make_train_step(cfg, OptimizerConfig(
-        accumulation=engine, micro_batches=N_MICRO, arena=arena))
+        accumulation=engine, micro_batches=N_MICRO, arena=arena),
+        remat=remat)
     tree = model.tree()
     return model, step, tree, init(tree)
 
@@ -207,12 +210,18 @@ def _moment_leaves(state, k):
     return tarena.tree_flatten(state[k])[0]
 
 
-@pytest.mark.parametrize("arena", [True, False], ids=["arena", "per_leaf"])
-@pytest.mark.parametrize("arch", ARCHS)
-def test_layerwise_engine_matches_reference(arch, arena):
-    init_params, want = _reference_run(arch, arena)
+# (arch, arena, remat); the remat cases' ids end in "-remat"
+LAYERWISE_RUNS = [
+    pytest.param(arch, arena, remat, id=f"{arch}-" + (
+        "arena" if arena else "per_leaf") + ("-remat" if remat else ""))
+    for remat in (False, True) for arch in ARCHS for arena in (True, False)]
+
+
+@pytest.mark.parametrize("arch, arena, remat", LAYERWISE_RUNS)
+def test_layerwise_engine_matches_reference(arch, arena, remat):
+    init_params, want = _reference_run(arch, arena, remat)
     model, step, tree, state = _port(arch, "adama_layerwise", init_params,
-                                     arena)
+                                     arena, remat)
     for i, batch in enumerate(_data(arch)):
         tree, state, metrics = step(
             tree, state, {k: torch.from_numpy(v) for k, v in batch.items()})
