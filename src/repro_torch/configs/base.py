@@ -32,7 +32,14 @@ class ModelConfig:
     vocab_size: int
     head_dim: Optional[int] = None       # default d_model // n_heads
     max_seq_len: int = 8192
-    attention: str = "gqa"               # gqa | none (attention-free)
+    attention: str = "gqa"               # gqa | swa | mla | none
+    window: Optional[int] = None         # sliding-window size for swa
+    # MLA (MiniCPM3): the q and kv low-rank projections and head sizes
+    q_lora_rank: Optional[int] = None
+    kv_lora_rank: Optional[int] = None
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: Optional[int] = None
     ssm: Optional[SSMConfig] = None      # the rwkv6 family's head size
     norm: str = "rmsnorm"                # rmsnorm | layernorm
     act: str = "silu"                    # silu (gated MLP) | gelu (plain MLP)
@@ -47,20 +54,27 @@ class ModelConfig:
             return self.head_dim
         return self.d_model // self.n_heads
 
+    @property
+    def resolved_v_head_dim(self) -> int:
+        if self.v_head_dim is not None:
+            return self.v_head_dim
+        return self.resolved_head_dim
+
     def padded_vocab(self, tp: int = 1) -> int:
         mult = 128 * max(tp, 1)
         return ((self.vocab_size + mult - 1) // mult) * mult
 
     def reduced(self) -> "ModelConfig":
-        """CPU-smoke variant of the same family (<=2 layers, d_model<=256).
-        `ssm` is kept: head_dim 32 is the attention head size, and an rwkv6
-        model keeps ssm.head_dim 64 (4 heads at d_model 256)."""
+        """CPU-smoke variant of the same family (<=2 layers, d_model<=256;
+        mla's ranks and head sizes cut and its q low-rank projection
+        dropped; swa's window 64). `ssm` is kept: head_dim 32 is the
+        attention head size, and an rwkv6 model keeps ssm.head_dim 64 (4
+        heads at d_model 256)."""
         d_model = min(self.d_model, 256)
         n_heads = max(2, min(self.n_heads, 4))
         ratio = max(1, self.n_heads // max(self.n_kv_heads, 1))
         n_kv = max(1, n_heads // min(ratio, n_heads))
-        return replace(
-            self,
+        kw = dict(
             num_layers=min(self.num_layers, 2),
             d_model=d_model,
             n_heads=n_heads,
@@ -71,6 +85,12 @@ class ModelConfig:
             max_seq_len=min(self.max_seq_len, 256),
             name=self.name + "-reduced",
         )
+        if self.attention == "mla":
+            kw.update(q_lora_rank=None, kv_lora_rank=64,
+                      qk_nope_head_dim=32, qk_rope_head_dim=16, v_head_dim=32)
+        if self.window is not None:
+            kw.update(window=64)
+        return replace(self, **kw)
 
 
 ACCUM_ENGINES = ("ga", "adama", "adama_layerwise")
@@ -322,7 +342,8 @@ class RunConfig:
     inject_fault: Optional[str] = None
 
 
-ARCH_IDS = ["stablelm_1_6b", "bert_large", "rwkv6_7b"]
+ARCH_IDS = ["stablelm_1_6b", "bert_large", "rwkv6_7b", "mistral_nemo_12b",
+            "minicpm3_4b"]
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
 

@@ -5,6 +5,10 @@
                    accumulator slab sums pack(g)/N over the micro-batches,
                    then one fold (with the begin-minibatch decay) and one
                    apply. The paper's comparison point. Arena state only.
+                   Each micro-batch's tree is packed and dropped, and the
+                   pack is added in as XLA CPU evaluates the reference's
+                   `acc + pack(g) / n` (`_ga_accumulate`): one arena beside
+                   the accumulator, no tree or quotient.
   adama            Algorithm 1: each micro-batch's gradient is folded into
                    (m, v) at once, then dropped before the next
                    micro-batch's backward. No param-sized gradient
@@ -86,6 +90,7 @@ from __future__ import annotations
 import functools
 from typing import Any, Callable, Dict
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import (ModelConfig, OptimizerConfig,
@@ -96,6 +101,7 @@ from repro_torch.core import arena as arena_mod
 from repro_torch.core import state_store
 from repro_torch.core.layerwise import layerwise_loss_and_fold
 from repro_torch.kernels import fp8_wire, fused_step
+from repro_torch.kernels.adama_accum import _fma32
 from repro_torch.models.model import loss_fn
 from repro_torch.train import faults as fault_mod
 from repro_torch.train import scaler as scaler_mod
@@ -130,6 +136,54 @@ def _grads(loss_of, params, leaves, mb, sc=None):
     grads = torch.autograd.grad(loss, leaves)
     _, paths = arena_mod.tree_flatten(params)
     return loss.detach(), arena_mod.tree_unflatten(paths, list(grads))
+
+
+def inv_n(n: int, device) -> torch.Tensor:
+    """f32(1) / f32(n) as a device scalar: XLA CPU rewrites the reference's
+    division by the constant N (`x / n`) as a multiply by this reciprocal,
+    and a device tensor keeps CUDA and the CPU on the same multiply."""
+    return torch.tensor(np.float32(1) / np.float32(n), device=device)
+
+
+def uncontracted_rows(layout):
+    """The arena rows [lo, hi) on which XLA CPU multiplies and adds
+    `acc + pack(g) / n` in two roundings: those of every rest-region leaf
+    whose last row is zero-padded. XLA fuses that pad into the loop that
+    forms the sum and leaves the multiply-add there uncontracted; every
+    other row is one fused multiply-add (the stacked leaves' pads run in
+    fusions of their own)."""
+    rest = layout.rest
+    return [(rest.row + s.row, rest.row + s.row + s.rows)
+            for s in rest.leaves if s.size % arena_mod.LANES]
+
+
+def scale_leaves(g, r):
+    """Algorithm 1 line 6 as the reference's per-leaf path does it, g / N:
+    its `x / n`, which XLA CPU evaluates as x * f32(1/N) (`inv_n` r), in
+    place on every leaf of the gradient tree g, which it returns."""
+    for x in arena_mod.tree_flatten(g)[0]:
+        x.mul_(r)
+    return g
+
+
+_FMA_CHUNK_ROWS = 1 << 12
+
+
+def _ga_accumulate(acc, slab, r, plain_rows):
+    """acc += slab / N as the jitted reference computes it: fma(slab, r,
+    acc) with r = f32(1/N) (`inv_n`), but slab * r + acc in two roundings
+    on `plain_rows` (`uncontracted_rows`). On CUDA `addcmul_` is the
+    fused multiply-add (nvcc contracts its self + t1 * t2); on the CPU it
+    is formed exactly (`_fma32`), a chunk of rows at a time."""
+    kept = [(lo, hi, acc[lo:hi] + slab[lo:hi] * r) for lo, hi in plain_rows]
+    if acc.is_cuda:
+        acc.addcmul_(slab, r)
+    else:
+        for lo in range(0, acc.shape[0], _FMA_CHUNK_ROWS):
+            hi = lo + _FMA_CHUNK_ROWS
+            acc[lo:hi] = _fma32(slab[lo:hi], r, acc[lo:hi])
+    for lo, hi, x in kept:
+        acc[lo:hi] = x
 
 
 def _lr(lr_schedule, opt: OptimizerConfig, step: int):
@@ -202,11 +256,15 @@ def make_ga_step(cfg: ModelConfig, opt: OptimizerConfig, *, remat=False,
         leaves, _ = arena_mod.tree_flatten(params)
         acc = torch.zeros((layout.rows, arena_mod.LANES), dtype=torch.float32,
                           device=leaves[0].device)
+        r = inv_n(n, acc.device)
+        plain_rows = uncontracted_rows(layout)
         lsum = torch.zeros((), dtype=torch.float32, device=acc.device)
         for mb in _split_micro(batch, n):
             loss, g = _grads(loss_of, params, leaves, mb)
-            acc += arena_mod.pack(g, layout) / n
+            slab = arena_mod.pack(g, layout)
             del g
+            _ga_accumulate(acc, slab, r, plain_rows)
+            del slab
             lsum = lsum + loss
         if opt.grad_clip:
             gn = torch.sqrt(torch.sum(torch.square(acc)))
@@ -221,7 +279,7 @@ def make_ga_step(cfg: ModelConfig, opt: OptimizerConfig, *, remat=False,
         params, opt_state = adama.finalize(
             params, opt_state, lr=lr, beta1=opt.beta1, beta2=opt.beta2,
             eps=opt.eps, weight_decay=opt.weight_decay)
-        return params, opt_state, {"loss": lsum / n}
+        return params, opt_state, {"loss": lsum * r}
 
     return step, _init(opt)
 
@@ -242,12 +300,15 @@ def _make_guarded_ga_step(loss_of, opt, lr_schedule, fault):
         st0 = opt_state["step"]
         acc = torch.zeros((layout.rows, arena_mod.LANES), dtype=torch.float32,
                           device=dev)
+        plain_rows = uncontracted_rows(layout)
         lsum = torch.zeros((), dtype=torch.float32, device=dev)
         for i, mb in enumerate(_split_micro(batch, n)):
             loss, g = _grads(loss_of, params, leaves, mb)
             fault_mod.corrupt_tree(fault, g, micro=i, step=st0)
-            acc += arena_mod.pack(g, layout) / n
+            slab = arena_mod.pack(g, layout)
             del g
+            _ga_accumulate(acc, slab, guard.inv_n(dev), plain_rows)
+            del slab
             lsum = lsum + loss
         c = guard.consts(dev)
         vec = guard.vector(c[0:2], fault_mod.apply_skip(
@@ -268,7 +329,7 @@ def _make_guarded_ga_step(loss_of, opt, lr_schedule, fault):
             params, dict(opt_state, step=st0 + 1), lr=lr, beta1=opt.beta1,
             beta2=opt.beta2, eps=opt.eps, weight_decay=opt.weight_decay,
             guard=vec[2:3])
-        good, metrics = guard.read_back(vec[2], sc, lsum / n)
+        good, metrics = guard.read_back(vec[2], sc, lsum * guard.inv_n(dev))
         return params, dict(opt_state, step=st0 + good, scaler=sc), metrics
 
     return step, _init(opt)
@@ -290,7 +351,8 @@ def make_adama_step(cfg: ModelConfig, opt: OptimizerConfig, *, remat=False,
             state = dict(opt_state, step=opt_state["step"] + 1)
         else:
             state = adama.begin_minibatch(opt_state, b1, b2)
-        lsum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+        r = inv_n(n, leaves[0].device)
+        lsum = torch.zeros((), dtype=torch.float32, device=r.device)
         for i, mb in enumerate(_split_micro(batch, n)):
             loss, g = _grads(loss_of, params, leaves, mb)
             if opt.arena:
@@ -298,20 +360,14 @@ def make_adama_step(cfg: ModelConfig, opt: OptimizerConfig, *, remat=False,
                                          decay=_fold_decay(i, b1, b2),
                                          grad_dtype=wire)
             else:
-                # Algorithm 1 line 6 as the reference's per-leaf path does
-                # it: a true division by N (a device scalar, so CUDA divides
-                # too rather than multiplying by 1/N), then a fold at scale 1
-                n_t = torch.tensor(float(n), device=loss.device)
-                for x in arena_mod.tree_flatten(g)[0]:
-                    x.div_(n_t)
-                state = adama.accumulate(state, g, b1, b2)
+                state = adama.accumulate(state, scale_leaves(g, r), b1, b2)
             del g
             lsum = lsum + loss
         lr = _lr(lr_schedule, opt, state["step"])
         params, state = adama.finalize(
             params, state, lr=lr, beta1=b1, beta2=b2, eps=opt.eps,
             weight_decay=opt.weight_decay)
-        return params, state, {"loss": lsum / n}
+        return params, state, {"loss": lsum * r}
 
     return step, _init(opt)
 
@@ -407,8 +463,8 @@ def make_adama_layerwise_step(cfg: ModelConfig, opt: OptimizerConfig, *,
             state = dict(opt_state, step=opt_state["step"] + 1)
         else:
             state = adama.begin_minibatch(opt_state, b1, b2)
-        lsum = torch.zeros((), dtype=torch.float32,
-                           device=batch["tokens"].device)
+        r = inv_n(n, batch["tokens"].device)
+        lsum = torch.zeros((), dtype=torch.float32, device=r.device)
         for i, mb in enumerate(_split_micro(batch, n)):
             loss, state = layerwise_loss_and_fold(
                 cfg, params, mb, state, beta1=b1, beta2=b2, scale=1.0 / n,
@@ -419,7 +475,7 @@ def make_adama_layerwise_step(cfg: ModelConfig, opt: OptimizerConfig, *,
         params, state = adama.finalize(
             params, state, lr=lr, beta1=b1, beta2=b2, eps=opt.eps,
             weight_decay=opt.weight_decay)
-        return params, state, {"loss": lsum / n}
+        return params, state, {"loss": lsum * r}
 
     return step, _init(opt)
 

@@ -37,6 +37,11 @@ m and v do not fit one 80 GB card):
   PYTHONPATH=src python -m repro_torch.launch.memory_split \
       --arch stablelm-1.6b --seq-len 4096 --micro-batch 2 \
       --runs ckpt layerwise --peak-sites 8
+  PYTHONPATH=src python -m repro_torch.launch.memory_split \
+      --arch mistral-nemo-12b --num-layers 4 --seq-len 8192 \
+      --micro-batch 1 --runs ckpt layerwise
+  PYTHONPATH=src python -m repro_torch.launch.memory_split \
+      --arch minicpm3-4b --num-layers 24 --seq-len 1024 --micro-batch 2
 """
 from __future__ import annotations
 

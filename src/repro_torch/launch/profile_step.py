@@ -15,6 +15,12 @@ card with their fp32 params, m and v; chip_smoke.py trains it at 4):
 
   PYTHONPATH=src python -m repro_torch.launch.profile_step --arch rwkv6-7b \
       --num-layers 4 --seq-len 4096 --global-batch 16 --micro-batches 8
+  PYTHONPATH=src python -m repro_torch.launch.profile_step \
+      --arch mistral-nemo-12b --num-layers 4 --seq-len 8192 \
+      --global-batch 8 --micro-batches 8 --remat
+  PYTHONPATH=src python -m repro_torch.launch.profile_step \
+      --arch minicpm3-4b --num-layers 24 --seq-len 1024 --global-batch 16 \
+      --micro-batches 8
 
 `--remat` profiles the step under RunConfig(remat=True): ga and adama
 checkpoint each layer (adama_layerwise already recomputes every layer).

@@ -35,6 +35,15 @@
       --grad-dtype fp8_e4m3 --loss-scale dynamic \
       --inject-fault nan@micro=1,step=1 --log-every 1 --device cpu
 
+  # the swa and mla families; --num-layers cuts the depth (mistral-nemo-12b
+  # at 4 of its 40 layers, minicpm3-4b at 24 of its 62, fit one 80 GB card)
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mistral-nemo-12b \
+      --reduced --steps 2 --global-batch 4 --micro-batches 2 --seq-len 96 \
+      --log-every 1 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm3-4b \
+      --num-layers 24 --steps 3 --global-batch 16 --micro-batches 8 \
+      --seq-len 1024 --accumulation ga
+
   # saves every step; run again with more --steps to resume
   # ("[train] restored step 2")
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \
@@ -45,6 +54,7 @@
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import torch
 
@@ -71,6 +81,8 @@ def main(argv=None):
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true",
                     help="CPU-scale variant of the arch family")
+    ap.add_argument("--num-layers", type=int, default=None,
+                    help="cut the depth to this many layers")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--global-batch", type=int, default=16)
@@ -137,6 +149,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.num_layers)
     run = RunConfig(
         model=cfg,
         optimizer=OptimizerConfig(accumulation=args.accumulation,

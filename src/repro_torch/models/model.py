@@ -1,6 +1,6 @@
-"""Model assembly for the dense, encoder and rwkv6 (ssm) families:
-parameter init, the training forward pass and the loss
-(`repro/models/model.py`).
+"""Model assembly for the dense (gqa, swa and mla attention), encoder and
+rwkv6 (ssm) families: parameter init, the training forward pass and the
+loss (`repro/models/model.py`).
 
 Param tree layout, the reference's key for key:
   {"embed": (V_pad, D), "lm_head": (D, V_pad),
@@ -14,6 +14,7 @@ take `torch.autograd.grad` with respect to the leaves.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict
 
@@ -52,10 +53,36 @@ def _attn_params(cfg, gen, lead):
     d, h, kv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     hd = cfg.resolved_head_dim
     out_scale = 0.02 / math.sqrt(2 * cfg.num_layers)
+    if cfg.attention == "mla":
+        return _mla_params(cfg, gen, lead, out_scale)
     return {"wq": _dense(gen, lead + (d, h, hd)),
             "wk": _dense(gen, lead + (d, kv, hd)),
             "wv": _dense(gen, lead + (d, kv, hd)),
             "wo": _dense(gen, lead + (h, hd, d), out_scale)}
+
+
+def _mla_params(cfg, gen, lead, out_scale):
+    """The reference's mla leaves at tp = 1 (no padded heads): the kv
+    down-projection to the latent and the shared rotary key, the latent's
+    norm, its up-projection to k_nope and v, the output; the q
+    down-projection, its norm and its up-projection when q_lora_rank is
+    set, else one q projection."""
+    d, h = cfg.d_model, cfg.n_heads
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    dv, r = cfg.resolved_v_head_dim, cfg.kv_lora_rank
+    ones = functools.partial(torch.ones, dtype=torch.float32,
+                             device=gen.device)
+    p = {"wkv_a": _dense(gen, lead + (d, r + dr)),
+         "kv_norm": ones(lead + (r,)),
+         "wkv_b": _dense(gen, lead + (r, h, dn + dv)),
+         "wo": _dense(gen, lead + (h, dv, d), out_scale)}
+    if cfg.q_lora_rank:
+        p["wq_a"] = _dense(gen, lead + (d, cfg.q_lora_rank))
+        p["q_norm"] = ones(lead + (cfg.q_lora_rank,))
+        p["wq_b"] = _dense(gen, lead + (cfg.q_lora_rank, h, dn + dr))
+    else:
+        p["wq"] = _dense(gen, lead + (d, h, dn + dr))
+    return p
 
 
 def _mlp_params(cfg, gen, lead):
@@ -120,12 +147,13 @@ def main_stack_kind(cfg) -> str:
 
 def _check_family(cfg: ModelConfig):
     if not ((cfg.arch_type in ("dense", "encoder") and cfg.attention == "gqa")
+            or (cfg.arch_type == "dense" and cfg.attention in ("swa", "mla"))
             or (cfg.arch_type == "ssm" and cfg.attention == "none")):
         raise NotImplementedError(
             f"{cfg.name}: arch_type={cfg.arch_type!r} attention="
             f"{cfg.attention!r} is not ported yet (ROADMAP queue 1, item 9: "
             f"other model families); this port runs dense and encoder gqa "
-            f"models and the rwkv6 (ssm) family")
+            f"models, dense swa and mla models and the rwkv6 (ssm) family")
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
@@ -199,7 +227,8 @@ def apply_block(cfg, p, x, positions, *, causal=True):
         y, _ = md.rwkv6_channelmix(p, c_in, zeros_x)
         return x + y
     a_in = md.apply_norm(cfg, p, x, "attn_norm_")
-    x = x + md.gqa_attention(cfg, p, a_in, positions, causal=causal)
+    attn = md.mla_attention if cfg.attention == "mla" else md.gqa_attention
+    x = x + attn(cfg, p, a_in, positions, causal=causal)
     m_in = md.apply_norm(cfg, p, x, "mlp_norm_")
     return x + md.mlp(cfg, p, m_in)
 

@@ -1,5 +1,6 @@
-"""Model building blocks (dense, encoder and rwkv6 families), plain
-functions on tensors with the reference's layouts and operation order
+"""Model building blocks (dense, encoder and rwkv6 families; the dense
+decoder's gqa, sliding-window (swa) and multi-head latent (mla) attention),
+plain functions on tensors with the reference's layouts and operation order
 (`repro/models/modules.py`).
 
 Params are dicts of tensors. Attention is the blockwise online-softmax
@@ -95,11 +96,14 @@ def sinusoidal_positions(positions, d_model):
 
 
 def blockwise_attention(q, k, v, *, causal, q_positions, kv_positions,
-                        kv_block=1024):
+                        window=None, kv_block=1024):
     """Online-softmax attention; never materializes (Sq, Sk) for large Sk.
 
     q: (B, Hq, Sq, hd); k: (B, Hkv, Sk, hd); v: (B, Hkv, Sk, hv)
-    q_positions: (B, Sq); kv_positions: (B, Sk). Returns (B, Hq, Sq, hv).
+    q_positions: (B, Sq); kv_positions: (B, Sk); window: a sliding window
+    (a query sees keys at positions > its own - window), None = full.
+    Returns (B, Hq, Sq, hv). A kv block that a query sees none of (past its
+    causal edge, or wholly before its window) adds nothing to its row.
     """
     b, hq, sq, hd = q.shape
     _, hkv, sk, hv = v.shape
@@ -129,6 +133,8 @@ def blockwise_attention(q, k, v, *, causal, q_positions, kv_positions,
         valid = (pc[:, None, :] < _INT32_MAX).expand(b, sq, pc.shape[1])
         if causal:
             valid = valid & (pc[:, None, :] <= q_positions[:, :, None])
+        if window is not None:
+            valid = valid & (pc[:, None, :] > q_positions[:, :, None] - window)
         mask = valid[:, None]                               # (B,1,Sq,kb)
         s = torch.where(mask, s, -math.inf)
         m_new = torch.maximum(m, torch.amax(s, dim=-1))
@@ -152,12 +158,64 @@ def blockwise_attention(q, k, v, *, causal, q_positions, kv_positions,
 
 def gqa_attention(cfg, p, x, positions, *, causal=True):
     """p: wq (D,Hq,hd), wk/wv (D,Hkv,hd), wo (Hq,hd,D). RoPE is applied to
-    q and k for every config (bert adds sinusoidal embeddings as well)."""
+    q and k for every config (bert adds sinusoidal embeddings as well); an
+    swa config attends within its window."""
     q = torch.einsum("bsd,dhk->bhsk", x, p["wq"].to(x.dtype))
     k = torch.einsum("bsd,dhk->bhsk", x, p["wk"].to(x.dtype))
     v = torch.einsum("bsd,dhk->bhsk", x, p["wv"].to(x.dtype))
     q = apply_rope(q.transpose(1, 2), positions, cfg.rope_theta).transpose(1, 2)
     k = apply_rope(k.transpose(1, 2), positions, cfg.rope_theta).transpose(1, 2)
+    window = cfg.window if cfg.attention == "swa" else None
+    out = blockwise_attention(q, k, v, causal=causal, q_positions=positions,
+                              kv_positions=positions, window=window)
+    return torch.einsum("bhsk,hkd->bsd", out, p["wo"].to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# MLA attention (MiniCPM3): low-rank q, a compressed kv latent, a shared
+# rotary key
+# ---------------------------------------------------------------------------
+
+
+def mla_project_q(cfg, p, x):
+    """Returns q_nope (B,H,S,dn), q_rope (B,H,S,dr)."""
+    if cfg.q_lora_rank:
+        ql = rmsnorm(x @ p["wq_a"].to(x.dtype), p["q_norm"])
+        q = torch.einsum("bsr,rhk->bhsk", ql, p["wq_b"].to(x.dtype))
+    else:
+        q = torch.einsum("bsd,dhk->bhsk", x, p["wq"].to(x.dtype))
+    dn = cfg.qk_nope_head_dim
+    return q[..., :dn], q[..., dn:]
+
+
+def mla_latent(cfg, p, x):
+    """Compressed kv: (latent (B,S,R) rms-normed, k_rope (B,S,dr))."""
+    kv = x @ p["wkv_a"].to(x.dtype)                        # (B,S,R+dr)
+    r = cfg.kv_lora_rank
+    return rmsnorm(kv[..., :r], p["kv_norm"]), kv[..., r:]
+
+
+def mla_expand_kv(cfg, p, latent):
+    """latent (B,S,R) -> k_nope (B,H,S,dn), v (B,H,S,dv)."""
+    kv = torch.einsum("bsr,rhk->bhsk", latent, p["wkv_b"].to(latent.dtype))
+    dn = cfg.qk_nope_head_dim
+    return kv[..., :dn], kv[..., dn:]
+
+
+def mla_attention(cfg, p, x, positions, *, causal=True):
+    """q and k of head size dn + dr (the rotary part of k one (B,S,dr)
+    tensor shared by every head), v of dv: the softmax scale is
+    1/sqrt(dn + dr)."""
+    q_nope, q_rope = mla_project_q(cfg, p, x)
+    latent, k_rope = mla_latent(cfg, p, x)
+    q_rope = apply_rope(q_rope.transpose(1, 2), positions,
+                        cfg.rope_theta).transpose(1, 2)
+    k_rope = apply_rope(k_rope, positions, cfg.rope_theta)
+    k_nope, v = mla_expand_kv(cfg, p, latent)
+    h = q_nope.shape[1]
+    k_rope_h = k_rope[:, None].expand(k_rope.shape[0], h, *k_rope.shape[1:])
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope_h], dim=-1)
     out = blockwise_attention(q, k, v, causal=causal, q_positions=positions,
                               kv_positions=positions)
     return torch.einsum("bhsk,hkd->bsd", out, p["wo"].to(x.dtype))

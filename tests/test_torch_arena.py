@@ -14,7 +14,10 @@ from repro_torch.core import arena as tarena
 
 torch.set_num_threads(1)
 
-ARCHS = ("bert_large", "stablelm_1_6b", "rwkv6_7b")
+# "+qlora": minicpm3 with a q low-rank projection (wq_a, q_norm, wq_b), which
+# the reference's reduced config drops
+ARCHS = ("bert_large", "stablelm_1_6b", "rwkv6_7b", "mistral_nemo_12b",
+         "minicpm3_4b", "minicpm3_4b+qlora")
 
 
 def _rand(rng, shape):
@@ -55,7 +58,9 @@ def _trees(np_tree, bf16_paths):
 
 
 def _model_tree(arch):
-    params = jax_init_params(tiny(arch), jax.random.key(0))
+    arch, _, variant = arch.partition("+")
+    over = {"qlora": dict(q_lora_rank=96)}.get(variant, {})
+    params = jax_init_params(tiny(arch, **over), jax.random.key(0))
     return jax.tree.map(np.asarray, params)
 
 

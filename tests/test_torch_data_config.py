@@ -36,6 +36,22 @@ def test_model_config_fields_match_reference(arch, reduced):
             assert ref == value, name
     assert t.padded_vocab() == j.padded_vocab()
     assert t.resolved_head_dim == j.resolved_head_dim
+    assert t.resolved_v_head_dim == j.resolved_v_head_dim
+
+
+def test_swa_and_mla_configs_are_the_published_ones():
+    nemo, cpm = get_config("mistral-nemo-12b"), get_config("minicpm3-4b")
+    assert (nemo.num_layers, nemo.d_model, nemo.n_heads, nemo.n_kv_heads,
+            nemo.resolved_head_dim, nemo.d_ff, nemo.vocab_size,
+            nemo.rope_theta, nemo.attention, nemo.window,
+            nemo.max_seq_len) == (40, 5120, 32, 8, 128, 14336, 131072, 1e6,
+                                  "swa", 4096, 131072)
+    assert (cpm.num_layers, cpm.d_model, cpm.n_heads, cpm.d_ff,
+            cpm.vocab_size, cpm.attention, cpm.q_lora_rank,
+            cpm.kv_lora_rank, cpm.qk_nope_head_dim, cpm.qk_rope_head_dim,
+            cpm.resolved_v_head_dim, cpm.head_dim) == (
+                62, 2560, 40, 6400, 73448, "mla", 768, 256, 64, 32, 64, 64)
+    assert nemo.reduced().window == 64 and cpm.reduced().q_lora_rank is None
 
 
 def test_bert_large_is_the_papers_workload():
@@ -46,7 +62,7 @@ def test_bert_large_is_the_papers_workload():
     assert (cfg.arch_type, cfg.norm, cfg.act, cfg.pos_emb) == \
         ("encoder", "layernorm", "gelu", "sinusoidal")
     with pytest.raises(KeyError):
-        get_config("mistral_nemo_12b")           # a family not ported yet
+        get_config("deepseek_v2_lite_16b")       # a family not ported yet
 
 
 def test_optimizer_config_defaults_match_reference():

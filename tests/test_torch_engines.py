@@ -3,7 +3,9 @@ reference's arena engines (make_adama_step / make_ga_step with
 OptimizerConfig(use_pallas=True, arena=True)), step for step on the reduced
 models: losses, params and the m/v arenas, and one fold per micro-batch
 (one per step for ga) and one apply per step; with activation
-checkpointing too (the reference's `remat=True` against the port's)."""
+checkpointing too (the reference's `remat=True` against the port's). The
+swa (mistral-nemo) and mla (minicpm3) families run adama here and
+adama_layerwise in test_torch_layerwise.py."""
 import dataclasses
 import functools
 
@@ -56,7 +58,12 @@ CASES = {
     "ga-stablelm-cosine-clip": ("stablelm_1_6b", "ga", "cosine", 1.0),
     "adama-rwkv6": ("rwkv6_7b", "adama", None, None),
     "ga-rwkv6-cosine": ("rwkv6_7b", "ga", "cosine", None),
+    "adama-mistral-nemo": ("mistral_nemo_12b", "adama", None, None),
+    "adama-minicpm3": ("minicpm3_4b", "adama", None, None),
 }
+# the swa and mla families run all steps once, without remat (the remat
+# cases hold the layer loop, which they share with the gqa models)
+FAMILY_CASES = ("adama-mistral-nemo", "adama-minicpm3")
 
 
 def _schedules(kind):
@@ -102,7 +109,10 @@ def _reference_run(case, remat=False):
 RUNS = [pytest.param(case, n, remat,
                      id=f"{case}-{n}" + ("-remat" if remat else ""))
         for remat in (False, True) for case in sorted(CASES)
-        for n in (1, STEPS)]
+        if case not in FAMILY_CASES
+        for n in (1, STEPS)] + [pytest.param(case, STEPS, False,
+                                             id=f"{case}-{STEPS}")
+                                for case in FAMILY_CASES]
 
 
 @pytest.mark.parametrize("case, n_steps, remat", RUNS)

@@ -214,7 +214,9 @@ def _moment_leaves(state, k):
 LAYERWISE_RUNS = [
     pytest.param(arch, arena, remat, id=f"{arch}-" + (
         "arena" if arena else "per_leaf") + ("-remat" if remat else ""))
-    for remat in (False, True) for arch in ARCHS for arena in (True, False)]
+    for remat in (False, True) for arch in ARCHS for arena in (True, False)
+] + [pytest.param(arch, True, False, id=f"{arch}-arena")
+     for arch in ("mistral_nemo_12b", "minicpm3_4b")]
 
 
 @pytest.mark.parametrize("arch, arena, remat", LAYERWISE_RUNS)

@@ -1,7 +1,8 @@
 """The port's model (repro_torch.models) against the reference's
 (repro.models): each module, then logits, loss and packed gradient arenas of
-the reduced bert_large, stablelm_1_6b and rwkv6_7b from the reference's own
-params."""
+the reduced bert_large, stablelm_1_6b, rwkv6_7b, mistral_nemo_12b (swa,
+past its window) and minicpm3_4b (mla, with and without its q low-rank
+projection) from the reference's own params."""
 import dataclasses
 
 import jax
@@ -23,10 +24,17 @@ from repro_torch.models import modules as tmd
 torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-5, atol=1e-6)
-ARCHS = ("bert_large", "stablelm_1_6b")
+# gqa attention sublayers (mistral-nemo's with its window of 64, at a
+# sequence past it)
+ARCHS = ("bert_large", "stablelm_1_6b", "mistral_nemo_12b")
+# the reference's reduced minicpm3 drops q_lora_rank, so a reduced run never
+# reaches wq_a, q_norm and wq_b: "+qlora" keeps a q low-rank projection
+VARIANTS = {"qlora": dict(q_lora_rank=96)}
 # whole-model tests also cover the rwkv6 family (its own module tests are in
-# test_torch_rwkv6.py)
-ALL_ARCHS = ARCHS + ("rwkv6_7b",)
+# test_torch_rwkv6.py) and mla
+ALL_ARCHS = ARCHS + ("rwkv6_7b", "minicpm3_4b", "minicpm3_4b+qlora")
+# the swa model runs past its reduced window of 64
+SEQ = {"mistral_nemo_12b": 96}
 
 
 def _rand(seed, *shape, scale=1.0):
@@ -39,10 +47,21 @@ def _close(jx, tx, **tol):
                                np.asarray(jx, np.float32), **(tol or TOL))
 
 
+def _variant(arch):
+    arch, _, variant = arch.partition("+")
+    return arch, VARIANTS.get(variant, {})
+
+
+def _jcfg(arch):
+    arch, over = _variant(arch)
+    return tiny(arch, **over)
+
+
 def _tcfg(arch):
     """The port's twin of conftest.tiny(arch): reduced, fp32 compute."""
+    arch, over = _variant(arch)
     return dataclasses.replace(t_get_config(arch).reduced(),
-                               compute_dtype="float32")
+                               compute_dtype="float32", **over)
 
 
 def test_norms_match_reference():
@@ -85,14 +104,54 @@ def test_blockwise_attention_matches_reference(causal, hq, hkv, kv_block):
     _close(want, got)
 
 
+@pytest.mark.parametrize("window", [None, 5, 64])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 1)])
+@pytest.mark.parametrize("kv_block", [4, 1024])
+def test_sliding_window_attention_matches_reference(window, hq, hkv,
+                                                    kv_block):
+    """Causal attention at a sequence past the window: with kv_block 4 a
+    query's early blocks are wholly outside its window (masked rows that
+    must add nothing), with 1024 one block holds the whole band."""
+    s = 80
+    q, k, v = (_rand(15, 2, hq, s, 8), _rand(16, 2, hkv, s, 8),
+               _rand(17, 2, hkv, s, 8))
+    pos = np.broadcast_to(np.arange(s, dtype=np.int32), (2, s))
+    want = jmd.blockwise_attention(q, k, v, causal=True, q_positions=pos,
+                                   kv_positions=pos, window=window,
+                                   kv_block=kv_block)
+    got = tmd.blockwise_attention(*map(torch.tensor, (q, k, v)), causal=True,
+                                  q_positions=torch.tensor(pos),
+                                  kv_positions=torch.tensor(pos),
+                                  window=window, kv_block=kv_block)
+    _close(want, got)
+
+
+@pytest.mark.parametrize("head_dim", [32, 64, 128, 256])
+@pytest.mark.parametrize("theta", [1e4, 1e6])
+def test_rope_freqs_match_reference_bit_for_bit(head_dim, theta):
+    """Bit for bit at the head sizes the parity tests run (32; 64:
+    bert-large, stablelm-1.6b). Elsewhere torch's float32 pow is within 1
+    ulp of XLA's, which is the correctly rounded one: mistral-nemo's theta
+    1e6 at its head_dim 128 differs on 1 of 64 frequencies (ROADMAP queue
+    3 (s))."""
+    want = np.asarray(jmd.rope_freqs(head_dim, theta))
+    got = tmd.rope_freqs(head_dim, theta).numpy()
+    if head_dim <= 64:
+        assert np.array_equal(got, want)
+    ulps = np.abs(got.view(np.int32).astype(np.int64)
+                  - want.view(np.int32).astype(np.int64))
+    assert ulps.max() <= 1 and (ulps > 0).sum() <= 1
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_attention_and_mlp_sublayers_match_reference(arch):
     jcfg, tcfg = tiny(arch), _tcfg(arch)
     block = jax.tree.map(lambda a: np.asarray(a[0]), jmodel.init_params(
         jcfg, jax.random.key(1))["blocks"])
     tblock = {k: torch.tensor(v) for k, v in block.items()}
-    x = _rand(8, 2, 11, jcfg.d_model)
-    pos = np.broadcast_to(np.arange(11, dtype=np.int32), (2, 11))
+    s = 11 if tcfg.window is None else tcfg.window + 16
+    x = _rand(8, 2, s, jcfg.d_model)
+    pos = np.broadcast_to(np.arange(s, dtype=np.int32), (2, s))
     causal = arch != "bert_large"
     _close(jmd.gqa_attention(jcfg, block, x, pos, causal=causal),
            tmd.gqa_attention(tcfg, tblock, torch.tensor(x), torch.tensor(pos),
@@ -100,8 +159,29 @@ def test_attention_and_mlp_sublayers_match_reference(arch):
     _close(jmd.mlp(jcfg, block, x), tmd.mlp(tcfg, tblock, torch.tensor(x)))
 
 
+@pytest.mark.parametrize("arch", ["minicpm3_4b", "minicpm3_4b+qlora"])
+def test_mla_attention_matches_reference(arch):
+    """q and k of head size 32 + 16 (softmax scale 1/sqrt(48)), v of 32,
+    the rotary key shared by the 4 heads; with q_lora_rank also the q
+    down-projection, its rmsnorm and its up-projection."""
+    jcfg, tcfg = _jcfg(arch), _tcfg(arch)
+    block = jax.tree.map(lambda a: np.asarray(a[0]), jmodel.init_params(
+        jcfg, jax.random.key(1))["blocks"])
+    assert ("wq_a" in block) == (tcfg.q_lora_rank is not None)
+    tblock = {k: torch.tensor(v) for k, v in block.items()}
+    x = _rand(18, 2, 23, jcfg.d_model)
+    pos = np.broadcast_to(np.arange(23, dtype=np.int32), (2, 23))
+    tx, tpos = torch.tensor(x), torch.tensor(pos)
+    for name in ("mla_project_q", "mla_latent"):
+        for j, t in zip(getattr(jmd, name)(jcfg, block, x),
+                        getattr(tmd, name)(tcfg, tblock, tx)):
+            _close(j, t)
+    _close(jmd.mla_attention(jcfg, block, x, pos),
+           tmd.mla_attention(tcfg, tblock, tx, tpos))
+
+
 def _setup(arch, b=4, s=16):
-    jcfg, tcfg = tiny(arch), _tcfg(arch)
+    jcfg, tcfg = _jcfg(arch), _tcfg(arch)
     jparams = jmodel.init_params(jcfg, jax.random.key(0))
     tparams = tmodel.params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
     batch = make_data(tcfg, s, b, seed=3).batch(0)
@@ -110,7 +190,8 @@ def _setup(arch, b=4, s=16):
 
 @pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_forward_loss_and_gradient_arena_match_reference(arch):
-    jcfg, tcfg, jparams, tparams, batch = _setup(arch)
+    s = SEQ.get(arch, 16)
+    jcfg, tcfg, jparams, tparams, batch = _setup(arch, s=s)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
     if arch == "bert_large":                       # MLM masking is present
@@ -121,7 +202,7 @@ def test_forward_loss_and_gradient_arena_match_reference(arch):
     model = tmodel.Model(tcfg, tparams)
     tlogits, _ = model(tbatch)
     assert tlogits.dtype == torch.float32
-    assert tlogits.shape == (4, 16, tcfg.padded_vocab())
+    assert tlogits.shape == (4, s, tcfg.padded_vocab())
     _close(jlogits, tlogits, rtol=1e-5, atol=1e-5)
 
     jloss, jgrads = jax.jit(jax.value_and_grad(
@@ -147,7 +228,7 @@ def test_forward_loss_and_gradient_arena_match_reference(arch):
 def test_init_params_have_the_reference_tree(arch):
     """Same keys, shapes, dtypes and scales as repro.models.model.init_params
     (the numbers differ: torch.Generator is not jax.random)."""
-    jparams = jmodel.init_params(tiny(arch), jax.random.key(0))
+    jparams = jmodel.init_params(_jcfg(arch), jax.random.key(0))
     gen = torch.Generator()
     gen.manual_seed(0)
     tparams = tmodel.init_params(_tcfg(arch), gen)
@@ -171,3 +252,15 @@ def test_other_families_raise_not_implemented():
     cfg = dataclasses.replace(_tcfg("stablelm_1_6b"), arch_type="moe")
     with pytest.raises(NotImplementedError, match="queue 1, item 9"):
         tmodel.init_params(cfg, torch.Generator())
+
+
+@pytest.mark.parametrize("arch", ["mistral-nemo-12b", "minicpm3-4b"])
+def test_cli_trains_the_swa_and_mla_families_with_a_depth_cut(arch, capsys):
+    """launch/train.py takes the new archs and cuts their depth with
+    --num-layers (the card runs them at 4 and 24 layers)."""
+    from repro_torch.launch.train import main
+    main(["--arch", arch, "--reduced", "--num-layers", "1", "--steps", "2",
+          "--global-batch", "2", "--micro-batches", "2", "--seq-len", "72",
+          "--log-every", "1", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "[train] done; final loss" in out, out
