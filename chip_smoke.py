@@ -9,10 +9,22 @@ Phases, in order; the first failure ends the run with a non-zero exit:
 
 1. torch / CUDA versions and the card's name and power limit.
 2. Build every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
-   (one nvcc per source, started together).
+   (one nvcc per source, started together); ptxas' registers, stack frame
+   and spills of every rowcol_fold_kernel instantiation are logged, and a
+   stack frame or a spill fails the run.
 3. Each kernel against its plain PyTorch version on the card, bit for bit,
    with the median time of each over CUDA-event-timed runs beside the least
    time the card could take for the same work:
+   - first, each instruction sequence of the int8-m rowcol fold's design
+     against the expression it replaces (fused_step.fold_exactness), bit
+     for bit, the inputs compared logged: the pair decode of every e4m3
+     code; the hardware flush of all 2^32 floats; flushed adds around
+     +-2^-126; the flushed square of all 2^32 floats; and the int8 m codes
+     through the row's reciprocal against the divide's, for every x of 9
+     binades of a grid of divisors, edges and row maxima. The card's own
+     flushed product and fma around +-2^-126 (ties included), which part
+     from fl and which the kernel therefore does not use, are logged with
+     the count of results that differ;
    - arena_fold / arena_apply at the full bert-large arena (357,888 x 1024)
      and at a ragged 8-row arena;
    - arena_fold_slice on the full arena, for layer 0, layer 23 and the rest
@@ -975,6 +987,51 @@ def _check_rowcol_ranges(torch, fused_step, adama_accum, m_codec, checked):
     _compare_bits(torch, "arena_apply", f"{pair} {RC_RANGE_ROWS} rows",
                   [(pk, pr)])
     checked.append(("arena_apply", pair, f"{RC_RANGE_ROWS} rows"))
+
+
+def check_ptxas(text: str):
+    """Registers, stack frame and spills of each rowcol_fold_kernel
+    instantiation from the build's ptxas lines; raise on a stack frame or
+    a spill. Returns {kernel: {...}} ({} when the library was already
+    built, so no lines came)."""
+    from repro_torch.launch.fold_ab import ptxas_lines
+    if not text:
+        log(json.dumps({"phase": "ptxas", "note": "fused_step was already "
+                        "built: no ptxas lines"}))
+        return {}
+    lines = {k: v for k, v in ptxas_lines(text).items()
+             if k.startswith("rowcol")}
+    if len(lines) != 12:
+        raise AssertionError(f"ptxas: {len(lines)} rowcol_fold_kernel "
+                             f"instantiations found, 12 expected")
+    for name, info in sorted(lines.items()):
+        log(json.dumps({"phase": "ptxas", "kernel": name, **info}))
+        if info.get("stack_frame") or info.get("spill_stores") or \
+                info.get("spill_loads"):
+            raise AssertionError(f"ptxas: {name} has a stack frame or "
+                                 f"spills: {info}")
+    return lines
+
+
+def check_fold_exactness(torch, fused_step):
+    """Phase 3's first check: each of fused_step.EXACTNESS_CHECKS on the
+    card, logged with the inputs it compared; raise if a substitution the
+    kernel makes (EXACTNESS_USED) differs anywhere. The card's own flushed
+    product and fma, which the kernel does not use, are logged with the
+    count where they part from fl. Returns {check: counts}."""
+    out = {}
+    for check in fused_step.EXACTNESS_CHECKS:
+        t0 = time.perf_counter()
+        r = fused_step.fold_exactness(check)
+        r["seconds"] = time.perf_counter() - t0
+        r["used_by_the_kernel"] = check in fused_step.EXACTNESS_USED
+        log(json.dumps({"phase": "fold_exactness", **r}))
+        if not r["compared"] or (r["used_by_the_kernel"] and r["differing"]):
+            raise AssertionError(f"fold_exactness {check}: {r}")
+        out[check] = {k: r[k] for k in ("compared", "differing",
+                                        "nan_payloads_differing",
+                                        "used_by_the_kernel")}
+    return out
 
 
 def check_codec_small(torch, fused_step, adama_accum):
@@ -4320,6 +4377,7 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[ptxas {name}] {line.strip()}")
+    rowcol_ptxas = check_ptxas(outputs["fused_step"])
 
     modules = {"fused_step": fused_step, "adama_accum": adama_accum,
                "adam_apply": adam_apply, "rwkv6_chunk": rwkv6_chunk,
@@ -4331,6 +4389,7 @@ def main() -> int:
                                                    full_layout(torch))
     kernels.update(check_leaf_kernels(torch, adama_accum, adam_apply))
     kernels.update(check_rwkv_scan(torch, rwkv6_chunk))
+    exactness = check_fold_exactness(torch, fused_step)
     codec_checked = check_codec_small(torch, fused_step, adama_accum)
     stablelm_layout = full_layout(torch, "stablelm_1_6b")
     codec_timed, codec_per_call = check_codec_timed(torch, fused_step,
@@ -4391,6 +4450,9 @@ def main() -> int:
         k == "finite_and" for k, _, _ in guard_checked)
     kernels["arena_apply"]["master_forms"] = _master_forms(
         master_checked, master_timed, counts, work_bytes)
+    for name in ("arena_fold", "arena_fold_slice"):
+        kernels[name]["rowcol_design"] = {"exactness": exactness,
+                                          "ptxas": rowcol_ptxas}
 
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": source,

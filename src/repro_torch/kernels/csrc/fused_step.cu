@@ -105,17 +105,37 @@
 // column partials in that order (in registers, or in shared memory when
 // the int8 m codec needs the registers); the 8 warps' partials meet in a
 // fixed tree through shared memory and go to row p of a (P, 1024) fp32
-// scratch.
-// The last CTA to finish (an integer ticket after __threadfence, zeroed by
-// the launcher) adds the P partials in order p = 0, 1, ... and folds the
-// total into vc: one launch, no float atomics, the same bits on every run
-// and every card. The row sums come from the same tree in every warp: a
-// halving tree over the lane's 32 values, then shuffles down. The apply
-// forms vc / max(sum(vc), 1e-30) once per CTA in shared memory (the sum in
-// a fixed tree), then v = vr[row] * that[col] in registers. Every pass
-// streams its operands once and does a handful of fp32 operations per
-// element, far below the card's fp32 rate, so it is bound by device-memory
-// bandwidth.
+// scratch. Each CTA then takes an integer ticket (after __threadfence;
+// the launcher zeroes it). The CTAs holding the last K tickets (K a power
+// of two, at most 64 and at most P: rowcol_ordered) wait until all P are
+// taken, then each adds the P partials of its 1024 / K columns in order
+// p = 0, 1, ... (the partials stream through shared memory, all 256
+// threads loading, one thread per column adding) and folds the totals into
+// vc: one launch, no float atomics, the same bits on every run and every
+// card, whatever K is. Waiting is safe: only the holders of the last K
+// tickets wait, and K is kept below the number of this kernel's CTAs the
+// card holds at once, so a slot is always free for a CTA not yet run. The
+// row sums come from the same tree in every warp: a halving tree over the
+// lane's 32 values, then shuffles down. The apply forms vc / max(sum(vc),
+// 1e-30) once per CTA in shared memory (the sum in a fixed tree), then
+// v = vr[row] * that[col] in registers. Every pass streams its operands
+// once and does a handful of fp32 operations per element, far below the
+// card's fp32 rate, so it is bound by device-memory bandwidth, or, where
+// few bytes move per element, by the instructions it issues.
+//
+// The int8-m rowcol fold (the fold with the fewest bytes an element: 3 on
+// the e4m3 wire) is written for the instructions it issues and for the
+// latency of a row (rowcol_int8_row): 27-30 lane instructions an element
+// on its row loop's path (launch/fold_ab.py --sass; the first design took
+// 58-80).
+// A warp issues the loads of its next row (g, m's codes, the row's scales
+// and vr) before the arithmetic of the current one; the e4m3 wire decodes
+// its codes two at a time in hardware (cvt.rn.f16x2.e4m3x2, then an exact
+// widening); every flush is the hardware's (`ftz`, one instruction where
+// `fl` took three; `add_ftz` and the squares' `mul_ftz` flush in the
+// operation itself); the re-encode divides by one reciprocal a row
+// (q8m_word). 2 CTAs an SM (at most 128 registers, no stack frame); 3, at
+// 80 registers, spill and run 1.0-1.3x slower.
 //
 // Bounds (bytes, each input read once, each output written once, at the
 // data sheet's 3.35 TB/s), for the fp32 wire, whose g is 4 B an element.
@@ -163,6 +183,25 @@
 // and on every input read), so that no compiler flag is needed; the
 // fp32/fp32 instantiation keeps IEEE subnormals (bert-large and rwkv6 run
 // it, and their checks hold it to its plain version's IEEE arithmetic).
+// The int8-m rowcol fold computes the same values with fewer
+// instructions, each substitution proven equal, on every input, to the
+// expression it replaces (fold_exactness_launch holds each on the card):
+//   fl(x)             ftz(x) = mul.rn.ftz(x, 1): exact, so only the flush
+//                     acts; a product or an fma is rounded IEEE, then
+//                     flushed by ftz (the card's own .ftz product flushes
+//                     some results that IEEE rounds up to 2^-126)
+//   fl(a + b)         add.rn.ftz of flushed a, b: a sum below 2^-126 is
+//                     exact, so no rounding carries one up
+//   fl(x * x)         mul.rn.ftz(x, x): no square lies where the card's
+//                     flush and fl part
+//   fl(q * fl(ms))    q * ftz(ms) with no flush: |q| >= 1 and a flushed
+//                     scale give 0 or at least 2^-126
+//   fl(code)          on the e4m3 wire none: every e4m3 value is normal
+//   trunc(fl(m / sd)) the quotient through r = rcp.rn(sd) and one fma
+//                     residual step, the correctly rounded m / sd while
+//                     2^-103 <= sd < 2^126 (the row takes the divide
+//                     outside), clamped before the truncation; the flush
+//                     of a quotient below 1 never moves its code
 // The plain PyTorch versions in fused_step.py compute the same
 // expressions, so kernel, plain version and reference agree bit for bit
 // (fp32/fp32 where no value falls below 2^-126). Rowcol's sums are the
@@ -198,6 +237,39 @@ template <bool F>
 __device__ __forceinline__ float fl(float x) {
   return F && fabsf(x) < kTiny ? copysignf(0.0f, x) : x;
 }
+
+// The hardware's flush (.ftz): subnormal inputs are read as a zero of
+// their sign and a subnormal result is written as one. `ftz(x)` is
+// fl<true>(x) in one instruction: x * 1 is exact, so only the flush acts
+// (a NaN comes out as the card's canonical NaN). add_ftz(a, b) is
+// fl(fl(a) + fl(b)) on every input: the sum of two values that are zero or
+// normal is a multiple of 2^-149, so a sum below 2^-126 is exact and no
+// rounding can carry it to 2^-126. mul_ftz(x, x) is fl(fl(x) * fl(x)) on
+// every input: no square lies in [2^-126 - 2^-150, 2^-126), where the
+// card's flush and fl part. A product or an fma in general is not: the
+// card flushes some results that IEEE rounding carries up to 2^-126, so
+// those are rounded IEEE and then flushed by ftz(). fold_exactness_launch
+// holds ftz, add_ftz and the squares against fl on the card, and counts
+// where mul_ftz and fma_ftz part from it.
+__device__ __forceinline__ float mul_ftz(float a, float b) {
+  float d;
+  asm("mul.rn.ftz.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+__device__ __forceinline__ float add_ftz(float a, float b) {
+  float d;
+  asm("add.rn.ftz.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+__device__ __forceinline__ float fma_ftz(float a, float b, float c) {
+  float d;
+  asm("fma.rn.ftz.f32 %0, %1, %2, %3;" : "=f"(d) : "f"(a), "f"(b), "f"(c));
+  return d;
+}
+
+__device__ __forceinline__ float ftz(float x) { return mul_ftz(x, 1.0f); }
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int off = 16; off > 0; off >>= 1)
@@ -249,6 +321,27 @@ __device__ __forceinline__ float e4m3_to_f32(uint32_t b) {
   return __uint_as_float(__float_as_uint(x) | sign);
 }
 
+// Four e4m3 codes (element e in bits 8e .. 8e + 7) as float32, by the
+// hardware: cvt.rn.f16x2.e4m3x2 on each pair, then each half widened. Both
+// steps are exact (every e4m3 value is a normal float16, the least 2^-9,
+// the largest 448), so each value is e4m3_to_f32's; a NaN code comes out
+// as a NaN of another payload.
+__device__ __forceinline__ float4 e4m3x4_to_f32(uint32_t c) {
+  float a, b, d, e;
+  asm("{\n\t.reg .b16 p0, p1, l0, u0, l1, u1;\n\t.reg .b32 h0, h1;\n\t"
+      "mov.b32 {p0, p1}, %4;\n\t"
+      "cvt.rn.f16x2.e4m3x2 h0, p0;\n\t"
+      "cvt.rn.f16x2.e4m3x2 h1, p1;\n\t"
+      "mov.b32 {l0, u0}, h0;\n\t"
+      "mov.b32 {l1, u1}, h1;\n\t"
+      "cvt.f32.f16 %0, l0;\n\t"
+      "cvt.f32.f16 %1, u0;\n\t"
+      "cvt.f32.f16 %2, l1;\n\t"
+      "cvt.f32.f16 %3, u1;\n\t}"
+      : "=f"(a), "=f"(b), "=f"(d), "=f"(e) : "r"(c));
+  return make_float4(a, b, d, e);
+}
+
 // Elements 4i .. 4i + 3 of the gradient slab g as fp32: one float4 on the
 // fp32 wire; on the bf16 wire one 8-byte word of four bf16 (element 4i + e
 // in bits 16e .. 16e + 15 of the little-endian word), each widened exactly;
@@ -280,9 +373,67 @@ __device__ __forceinline__ float q8_scale(float rowmax) {
   return (s == 0.0f && rowmax > 0.0f) ? rowmax : s;
 }
 
+// int8 m's code of x: trunc(fl(x / sd)) clamped to [-127, 127], the flush
+// dropped (a flushed quotient lies below 1 in magnitude, where trunc gives
+// 0 either way) and the clamp taken before the truncation (the same code
+// for every x, NaN's -127 included). `Recip`: the quotient through
+// r = rcp.rn(sd), q = x * r and one residual step q + (x - q * sd) * r
+// (two fmas; the residual is exact), which is the correctly rounded x / sd
+// (Markstein) while 2^-103 <= sd < 2^126: r is normal and the residual a
+// multiple of 2^-149, exact even below 2^-126. Outside that range (a row
+// of tiny values, an Inf row max) the row takes the IEEE divide.
+template <bool Recip>
+__device__ __forceinline__ float q8_quot(float x, float sd, float r) {
+  if constexpr (Recip) {
+    const float q0 = __fmul_rn(x, r);
+    return __fmaf_rn(__fmaf_rn(-q0, sd, x), r, q0);
+  } else {
+    return __fdiv_rn(x, sd);
+  }
+}
+
+__device__ __forceinline__ int q8_code(float q) {
+  return (int)fminf(fmaxf(q, -kQ8Max), kQ8Max);
+}
+
+__device__ __forceinline__ bool q8_recip_ok(float sd) {
+  return sd >= 0x1p-103f && sd < 0x1p126f;
+}
+
+// The expression q8m_word's codes replace (fold_exactness holds them
+// equal).
+__device__ __forceinline__ int q8_code_m_div(float x, float sd) {
+  const float r = fl<true>(x / sd);
+  return (int)fminf(fmaxf(truncf(r), -kQ8Max), kQ8Max);
+}
+
+// The int8 m codes of four values as one word, element e in byte e (the
+// char4 layout); r = rcp.rn(sd).
+template <bool Recip>
+__device__ __forceinline__ uint32_t q8m_word(float4 x, float sd, float r) {
+  const int a = q8_code(q8_quot<Recip>(x.x, sd, r));
+  const int b = q8_code(q8_quot<Recip>(x.y, sd, r));
+  const int c = q8_code(q8_quot<Recip>(x.z, sd, r));
+  const int d = q8_code(q8_quot<Recip>(x.w, sd, r));
+  return (uint32_t)(a & 0xff) | ((uint32_t)(b & 0xff) << 8) |
+         ((uint32_t)(c & 0xff) << 16) | ((uint32_t)d << 24);
+}
+
+template <bool Recip>
+__device__ __forceinline__ void q8m_codes(const float* x, float sd,
+                                          uint32_t* __restrict__ codes,
+                                          int64_t row, int lane) {
+  const float r = __frcp_rn(sd);
+#pragma unroll
+  for (int k = 0; k < kRowF4; ++k)
+    codes[f4_index(row, k, lane)] = q8m_word<Recip>(
+        make_float4(x[4 * k], x[4 * k + 1], x[4 * k + 2], x[4 * k + 3]), sd,
+        r);
+}
+
 // Re-encode a row held in registers (x[]: the lane's 32 values) into codes
 // and its scale. V: ceil over [0, 127] (v >= 0); else trunc over
-// [-127, 127] with the scale from max |m|.
+// [-127, 127] with the scale from max |m| (q8m_word).
 template <bool V>
 __device__ __forceinline__ void q8_store(const float* x,
                                          char4* __restrict__ codes,
@@ -294,17 +445,21 @@ __device__ __forceinline__ void q8_store(const float* x,
   mx = warp_max(mx);
   const float s = q8_scale(mx);
   const float sd = s > 0.0f ? s : 1.0f;
+  if constexpr (V) {
 #pragma unroll
-  for (int k = 0; k < kRowF4; ++k) {
-    signed char q[4];
+    for (int k = 0; k < kRowF4; ++k) {
+      signed char q[4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float r = fl<true>(x[4 * k + e] / sd);
-      const float c = V ? fminf(fmaxf(ceilf(r), 0.0f), kQ8Max)
-                        : fminf(fmaxf(truncf(r), -kQ8Max), kQ8Max);
-      q[e] = (signed char)(int)c;
+      for (int e = 0; e < 4; ++e) {
+        const float r = fl<true>(x[4 * k + e] / sd);
+        q[e] = (signed char)(int)fminf(fmaxf(ceilf(r), 0.0f), kQ8Max);
+      }
+      codes[f4_index(row, k, lane)] = make_char4(q[0], q[1], q[2], q[3]);
     }
-    codes[f4_index(row, k, lane)] = make_char4(q[0], q[1], q[2], q[3]);
+  } else if (q8_recip_ok(sd)) {
+    q8m_codes<true>(x, sd, (uint32_t*)codes, row, lane);
+  } else {
+    q8m_codes<false>(x, sd, (uint32_t*)codes, row, lane);
   }
   if (lane == 0) scales[row] = s;
 }
@@ -414,13 +569,15 @@ arena_fold_kernel(void* __restrict__ m0, void* __restrict__ m1,
   }
 }
 
+// Flushed sums of flushed values: add_ftz, which is fl(a + b) for every a
+// and b that are zero, normal, Inf or NaN (every caller's).
 __device__ __forceinline__ float add1(float a, float b) {
-  return fl<true>(a + b);
+  return add_ftz(a, b);
 }
 
 __device__ __forceinline__ float4 add4(float4 a, float4 b) {
-  return make_float4(fl<true>(a.x + b.x), fl<true>(a.y + b.y),
-                     fl<true>(a.z + b.z), fl<true>(a.w + b.w));
+  return make_float4(add_ftz(a.x, b.x), add_ftz(a.y, b.y), add_ftz(a.z, b.z),
+                     add_ftz(a.w, b.w));
 }
 
 // A halving tree, x[j] = x[j] + x[j + h] for j < h, h = H, H / 2, ... 1,
@@ -439,30 +596,171 @@ __device__ __forceinline__ void halving_tree(T* x) {
   if constexpr (H > 1) halving_tree<H / 2>(x);
 }
 
-// Halving tree over the lane's 32 values, then shuffles down the lanes: the
-// row's sum, valid in lane 0. x is overwritten. The plain version
-// (fused_step.py::_rowcol_row_sums) takes the same tree.
-__device__ __forceinline__ float rowcol_row_sum(float* x) {
-  halving_tree<kRowVals / 2>(x);
-  float t = x[0];
+// The lanes' shuffles down after the halving tree of rowcol_row_sum
+__device__ __forceinline__ float lanes_sum(float t) {
   for (int off = 16; off > 0; off >>= 1)
     t = add1(t, __shfl_down_sync(0xffffffffu, t, off));
   return t;
 }
 
+// Halving tree over the lane's 32 values, then shuffles down the lanes: the
+// row's sum, valid in lane 0. x is overwritten. The plain version
+// (fused_step.py::_rowcol_row_sums) takes the same tree.
+__device__ __forceinline__ float rowcol_row_sum(float* x) {
+  halving_tree<kRowVals / 2>(x);
+  return lanes_sum(x[0]);
+}
+
+// The int8-m rowcol fold's loads of one row, issued a row ahead: the lane's
+// words of g (as load_g reads them), of m's codes, and the row's m scale,
+// vr and (e4m3) grad-scale entry.
+template <int W>
+struct GWord {
+  using T = uint32_t;                                      // e4m3: 4 codes
+};
+template <>
+struct GWord<kWireF32> {
+  using T = float4;
+};
+template <>
+struct GWord<kWireBf16> {
+  using T = uint2;
+};
+
+template <int W>
+struct RowIn {
+  typename GWord<W>::T g[kRowF4];
+  uint32_t q[kRowF4];
+  float ms, vr, gs;
+};
+
+template <int W>
+__device__ __forceinline__ void load_in(RowIn<W>& in, const void* g,
+                                        const float* gs, const uint32_t* mq,
+                                        const float* msc, const float* vr,
+                                        int64_t r, int64_t row, int lane) {
+  using T = typename GWord<W>::T;
+#pragma unroll
+  for (int k = 0; k < kRowF4; ++k) {
+    in.g[k] = ((const T*)g)[f4_index(r, k, lane)];
+    in.q[k] = mq[f4_index(row, k, lane)];
+  }
+  in.ms = msc[row];
+  in.vr = vr[row];
+  if constexpr (W == kWireE4m3) in.gs = gs[r];
+}
+
+// A loaded word of g as four exact float32 (load_g's widening; e4m3 by
+// e4m3x4_to_f32)
+template <int W>
+__device__ __forceinline__ float4 widen(typename GWord<W>::T w) {
+  if constexpr (W == kWireF32) {
+    return w;
+  } else if constexpr (W == kWireE4m3) {
+    return e4m3x4_to_f32(w);
+  } else {
+    return make_float4(__uint_as_float(w.x << 16),
+                       __uint_as_float(w.x & 0xffff0000u),
+                       __uint_as_float(w.y << 16),
+                       __uint_as_float(w.y & 0xffff0000u));
+  }
+}
+
+// One row of the int8-m rowcol fold: arena_fold_kernel's arithmetic for m
+// (load_row, fold_moment<kInt8>, q8_store) and v = rowcol's (the squares,
+// the warp's column partials in `sacc`, the row sum and vr), each
+// operation the one it replaces bit for bit (the header's Rounding):
+//   x   = fl(fl(g) * s)             ftz(g * s) after ftz(g); e4m3 codes are
+//                                   never subnormal, so not flushed
+//   x   = fl(x * fl(gs[r]))         (e4m3) ftz(x * ftz(gs[r]))
+//   dec = fl(q * fl(ms))            q * ftz(ms): |q| >= 1 and a flushed
+//                                   scale give |q * ms| >= 2^-126 or 0
+//   y   = fl(fma(c1, x, fl(dm * dec)))   or, on the e4m3 wire,
+//         fl(fma(dm, dec, fl(c1 * x)))   each fl an ftz
+//   x^2 = fl(x * x)                 mul_ftz(x, x)
+//   sums                            add_ftz
+// and the codes by q8m_word. The row sum's tree is rowcol_row_sum's; its
+// first level is taken as the squares come, pairing float4 k with k + 4.
+template <int W>
+__device__ __forceinline__ void rowcol_int8_row(
+    const RowIn<W>& in, float s, float c1, float dm, float c2, float dv,
+    float4* sacc, uint32_t* __restrict__ mq, float* __restrict__ msc,
+    float* __restrict__ vr, int64_t row, int lane) {
+  const float ms = ftz(in.ms);
+  const float gr = W == kWireE4m3 ? ftz(in.gs) : 0.0f;
+  float y[kRowVals], t[kRowVals / 2];
+  float mx = 0.0f;
+#pragma unroll
+  for (int h = 0; h < kRowF4 / 2; ++h) {
+    float sq[2][4];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int k = h + half * (kRowF4 / 2);
+      const float4 a4 = widen<W>(in.g[k]);
+      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+      const uint32_t q = in.q[k];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = W == kWireE4m3 ? ftz(__fmul_rn(a[e], s))
+                                 : ftz(__fmul_rn(ftz(a[e]), s));
+        if constexpr (W == kWireE4m3) x = ftz(__fmul_rn(x, gr));
+        const float dec = __fmul_rn(
+            (float)(signed char)(q >> (8 * e)), ms);
+        const float yv =
+            W == kWireE4m3
+                ? ftz(__fmaf_rn(dm, dec, ftz(__fmul_rn(c1, x))))
+                : ftz(__fmaf_rn(c1, x, ftz(__fmul_rn(dm, dec))));
+        y[4 * k + e] = yv;
+        mx = fmaxf(mx, fabsf(yv));
+        sq[half][e] = mul_ftz(x, x);
+      }
+      float4 acc = sacc[k * 32 + lane];
+      acc = add4(acc, make_float4(sq[half][0], sq[half][1], sq[half][2],
+                                  sq[half][3]));
+      sacc[k * 32 + lane] = acc;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) t[4 * h + e] = add1(sq[0][e], sq[1][e]);
+  }
+  halving_tree<kRowVals / 4>(t);
+  const float rs = lanes_sum(t[0]);
+  mx = warp_max(mx);
+  const float sc = q8_scale(mx);
+  const float sd = sc > 0.0f ? sc : 1.0f;
+  if (q8_recip_ok(sd)) q8m_codes<true>(y, sd, mq, row, lane);
+  else q8m_codes<false>(y, sd, mq, row, lane);
+  if (lane == 0) {
+    msc[row] = sc;
+    vr[row] = fl<true>(fmaf(dv, fl<true>(in.vr), fl<true>(c2 * rs)));
+  }
+}
+
+// How many CTAs add the ranges' partials (a power of two, at most
+// kOrderedMax, at most `ranges`, and fewer than the CTAs the card holds at
+// once: see rowcol_fold_kernel).
+constexpr int kOrderedMax = 64;
+
+__device__ __forceinline__ unsigned int ld_acquire(const unsigned int* p) {
+  unsigned int v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
 // The rowcol fold (v = rowcol, every rowcol pair flushes): one CTA per range
 // [p * range_rows, min((p + 1) * range_rows, rows_g)) of the slab's rows.
 // m folds as in arena_fold_kernel; vr row by row; the column partials as
-// the header says, into partials[p], and the last CTA folds their ordered
-// sum into vc. ticket: an integer the launcher zeroes. G, W and gs as in
-// arena_fold_kernel.
+// the header says, into partials[p]; the CTAs that take the last `ordered`
+// tickets add them in order p = 0, 1, ..., each its share of the columns,
+// and fold the totals into vc. ticket: an integer the launcher zeroes. G,
+// W and gs as in arena_fold_kernel.
 template <int MK, bool G, int W>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 rowcol_fold_kernel(void* __restrict__ m0, void* __restrict__ m1,
                    float* __restrict__ vr, float4* __restrict__ vc,
                    const void* __restrict__ g, const float* __restrict__ gs,
                    int64_t off, int64_t rows_g,
-                   int64_t range_rows, int ranges,
+                   int64_t range_rows, int ranges, int ordered,
                    float4* __restrict__ partials,
                    unsigned int* __restrict__ ticket, float s, float c1,
                    float c2, float dm, float dv,
@@ -479,7 +777,7 @@ rowcol_fold_kernel(void* __restrict__ m0, void* __restrict__ m1,
   // lane owns its entries: no barrier until the warps meet). Same order.
   constexpr bool kRegAcc = MK == kFp32;
   __shared__ float4 red[kWarps][kLanes / 4];
-  __shared__ bool last;
+  __shared__ unsigned int taken;
   const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
   const int64_t lo = (int64_t)blockIdx.x * range_rows;
   const int64_t hi = lo + range_rows < rows_g ? lo + range_rows : rows_g;
@@ -491,28 +789,43 @@ rowcol_fold_kernel(void* __restrict__ m0, void* __restrict__ m1,
     if constexpr (kRegAcc) acc[k] = zero;
     else sacc[k * 32 + lane] = zero;
   }
-  for (int64_t r = lo + warp; r < hi; r += kWarps) {
-    float x[kRowVals];
-    load_row<W, true>(x, g, gs, r, lane, G ? gv[kGScale] : s);
-    fold_moment<MK, false, true, W == kWireE4m3>(
-        m0, m1, x, G ? gv[kGDm] : dm, c1, off + r, lane);
-#pragma unroll
-    for (int k = 0; k < kRowF4; ++k) {
-      float* e = x + 4 * k;
-      e[0] = fl<true>(e[0] * e[0]);
-      e[1] = fl<true>(e[1] * e[1]);
-      e[2] = fl<true>(e[2] * e[2]);
-      e[3] = fl<true>(e[3] * e[3]);
-      const float4 sq = make_float4(e[0], e[1], e[2], e[3]);
-      if constexpr (kRegAcc) acc[k] = add4(acc[k], sq);
-      else sacc[k * 32 + lane] = add4(sacc[k * 32 + lane], sq);
+  int64_t r = lo + warp;
+  if constexpr (MK == kInt8) {
+    // row r's arithmetic runs while row r + 8's loads are in flight
+    uint32_t* const mq = (uint32_t*)m0;
+    float* const msc = (float*)m1;
+    RowIn<W> cur;
+    if (r < hi) load_in<W>(cur, g, gs, mq, msc, vr, r, off + r, lane);
+    for (; r < hi; r += kWarps) {
+      RowIn<W> nxt = cur;
+      if (r + kWarps < hi)
+        load_in<W>(nxt, g, gs, mq, msc, vr, r + kWarps, off + r + kWarps,
+                   lane);
+      rowcol_int8_row<W>(cur, G ? gv[kGScale] : s, c1, G ? gv[kGDm] : dm,
+                         c2, G ? gv[kGDv] : dv, sacc, mq, msc, vr, off + r,
+                         lane);
+      cur = nxt;
     }
-    const float rs = rowcol_row_sum(x);
-    if (lane == 0)
-      vr[off + r] = fl<true>(fmaf(G ? gv[kGDv] : dv, fl<true>(vr[off + r]),
-                                  fl<true>(c2 * rs)));
-  }
-  if constexpr (kRegAcc) {
+  } else {
+    for (; r < hi; r += kWarps) {
+      float x[kRowVals];
+      load_row<W, true>(x, g, gs, r, lane, G ? gv[kGScale] : s);
+      fold_moment<MK, false, true, W == kWireE4m3>(
+          m0, m1, x, G ? gv[kGDm] : dm, c1, off + r, lane);
+#pragma unroll
+      for (int k = 0; k < kRowF4; ++k) {
+        float* e = x + 4 * k;
+        e[0] = fl<true>(e[0] * e[0]);
+        e[1] = fl<true>(e[1] * e[1]);
+        e[2] = fl<true>(e[2] * e[2]);
+        e[3] = fl<true>(e[3] * e[3]);
+        acc[k] = add4(acc[k], make_float4(e[0], e[1], e[2], e[3]));
+      }
+      const float rs = rowcol_row_sum(x);
+      if (lane == 0)
+        vr[off + r] = fl<true>(fmaf(G ? gv[kGDv] : dv, fl<true>(vr[off + r]),
+                                    fl<true>(c2 * rs)));
+    }
 #pragma unroll
     for (int k = 0; k < kRowF4; ++k) sacc[k * 32 + lane] = acc[k];
   }
@@ -526,28 +839,68 @@ rowcol_fold_kernel(void* __restrict__ m0, void* __restrict__ m1,
   partials[(int64_t)blockIdx.x * (kLanes / 4) + t] = w[0];
   __threadfence();
   __syncthreads();
-  if (t == 0) last = atomicAdd(ticket, 1u) == (unsigned int)ranges - 1u;
+  if (t == 0) taken = atomicAdd(ticket, 1u);
   __syncthreads();
-  if (!last) return;
+  // The CTAs that took the last `ordered` tickets wait until every CTA has
+  // taken one (so every range's partials are written), then each adds the
+  // ranges' partials of its 256 / ordered float4 columns in order p = 0, 1,
+  // .... Waiting is safe: a CTA waits only once it holds one of the last
+  // `ordered` tickets, so at most `ordered` CTAs wait at a time, and the
+  // launcher keeps `ordered` below the CTAs the card holds at once, so a
+  // slot is always free for a CTA that has not yet run.
+  const unsigned int first = (unsigned int)(ranges - ordered);
+  if (taken < first) return;
+  if (t == 0)
+    while (ld_acquire(ticket) < (unsigned int)ranges) __nanosleep(100);
+  __syncthreads();
   __threadfence();
-  // the last CTA: the ranges' partials in order, 16 loads in flight
-  float4 sum = __ldcg(&partials[t]);
-  int p = 1;
-  for (; p + 16 <= ranges; p += 16) {
-    float4 q[16];
+  // the share's partials pass through `red` in batches of kStage float4
+  // (batch_rows ranges of the share's nf floats), the next batch's loads
+  // in flight while the current one is added; thread t adds the columns
+  // t, t + 256, ... of the share, each a chain over p in order
+  constexpr int kStage = kWarps * (kLanes / 4);
+  constexpr int kPer = kStage / kThreads;
+  const int cols = (kLanes / 4) / ordered, nf = 4 * cols;
+  const int batch_rows = kStage / cols;
+  const int col0 = (int)(taken - first) * cols;
+  float4* const stage = &red[0][0];
+  const float* const stage_f = (const float*)stage;
+  float4 nx[kPer];
+  auto fetch = [&](int p0) {
 #pragma unroll
-    for (int i = 0; i < 16; ++i)
-      q[i] = __ldcg(&partials[(int64_t)(p + i) * (kLanes / 4) + t]);
+    for (int i = 0; i < kPer; ++i) {
+      const int e = t + i * kThreads, p = p0 + e / cols;
+      nx[i] = p < ranges ? __ldcg(&partials[(int64_t)p * (kLanes / 4) + col0 +
+                                            e % cols])
+                         : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  };
+  fetch(0);
+  float sum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int p0 = 0; p0 < ranges; p0 += batch_rows) {
+    __syncthreads();
 #pragma unroll
-    for (int i = 0; i < 16; ++i) sum = add4(sum, q[i]);
+    for (int i = 0; i < kPer; ++i) stage[t + i * kThreads] = nx[i];
+    __syncthreads();
+    if (p0 + batch_rows < ranges) fetch(p0 + batch_rows);
+    const int n = ranges - p0 < batch_rows ? ranges - p0 : batch_rows;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int f = t + j * kThreads;
+      if (f >= nf) break;
+      int i = 0;
+      if (p0 == 0) sum[j] = stage_f[f], i = 1;
+#pragma unroll 16
+      for (; i < n; ++i) sum[j] = add1(sum[j], stage_f[i * nf + f]);
+    }
   }
-  for (; p < ranges; ++p)
-    sum = add4(sum, __ldcg(&partials[(int64_t)p * (kLanes / 4) + t]));
-  const float4 a = vc[t];
-  vc[t] = make_float4(fl<true>(fmaf(c2, sum.x, fl<true>(a.x))),
-                      fl<true>(fmaf(c2, sum.y, fl<true>(a.y))),
-                      fl<true>(fmaf(c2, sum.z, fl<true>(a.z))),
-                      fl<true>(fmaf(c2, sum.w, fl<true>(a.w))));
+  float* const vcf = (float*)vc + 4 * col0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int f = t + j * kThreads;
+    if (f >= nf) break;
+    vcf[f] = fl<true>(fmaf(c2, sum[j], fl<true>(vcf[f])));
+  }
 }
 
 // The lane's 4 values of float4 k of a row, decoded to fp32.
@@ -727,6 +1080,237 @@ finite_and_kernel(const unsigned char* __restrict__ x, int64_t head,
   if (__any_sync(0xffffffffu, bad) && (threadIdx.x & 31) == 0) *ok = 0.0f;
 }
 
+// fold_exactness: each substitution of the rowcol fold's int8 m design
+// against the expression it replaces, on the card, bit for bit. Check C
+// maps an index i in [0, x_count(C)) to its inputs and returns how many
+// results it compared; NaN results compare as NaN (their payloads may
+// differ: counted apart).
+enum XCheck {
+  kXDecode = 0,   // the pair decode vs e4m3_to_f32: all 2^16 code pairs
+  kXFlush = 1,    // ftz(x) vs fl(x): all 2^32 bit patterns
+  kXAdd = 2,      // add_ftz vs fl(fl a + fl b): sums around +-2^-126
+  kXSquare = 3,   // mul_ftz(x, x) vs fl(fl x * fl x): all 2^32 x
+  kXMul = 4,      // mul_ftz vs fl(fl a * fl b): products around +-2^-126
+  kXFma = 5,      // fma_ftz vs fl(fma(fl a, fl b, fl c)): around +-2^-126
+                  // (these two part: the kernels do not use them)
+  kXQuot = 6,     // q8 m codes through the reciprocal vs the divide
+  kXChecks = 7
+};
+
+// kXQuot's grid of divisors: sd = 2^e * (1 + m 2^-23) for e in kXQuotExp and
+// 64 mantissas (8 fixed, 56 hashed), and sd = Inf. For each, x is every
+// float of the 9 binades [2^(e - 1), 2^(e + 8)) (every quotient from 1/4 up
+// past 128), then 2^16 more: zeros, subnormals, 2^-126, NaN (and Inf for
+// sd = Inf: a row holding an Inf has an Inf max, so no finite sd meets
+// one) and hashed |x| below sd / 2. Then kXQuotMax row maxima mx (hashed
+// over every binade) with sd = the scale q8_scale gives them (1 if it is
+// 0) and x = mx - d ulps, d < 8. Each x goes into one word of four codes
+// with -x, its neighbour and the neighbour's negation.
+__constant__ int kXQuotExp[] = {-126, -125, -124, -120, -110, -104, -103,
+                                -102, -100, -80,  -40,  -10,  -1,   0,
+                                1,    10,   40,   80,   100,  120,  121};
+constexpr int kXQuotExps = 21;
+constexpr int kXQuotMants = 64;
+constexpr uint64_t kXQuotExhaustive = 9ull << 23;
+constexpr uint64_t kXQuotPerSd = kXQuotExhaustive + (1ull << 16);
+constexpr uint64_t kXQuotSds = (uint64_t)(kXQuotExps + 1) * kXQuotMants;
+constexpr uint64_t kXQuotMax = 1ull << 26;
+
+__host__ __device__ constexpr uint64_t x_count(int c) {
+  return c == kXDecode   ? 1ull << 16
+         : c == kXFlush  ? 1ull << 32
+         : c == kXAdd    ? 1ull << 28
+         : c == kXSquare ? 1ull << 32
+         : c == kXMul    ? 1ull << 31
+         : c == kXFma    ? 1ull << 30
+                         : kXQuotSds * kXQuotPerSd + kXQuotMax * 8;
+}
+
+__device__ __forceinline__ uint32_t mix32(uint64_t x) {
+  x ^= x >> 33;
+  x *= 0xff51afd7ed558ccdull;
+  x ^= x >> 33;
+  x *= 0xc4ceb9fe1a85ec53ull;
+  x ^= x >> 33;
+  return (uint32_t)x;
+}
+
+__device__ __forceinline__ float fbits(uint32_t u) {
+  return __uint_as_float(u);
+}
+
+// a random normal float: exponent field in [lo, lo + span), any mantissa
+__device__ __forceinline__ float rand_normal(uint32_t h, uint32_t lo,
+                                             uint32_t span) {
+  return fbits((h & 0x80000000u) | ((lo + (h >> 23) % span) << 23) |
+               (h & 0x7fffffu));
+}
+
+__device__ __forceinline__ int x_quot(uint64_t i, float* got, float* want) {
+  float sd, x;
+  if (i < kXQuotSds * kXQuotPerSd) {
+    const uint64_t sdi = i / kXQuotPerSd, xi = i % kXQuotPerSd;
+    const int ei = (int)(sdi / kXQuotMants), mi = (int)(sdi % kXQuotMants);
+    constexpr uint32_t kFixed[8] = {0u, 1u, 0x7fffffu, 0x400000u, 0x555555u,
+                                    0x2aaaabu, 0x7ffffeu, 0x000f00u};
+    const uint32_t mant = mi < 8 ? kFixed[mi] : mix32(sdi) & 0x7fffffu;
+    const int e = ei < kXQuotExps ? kXQuotExp[ei] : 128;
+    sd = fbits(e == 128 ? 0x7f800000u : ((uint32_t)(e + 127) << 23) | mant);
+    if (xi < kXQuotExhaustive) {
+      if (e == 128) return 0;               // no binades below Inf
+      const int ex = e - 1 + (int)(xi >> 23);
+      if (ex > 127) return 0;
+      const uint32_t m = (uint32_t)(xi & 0x7fffff);
+      x = fbits(ex >= -126 ? ((uint32_t)(ex + 127) << 23) | m
+                           : (m | 0x800000u) >> (-126 - ex));
+    } else {
+      const uint32_t k = (uint32_t)(xi - kXQuotExhaustive);
+      constexpr uint32_t kEdge[10] = {0u,          0x80000000u, 1u,
+                                      0x80000001u, 0x00800000u, 0x80800000u,
+                                      0x007fffffu, 0x7f800000u, 0xff800000u,
+                                      0x7fc00000u};
+      if (k < 10) {
+        if (e != 128 && (k == 7 || k == 8)) return 0;
+        x = fbits(kEdge[k]);
+      } else {
+        const uint32_t h = mix32(i);
+        const int top = e == 128 ? 254 : e > -125 ? e + 126 : 1;
+        x = fbits((h & 0x80000000u) | ((h >> 23) % (uint32_t)top) << 23 |
+                  (h & 0x7fffffu));
+      }
+    }
+  } else {
+    const uint64_t j = i - kXQuotSds * kXQuotPerSd;
+    const float mx = fabsf(rand_normal(mix32(j >> 3), 1, 254));
+    const float s = q8_scale(mx);
+    sd = s > 0.0f ? s : 1.0f;
+    x = fbits(__float_as_uint(mx) - (uint32_t)(j & 7));
+  }
+  // x, -x and the next float away from zero (toward it from the largest
+  // finite float) and its negation, as one word
+  const uint32_t bx = __float_as_uint(x);
+  const float x1 = fbits(bx == 0x7f7fffffu ? bx - 1u : bx + 1u);
+  const float4 x4 = make_float4(x, -x, x1, -x1);
+  const float r = __frcp_rn(sd);
+  const uint32_t w = q8_recip_ok(sd) ? q8m_word<true>(x4, sd, r)
+                                     : q8m_word<false>(x4, sd, r);
+  const float xs[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    got[j] = (float)(signed char)(w >> (8 * j));
+    want[j] = (float)q8_code_m_div(xs[j], sd);
+  }
+  return 4;
+}
+
+template <int C>
+__device__ __forceinline__ int x_case(uint64_t i, float* got, float* want) {
+  if constexpr (C == kXDecode) {
+    const uint32_t c = (uint32_t)i;
+    const float4 a = e4m3x4_to_f32(c | (c << 16));
+    got[0] = a.x, got[1] = a.y, got[2] = a.z, got[3] = a.w;
+    want[0] = want[2] = e4m3_to_f32(c & 0xffu);
+    want[1] = want[3] = e4m3_to_f32(c >> 8);
+    return 4;
+  } else if constexpr (C == kXFlush) {
+    const float x = fbits((uint32_t)i);
+    got[0] = ftz(x), want[0] = fl<true>(x);
+  } else if constexpr (C == kXSquare) {
+    const float x = fbits((uint32_t)i);
+    got[0] = mul_ftz(x, x);
+    want[0] = fl<true>(__fmul_rn(fl<true>(x), fl<true>(x)));
+  } else if constexpr (C == kXAdd) {
+    // 4 classes x both signs x 2^12 x 2^12: both just above 2^-126; a up
+    // to 2^-125 and b subnormal; a above 2^-125 and b between; both
+    // subnormal
+    const uint32_t ma = i & 0xfff, mb = (i >> 12) & 0xfff;
+    uint32_t a, b;
+    switch ((i >> 26) & 3) {
+      case 0: a = 0x800000u + ma, b = 0x800000u + mb; break;
+      case 1: a = 0x800000u + (ma << 11), b = mb; break;
+      case 2: a = 0x1000000u + ma, b = 0x800000u + (mb << 11); break;
+      default: a = (ma << 11) | ma, b = mb; break;
+    }
+    const float fa = fbits(a | (uint32_t)((i >> 24) & 1) << 31);
+    const float fb = fbits(b | (uint32_t)((i >> 25) & 1) << 31);
+    got[0] = add_ftz(fa, fb);
+    want[0] = fl<true>(__fadd_rn(fl<true>(fa), fl<true>(fb)));
+  } else if constexpr (C == kXMul) {
+    float fa, fb;
+    if (i < (1ull << 30)) {
+      // a = 2^-t, t = 1 .. 32; b over the two binades that put a * b in
+      // [2^-127, 2^-125), every mantissa, both signs: every rounding
+      // position below 2^-126, ties included
+      const uint32_t t = 1 + (uint32_t)(i >> 25);
+      fa = fbits((127u - t) << 23);
+      fb = fbits(((uint32_t)(i >> 24) & 1) << 31 |
+                 (t + (uint32_t)((i >> 23) & 1)) << 23 |
+                 (uint32_t)(i & 0x7fffff));
+    } else {
+      // a any mantissa, exponent in [-62, 0]; b within 128 ulps of
+      // 2^-126 / a
+      const uint32_t h = mix32(i >> 8);
+      fa = rand_normal(h, 65, 63);
+      const float b0 = fabsf(__fdiv_rn(kTiny, fa));
+      fb = fbits((__float_as_uint(b0) + (uint32_t)(i & 0xff) - 128u) |
+                 (mix32(i) & 0x80000000u));
+    }
+    got[0] = mul_ftz(fa, fb);
+    want[0] = fl<true>(__fmul_rn(fl<true>(fa), fl<true>(fb)));
+  } else if constexpr (C == kXFma) {
+    // c in +-[2^-125, 2^-124), a any mantissa, exponent in [-40, 0], b
+    // within 128 ulps of (+-2^-126 - c) / a: results around +-2^-126
+    const uint32_t h = mix32(i >> 8), h2 = mix32((i >> 8) ^ 0x9e3779b9ull);
+    const float fc = rand_normal(h2, 2, 1);
+    const float fa = rand_normal(h, 87, 41);
+    const float t = copysignf(kTiny, (h2 & 1u) ? 1.0f : -1.0f);
+    const float b0 = __fdiv_rn(__fsub_rn(t, fc), fa);
+    const float fb = fbits(__float_as_uint(b0) + (uint32_t)(i & 0xff) - 128u);
+    got[0] = fma_ftz(fa, fb, fc);
+    want[0] = fl<true>(__fmaf_rn(fl<true>(fa), fl<true>(fb), fl<true>(fc)));
+  } else {
+    return x_quot(i, got, want);
+  }
+  return 1;
+}
+
+// counts: [inputs compared, differing, NaN payloads differing, least
+// differing index]
+template <int C>
+__global__ void __launch_bounds__(kThreads)
+fold_exactness_kernel(unsigned long long* __restrict__ counts) {
+  constexpr uint64_t n = x_count(C);
+  unsigned long long cov = 0, bad = 0, nanp = 0, first = ~0ull;
+  for (uint64_t i = (uint64_t)blockIdx.x * kThreads + threadIdx.x; i < n;
+       i += (uint64_t)gridDim.x * kThreads) {
+    float got[4], want[4];
+    const int k = x_case<C>(i, got, want);
+    for (int j = 0; j < k; ++j) {
+      if (__float_as_uint(got[j]) == __float_as_uint(want[j])) continue;
+      if (got[j] != got[j] && want[j] != want[j]) {
+        ++nanp;
+      } else {
+        ++bad;
+        first = first < i ? first : i;
+      }
+    }
+    cov += k;
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    cov += __shfl_xor_sync(0xffffffffu, cov, off);
+    bad += __shfl_xor_sync(0xffffffffu, bad, off);
+    nanp += __shfl_xor_sync(0xffffffffu, nanp, off);
+    const unsigned long long f = __shfl_xor_sync(0xffffffffu, first, off);
+    first = f < first ? f : first;
+  }
+  if ((threadIdx.x & 31) == 0) {
+    atomicAdd(&counts[0], cov);
+    if (bad) atomicAdd(&counts[1], bad);
+    if (nanp) atomicAdd(&counts[2], nanp);
+    if (bad) atomicMin(&counts[3], first);
+  }
+}
+
 // Blocks for `rows` rows, one warp each, capped at a few waves of the SMs.
 int rows_grid(int64_t rows) {
   int device = 0, sms = 132;
@@ -735,6 +1319,21 @@ int rows_grid(int64_t rows) {
   const int64_t want = (rows + kWarps - 1) / kWarps;
   const int64_t cap = (int64_t)sms * kWavesPerSm;
   return (int)(want < cap ? (want > 0 ? want : 1) : cap);
+}
+
+// The CTAs of a rowcol fold that add the ranges' partials: the largest
+// power of two that is at most kOrderedMax and `ranges`, and below the
+// number of the kernel's CTAs the card holds at once (its SMs times the
+// CTAs an SM fits), so that the waiting ones never hold every slot.
+int rowcol_ordered(const void* kernel, int ranges) {
+  int device = 0, sms = 132, per_sm = 1;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  const int resident = sms * (per_sm > 0 ? per_sm : 1);
+  int k = 1;
+  while (2 * k <= kOrderedMax && 2 * k <= ranges && 2 * k < resident) k *= 2;
+  return k;
 }
 
 // The launch of one pair's fold on one wire. Rowcol takes one CTA per
@@ -766,14 +1365,13 @@ cudaError_t fold_wire(void* m0, void* m1, void* v0, void* v1, const void* g,
     const cudaError_t err = cudaMemsetAsync(ticket, 0, sizeof(unsigned int),
                                             stream);
     if (err != cudaSuccess) return err;
-    if (guard == nullptr)
-      rowcol_fold_kernel<MK, false, W><<<(int)ranges, kThreads, 0, stream>>>(
-          m0, m1, (float*)v0, (float4*)v1, g, gs, off, rows_g, range_rows,
-          (int)ranges, partials, ticket, s, c1, c2, dm, dv, nullptr);
-    else
-      rowcol_fold_kernel<MK, true, W><<<(int)ranges, kThreads, 0, stream>>>(
-          m0, m1, (float*)v0, (float4*)v1, g, gs, off, rows_g, range_rows,
-          (int)ranges, partials, ticket, s, c1, c2, dm, dv, guard);
+    const bool guarded = guard != nullptr;
+    const auto kernel = guarded ? rowcol_fold_kernel<MK, true, W>
+                                : rowcol_fold_kernel<MK, false, W>;
+    kernel<<<(int)ranges, kThreads, 0, stream>>>(
+        m0, m1, (float*)v0, (float4*)v1, g, gs, off, rows_g, range_rows,
+        (int)ranges, rowcol_ordered((const void*)kernel, (int)ranges),
+        partials, ticket, s, c1, c2, dm, dv, guard);
     return cudaSuccess;
   }
 }
@@ -996,5 +1594,25 @@ extern "C" int finite_and_launch(const void* x, int elem_bytes, int64_t head,
                                                       (float*)ok);
   else
     return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// check: an XCheck; counts: 4 unsigned 64-bit integers on the card, set by
+// the caller to [0, 0, 0, ~0] (fold_exactness_kernel adds into them).
+extern "C" int fold_exactness_launch(int check, void* counts, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  int device = 0, sms = 132;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const int blocks = sms * kWavesPerSm;
+  unsigned long long* c = (unsigned long long*)counts;
+  switch (check) {
+#define XCHECK(C) \
+  case C: fold_exactness_kernel<C><<<blocks, kThreads, 0, st>>>(c); break;
+    XCHECK(kXDecode) XCHECK(kXFlush) XCHECK(kXAdd) XCHECK(kXSquare)
+    XCHECK(kXMul) XCHECK(kXFma) XCHECK(kXQuot)
+#undef XCHECK
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

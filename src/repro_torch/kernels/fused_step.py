@@ -467,11 +467,42 @@ SIGNATURES = {
     "arena_fold_e4m3_launch": _FOLD_ARGS + (_P, _P),
     "arena_fold_e4m3_guarded_launch": _FOLD_ARGS + (_P, _P, _P),
     "finite_and_launch": (_P, _I, _I64, _I64, _I64, _P, _P),
+    "fold_exactness_launch": (_I, _P, _P),
 }
 
 
 def _lib() -> ctypes.CDLL:
     return build.bind("fused_step", SIGNATURES)
+
+
+# fold_exactness_launch's checks, in the order of csrc/fused_step.cu's XCheck.
+# EXACTNESS_USED: the substitutions the int8-m rowcol fold makes, each of
+# which must equal the expression it replaces on every input checked. "mul"
+# and "fma" count where the card's own flush of a product and of an fma
+# (mul.rn.ftz, fma.rn.ftz) parts from fl of the IEEE result, which is why
+# the kernel rounds those IEEE and flushes after (csrc/fused_step.cu).
+EXACTNESS_CHECKS = ("decode", "flush", "add", "square", "mul", "fma", "quot")
+EXACTNESS_USED = ("decode", "flush", "add", "square", "quot")
+
+
+def fold_exactness(check: str, device="cuda") -> dict:
+    """Run one of the card's checks of the rowcol fold's int8-m
+    substitutions (EXACTNESS_CHECKS; csrc/fused_step.cu says what each
+    holds against what, over which inputs): the kernel's instruction
+    sequence and the expression it stands for, computed side by side on the
+    card for every input of the check. Returns the number of results compared, how
+    many differ, how many NaN results differ only in their payload, and the
+    least input index that differs (None if none does). CUDA only."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError("fold_exactness runs on the card only")
+    counts = torch.tensor([0, 0, 0, -1], dtype=torch.int64, device=device)
+    build.launch("fold_exactness", _lib().fold_exactness_launch, counts,
+                 EXACTNESS_CHECKS.index(check), counts.data_ptr())
+    compared, differ, nan_payload, first = counts.tolist()
+    return {"check": check, "compared": compared, "differing": differ,
+            "nan_payloads_differing": nan_payload,
+            "first_differing_index": first if differ else None}
 
 
 def _ptrs(parts):
