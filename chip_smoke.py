@@ -128,10 +128,11 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    reduced stablelm-1.6b (3 steps) for adama with int8/int8 state and
    adama_layerwise with int8/factored and int8/rowcol state, the last
    also guarded with a NaN at micro-batch 1 of step 1 (one skip on both
-   sides), and reduced mistral-nemo-12b (swa, window 64) and minicpm3-4b
-   (mla, with a q low-rank projection) at seq 128 for adama,
-   adama_layerwise and ga at 3 micro-batches: every param within 2e-5,
-   or within the codecs' declared drift for at most 15% of them.
+   sides), reduced mistral-nemo-12b (swa, window 64) and minicpm3-4b
+   (mla, with a q low-rank projection) at seq 128 and reduced
+   deepseek-v2-lite-16b (MoE, 3 layers: 2 MoE, 1 dense) at seq 32 for
+   adama, adama_layerwise and ga at 3 micro-batches: every param within
+   2e-5, or within the codecs' declared drift for at most 15% of them.
 5. The main paths: bert-large at full width and depth, bf16 compute, fp32
    params and state, seq 128, global batch 256, 8 micro-batches: 5 steps of
    `adama`, of the `ga` baseline and of `adama_layerwise` (Algorithm 2,
@@ -205,7 +206,25 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    latent 256, q/k heads of 64 + 32, v of 64) at full width with its
    depth cut from 62 to 24 layers, seq 1024, 8 micro-batches of 2:
    `adama`, `ga` and `adama_layerwise`, 3 steps each, held to the claims
-   of the other models.
+   of the other models. Last, deepseek-v2-lite-16b (MoE: 64 routed
+   experts of 1408 + 2 shared, top-6, capacity 120 a row; mla without a
+   q low-rank projection) at full width with its depth cut from 27 to 4
+   layers (the dense prefix layer and 3 MoE layers), seq 1024, 8
+   micro-batches of 2: `adama`, `ga` and `adama_layerwise`, 3 steps each,
+   held to the other models' claims but Algorithm 2's, which is the
+   whole-model fp32 gradient below adama here (its MAIN entry's
+   layerwise_gap: both peak at a pack, Algorithm 2 at the apply's of the
+   params, adama at its gradient's, with the tree beside it); the three
+   step-1 losses
+   equal bit for bit; step 1 of `adama` run again from the seed ending on
+   the same params, m and v (digests); and on micro-batch 0 the first MoE
+   layer's routing, top-k and route_row, on the card and on the CPU: the
+   same ids and gates, buffers bit for bit, the same token and gate maps,
+   the copies dropped past each expert's capacity logged; and rows 1-3
+   at its arena of 2.26e9 elements, past 2^31 (the fold and the apply of
+   the whole arena, the slice folds of an MoE layer, the dense layer and
+   the rest at their offsets), each bit for bit against its plain
+   version on the same m, v (and p), then timed beside it and its bound.
 
 6. Activation checkpointing (RunConfig.remat: each layer under
    torch.utils.checkpoint, recomputed in the backward), each path with
@@ -215,19 +234,21 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    and v by digests on the card), launching its twin's kernels per step
    (rwkv6: the forward scan twice per layer and micro-batch, the backward
    scan once) and peaking below it; then stablelm-1.6b at its published
-   max_seq_len 4096 (the cut to 1024 lifted), global batch 16, 8
+   max_seq_len 4096 (the cut to 1024 lifted) with its depth cut to 16 of
+   24 layers, global batch 16, 8
    micro-batches: `ga` and `adama` with remat and `adama_layerwise`, 2
    steps each: finite losses, each step-1 loss within 10% of ln(V_pad) and
    the three within 1e-4 relative. ga + remat peaks at least one fp32
-   arena, and at most that arena as allocated + 2 MiB, above adama +
-   remat on bert-large and on stablelm-1.6b, and
+   arena (of the path's own arena), and at most that arena as allocated +
+   2 MiB, above adama + remat on bert-large and on stablelm-1.6b, and
    adama_layerwise below adama + remat (by less than an arena at seq
    4096, where both peaks lie in the backward's activations). Last,
    launch.memory_split (one micro-batch: full, every layer checkpointed,
    Algorithm 2) on bert-large and on rwkv6-7b cut to 4 layers. Each path's
    peak, launches and step seconds and the phase's seconds are logged.
 
-7. Checkpoints (train/checkpoint.py) on full bert-large, as in phase 5:
+7. Checkpoints (train/checkpoint.py) on bert-large at full width cut to 8
+   of its 24 layers (CKPT_LAYERS), otherwise as in phase 5:
    `adama` fp32/fp32 and `adama_layerwise` int8/rowcol on the fp8 wire
    with its residual, dynamic loss scaling, master params and the cache
    (a NaN at micro-batch 3 of step 3). Each runs 3 steps clean, then
@@ -308,7 +329,30 @@ MAIN = {"bert_large": dict(seq_len=128, global_batch=256, micro_batches=8,
                             seed=0, num_layers=24, arena_rows=1_837_568,
                             reduced={"num_layers": [62, 24],
                                      "seq_len": [32768, 1024],
-                                     "global_batch": [256, 16]})}
+                                     "global_batch": [256, 16]}),
+        # MoE (64 routed experts of 1408 + 2 shared, top-6; mla) at full
+        # width: 4 of 27 layers, the dense prefix layer and 3 MoE layers.
+        # At 27 the fp32 arena alone is 62.8 GB. At 3 layers (2 MoE)
+        # Algorithm 2's saving, 2 arenas less one MoE layer's gradient and
+        # its slab (2 x 2.34 GB) and the head's logits, was reckoned at
+        # about 6.7 GB against an arena of 6.68: too close to assert one
+        # arena; at 4, about 10-11 GB against 9.02. 3 x 571,200 MoE block
+        # rows + 79,168 dense block rows + 409,664 rest (embed and lm_head
+        # 204,800 each, the final norm 2, aligned) = 2,202,624 rows.
+        # layerwise_gap="gradient": Algorithm 2's claim below adama's peak
+        # is the whole-model fp32 gradient (n_params x 4 B), not two
+        # arenas. Each layer is a quarter of this arena, so Algorithm 2
+        # peaks at the apply's pack of the params (params, m, v and the
+        # pack: 4 arenas) and adama at its pack of a micro-batch's
+        # gradient (those and the gradient tree): the gap is the gradient
+        # tree exactly, one arena less its 2,015,232 B of row padding
+        "deepseek_v2_lite_16b": dict(seq_len=1024, global_batch=16,
+                                     micro_batches=8, seed=0, num_layers=4,
+                                     arena_rows=2_202_624,
+                                     layerwise_gap="gradient",
+                                     reduced={"num_layers": [27, 4],
+                                              "seq_len": [32768, 1024],
+                                              "global_batch": [256, 16]})}
 FP32 = ("fp32", "fp32")
 # main paths: name -> (arch, engine, arena state, steps, (m codec, v codec))
 PATHS = {"adama": ("bert_large", "adama", True, 5, FP32),
@@ -377,7 +421,18 @@ PATHS = {"adama": ("bert_large", "adama", True, 5, FP32),
          "minicpm_adama": ("minicpm3_4b", "adama", True, 3, FP32),
          "minicpm_ga": ("minicpm3_4b", "ga", True, 3, FP32),
          "minicpm_adama_layerwise": ("minicpm3_4b", "adama_layerwise", True,
-                                     3, FP32)}
+                                     3, FP32),
+         "deepseek_adama": ("deepseek_v2_lite_16b", "adama", True, 3, FP32),
+         "deepseek_ga": ("deepseek_v2_lite_16b", "ga", True, 3, FP32),
+         "deepseek_adama_layerwise": ("deepseek_v2_lite_16b",
+                                      "adama_layerwise", True, 3, FP32)}
+# the MoE phase: the main path whose step 1 is run again from the same
+# seed and must end on the same params, m and v (digests on the card)
+MOE_RERUN = "deepseek_adama"
+# CUDA-event-timed runs of rows 1-3 at the MoE arch's arena, and of their
+# plain versions there (about 0.3-0.7 s a call)
+MOE_TIMED_RUNS = 8
+MOE_PLAIN_RUNS = 3
 # the master-param paths (master_params=True): path -> (work_param_cache,
 # gradient wire, its twin without master params). Each must launch what its
 # twin launches per step, hold its param leaves at exactly bf16(master)
@@ -577,14 +632,14 @@ KERNELS = {
                       "stablelm_adama_guarded_fp8"),
 }
 
-# the checkpoint phase (full bert-large): path -> (engine, (m codec, v
-# codec), further OptimizerConfig fields, the fault of its clean and
-# resumed runs). Each path runs clean for CKPT_STEPS steps, then crashed by
-# CKPT_CRASH between step 2's update and its save (saving every step,
-# keeping one), then resumed from that directory; the resumed run must end
-# on the clean run's params and state bit for bit (digests on the card),
-# launch the clean run's kernels in each step it runs, and peak at most
-# CKPT_PEAK_SLACK above the clean run. Path A is the main path; path B
+# the checkpoint phase (bert-large at CKPT_LAYERS layers): path ->
+# (engine, (m codec, v codec), further OptimizerConfig fields, the fault of
+# its clean and resumed runs). Each path runs clean for CKPT_STEPS steps,
+# then crashed by CKPT_CRASH between step 2's update and its save (saving
+# every step, keeping one), then resumed from that directory; the resumed
+# run must end on the clean run's params and state bit for bit (digests on
+# the card), launch the clean run's kernels in each step it runs, and peak
+# at most CKPT_PEAK_SLACK above the clean run. Path A is the main path; path B
 # carries every region (int8 m, rowcol v, p, wp, ef, the scaler), and its
 # NaN on step 3 lands after the resume, so the scaler's state has to come
 # back: scale and skips CKPT_SCALER after step 3 in both runs
@@ -602,24 +657,37 @@ CKPT_SCALER = {"checkpoint_adama_layerwise_int8_rowcol_fp8_master_wp":
                (16384.0, 1)}
 # the path whose step-1 checkpoint is corrupted, refused and repaired
 CKPT_CORRUPT = "checkpoint_adama"
+# the phase's model: bert-large cut to 8 of its 24 layers (recorded as
+# `reduced` in its log lines). Its checks (the format, the resume bit for
+# bit, the refused corruption) do not depend on depth; full depth spent
+# 179 s of the script's time limit, most of it in ten saves and restores
+# of 4.4-5.5 GB
+CKPT_LAYERS = 8
 # written under the checkout (listed in .gitignore), deleted after the phase
 CKPT_DIR = "chip_smoke_ckpt"
 # the activation-checkpointing phase (RunConfig.remat): path -> (the main
 # path whose arch, engine, arena state and codecs it runs, remat, seq_len
-# (None: the main path's), steps). A path at its main path's seq_len is
-# that path's remat twin: its losses, params, m and v must be the main
-# path's bit for bit (digests on the card), its launches per step the main
-# path's (an rwkv6 model's forward scan twice: forward and recompute) and
-# its peak below the main path's. The stablelm-1.6b paths run at its
-# published max_seq_len 4096 (the main paths' cut to 1024 is lifted for
-# them); adama_layerwise recomputes every layer without remat
-REMAT = {"adama_remat": ("adama", True, None, 5),
-         "ga_remat": ("ga", True, None, 5),
-         "stablelm_4096_ga_remat": ("stablelm_ga", True, 4096, 2),
-         "stablelm_4096_adama_remat": ("stablelm_adama", True, 4096, 2),
+# and num_layers (None: the main path's), steps). A path at its main
+# path's seq_len is that path's remat twin: its losses, params, m and v
+# must be the main path's bit for bit (digests on the card), its launches
+# per step the main path's (an rwkv6 model's forward scan twice: forward
+# and recompute) and its peak below the main path's. The stablelm-1.6b
+# paths run at its published max_seq_len 4096 (the main paths' cut to
+# 1024 is lifted for them), cut to 16 of its 24 layers: device-bound at
+# 24 s a step, the three took 147 s of the script's time limit at full
+# depth. At 24 layers adama_layerwise peaked 3.06 GB below adama + remat
+# (its head's cross-entropy backward against layer 0's recompute beside
+# the gradient tree); the 8 layers cut take 1.65 GB of gradient from that
+# gap, at 12 they would take 2.47. adama_layerwise recomputes every layer
+# without remat
+REMAT = {"adama_remat": ("adama", True, None, None, 5),
+         "ga_remat": ("ga", True, None, None, 5),
+         "stablelm_4096_ga_remat": ("stablelm_ga", True, 4096, 16, 2),
+         "stablelm_4096_adama_remat": ("stablelm_adama", True, 4096, 16,
+                                       2),
          "stablelm_4096_adama_layerwise": ("stablelm_adama_layerwise",
-                                           False, 4096, 2),
-         "rwkv6_adama_remat": ("rwkv6_adama", True, None, 3)}
+                                           False, 4096, 16, 2),
+         "rwkv6_adama_remat": ("rwkv6_adama", True, None, None, 3)}
 # ga + remat against adama + remat: at least one fp32 arena apart (ga's
 # accumulator) and at most that arena as the caching allocator holds it +
 # this slack: ga packs each micro-batch's tree and drops it before adding
@@ -1454,12 +1522,15 @@ def _state_tensors(out):
     """The tensors a run's digest covers: the param leaves (sorted paths),
     then every column of m and v, then the fp8 wire's residual where the
     state has one."""
+    return _tree_leaves(out["params"]) + _moment_tensors(out["opt_state"])
+
+
+def _moment_tensors(state):
+    """Every column of an arena state's m and v, then its fp8 residual."""
     from repro_torch.core import state_store
-    state = out["opt_state"]
     cols = [x for mo in ("m", "v")
             for x in state_store.codec_of(state[mo], mo).parts_of(state[mo])]
-    ef = [state["ef"].data] if "ef" in state else []
-    return _tree_leaves(out["params"]) + cols + ef
+    return cols + ([state["ef"].data] if "ef" in state else [])
 
 
 # the guarded forms timed at the stablelm-1.6b arena beside the unguarded
@@ -3089,7 +3160,12 @@ SMALL_PATHS = {"bert_large": (2, (("adama", True, FP32),
                                         ("ga", True, FP32, None, 3))),
                "minicpm3_4b": (2, (("adama", True, FP32),
                                    ("adama_layerwise", True, FP32),
-                                   ("ga", True, FP32, None, 3)))}
+                                   ("ga", True, FP32, None, 3))),
+               # MoE at 3 layers (2 MoE, 1 dense): 4 experts, top-2,
+               # capacity 20 at seq 32 (some copies dropped)
+               "deepseek_v2_lite_16b": (2, (("adama", True, FP32),
+                                            ("adama_layerwise", True, FP32),
+                                            ("ga", True, FP32, None, 3)))}
 # the small-input runs' config changes and sizes, by arch (default: seq 32,
 # 2 micro-batches of 2, a constant lr). `first_step_lr_0`: step 1 applies
 # lr 0, as the CPU parity tests of ga do (ROADMAP queue 3 (f)). Adam's
@@ -3101,7 +3177,9 @@ SMALL_PATHS = {"bert_large": (2, (("adama", True, FP32),
 SMALL_SETTINGS = {"mistral_nemo_12b": dict(seq_len=128,
                                            first_step_lr_0=True),
                   "minicpm3_4b": dict(seq_len=128, first_step_lr_0=True,
-                                      overrides={"q_lora_rank": 96})}
+                                      overrides={"q_lora_rank": 96}),
+                  "deepseek_v2_lite_16b": dict(first_step_lr_0=True,
+                                               overrides={"num_layers": 3})}
 SMALL_PARAM_TOL = 2e-5
 # the largest share of params beyond SMALL_PARAM_TOL after the steps, from
 # int8 codes that a matmul's other rounding order flipped
@@ -3229,7 +3307,8 @@ def check_ga_accumulate(torch):
     for arch, over in (("bert_large", {}), ("stablelm_1_6b", {}),
                        ("rwkv6_7b", {}), ("mistral_nemo_12b", {}),
                        ("minicpm3_4b", {}),
-                       ("minicpm3_4b", {"q_lora_rank": 96})):
+                       ("minicpm3_4b", {"q_lora_rank": 96}),
+                       ("deepseek_v2_lite_16b", {})):
         cfg = dataclasses.replace(get_config(arch).reduced(), **over)
         gen = torch.Generator()
         gen.manual_seed(0)
@@ -3294,19 +3373,259 @@ def check_window(torch, arch="mistral_nemo_12b"):
                              f"does not reach the path")
 
 
+def _moe_input(torch, cfg, params, batch):
+    """The input of the first MoE layer's FFN on a batch, and that layer's
+    router, as the model's own no-grad forward hands them to `moe_ffn`."""
+    from repro_torch.models import modules as md
+    from repro_torch.models.model import loss_fn
+
+    seen = []
+    moe_ffn = md.moe_ffn
+
+    def capture(cfg, p, x):
+        if not seen:
+            seen.append((x, p["router"]))
+        return moe_ffn(cfg, p, x)
+
+    md.moe_ffn = capture
+    try:
+        with torch.no_grad():
+            loss_fn(cfg, params, batch)
+    finally:
+        md.moe_ffn = moe_ffn
+    return seen[0]
+
+
+def check_moe(torch, arch, digests, all_losses):
+    """The MoE main paths' own claims. Their step-1 losses are equal bit
+    for bit. Step 1 of MOE_RERUN, run again from the same seed, ends on
+    the same params, m and v (digests on the card). Routing on the card:
+    on micro-batch 0 of step 1 at full width, the first MoE layer's
+    router top-k taken on the card, the same probs' top-k on the CPU picks
+    the same ids and gates, and route_row on the card and on the CPU from
+    those ids, gates and the layer's input gives the same buffers bit for
+    bit and the same token and gate maps; the copies dropped past each
+    expert's capacity are counted and logged. Returns rows 1-3's times at
+    the arch's arena (`time_moe_arena`)."""
+    from repro_torch.configs.base import OptimizerConfig, RunConfig
+    from repro_torch.data import make_data
+    from repro_torch.models import modules as md
+    from repro_torch.models.model import init_params
+    from repro_torch.train.loop import train
+
+    t0 = time.perf_counter()
+    cfg, main = _main_config(arch), MAIN[arch]
+    paths = [p for p, spec in PATHS.items() if spec[0] == arch]
+    first = {p: all_losses[p][0] for p in paths}
+    if len(set(first.values())) != 1:
+        raise AssertionError(f"{arch}: step-1 losses {first} are not equal "
+                             f"bit for bit")
+    _, engine, arena, _, codecs = PATHS[MOE_RERUN]
+    run = RunConfig(model=cfg,
+                    optimizer=OptimizerConfig(
+                        accumulation=engine, arena=arena,
+                        micro_batches=main["micro_batches"],
+                        m_codec=codecs[0], state_codec=codecs[1]),
+                    seq_len=main["seq_len"],
+                    global_batch=main["global_batch"], seed=main["seed"],
+                    steps=1, log_every=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(main["seed"])
+    params = init_params(cfg, gen)
+    held = {"leaves": _tree_leaves(params)}
+    with _holding_state(held):
+        out = train(run, device="cuda", log_fn=log, params=params)
+    again = _digest(torch, _held_state_tensors(held))
+    rerun_loss = out["losses"][0]
+    layout = held["state"]["m"].layout
+    held.clear()
+    del out, params
+    timed = time_moe_arena(torch, layout)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(main["seed"])
+    params = init_params(cfg, gen)
+    mb = main["global_batch"] // main["micro_batches"]
+    batch = {k: torch.from_numpy(v[:mb]).to("cuda") for k, v in make_data(
+        cfg, main["seq_len"], main["global_batch"],
+        seed=main["seed"]).batch(0).items()}
+    x, router = _moe_input(torch, cfg, params, batch)
+    del params
+    mc = cfg.moe
+    e, k = mc.n_experts, mc.top_k
+    s = main["seq_len"]
+    capacity = md.moe_capacity(mc, s)
+    with torch.no_grad():
+        probs = torch.softmax((x @ router.to(x.dtype)).float(), dim=-1)
+        gates, ids = md.moe_top_k(probs, k)
+        cpu_gates, cpu_ids = md.moe_top_k(probs.cpu(), k)
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        card = md.route_row(ids, gates, x, e, capacity)
+        cpu = md.route_row(ids.cpu(), gates.cpu(), x.cpu(), e, capacity)
+    load = torch.stack([torch.bincount(r.reshape(-1), minlength=e)
+                        for r in ids.cpu()])
+    dropped = (load - capacity).clamp(min=0).sum(-1)
+    filled = (card[2] != 0).sum(-1).cpu()
+    same = {"top_k_ids": torch.equal(ids.cpu(), cpu_ids),
+            "top_k_gates": torch.equal(
+                probs.gather(-1, ids).cpu().view(torch.int32),
+                cpu_gates.view(torch.int32)),
+            "buf_bits": torch.equal(card[0].cpu().view(torch.int16),
+                                    cpu[0].view(torch.int16)),
+            "tok_slot": torch.equal(card[1].cpu(), cpu[1]),
+            "gate_slot_bits": torch.equal(card[2].cpu().view(torch.int32),
+                                          cpu[2].view(torch.int32)),
+            "filled_slots_are_copies_kept": torch.equal(
+                filled, s * k - dropped)}
+    info = {"phase": "moe", "arch": cfg.name,
+            "step1_losses": first, "rerun_path": MOE_RERUN,
+            "rerun_step1_loss": rerun_loss,
+            "step1_digest": digests[MOE_RERUN + ":step1"],
+            "rerun_step1_digest": again,
+            "routing": {"rows": mb, "seq_len": s, "experts": e, "top_k": k,
+                        "capacity": capacity, "buf_dtype": str(x.dtype),
+                        "copies_per_row": s * k,
+                        "dropped_per_row": dropped.tolist(),
+                        "largest_expert_load": int(load.max()),
+                        "equal_card_cpu": same},
+            "seconds": time.perf_counter() - t0}
+    log(json.dumps(info))
+    if again != digests[MOE_RERUN + ":step1"] or \
+            rerun_loss != all_losses[MOE_RERUN][0]:
+        raise AssertionError(f"{MOE_RERUN}: step 1 run again from seed "
+                             f"{main['seed']} ends on digest {again}, loss "
+                             f"{rerun_loss}; the main path on "
+                             f"{digests[MOE_RERUN + ':step1']}, "
+                             f"{all_losses[MOE_RERUN][0]}")
+    if not all(same.values()):
+        raise AssertionError(f"{arch}: routing on the card and on the CPU "
+                             f"differs: {same}")
+    return timed
+
+
+def time_moe_arena(torch, layout):
+    """Rows 1-3 at the MoE arch's arena (two stacked regions; 2.26e9
+    elements, the port's first arena past 2^31), each first held bit for
+    bit against its plain version on copies of the same m, v (and p), over
+    the whole arena, then timed as in phase 3 (CUDA events, MOE_TIMED_RUNS
+    runs of KERNEL_REPS launches; the plain version MOE_PLAIN_RUNS runs of
+    one call) beside its bound: the whole-arena fold (with the fused
+    decay) and apply, and the slice folds of an MoE layer, the dense
+    prefix layer and the rest region at their arena offsets (the rest
+    slice crosses element 2^31). The plain versions work in place on
+    chunks of rows, so a copy of the state is all they need beside the
+    kernel's."""
+    from repro_torch.kernels import fused_step
+
+    def same_bits(name, label, pairs):
+        for a, b in pairs:
+            if not a.view(torch.uint8).equal(b.view(torch.uint8)):
+                raise AssertionError(
+                    f"{name} {label} at the MoE arena: kernel != plain at "
+                    f"{int((a != b).sum())} elements")
+        return 0.0
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    shape = (layout.rows, LANES)
+    n = layout.rows * LANES
+    m = torch.randn(shape, generator=gen, device="cuda") * 1e-3
+    v = (torch.randn(shape, generator=gen, device="cuda") * 1e-6).abs()
+    g = torch.randn(shape, generator=gen, device="cuda")
+    mr, vr = m.clone(), v.clone()
+    fold_kw = dict(beta1=0.9, beta2=0.999, scale=1.0 / 8)
+    info = {"rows": layout.rows, "elements": n, "past_2^31": n > 2 ** 31}
+    cases = {name: [] for name in ("arena_fold", "arena_fold_slice",
+                                   "arena_apply")}
+    fused_step.arena_fold(m, v, g, decay=(0.9, 0.999), **fold_kw)
+    fused_step.arena_fold_ref(mr, vr, g, decay=(0.9, 0.999), **fold_kw)
+    err = same_bits("arena_fold", "arena", [(m, mr), (v, vr)])
+    cases["arena_fold"].append((
+        "arena", err, lambda: fused_step.arena_fold(m, v, g, **fold_kw),
+        lambda: fused_step.arena_fold_ref(mr, vr, g, **fold_kw),
+        bound_ms(5 * 4 * n, 8 * n), {}))
+    for label, spec in (("moe layer 0", layout.stack("blocks")),
+                        ("dense layer 0", layout.stack("dense_blocks")),
+                        ("rest", layout.rest)):
+        off = spec.row
+        rows_g = spec.layer_rows if spec is not layout.rest else spec.rows
+        kw = dict(fold_kw, block=layout.slice_block(spec))
+        gs = g[:rows_g]
+        # m == mr and v == vr here, so each side folds the same state; the
+        # whole arenas compared hold the rows outside the slice unchanged
+        fused_step.arena_fold_slice(m, v, gs, off, **kw)
+        fused_step.arena_fold_slice_ref(mr, vr, gs, off, **kw)
+        err = same_bits("arena_fold_slice", label, [(m, mr), (v, vr)])
+        crosses = off * LANES < 2 ** 31 < (off + rows_g) * LANES
+        cases["arena_fold_slice"].append((
+            label, err,
+            functools.partial(fused_step.arena_fold_slice, m, v, gs, off,
+                              **kw),
+            functools.partial(fused_step.arena_fold_slice_ref, mr, vr, gs,
+                              off, **kw),
+            bound_ms(5 * 4 * rows_g * LANES, 8 * rows_g * LANES),
+            {"rows": rows_g, "row_offset": off,
+             "crosses_element_2^31": crosses}))
+        info[label + " rows"] = [off, rows_g]
+    out = {}
+
+    def run_cases(name):
+        out[name] = [dict(_kernel_entry(
+            name, label,
+            timed_ms(torch, fn, runs=MOE_TIMED_RUNS, reps=KERNEL_REPS),
+            timed_ms(torch, plain, runs=MOE_PLAIN_RUNS, warmup=1), bound,
+            {"arena_rows": layout.rows, **shape_info},
+            {"max_abs_err": err}), max_abs_err=err)
+            for label, err, fn, plain, bound, shape_info in cases[name]]
+
+    run_cases("arena_fold")
+    run_cases("arena_fold_slice")
+    del g, mr, vr
+    torch.cuda.empty_cache()
+    p = torch.randn(shape, generator=gen, device="cuda") * 0.02
+    pr = p.clone()
+    apply_kw = dict(lr=1e-3, bc1=0.1, bc2=0.001, eps=1e-8)
+    fused_step.arena_apply(p, m, v, **apply_kw)
+    fused_step.arena_apply_ref(pr, m, v, **apply_kw)
+    err = same_bits("arena_apply", "arena", [(p, pr)])
+    cases["arena_apply"].append((
+        "arena", err, lambda: fused_step.arena_apply(p, m, v, **apply_kw),
+        lambda: fused_step.arena_apply_ref(pr, m, v, **apply_kw),
+        bound_ms(4 * 4 * n, 7 * n), {}))
+    run_cases("arena_apply")
+    if not all(bool(torch.isfinite(x).all()) for x in (m, v, p, pr)):
+        raise AssertionError("MoE arena: non-finite state after the timed "
+                             "runs")
+    log(json.dumps({"phase": "moe_arena_kernels", **info,
+                    "bit_for_bit": {k: [e["case"] for e in x]
+                                    for k, x in out.items()}}))
+    del m, v, p, pr
+    torch.cuda.empty_cache()
+    return out
+
+
 def _expected_launches(path, tree):
     """Launches per step that a path's schedule makes, derived from the
-    param tree: N micro-batches, L layers, the stacked block leaves and
-    the rest leaves (the layer-wise arena path folds L layer slices and
-    one rest slice per micro-batch). An rwkv6 model runs one forward scan
-    per layer and micro-batch (two in the layer-wise path: the no-grad
-    forward and the recompute) and one backward scan."""
+    param tree: N micro-batches, L layers over the stacked regions (an MoE
+    model's dense_blocks too), the stacked block leaves and the rest leaves
+    (the layer-wise arena path folds L layer slices and one rest slice per
+    micro-batch). An rwkv6 model runs one forward scan per layer and
+    micro-batch (two in the layer-wise path: the no-grad forward and the
+    recompute) and one backward scan."""
+    from repro_torch.core.arena import STACK_KEYS
     arch, engine, arena, _, _ = PATHS[path]
     n = MAIN[arch]["micro_batches"]
-    blocks = tree["blocks"]
-    n_layers = next(iter(blocks.values())).shape[0]
-    n_block, n_leaves = len(blocks), len(tree) - 1 + len(blocks)
-    n_rest = n_leaves - n_block
+    stacks = [tree[k] for k in STACK_KEYS if k in tree]
+    depths = [next(iter(st.values())).shape[0] for st in stacks]
+    n_layers = sum(depths)
+    n_rest = len(tree) - len(stacks)
+    n_leaves = n_rest + sum(len(st) for st in stacks)
+    # per-leaf layer-wise: one fold per stacked leaf and layer
+    n_layer_leaves = sum(len(st) * d for st, d in zip(stacks, depths))
     want = {k: 0 for k in KERNELS}
     if path in GUARDED:
         # one flag per fold (adama), per step (ga); the layer-wise engine's
@@ -3331,7 +3650,7 @@ def _expected_launches(path, tree):
     else:
         want["adam_apply_2d"] = n_leaves
         want["adama_accum_2d"] = n * (n_leaves if engine == "adama" else
-                                      n_block * n_layers + n_rest)
+                                      n_layer_leaves + n_rest)
     if arch == "rwkv6_7b":
         recompute = 2 if engine == "adama_layerwise" else 1
         want["rwkv6_chunk_scan"] = recompute * n * n_layers
@@ -3389,6 +3708,12 @@ def _holding_state(held):
         yield
     finally:
         adama.init_arena = init
+
+
+def _held_state_tensors(held):
+    """The tensors `_state_tensors` covers, read while a path runs: its
+    param leaves and the arena state `_holding_state` keeps."""
+    return held["leaves"] + _moment_tensors(held["state"])
 
 
 def _master_leaves(state):
@@ -3617,8 +3942,9 @@ def run_main_paths(torch, wrappers, arch):
     """Phase 5: one arch at full width, each of its main paths; returns
     each path's launch counts per kernel and peak memory, the bytes a
     master path's apply allocates for its work, the digests taken (the
-    guard's claims and the remat phase's twins) and each path's losses.
-    Every arena path must have the arch's arena rows."""
+    guard's claims and the remat phase's twins), each path's losses and
+    the model's parameter count. Every arena path must have the arch's
+    arena rows."""
     from repro_torch.configs.base import OptimizerConfig, RunConfig
     from repro_torch.core import arena as arena_mod
     from repro_torch.core import state_store
@@ -3630,10 +3956,10 @@ def run_main_paths(torch, wrappers, arch):
     main = MAIN[arch]
     ln_v = math.log(cfg.padded_vocab())
     counts, peaks, all_losses, digests = {}, {}, {}, {}
-    work_bytes = {}
+    work_bytes, n_params_by_path = {}, {}
     paths = [p for p, spec in PATHS.items() if spec[0] == arch]
     digested = {p for d in GUARD_DIGESTS for p in d[:2]} | {
-        base for base, _, seq, _ in REMAT.values() if seq is None}
+        base for base, _, seq, _, _ in REMAT.values() if seq is None}
     # params after step 1 of each bf16- or fp8-wire path's twin, on the
     # host: step1[twin] is the digest of its params then, snaps[digest] one
     # host copy of each distinct set (the guarded twins' step-1 params are
@@ -3674,7 +4000,7 @@ def run_main_paths(torch, wrappers, arch):
         params, before, packed, diff = None, None, None, []
         if (engine == "ga" and path in GUARDED) or path in WIRE or \
                 path in wire_twins or path in MASTER or \
-                path in master_twins or path in FP8:
+                path in master_twins or path in FP8 or path == MOE_RERUN:
             # the params train() would make, which it updates in place
             gen = torch.Generator(device="cuda")
             gen.manual_seed(main["seed"])
@@ -3728,6 +4054,12 @@ def run_main_paths(torch, wrappers, arch):
                 if i == 0:
                     step1_digest[path] = _digest(torch, held["leaves"])
             actions.append(twin_digest)
+        if path == MOE_RERUN:
+            def rerun_digest(i, path=path):
+                if i == 0:
+                    digests[path + ":step1"] = _digest(
+                        torch, _held_state_tensors(held))
+            actions.append(rerun_digest)
         if path in MASTER:
             def master_step(i, path=path):
                 _check_master_step(torch, path, i, held["leaves"],
@@ -3739,7 +4071,7 @@ def run_main_paths(torch, wrappers, arch):
         torch.cuda.reset_peak_memory_stats()
         for fn in wrappers.values():
             fn.launches = 0
-        with (_holding_state(held) if path in MASTER
+        with (_holding_state(held) if path in MASTER or path == MOE_RERUN
               else contextlib.nullcontext()):
             out = train(run, device="cuda", log_fn=log, params=params,
                         step_context=_after_steps(actions) if actions
@@ -3820,6 +4152,7 @@ def run_main_paths(torch, wrappers, arch):
                 torch, path, out, peaks, counts, all_losses, diff[0],
                 _wire_tolerance(codecs, run.optimizer.lr, "fp8_wire_lr"))
         n_params = sum(x.numel() for x in out["model"].parameters())
+        n_params_by_path[path] = n_params
         state = out["opt_state"]
         rows = state["m"].layout.rows if arena else None
         state_bytes = (state_store.optimizer_state_bytes(state) if arena
@@ -3879,15 +4212,21 @@ def run_main_paths(torch, wrappers, arch):
                         "digest_claims": [[a, b, "equal" if e else "differ"]
                                           for a, b, e in GUARD_DIGESTS],
                         "met": True}))
-    return counts, peaks, work_bytes, digests, all_losses
+    if len(set(n_params_by_path.values())) != 1:
+        raise AssertionError(f"{arch}: parameter counts differ between "
+                             f"paths: {n_params_by_path}")
+    return (counts, peaks, work_bytes, digests, all_losses,
+            n_params_by_path[paths[0]])
 
 
-def check_remat_memory(arch, peaks, ga, adama, lw=None, info=None):
-    """ga + remat (path `ga`) peaks at least one fp32 arena above adama +
-    remat (`adama`) and at most that arena as allocated + REMAT_GAP_SLACK
-    above it; Algorithm 2 (`lw`), where given, below adama + remat. Logs
-    the gaps with `info`."""
-    arena_bytes = MAIN[arch]["arena_rows"] * LANES * 4
+def check_remat_memory(arch, peaks, ga, adama, lw=None, info=None,
+                       arena_rows=None):
+    """ga + remat (path `ga`) peaks at least one fp32 arena (of
+    `arena_rows`, by default the arch's main paths') above adama + remat
+    (`adama`) and at most that arena as allocated + REMAT_GAP_SLACK above
+    it; Algorithm 2 (`lw`), where given, below adama + remat. Logs the
+    gaps with `info`."""
+    arena_bytes = (arena_rows or MAIN[arch]["arena_rows"]) * LANES * 4
     limit = _allocator_bytes(arena_bytes) + REMAT_GAP_SLACK
     gap = peaks[ga] - peaks[adama]
     info = dict(info or {}, phase="remat_memory", arch=arch,
@@ -3918,12 +4257,16 @@ def check_remat_memory(arch, peaks, ga, adama, lw=None, info=None):
                              f"below {adama}'s {peaks[adama]}")
 
 
-def check_memory(arch, peaks):
+def check_memory(arch, peaks, n_params):
     """ga peaks at least one fp32 arena (its accumulator) above adama, and
     Algorithm 2 at least two below Algorithm 1 (no whole-model gradient
-    and its packed copy); a path with compressed state peaks below the
-    same engine's fp32 path by at least the state bytes it saves. An arch
-    whose main paths run ga and adama with remat is held to
+    and its packed copy), or, where MAIN[arch]["layerwise_gap"] is
+    "gradient", at least the whole-model fp32 gradient, `n_params` (the
+    model the paths built) x 4 B: there Algorithm 2 peaks at the apply's
+    pack of the params, adama at its gradient's pack, so the gap is the
+    gradient tree; a path with compressed state
+    peaks below the same engine's fp32 path by at least the state bytes it
+    saves. An arch whose main paths run ga and adama with remat is held to
     check_remat_memory's claims instead."""
     path = {spec[1]: p for p, spec in PATHS.items()
             if spec[0] == arch and spec[2] and spec[4] == FP32
@@ -3935,19 +4278,26 @@ def check_memory(arch, peaks):
     adama, ga, lw = (peaks[path[e]] for e in ("adama", "ga",
                                               "adama_layerwise"))
     arena_bytes = MAIN[arch]["arena_rows"] * LANES * 4
+    gap = MAIN[arch].get("layerwise_gap", "two arenas")
+    lw_limit, lw_what = {"gradient": (n_params * 4, "the fp32 gradient"),
+                         "two arenas": (2 * arena_bytes,
+                                        "two fp32 arenas")}[gap]
     log(json.dumps({"phase": "memory", "arch": arch, "peaks": peaks,
                     "ga_minus_adama": ga - adama,
                     "adama_minus_adama_layerwise": adama - lw,
-                    "arena_bytes": arena_bytes}))
+                    "arena_bytes": arena_bytes, "params": n_params,
+                    "adama_minus_adama_layerwise_limit": lw_limit,
+                    "adama_minus_adama_layerwise_limit_is": lw_what,
+                    "adama_minus_adama_layerwise_at_least_one_arena":
+                        adama - lw >= arena_bytes}))
     if ga - adama < arena_bytes:
         raise AssertionError(f"{arch}: adama's peak {adama} is only "
                              f"{ga - adama} B below ga's {ga}; expected at "
                              f"least one fp32 arena ({arena_bytes} B)")
-    if adama - lw < 2 * arena_bytes:
+    if adama - lw < lw_limit:
         raise AssertionError(f"{arch}: adama_layerwise's peak {lw} is only "
                              f"{adama - lw} B below adama's {adama}; "
-                             f"expected at least two fp32 arenas "
-                             f"({2 * arena_bytes} B)")
+                             f"expected at least {lw_what} ({lw_limit} B)")
     rows = MAIN[arch]["arena_rows"]
     for p, (a, engine, arena, _, codecs) in PATHS.items():
         if a != arch or codecs == FP32 or p in GUARDED or p in WIRE or \
@@ -4009,10 +4359,14 @@ def _remat_run(torch, wrappers, path):
     set to 0 just before it: (its result, launches, peak, seconds)."""
     from repro_torch.configs.base import OptimizerConfig, RunConfig
     from repro_torch.train.loop import train
-    base, remat, seq_len, steps = REMAT[path]
+    import dataclasses
+    base, remat, seq_len, num_layers, steps = REMAT[path]
     arch, engine, arena, _, codecs = PATHS[base]
     main = MAIN[arch]
-    run = RunConfig(model=_main_config(arch),
+    cfg = _main_config(arch)
+    if num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
+    run = RunConfig(model=cfg,
                     optimizer=OptimizerConfig(
                         accumulation=engine, arena=arena,
                         micro_batches=main["micro_batches"],
@@ -4038,12 +4392,13 @@ def check_remat(torch, wrappers, main_runs):
     Returns each remat path's launch counts."""
     from repro_torch.launch.memory_split import memory_split
     t0 = time.perf_counter()
-    counts, peaks, first_loss = {}, {}, {}
-    for path, (base, remat, seq_len, steps) in REMAT.items():
+    counts, peaks, first_loss, rows = {}, {}, {}, {}
+    for path, (base, remat, seq_len, num_layers, steps) in REMAT.items():
         arch = PATHS[base][0]
         out, counts[path], peaks[path], seconds = _remat_run(torch, wrappers,
                                                              path)
         losses = out["losses"]
+        rows[path] = out["opt_state"]["m"].layout.rows
         first_loss[path] = losses[0]
         want = _expected_launches(base, out["params"])
         if remat and arch == "rwkv6_7b":
@@ -4051,6 +4406,8 @@ def check_remat(torch, wrappers, main_runs):
         info = {"phase": "remat", "path": path, "main_path": base,
                 "remat": remat, "arch": arch,
                 "seq_len": seq_len or MAIN[arch]["seq_len"],
+                "num_layers": out["model"].cfg.num_layers,
+                "arena_rows": rows[path],
                 "losses": losses, "step_seconds": out["step_seconds"],
                 "seconds": seconds, "max_memory_allocated_bytes": peaks[path],
                 "launches": counts[path], "launches_per_step": want}
@@ -4088,7 +4445,7 @@ def check_remat(torch, wrappers, main_runs):
         info = {}
         if lw:
             info["step1_losses"] = [first_loss[p] for p in (ga, adama, lw)]
-        check_remat_memory(arch, peaks, ga, adama, lw, info)
+        check_remat_memory(arch, peaks, ga, adama, lw, info, rows[adama])
         if lw is None:
             continue
         first = first_loss[ga]
@@ -4195,7 +4552,7 @@ def _check_resume_path(torch, wrappers, path, ckpt_dir):
 
     def run(fault, **kw):
         return RunConfig(
-            model=_main_config("bert_large"),
+            model=_ckpt_config(),
             optimizer=OptimizerConfig(
                 accumulation=engine, micro_batches=main["micro_batches"],
                 m_codec=codecs[0], state_codec=codecs[1], **extra),
@@ -4311,17 +4668,26 @@ def _check_corrupt_refused(torch, ckpt, faults, clean, ckpt_dir):
             "refused_after_seconds": seconds, "state_unchanged": True}
 
 
+def _ckpt_config():
+    import dataclasses
+    return dataclasses.replace(_main_config("bert_large"),
+                               num_layers=CKPT_LAYERS)
+
+
 def check_checkpoints(torch, wrappers):
-    """Phase 7: the checkpoint paths on full bert-large (CKPT_PATHS), in a
-    directory of the checkout that is deleted afterwards; the free disk
-    space before, every save's and restore's bytes, seconds and GB/s, and
-    the phase's seconds are logged."""
+    """Phase 7: the checkpoint paths on bert-large cut to CKPT_LAYERS
+    layers (CKPT_PATHS), in a directory of the checkout that is deleted
+    afterwards; the free disk space before, every save's and restore's
+    bytes, seconds and GB/s, and the phase's seconds are logged."""
     from repro_torch.train import checkpoint as ckpt
     t0 = time.perf_counter()
     root = Path(__file__).resolve().parent / CKPT_DIR
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir()
+    cfg = _ckpt_config()
     log(json.dumps({"phase": "checkpoint", "dir": str(root),
+                    "arch": cfg.name, "num_layers": cfg.num_layers,
+                    "reduced": {"num_layers": [24, cfg.num_layers]},
                     "free_disk_bytes": shutil.disk_usage(root).free}))
     io, results = [], {}
     try:
@@ -4420,10 +4786,14 @@ def main() -> int:
     check_small_input(torch)
     counts, work_bytes, main_runs = {}, {}, {}
     for arch in MAIN:
-        c, peaks, w, d, losses = run_main_paths(torch, wrappers, arch)
-        check_memory(arch, peaks)
+        c, peaks, w, d, losses, n_params = run_main_paths(torch, wrappers,
+                                                          arch)
+        check_memory(arch, peaks, n_params)
         if _main_config(arch).attention == "swa":
             check_window(torch, arch)
+        if _main_config(arch).moe is not None:
+            for name, entries in check_moe(torch, arch, d, losses).items():
+                kernels[name][arch + "_arena"] = entries
         counts.update(c)
         work_bytes.update(w)
         main_runs.update({p: (d.get(p), losses[p], peaks[p]) for p in c})

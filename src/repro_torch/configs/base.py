@@ -12,6 +12,19 @@ from typing import Optional
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 0           # routed experts
+    n_shared: int = 0            # shared (always-on) experts
+    top_k: int = 2
+    d_expert: int = 0            # per-expert FFN hidden size
+    capacity_factor: float = 1.25
+    # layers [0, dense_prefix) use a dense FFN instead of MoE (DeepSeek-V2
+    # keeps the first block dense): the "dense_blocks" stack
+    dense_prefix: int = 1
+    router_aux_weight: float = 0.001
+
+
+@dataclass(frozen=True)
 class SSMConfig:
     d_state: int = 16            # recurrent state per channel (Mamba) / head
     d_conv: int = 4              # depthwise conv width (Mamba)
@@ -22,7 +35,7 @@ class SSMConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str               # dense | encoder | ssm (rwkv6)
+    arch_type: str               # dense | encoder | moe | ssm (rwkv6)
     source: str                  # citation for the numbers
     num_layers: int
     d_model: int
@@ -40,6 +53,7 @@ class ModelConfig:
     qk_nope_head_dim: int = 128
     qk_rope_head_dim: int = 64
     v_head_dim: Optional[int] = None
+    moe: Optional[MoEConfig] = None      # routed experts (DeepSeek-V2)
     ssm: Optional[SSMConfig] = None      # the rwkv6 family's head size
     norm: str = "rmsnorm"                # rmsnorm | layernorm
     act: str = "silu"                    # silu (gated MLP) | gelu (plain MLP)
@@ -67,9 +81,10 @@ class ModelConfig:
     def reduced(self) -> "ModelConfig":
         """CPU-smoke variant of the same family (<=2 layers, d_model<=256;
         mla's ranks and head sizes cut and its q low-rank projection
-        dropped; swa's window 64). `ssm` is kept: head_dim 32 is the
-        attention head size, and an rwkv6 model keeps ssm.head_dim 64 (4
-        heads at d_model 256)."""
+        dropped; swa's window 64; MoE at 4 experts of 128, top-2, at most
+        one shared expert and one dense layer). `ssm` is kept: head_dim 32
+        is the attention head size, and an rwkv6 model keeps ssm.head_dim
+        64 (4 heads at d_model 256)."""
         d_model = min(self.d_model, 256)
         n_heads = max(2, min(self.n_heads, 4))
         ratio = max(1, self.n_heads // max(self.n_kv_heads, 1))
@@ -90,6 +105,11 @@ class ModelConfig:
                       qk_nope_head_dim=32, qk_rope_head_dim=16, v_head_dim=32)
         if self.window is not None:
             kw.update(window=64)
+        if self.moe is not None:
+            kw["moe"] = replace(self.moe, n_experts=4,
+                                n_shared=min(self.moe.n_shared, 1), top_k=2,
+                                d_expert=128,
+                                dense_prefix=min(self.moe.dense_prefix, 1))
         return replace(self, **kw)
 
 
@@ -343,7 +363,7 @@ class RunConfig:
 
 
 ARCH_IDS = ["stablelm_1_6b", "bert_large", "rwkv6_7b", "mistral_nemo_12b",
-            "minicpm3_4b"]
+            "minicpm3_4b", "deepseek_v2_lite_16b"]
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
 

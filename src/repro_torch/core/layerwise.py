@@ -1,6 +1,7 @@
 """Algorithm 2: interleave the per-LAYER backward with the AdamA fold
-(`repro/core/layerwise.py`, dense and encoder families, one device, the
-fp32, bf16 or fp8 gradient wire, with or without the finite guard).
+(`repro/core/layerwise.py`, the dense, encoder, MoE and rwkv6 families, one
+device, the fp32, bf16 or fp8 gradient wire, with or without the finite
+guard).
 
 The port's block params are stacked: each leaf is one (L, ...) tensor. A
 gradient hook on such a leaf fires only once autograd has written the
@@ -8,13 +9,17 @@ whole stack's gradient, so hooks cannot free one layer's gradient at a
 time. The schedule is written out instead, as the reference's reverse scan
 does:
 
-  1. the forward runs under `torch.no_grad()`, saving each layer's INPUT;
+  1. the forward runs under `torch.no_grad()` through the stages (an MoE
+     model's `dense_blocks`, then `blocks`; `models.model.stages`),
+     saving each layer's INPUT and summing the layers' aux losses as the
+     reference does;
   2. the head (final norm, lm_head, cross entropy) runs with autograd and
      its backward is seeded with `scale` (= 1/N), so every gradient below
-     arrives pre-scaled;
-  3. for j = L-1 ... 0, layer j is recomputed from its saved input on
-     detached views of its slice of the stacked params, and
-     `torch.autograd.grad` gives that layer's param gradients and the
+     arrives pre-scaled; the loss is ce + the aux total;
+  3. stage by stage in reverse, for j = L-1 ... 0, layer j is recomputed
+     from its saved input on detached views of its slice of the stacked
+     params, and `torch.autograd.grad` of (its output, its aux loss),
+     seeded with (dx, scale), gives that layer's param gradients and the
      gradient of its input; the layer gradients are folded into (m, v) and
      dropped before layer j-1;
   4. last, the embedding's backward, and the fold of the rest region.
@@ -74,7 +79,8 @@ from repro_torch.core.adama import accumulate_leaf, is_arena_state
 from repro_torch.core.arena import STACK_KEYS
 from repro_torch.kernels import fp8_wire, fused_step
 from repro_torch.models import modules as md
-from repro_torch.models.model import apply_block, cross_entropy, embed_tokens
+from repro_torch.models.model import (apply_block, cross_entropy,
+                                      embed_tokens, stages)
 
 
 def _fold_tree(m, v, g, beta1, beta2) -> None:
@@ -204,32 +210,39 @@ def layerwise_loss_and_fold(cfg: ModelConfig, params, batch, state, *,
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device).expand(b, s)
-    stack = params["blocks"]
-    keys = sorted(stack)
-    n_layers = stack[keys[0]].shape[0]
+    plan = stages(cfg, params)
 
     # ---- forward, saving layer inputs ----
     rest = _requires_grad({k: x for k, x in params.items()
                            if k not in STACK_KEYS})
     x0 = embed_tokens(cfg, rest, tokens, positions)
-    saved: List[torch.Tensor] = []
+    saved: Dict[str, List[torch.Tensor]] = {}
     with torch.no_grad():
         x = x0.detach()
-        for j in range(n_layers):
-            saved.append(x)
-            x = apply_block(cfg, {k: stack[k][j] for k in keys}, x,
-                            positions, causal=causal)
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for name, kind in plan:
+            stack = params[name]
+            keys = sorted(stack)
+            saved[name] = []
+            auxs = torch.zeros_like(aux_total)
+            for j in range(stack[keys[0]].shape[0]):
+                saved[name].append(x)
+                x, a = apply_block(cfg, {k: stack[k][j] for k in keys}, x,
+                                   positions, kind=kind, causal=causal)
+                auxs = auxs + a
+            aux_total = aux_total + auxs
 
     # ---- head, backward seeded with `scale` ----
     x = x.requires_grad_(True)
     h = md.apply_norm(cfg, rest, x, "final_norm_")
     logits = (h @ rest["lm_head"].to(h.dtype)).float()
-    loss = cross_entropy(logits, batch["labels"])
+    ce = cross_entropy(logits, batch["labels"])
+    loss = ce + aux_total
     post_keys = [k for k in rest if k != "embed"]
     seed = (scale if isinstance(scale, torch.Tensor) else
             torch.tensor(scale, dtype=torch.float32, device=loss.device))
     grads = torch.autograd.grad(
-        loss, [rest[k] for k in post_keys] + [x], grad_outputs=seed)
+        ce, [rest[k] for k in post_keys] + [x], grad_outputs=seed)
     d_rest: Dict[str, Any] = dict(zip(post_keys, grads[:-1]))
     dx = grads[-1]
     del h, logits, grads, x
@@ -241,16 +254,24 @@ def layerwise_loss_and_fold(cfg: ModelConfig, params, batch, state, *,
                                       guard=guard[2:3])
     elif decay is not None:
         state_store.begin_micro_state(state, decay)
-    for j in reversed(range(n_layers)):
-        lp = _requires_grad({k: stack[k][j] for k in keys})
-        xin = saved.pop().requires_grad_(True)
-        y = apply_block(cfg, lp, xin, positions, causal=causal)
-        *dl, dx = torch.autograd.grad(y, [lp[k] for k in keys] + [xin],
-                                      grad_outputs=dx)
-        del y, xin
-        _fold_layer(state, dict(zip(keys, dl)), j, "blocks", beta1, beta2,
-                    decay, guard, grad_dtype, ef_scale)
-        del dl
+    for name, kind in reversed(plan):
+        stack = params[name]
+        keys = sorted(stack)
+        for j in reversed(range(len(saved[name]))):
+            lp = _requires_grad({k: stack[k][j] for k in keys})
+            xin = saved[name].pop().requires_grad_(True)
+            y, a = apply_block(cfg, lp, xin, positions, kind=kind,
+                               causal=causal)
+            # the aux loss's cotangent is the seed, as the reference's
+            # vjp((dx, scale)); a block without one returns a constant
+            outs, seeds = ([y, a], [dx, seed]) if a.requires_grad else (
+                [y], [dx])
+            *dl, dx = torch.autograd.grad(outs, [lp[k] for k in keys] + [xin],
+                                          grad_outputs=seeds)
+            del y, a, xin, outs
+            _fold_layer(state, dict(zip(keys, dl)), j, name, beta1, beta2,
+                        decay, guard, grad_dtype, ef_scale)
+            del dl
 
     # ---- embedding backward, rest-region fold ----
     (d_rest["embed"],) = torch.autograd.grad(x0, [rest["embed"]],

@@ -44,6 +44,13 @@
       --num-layers 24 --steps 3 --global-batch 16 --micro-batches 8 \
       --seq-len 1024 --accumulation ga
 
+  # the MoE family: deepseek-v2-lite-16b at 4 of its 27 layers (the dense
+  # prefix layer and 3 MoE layers, all 64 experts) fits one 80 GB card
+  PYTHONPATH=src python -m repro_torch.launch.train \
+      --arch deepseek-v2-lite-16b --num-layers 4 --steps 3 \
+      --global-batch 16 --micro-batches 8 --seq-len 1024 \
+      --accumulation adama_layerwise
+
   # saves every step; run again with more --steps to resume
   # ("[train] restored step 2")
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \

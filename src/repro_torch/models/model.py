@@ -1,11 +1,15 @@
-"""Model assembly for the dense (gqa, swa and mla attention), encoder and
-rwkv6 (ssm) families: parameter init, the training forward pass and the
+"""Model assembly for the dense (gqa, swa and mla attention), encoder, MoE
+and rwkv6 (ssm) families: parameter init, the training forward pass and the
 loss (`repro/models/model.py`).
 
 Param tree layout, the reference's key for key:
   {"embed": (V_pad, D), "lm_head": (D, V_pad),
    "final_norm_scale"/"final_norm_bias": (D,),
-   "blocks": {leaf: (L, ...)}}              # stacked, leading layer axis
+   "blocks": {leaf: (L, ...)},              # stacked, leading layer axis
+   "dense_blocks": {leaf: (P, ...)}}        # MoE: the P dense-prefix layers
+
+An MoE model's main stack holds its num_layers - dense_prefix MoE layers;
+the forward runs `dense_blocks` first.
 
 `Model` is an nn.Module whose parameters are exactly these leaves, so the
 arena layout built from `Model.tree()` is the reference's. The forward is a
@@ -96,15 +100,35 @@ def _mlp_params(cfg, gen, lead):
             "w_down": _dense(gen, lead + (f, d), out_scale)}
 
 
-def _block_params(cfg, gen, n_layers):
-    """The dense block's params for all layers at once (leading L axis)."""
+def _moe_params(cfg, gen, lead):
+    """The router (D, E), the routed experts' gated FFN (E, D, F) / (E, F,
+    D) and the shared experts' at width F x n_shared."""
+    mc = cfg.moe
+    d, e, f = cfg.d_model, mc.n_experts, mc.d_expert
+    out_scale = 0.02 / math.sqrt(2 * cfg.num_layers)
+    p = {"router": _dense(gen, lead + (d, e)),
+         "w_gate_e": _dense(gen, lead + (e, d, f)),
+         "w_up_e": _dense(gen, lead + (e, d, f)),
+         "w_down_e": _dense(gen, lead + (e, f, d), out_scale)}
+    if mc.n_shared:
+        fs = f * mc.n_shared
+        p["w_gate_s"] = _dense(gen, lead + (d, fs))
+        p["w_up_s"] = _dense(gen, lead + (d, fs))
+        p["w_down_s"] = _dense(gen, lead + (fs, d), out_scale)
+    return p
+
+
+def _block_params(cfg, gen, n_layers, kind="dense"):
+    """A dense or MoE block's params for all layers at once (leading L
+    axis)."""
     lead = (n_layers,)
     p = {}
     for prefix in ("attn_norm_", "mlp_norm_"):
         for k, x in _norm_params(cfg, cfg.d_model, prefix, gen.device).items():
             p[k] = x.expand(lead + x.shape).clone()
     p.update(_attn_params(cfg, gen, lead))
-    p.update(_mlp_params(cfg, gen, lead))
+    p.update(_moe_params(cfg, gen, lead) if kind == "moe"
+             else _mlp_params(cfg, gen, lead))
     return p
 
 
@@ -141,19 +165,36 @@ def _rwkv_block_params(cfg, gen, n_layers):
 
 def main_stack_kind(cfg) -> str:
     """The block kind of the main stack, as the reference names it."""
-    return {"dense": "dense", "encoder": "dense",
+    return {"dense": "dense", "encoder": "dense", "moe": "moe",
             "ssm": "rwkv"}[cfg.arch_type]
+
+
+def n_main_layers(cfg) -> int:
+    """The main stack's depth: an MoE model's first dense_prefix layers
+    are the dense_blocks stack."""
+    if cfg.moe is not None:
+        return cfg.num_layers - cfg.moe.dense_prefix
+    return cfg.num_layers
+
+
+def stages(cfg, params):
+    """The stacked regions in forward order, (name, block kind) each: an MoE
+    model's dense_blocks, then the main stack."""
+    out = [("dense_blocks", "dense")] if "dense_blocks" in params else []
+    return out + [("blocks", main_stack_kind(cfg))]
 
 
 def _check_family(cfg: ModelConfig):
     if not ((cfg.arch_type in ("dense", "encoder") and cfg.attention == "gqa")
             or (cfg.arch_type == "dense" and cfg.attention in ("swa", "mla"))
+            or (cfg.arch_type == "moe" and cfg.attention == "mla")
             or (cfg.arch_type == "ssm" and cfg.attention == "none")):
         raise NotImplementedError(
             f"{cfg.name}: arch_type={cfg.arch_type!r} attention="
             f"{cfg.attention!r} is not ported yet (ROADMAP queue 1, item 9: "
             f"other model families); this port runs dense and encoder gqa "
-            f"models, dense swa and mla models and the rwkv6 (ssm) family")
+            f"models, dense swa and mla models, mla MoE models and the "
+            f"rwkv6 (ssm) family")
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
@@ -165,9 +206,13 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     params: Params = {"embed": _dense(gen, (vp, cfg.d_model)),
                       "lm_head": _dense(gen, (cfg.d_model, vp))}
     params.update(_norm_params(cfg, cfg.d_model, "final_norm_", gen.device))
-    stack = (_rwkv_block_params if main_stack_kind(cfg) == "rwkv"
-             else _block_params)
-    params["blocks"] = stack(cfg, gen, cfg.num_layers)
+    kind = main_stack_kind(cfg)
+    if kind == "rwkv":
+        params["blocks"] = _rwkv_block_params(cfg, gen, cfg.num_layers)
+    else:
+        params["blocks"] = _block_params(cfg, gen, n_main_layers(cfg), kind)
+    if cfg.moe is not None and cfg.moe.dense_prefix:
+        params["dense_blocks"] = _block_params(cfg, gen, cfg.moe.dense_prefix)
     return params
 
 
@@ -183,21 +228,24 @@ def params_from_jax(tree_of_numpy, device) -> Params:
 
 class Model(nn.Module):
     """Holds a param tree as nn.Parameters under the reference's names:
-    top-level leaves directly, the stacked layers in `self.blocks`."""
+    top-level leaves directly, each stacked region (`blocks`, an MoE
+    model's `dense_blocks`) in an nn.ParameterDict of that name."""
 
     def __init__(self, cfg: ModelConfig, params: Params):
         super().__init__()
         _check_family(cfg)
         self.cfg = cfg
         for k, x in params.items():
-            if k != "blocks":
+            if isinstance(x, dict):
+                setattr(self, k, nn.ParameterDict(
+                    {n: nn.Parameter(y) for n, y in x.items()}))
+            else:
                 self.register_parameter(k, nn.Parameter(x))
-        self.blocks = nn.ParameterDict(
-            {k: nn.Parameter(x) for k, x in params["blocks"].items()})
 
     def tree(self) -> Params:
-        tree = {k: p for k, p in self.named_parameters(recurse=False)}
-        tree["blocks"] = dict(self.blocks.items())
+        tree: Params = {k: p for k, p in self.named_parameters(recurse=False)}
+        for k, stack in self.named_children():
+            tree[k] = dict(stack.items())
         return tree
 
     def forward(self, batch):
@@ -209,12 +257,14 @@ class Model(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def apply_block(cfg, p, x, positions, *, causal=True):
-    """One block of the config's main stack on (B, S, D): a dense
-    transformer block, or an RWKV-6 block (time-mix, then channel-mix, each
-    from a zero token-shift carry and, for the time-mix, a zero fp32
-    state)."""
-    if main_stack_kind(cfg) == "rwkv":
+def apply_block(cfg, p, x, positions, *, kind, causal=True):
+    """One block on (B, S, D), of `kind`: a dense transformer block, an MoE
+    one (its FFN routed, `moe_ffn`), or an RWKV-6 block (time-mix, then
+    channel-mix, each from a zero token-shift carry and, for the time-mix,
+    a zero fp32 state). Returns (x, aux loss): the MoE FFN's load-balance
+    loss, a zero fp32 scalar for the other kinds."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind == "rwkv":
         b, _, d = x.shape
         hd = cfg.ssm.head_dim
         zeros_x = torch.zeros((b, d), dtype=x.dtype, device=x.device)
@@ -225,18 +275,23 @@ def apply_block(cfg, p, x, positions, *, causal=True):
         x = x + y
         c_in = md.apply_norm(cfg, p, x, "ffn_norm_")
         y, _ = md.rwkv6_channelmix(p, c_in, zeros_x)
-        return x + y
+        return x + y, aux
     a_in = md.apply_norm(cfg, p, x, "attn_norm_")
     attn = md.mla_attention if cfg.attention == "mla" else md.gqa_attention
     x = x + attn(cfg, p, a_in, positions, causal=causal)
     m_in = md.apply_norm(cfg, p, x, "mlp_norm_")
-    return x + md.mlp(cfg, p, m_in)
+    if kind == "moe":
+        y, aux = md.moe_ffn(cfg, p, m_in)
+    else:
+        y = md.mlp(cfg, p, m_in)
+    return x + y, aux
 
 
-def run_blocks(cfg, stack, x, positions, *, causal=True, remat=False):
-    """The layer loop over a stacked subtree (the reference scans it).
-    `unbind` splits each stacked leaf once, so the backward writes each
-    leaf's gradient as one stacked tensor.
+def run_blocks(cfg, stack, x, positions, *, kind, causal=True, remat=False):
+    """The layer loop over a stacked subtree of blocks of `kind` (the
+    reference scans it). Returns (x, the layers' aux losses summed in
+    layer order from zero). `unbind` splits each stacked leaf once, so the
+    backward writes each leaf's gradient as one stacked tensor.
 
     With `remat`, each layer runs under non-reentrant
     torch.utils.checkpoint (the reference's `jax.checkpoint` of the scan
@@ -251,13 +306,15 @@ def run_blocks(cfg, stack, x, positions, *, causal=True, remat=False):
 
     def block(h, *layer):
         return apply_block(cfg, dict(zip(keys, layer)), h, positions,
-                           causal=causal)
+                           kind=kind, causal=causal)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in zip(*per_leaf):
         if remat:
-            x = checkpoint(block, x, *layer, use_reentrant=False)
+            x, a = checkpoint(block, x, *layer, use_reentrant=False)
         else:
-            x = block(x, *layer)
-    return x
+            x, a = block(x, *layer)
+        aux = aux + a
+    return x, aux
 
 
 def _cdt(cfg):
@@ -272,19 +329,23 @@ def embed_tokens(cfg, params, tokens, positions):
 
 
 def forward(cfg: ModelConfig, params: Params, batch, *, remat: bool = False):
-    """Training forward. Returns (logits fp32 (B, S, V_pad), aux loss).
-    `remat` checkpoints each layer (`run_blocks`)."""
+    """Training forward. Returns (logits fp32 (B, S, V_pad), aux loss: the
+    stages' aux losses summed from zero in forward order). `remat`
+    checkpoints each layer (`run_blocks`)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     causal = cfg.arch_type != "encoder"
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device).expand(b, s)
     x = embed_tokens(cfg, params, tokens, positions)
-    x = run_blocks(cfg, params["blocks"], x, positions, causal=causal,
-                   remat=remat)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for name, kind in stages(cfg, params):
+        x, a = run_blocks(cfg, params[name], x, positions, kind=kind,
+                          causal=causal, remat=remat)
+        aux = aux + a
     x = md.apply_norm(cfg, params, x, "final_norm_")
     logits = (x @ params["lm_head"].to(x.dtype)).float()
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
 def cross_entropy(logits, labels):

@@ -1,5 +1,6 @@
-"""Model building blocks (dense, encoder and rwkv6 families; the dense
-decoder's gqa, sliding-window (swa) and multi-head latent (mla) attention),
+"""Model building blocks (dense, encoder, MoE and rwkv6 families; the dense
+decoder's gqa, sliding-window (swa) and multi-head latent (mla) attention;
+the routed experts' FFN, `moe_ffn`),
 plain functions on tensors with the reference's layouts and operation order
 (`repro/models/modules.py`).
 
@@ -11,6 +12,7 @@ time-mix runs its chunked recurrence through the scan kernel
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -233,6 +235,167 @@ def mlp(cfg, p, x):
     else:                                                   # plain (gelu) FFN
         h = a(x @ p["w_up"].to(x.dtype))
     return h @ p["w_down"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MoE (sort-based per-row routing into capacity buffers)
+# ---------------------------------------------------------------------------
+#
+# The reference dispatches with a gather `x_row[tok]` and combines with a
+# scatter-add over slots; both repeat indices (a token has up to k slots),
+# and a CUDA scatter-add, or the backward of a CUDA gather, sums repeated
+# indices in atomic order. Here every sum over a token's slots goes through
+# the (token, j) -> slot map, its k slots in ascending order (the order in
+# which the reference's scatter meets them), one add at a time: the
+# combine's forward and the dispatch's backward. Scatters whose indices
+# repeat only at the discarded sink slot stay plain torch ops.
+
+
+def _route(ids, gates, n_experts, capacity):
+    """The slot maps of rows of top-k expert ids (B, S, k): copy f = t*k + j
+    of token t goes to expert ids[t, j] at its rank among that expert's
+    copies in a stable sort; copies at or past `capacity` are dropped.
+    Returns (tok_slot (B, E*C) int64, filled (B, E*C) bool, gate_slot (B,
+    E*C), token_slots (B, S, k) int64): empty slots hold token 0 and gate
+    0; token_slots lists each token's slots in ascending order, a dropped
+    copy as E*C (the sink) after them."""
+    b, s, k = ids.shape
+    dev = ids.device
+    n_slots = n_experts * capacity
+    sorted_ids, order = torch.sort(ids.reshape(b, s * k).long(), dim=-1,
+                                   stable=True)
+    experts = torch.arange(n_experts, device=dev).expand(b, n_experts)
+    starts = torch.searchsorted(sorted_ids, experts.contiguous(),
+                                side="left")
+    pos = torch.arange(s * k, device=dev) - starts.gather(1, sorted_ids)
+    dst = torch.where(pos < capacity, sorted_ids * capacity + pos, n_slots)
+    tok = order // k
+    # one column past the slots takes every dropped copy and is cut off
+    sink = functools.partial(torch.zeros, (b, n_slots + 1), device=dev)
+    tok_slot = sink(dtype=torch.int64).scatter(1, dst, tok)[:, :n_slots]
+    filled = sink(dtype=torch.bool).scatter(
+        1, dst, torch.ones_like(dst, dtype=torch.bool))[:, :n_slots]
+    dst_of_copy = torch.empty_like(dst).scatter_(1, order, dst)
+    gate_slot = sink(dtype=gates.dtype).scatter(
+        1, dst_of_copy, gates.reshape(b, s * k))[:, :n_slots]
+    token_slots = torch.sort(dst_of_copy.reshape(b, s, k), dim=-1).values
+    return tok_slot, filled, gate_slot, token_slots
+
+
+def _gather_rows(src, idx):
+    """src (B, N, D), idx (B, M) -> src[b, idx[b, m]] (B, M, D)."""
+    return src.gather(1, idx[..., None].expand(-1, -1, src.shape[-1]))
+
+
+def _sum_slots(src, token_slots):
+    """out[b, t] = the sum of src[b, slot] over token t's slots, in
+    ascending slot order, one add at a time (the sink adds a zero row)."""
+    pad = torch.cat([src, src.new_zeros((src.shape[0], 1, src.shape[2]))],
+                    dim=1)
+    out = _gather_rows(pad, token_slots[..., 0])
+    for j in range(1, token_slots.shape[-1]):
+        out = out + _gather_rows(pad, token_slots[..., j])
+    return out
+
+
+class _Dispatch(torch.autograd.Function):
+    """buf[slot] = x[token of slot] (zero for an empty slot); the backward
+    sums each token's slots in ascending order."""
+
+    @staticmethod
+    def forward(ctx, x, tok_slot, filled, token_slots):
+        ctx.save_for_backward(token_slots)
+        return torch.where(filled[..., None], _gather_rows(x, tok_slot),
+                           x.new_zeros(()))
+
+    @staticmethod
+    def backward(ctx, dbuf):
+        (token_slots,) = ctx.saved_tensors
+        return _sum_slots(dbuf, token_slots), None, None, None
+
+
+class _Combine(torch.autograd.Function):
+    """y[token] = the sum of its slots' contributions in ascending slot
+    order; the backward gives each filled slot its token's gradient."""
+
+    @staticmethod
+    def forward(ctx, contrib, tok_slot, filled, token_slots):
+        ctx.save_for_backward(tok_slot, filled)
+        return _sum_slots(contrib, token_slots)
+
+    @staticmethod
+    def backward(ctx, dy):
+        tok_slot, filled = ctx.saved_tensors
+        return (torch.where(filled[..., None], _gather_rows(dy, tok_slot),
+                            dy.new_zeros(())), None, None, None)
+
+
+def route_row(ids, gates, x_row, n_experts, capacity):
+    """The reference's `_route_row`: ids, gates (S, k) and x_row (S, D) of
+    one row, or (B, S, k) and (B, S, D) of B rows. Returns (buf (E*C, D),
+    tok_slot (E*C,), gate_slot (E*C,)), with a leading B for B rows: the
+    copies in their expert's capacity slots, and each slot's token and gate
+    (empty slots: token 0, gate 0). Differentiable in x_row and gates."""
+    one = ids.dim() == 2
+    if one:
+        ids, gates, x_row = ids[None], gates[None], x_row[None]
+    tok_slot, filled, gate_slot, token_slots = _route(ids, gates, n_experts,
+                                                      capacity)
+    buf = _Dispatch.apply(x_row, tok_slot, filled, token_slots)
+    out = (buf, tok_slot, gate_slot)
+    return tuple(t[0] for t in out) if one else out
+
+
+def moe_top_k(probs, k):
+    """(gates, ids) of the k largest probs, ties to the lower expert index
+    as `lax.top_k` breaks them (a stable descending sort)."""
+    ids = torch.sort(probs, dim=-1, descending=True, stable=True).indices
+    ids = ids[..., :k]
+    return probs.gather(-1, ids), ids
+
+
+def moe_capacity(mc, s):
+    """Slots per expert and row of S tokens: max(k, ceil(S k cf / E))."""
+    return int(max(mc.top_k, math.ceil(s * mc.top_k * mc.capacity_factor
+                                       / mc.n_experts)))
+
+
+def moe_ffn(cfg, p, x):
+    """x: (B, S, D). Router top-k -> per-row capacity buffers -> the
+    experts' batched matmuls -> the gate-weighted combine; the shared
+    experts run densely. Returns (y, aux_loss)."""
+    mc = cfg.moe
+    b, s, d = x.shape
+    e, k = mc.n_experts, mc.top_k
+    capacity = moe_capacity(mc, s)
+
+    logits = (x @ p["router"].to(x.dtype)).float()              # (B, S, E)
+    probs = torch.softmax(logits, dim=-1)
+    gates, ids = moe_top_k(probs, k)                            # (B, S, k)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+
+    # load-balance aux loss (Switch-style)
+    me = torch.mean(probs, dim=(0, 1))                          # (E,)
+    ce = torch.mean(F.one_hot(ids[..., 0], e).float(), dim=(0, 1))
+    aux = e * torch.sum(me * ce) * mc.router_aux_weight
+
+    tok_slot, filled, gate_slot, token_slots = _route(ids, gates, e,
+                                                      capacity)
+    buf = _Dispatch.apply(x, tok_slot, filled, token_slots)
+    buf = buf.reshape(b, e, capacity, d)
+    h = torch.einsum("becd,edf->becf", buf, p["w_gate_e"].to(x.dtype))
+    h = act_fn(cfg.act)(h) * torch.einsum("becd,edf->becf", buf,
+                                          p["w_up_e"].to(x.dtype))
+    yb = torch.einsum("becf,efd->becd", h, p["w_down_e"].to(x.dtype))
+    yb = yb.reshape(b, e * capacity, d)
+    contrib = yb * gate_slot[..., None].to(yb.dtype)
+    y = _Combine.apply(contrib, tok_slot, filled, token_slots)
+
+    if mc.n_shared:
+        sh = act_fn(cfg.act)(x @ p["w_gate_s"].to(x.dtype)) * \
+            (x @ p["w_up_s"].to(x.dtype))
+        y = y + sh @ p["w_down_s"].to(x.dtype)
+    return y, aux
 
 
 # ---------------------------------------------------------------------------

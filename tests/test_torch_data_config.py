@@ -54,6 +54,27 @@ def test_swa_and_mla_configs_are_the_published_ones():
     assert nemo.reduced().window == 64 and cpm.reduced().q_lora_rank is None
 
 
+def test_moe_config_is_the_published_one():
+    """deepseek-v2-lite-16b (arXiv:2405.04434): 27 layers, the first dense
+    (d_ff 10944), 64 routed experts of 1408 + 2 shared, top-6; mla without
+    a q low-rank projection. Reduced: 4 experts of 128, top-2, one shared,
+    one dense layer."""
+    cfg = get_config("deepseek-v2-lite-16b")
+    assert (cfg.arch_type, cfg.num_layers, cfg.d_model, cfg.n_heads,
+            cfg.d_ff, cfg.vocab_size, cfg.attention, cfg.q_lora_rank,
+            cfg.kv_lora_rank, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+            cfg.resolved_v_head_dim, cfg.max_seq_len) == (
+                "moe", 27, 2048, 16, 10944, 102400, "mla", None, 512, 128,
+                64, 128, 32768)
+    mc = cfg.moe
+    assert (mc.n_experts, mc.n_shared, mc.top_k, mc.d_expert,
+            mc.capacity_factor, mc.dense_prefix, mc.router_aux_weight) == (
+                64, 2, 6, 1408, 1.25, 1, 0.001)
+    rm = cfg.reduced().moe
+    assert (rm.n_experts, rm.n_shared, rm.top_k, rm.d_expert,
+            rm.dense_prefix) == (4, 1, 2, 128, 1)
+
+
 def test_bert_large_is_the_papers_workload():
     cfg = get_config("bert-large")
     assert (cfg.num_layers, cfg.d_model, cfg.n_heads, cfg.d_ff,
@@ -62,7 +83,7 @@ def test_bert_large_is_the_papers_workload():
     assert (cfg.arch_type, cfg.norm, cfg.act, cfg.pos_emb) == \
         ("encoder", "layernorm", "gelu", "sinusoidal")
     with pytest.raises(KeyError):
-        get_config("deepseek_v2_lite_16b")       # a family not ported yet
+        get_config("hymba_1_5b")                 # a family not ported yet
 
 
 def test_optimizer_config_defaults_match_reference():

@@ -4,8 +4,9 @@ OptimizerConfig(use_pallas=True, arena=True)), step for step on the reduced
 models: losses, params and the m/v arenas, and one fold per micro-batch
 (one per step for ga) and one apply per step; with activation
 checkpointing too (the reference's `remat=True` against the port's). The
-swa (mistral-nemo) and mla (minicpm3) families run adama here and
-adama_layerwise in test_torch_layerwise.py."""
+swa (mistral-nemo) and mla (minicpm3) families run adama here, the MoE
+family (deepseek-v2-lite) adama and ga, and all three adama_layerwise in
+test_torch_layerwise.py."""
 import dataclasses
 import functools
 
@@ -60,10 +61,13 @@ CASES = {
     "ga-rwkv6-cosine": ("rwkv6_7b", "ga", "cosine", None),
     "adama-mistral-nemo": ("mistral_nemo_12b", "adama", None, None),
     "adama-minicpm3": ("minicpm3_4b", "adama", None, None),
+    "adama-deepseek": ("deepseek_v2_lite_16b", "adama", None, None),
+    "ga-deepseek-cosine": ("deepseek_v2_lite_16b", "ga", "cosine", None),
 }
-# the swa and mla families run all steps once, without remat (the remat
-# cases hold the layer loop, which they share with the gqa models)
-FAMILY_CASES = ("adama-mistral-nemo", "adama-minicpm3")
+# the swa, mla and MoE families run all steps once, without remat (the
+# remat cases hold the layer loop, which they share with the gqa models)
+FAMILY_CASES = ("adama-mistral-nemo", "adama-minicpm3", "adama-deepseek",
+                "ga-deepseek-cosine")
 
 
 def _schedules(kind):

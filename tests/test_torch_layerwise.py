@@ -41,6 +41,10 @@ ENGINE_TOL = 5e-6        # Fp32Codec's declared engine tolerance
 # largest |m| of ~0.07, v 2.3e-7
 RWKV_TOL = dict(loss=5e-5, params=5e-5, moments_of_max=2e-3)
 ARCHS = ("bert_large", "stablelm_1_6b", "rwkv6_7b")
+# depths other than the reduced config's, by arch: the MoE model at 3
+# layers, so that Algorithm 2 walks 2 MoE layers of `blocks`, then the
+# dense prefix layer of `dense_blocks`
+NUM_LAYERS = {"deepseek_v2_lite_16b": dict(num_layers=3)}
 
 
 def _t(x):
@@ -171,7 +175,7 @@ def _data(arch):
 def _reference_run(arch, arena, remat=False):
     """The reference's adama_layerwise trajectory: per step (loss, params,
     m, v) as numpy leaves (m, v: the arenas, or per-leaf trees)."""
-    cfg = tiny(arch)
+    cfg = tiny(arch, **NUM_LAYERS.get(arch, {}))
     opt = JaxOptimizerConfig(name="adama", accumulation="adama_layerwise",
                              micro_batches=N_MICRO, use_pallas=True,
                              arena=arena)
@@ -195,7 +199,8 @@ def _reference_run(arch, arena, remat=False):
 
 def _port(arch, engine, init_params, arena=True, remat=False):
     cfg = dataclasses.replace(get_config(arch).reduced(),
-                              compute_dtype="float32")
+                              compute_dtype="float32",
+                              **NUM_LAYERS.get(arch, {}))
     model = tmodel.Model(cfg, tmodel.params_from_jax(init_params, "cpu"))
     step, init = make_train_step(cfg, OptimizerConfig(
         accumulation=engine, micro_batches=N_MICRO, arena=arena),
@@ -216,7 +221,10 @@ LAYERWISE_RUNS = [
         "arena" if arena else "per_leaf") + ("-remat" if remat else ""))
     for remat in (False, True) for arch in ARCHS for arena in (True, False)
 ] + [pytest.param(arch, True, False, id=f"{arch}-arena")
-     for arch in ("mistral_nemo_12b", "minicpm3_4b")]
+     for arch in ("mistral_nemo_12b", "minicpm3_4b")] + [
+    pytest.param("deepseek_v2_lite_16b", arena, False, id=(
+        "deepseek_v2_lite_16b-" + ("arena" if arena else "per_leaf")))
+    for arena in (True, False)]
 
 
 @pytest.mark.parametrize("arch, arena, remat", LAYERWISE_RUNS)

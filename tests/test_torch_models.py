@@ -2,7 +2,8 @@
 (repro.models): each module, then logits, loss and packed gradient arenas of
 the reduced bert_large, stablelm_1_6b, rwkv6_7b, mistral_nemo_12b (swa,
 past its window) and minicpm3_4b (mla, with and without its q low-rank
-projection) from the reference's own params."""
+projection) and deepseek_v2_lite_16b (MoE with mla, a dense prefix
+layer) from the reference's own params."""
 import dataclasses
 
 import jax
@@ -32,7 +33,8 @@ ARCHS = ("bert_large", "stablelm_1_6b", "mistral_nemo_12b")
 VARIANTS = {"qlora": dict(q_lora_rank=96)}
 # whole-model tests also cover the rwkv6 family (its own module tests are in
 # test_torch_rwkv6.py) and mla
-ALL_ARCHS = ARCHS + ("rwkv6_7b", "minicpm3_4b", "minicpm3_4b+qlora")
+ALL_ARCHS = ARCHS + ("rwkv6_7b", "minicpm3_4b", "minicpm3_4b+qlora",
+                     "deepseek_v2_lite_16b")
 # the swa model runs past its reduced window of 64
 SEQ = {"mistral_nemo_12b": 96}
 
@@ -249,7 +251,7 @@ def test_init_params_have_the_reference_tree(arch):
 
 
 def test_other_families_raise_not_implemented():
-    cfg = dataclasses.replace(_tcfg("stablelm_1_6b"), arch_type="moe")
+    cfg = dataclasses.replace(_tcfg("stablelm_1_6b"), arch_type="hybrid")
     with pytest.raises(NotImplementedError, match="queue 1, item 9"):
         tmodel.init_params(cfg, torch.Generator())
 

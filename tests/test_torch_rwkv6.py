@@ -629,10 +629,11 @@ def test_rwkv_block_matches_reference(s):
     jcfg, tcfg, block, tblock = _block_params()
     x = _rand(6, 2, s, jcfg.d_model)
     pos = np.broadcast_to(np.arange(s, dtype=np.int32), (2, s))
-    jy, _ = jmodel.apply_block(jcfg, block, x, pos, kind="rwkv")
-    ty = tmodel.apply_block(tcfg, tblock, torch.from_numpy(x),
-                            torch.from_numpy(pos.copy()))
+    jy, jaux = jmodel.apply_block(jcfg, block, x, pos, kind="rwkv")
+    ty, taux = tmodel.apply_block(tcfg, tblock, torch.from_numpy(x),
+                                  torch.from_numpy(pos.copy()), kind="rwkv")
     assert _rel_err(ty, jy) <= MODULE_REL_TOL
+    assert float(taux) == float(jaux) == 0.0
     assert tmodel.main_stack_kind(tcfg) == jmodel.main_stack_kind(jcfg)
 
 
