@@ -35,7 +35,7 @@ class SSMConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str               # dense | encoder | moe | ssm (rwkv6)
+    arch_type: str               # dense | encoder | moe | ssm (rwkv6) | hybrid
     source: str                  # citation for the numbers
     num_layers: int
     d_model: int
@@ -54,7 +54,7 @@ class ModelConfig:
     qk_rope_head_dim: int = 64
     v_head_dim: Optional[int] = None
     moe: Optional[MoEConfig] = None      # routed experts (DeepSeek-V2)
-    ssm: Optional[SSMConfig] = None      # the rwkv6 family's head size
+    ssm: Optional[SSMConfig] = None      # rwkv6's head size; hybrid's Mamba
     norm: str = "rmsnorm"                # rmsnorm | layernorm
     act: str = "silu"                    # silu (gated MLP) | gelu (plain MLP)
     pos_emb: str = "rope"                # rope | sinusoidal (added at embed)
@@ -83,8 +83,9 @@ class ModelConfig:
         mla's ranks and head sizes cut and its q low-rank projection
         dropped; swa's window 64; MoE at 4 experts of 128, top-2, at most
         one shared expert and one dense layer). `ssm` is kept: head_dim 32
-        is the attention head size, and an rwkv6 model keeps ssm.head_dim
-        64 (4 heads at d_model 256)."""
+        is the attention head size, an rwkv6 model keeps ssm.head_dim 64 (4
+        heads at d_model 256), and a hybrid model's Mamba heads keep their
+        state, conv width and expansion (d_inner 512 at d_model 256)."""
         d_model = min(self.d_model, 256)
         n_heads = max(2, min(self.n_heads, 4))
         ratio = max(1, self.n_heads // max(self.n_kv_heads, 1))
@@ -363,7 +364,7 @@ class RunConfig:
 
 
 ARCH_IDS = ["stablelm_1_6b", "bert_large", "rwkv6_7b", "mistral_nemo_12b",
-            "minicpm3_4b", "deepseek_v2_lite_16b"]
+            "minicpm3_4b", "deepseek_v2_lite_16b", "hymba_1_5b"]
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
 

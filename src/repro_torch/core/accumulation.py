@@ -145,16 +145,51 @@ def inv_n(n: int, device) -> torch.Tensor:
     return torch.tensor(np.float32(1) / np.float32(n), device=device)
 
 
+# XLA CPU fuses a concatenate into the loop that consumes it only if it has
+# at most this many operands
+_XLA_FUSED_CONCAT_OPERANDS = 8
+
+
+def _concat_operands(leaves, region_rows):
+    """Operands of the concatenate that packs a region: one per leaf, and
+    one zero block if the leaves leave rows of the region unused."""
+    return len(leaves) + (region_rows > sum(s.rows for s in leaves))
+
+
 def uncontracted_rows(layout):
     """The arena rows [lo, hi) on which XLA CPU multiplies and adds
-    `acc + pack(g) / n` in two roundings: those of every rest-region leaf
-    whose last row is zero-padded. XLA fuses that pad into the loop that
-    forms the sum and leaves the multiply-add there uncontracted; every
-    other row is one fused multiply-add (the stacked leaves' pads run in
-    fusions of their own)."""
+    `acc + pack(g) / n` in two roundings: every row of each leaf whose last
+    row is zero-padded, where that leaf's pad runs inside the loop that
+    forms the sum. XLA leaves the multiply-add uncontracted there and
+    contracts every other row into one fused multiply-add.
+
+    A pad runs inside that loop when every concatenate between it and the
+    sum is fused into the loop, i.e. has at most 8 operands: the arena's
+    (one per stacked region, the rest region's leaves and its zero rows,
+    which XLA merges into it, and the tail's zero rows) and, for a stacked
+    leaf, its region's (the region's leaves and zero rows). Measured on
+    XLA CPU with trees whose stacked regions hold one, two or many padded
+    leaves, and with every model of the repo
+    (tests/test_torch_reciprocal.py)."""
     rest = layout.rest
-    return [(rest.row + s.row, rest.row + s.row + s.rows)
+    used = rest.row + rest.rows
+    outer = (len(layout.stacks)
+             + (_concat_operands(rest.leaves, rest.rows) if rest.rows else 0)
+             + (layout.rows > used))
+    if outer > _XLA_FUSED_CONCAT_OPERANDS:
+        return []
+    out = []
+    for st in layout.stacks:
+        if _concat_operands(st.leaves, st.layer_rows) \
+                > _XLA_FUSED_CONCAT_OPERANDS:
+            continue
+        for j in range(st.n_layers):
+            base = st.row + j * st.layer_rows
+            out += [(base + s.row, base + s.row + s.rows)
+                    for s in st.leaves if s.size % arena_mod.LANES]
+    out += [(rest.row + s.row, rest.row + s.row + s.rows)
             for s in rest.leaves if s.size % arena_mod.LANES]
+    return out
 
 
 def scale_leaves(g, r):

@@ -42,6 +42,8 @@ m and v do not fit one 80 GB card):
       --micro-batch 1 --runs ckpt layerwise
   PYTHONPATH=src python -m repro_torch.launch.memory_split \
       --arch minicpm3-4b --num-layers 24 --seq-len 1024 --micro-batch 2
+  PYTHONPATH=src python -m repro_torch.launch.memory_split \
+      --arch hymba-1.5b --num-layers 8 --seq-len 2048 --micro-batch 1
 """
 from __future__ import annotations
 

@@ -21,9 +21,22 @@ card with their fp32 params, m and v; chip_smoke.py trains it at 4):
   PYTHONPATH=src python -m repro_torch.launch.profile_step \
       --arch minicpm3-4b --num-layers 24 --seq-len 1024 --global-batch 16 \
       --micro-batches 8
+  PYTHONPATH=src python -m repro_torch.launch.profile_step \
+      --arch hymba-1.5b --num-layers 8 --seq-len 2048 --global-batch 8 \
+      --micro-batches 8 --remat
 
 `--remat` profiles the step under RunConfig(remat=True): ga and adama
 checkpoint each layer (adama_layerwise already recomputes every layer).
+
+The profile also records each operator's input shapes and splits the
+device time the operators launched (their self device time, forward and
+backward) into classes: "ssm" (any input of the Mamba heads' fp32 (...,
+d_inner, d_state) shape or its broadcast (..., d_inner, 1) and (..., 1,
+d_state) operands: the discretization, the selective scan and its
+readout), "attention" (any input of shape (..., heads, S, x): the fp32
+scores, softmax and products of the blockwise attention), "gemm" (the
+other matrix products) and "other"; "unattributed" is device time no
+operator launched (the port's own CUDA kernels).
 """
 from __future__ import annotations
 
@@ -46,6 +59,38 @@ def _device_us(evt) -> float:
         if hasattr(evt, name):
             return float(getattr(evt, name))
     return 0.0
+
+
+GEMM_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")
+
+
+def shape_class(name, shapes, cfg, seq_len):
+    """The class of an operator with these input shapes."""
+    shapes = [tuple(x) for x in shapes if isinstance(x, (list, tuple))]
+    if cfg.arch_type == "hybrid":
+        di, n = cfg.ssm.expand * cfg.d_model, cfg.ssm.d_state
+        # (di, N) and the broadcast (..., di, 1) and (..., 1, N) operands
+        if any(x[-2:] == (di, n) or (len(x) >= 3 and x[-2:] in ((di, 1),
+                                                                (1, n)))
+               for x in shapes if len(x) >= 2):
+            return "ssm"
+    heads = {cfg.n_heads, cfg.n_kv_heads}
+    if any(len(x) >= 3 and x[-3] in heads and x[-2] == seq_len
+           for x in shapes):
+        return "attention"
+    return "gemm" if name in GEMM_OPS else "other"
+
+
+def by_shape(prof, cfg, seq_len):
+    """Self device ms of the profiled operators by `shape_class`."""
+    out = {}
+    for e in prof.key_averages(group_by_input_shape=True):
+        us = _device_us(e)
+        if us <= 0 or str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        cls = shape_class(e.key, e.input_shapes or [], cfg, seq_len)
+        out[cls] = out.get(cls, 0.0) + us / 1e3
+    return out
 
 
 def main(argv=None):
@@ -80,7 +125,8 @@ def main(argv=None):
                     seq_len=args.seq_len, global_batch=args.global_batch,
                     seed=args.seed, steps=2, log_every=1,
                     remat=args.remat)
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   record_shapes=True)
     out = train(run, device="cuda",
                 step_context=lambda i: (prof if i == 1
                                         else contextlib.nullcontext()))
@@ -90,6 +136,8 @@ def main(argv=None):
                and str(getattr(e, "device_type", "")).endswith("CUDA")]
     busy_us = sum(_device_us(e) for e in kernels)
     kernels.sort(key=_device_us, reverse=True)
+    split = by_shape(prof, cfg, args.seq_len)
+    split["unattributed"] = busy_us / 1e3 - sum(split.values())
     print(json.dumps({
         "arch": cfg.name, "num_layers": cfg.num_layers,
         "accumulation": args.accumulation,
@@ -102,7 +150,8 @@ def main(argv=None):
         "idle_share": 1.0 - busy_us / 1e6 / wall,
         "top_kernels": [{"name": e.key[:120], "launches": e.count,
                          "ms": _device_us(e) / 1e3}
-                        for e in kernels[:args.top]]}))
+                        for e in kernels[:args.top]],
+        "by_shape_ms": split}))
 
 
 if __name__ == "__main__":

@@ -51,6 +51,12 @@
       --global-batch 16 --micro-batches 8 --seq-len 1024 \
       --accumulation adama_layerwise
 
+  # the hybrid family: hymba-1.5b (attention and Mamba heads side by side)
+  # at 8 of its 32 layers, at seq 2048 (past its 1024-token window)
+  PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \
+      --num-layers 8 --steps 2 --global-batch 8 --micro-batches 8 \
+      --seq-len 2048 --accumulation adama_layerwise
+
   # saves every step; run again with more --steps to resume
   # ("[train] restored step 2")
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \

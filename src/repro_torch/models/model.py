@@ -1,6 +1,7 @@
-"""Model assembly for the dense (gqa, swa and mla attention), encoder, MoE
-and rwkv6 (ssm) families: parameter init, the training forward pass and the
-loss (`repro/models/model.py`).
+"""Model assembly for the dense (gqa, swa and mla attention), encoder, MoE,
+rwkv6 (ssm) and hybrid (attention and Mamba heads side by side) families:
+parameter init, the training forward pass and the loss
+(`repro/models/model.py`).
 
 Param tree layout, the reference's key for key:
   {"embed": (V_pad, D), "lm_head": (D, V_pad),
@@ -118,9 +119,39 @@ def _moe_params(cfg, gen, lead):
     return p
 
 
+def _mamba_params(cfg, gen, lead):
+    """The Mamba heads' leaves: the in-projection to x and z (D, 2 d_inner),
+    the depthwise conv (d_conv, d_inner) and its bias, the low-rank dt
+    projection (rank D // 16) and its bias (softplus^-1(0.01)), the B and C
+    projections (d_inner, N), A_log = log(1..N) for every channel, the skip
+    D and the out-projection."""
+    d, sc = cfg.d_model, cfg.ssm
+    di, n = sc.expand * d, sc.d_state
+    dt_rank = max(1, d // 16)
+    dev = gen.device
+
+    def full(shape, value):
+        return torch.full(lead + shape, value, dtype=torch.float32,
+                          device=dev)
+    a = torch.arange(1, n + 1, dtype=torch.float32, device=dev)
+    return {"w_in": _dense(gen, lead + (d, 2 * di)),
+            "conv_w": _dense(gen, lead + (sc.d_conv, di), 0.2),
+            "conv_b": full((di,), 0.0),
+            "w_dt_a": _dense(gen, lead + (di, dt_rank)),
+            "w_dt_b": _dense(gen, lead + (dt_rank, di)),
+            "dt_bias": full((di,), -4.6),
+            "w_B": _dense(gen, lead + (di, n)),
+            "w_C": _dense(gen, lead + (di, n)),
+            "A_log": torch.log(a).expand(lead + (di, n)).clone(),
+            "D_skip": full((di,), 1.0),
+            "w_out": _dense(gen, lead + (di, d),
+                            0.02 / math.sqrt(2 * cfg.num_layers))}
+
+
 def _block_params(cfg, gen, n_layers, kind="dense"):
-    """A dense or MoE block's params for all layers at once (leading L
-    axis)."""
+    """A dense, MoE or hybrid block's params for all layers at once
+    (leading L axis); a hybrid block adds the Mamba heads' leaves and the
+    two fuse norms to a dense one's."""
     lead = (n_layers,)
     p = {}
     for prefix in ("attn_norm_", "mlp_norm_"):
@@ -129,6 +160,11 @@ def _block_params(cfg, gen, n_layers, kind="dense"):
     p.update(_attn_params(cfg, gen, lead))
     p.update(_moe_params(cfg, gen, lead) if kind == "moe"
              else _mlp_params(cfg, gen, lead))
+    if kind == "hybrid":
+        p.update(_mamba_params(cfg, gen, lead))
+        for name in ("fuse_norm_a", "fuse_norm_m"):
+            p[name] = torch.ones(lead + (cfg.d_model,), dtype=torch.float32,
+                                 device=gen.device)
     return p
 
 
@@ -166,7 +202,7 @@ def _rwkv_block_params(cfg, gen, n_layers):
 def main_stack_kind(cfg) -> str:
     """The block kind of the main stack, as the reference names it."""
     return {"dense": "dense", "encoder": "dense", "moe": "moe",
-            "ssm": "rwkv"}[cfg.arch_type]
+            "ssm": "rwkv", "hybrid": "hybrid"}[cfg.arch_type]
 
 
 def n_main_layers(cfg) -> int:
@@ -188,13 +224,14 @@ def _check_family(cfg: ModelConfig):
     if not ((cfg.arch_type in ("dense", "encoder") and cfg.attention == "gqa")
             or (cfg.arch_type == "dense" and cfg.attention in ("swa", "mla"))
             or (cfg.arch_type == "moe" and cfg.attention == "mla")
-            or (cfg.arch_type == "ssm" and cfg.attention == "none")):
+            or (cfg.arch_type == "ssm" and cfg.attention == "none")
+            or (cfg.arch_type == "hybrid" and cfg.attention == "swa")):
         raise NotImplementedError(
             f"{cfg.name}: arch_type={cfg.arch_type!r} attention="
             f"{cfg.attention!r} is not ported yet (ROADMAP queue 1, item 9: "
             f"other model families); this port runs dense and encoder gqa "
-            f"models, dense swa and mla models, mla MoE models and the "
-            f"rwkv6 (ssm) family")
+            f"models, dense swa and mla models, mla MoE models, the "
+            f"rwkv6 (ssm) family and swa hybrid models")
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
@@ -259,10 +296,12 @@ class Model(nn.Module):
 
 def apply_block(cfg, p, x, positions, *, kind, causal=True):
     """One block on (B, S, D), of `kind`: a dense transformer block, an MoE
-    one (its FFN routed, `moe_ffn`), or an RWKV-6 block (time-mix, then
-    channel-mix, each from a zero token-shift carry and, for the time-mix,
-    a zero fp32 state). Returns (x, aux loss): the MoE FFN's load-balance
-    loss, a zero fp32 scalar for the other kinds."""
+    one (its FFN routed, `moe_ffn`), a hybrid one (attention and the Mamba
+    heads on the same normed input, each output rms-normed, their mean
+    added), or an RWKV-6 block (time-mix, then channel-mix, each from a
+    zero token-shift carry and, for the time-mix, a zero fp32 state).
+    Returns (x, aux loss): the MoE FFN's load-balance loss, a zero fp32
+    scalar for the other kinds."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "rwkv":
         b, _, d = x.shape
@@ -278,7 +317,12 @@ def apply_block(cfg, p, x, positions, *, kind, causal=True):
         return x + y, aux
     a_in = md.apply_norm(cfg, p, x, "attn_norm_")
     attn = md.mla_attention if cfg.attention == "mla" else md.gqa_attention
-    x = x + attn(cfg, p, a_in, positions, causal=causal)
+    attn = attn(cfg, p, a_in, positions, causal=causal)
+    if kind == "hybrid":
+        mam, _, _ = md.mamba_mix(cfg, p, a_in)
+        attn = 0.5 * (md.rmsnorm(attn, p["fuse_norm_a"]) +
+                      md.rmsnorm(mam, p["fuse_norm_m"]))
+    x = x + attn
     m_in = md.apply_norm(cfg, p, x, "mlp_norm_")
     if kind == "moe":
         y, aux = md.moe_ffn(cfg, p, m_in)

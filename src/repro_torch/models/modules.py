@@ -1,23 +1,26 @@
-"""Model building blocks (dense, encoder, MoE and rwkv6 families; the dense
-decoder's gqa, sliding-window (swa) and multi-head latent (mla) attention;
-the routed experts' FFN, `moe_ffn`),
-plain functions on tensors with the reference's layouts and operation order
-(`repro/models/modules.py`).
+"""Model building blocks (dense, encoder, MoE, rwkv6 and hybrid families;
+the dense decoder's gqa, sliding-window (swa) and multi-head latent (mla)
+attention; the routed experts' FFN, `moe_ffn`; the hybrid block's Mamba
+heads, `mamba_mix`), plain functions on tensors with the reference's
+layouts and operation order (`repro/models/modules.py`).
 
 Params are dicts of tensors. Attention is the blockwise online-softmax
 formulation over 1024-key blocks in plain torch (einsum), as the reference
 leaves it to XLA; it never calls a fused attention operator. The RWKV-6
 time-mix runs its chunked recurrence through the scan kernel
-(`kernels/rwkv6_chunk.py`).
+(`kernels/rwkv6_chunk.py`). The Mamba heads' selective scan is plain torch,
+as the reference's is jnp (`lax.associative_scan`, no Pallas kernel).
 """
 from __future__ import annotations
 
 import functools
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.adama_accum import _fma32
 from repro_torch.kernels.rwkv6_chunk import rwkv6_chunk_scan
 
 NORM_EPS = 1e-6
@@ -65,8 +68,16 @@ def act_fn(name):
 
 
 def rope_freqs(head_dim, theta, device=None):
-    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
-                                         device=device) / head_dim))
+    """1 / theta ** (2i / head_dim) in float32, as XLA computes the
+    reference's: the exponent in float32, the power formed in float64 and
+    rounded once (XLA's float32 pow is the correctly rounded one; torch's
+    float32 pow is not, on the CPU or the card), the reciprocal in
+    float32."""
+    e = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                     device=device) / head_dim
+    # theta as the reference's float32 holds it, a host scalar (a device
+    # tensor made from it would wait for the card)
+    return 1.0 / torch.pow(float(np.float32(theta)), e.double()).float()
 
 
 def apply_rope(x, positions, theta=10000.0):
@@ -464,3 +475,124 @@ def rwkv6_channelmix(p, x, prev_x):
     k = torch.square(F.relu(xk @ p["w_ck"].to(x.dtype)))
     r = torch.sigmoid(xr @ p["w_cr"].to(x.dtype))
     return r * (k @ p["w_cv"].to(x.dtype)), x[:, -1]
+
+
+# ---------------------------------------------------------------------------
+# Mamba / S6 selective SSM (the hybrid block's SSM heads), training form
+# ---------------------------------------------------------------------------
+
+SERVING = ("ROADMAP queue 1, item 11 (serving): the decode form with conv "
+           "and ssm states")
+
+
+class _Fma(torch.autograd.Function):
+    """a * b + c in one rounding, as XLA CPU contracts it: fp32 on the CPU
+    formed exactly (`_fma32`); on CUDA (nvcc contracts it) and in other
+    dtypes `addcmul`."""
+
+    @staticmethod
+    def forward(ctx, a, b, c):
+        ctx.save_for_backward(a, b)
+        if c.is_cuda or c.dtype != torch.float32:
+            return torch.addcmul(c, a, b)
+        return _fma32(a, b, c)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        return g * b, g * a, g
+
+
+def _causal_conv(x, w):
+    """Depthwise causal conv over time. x: (B, S, C), w: (K, C). Returns
+    (out (B, S, C), the last K - 1 inputs (B, K - 1, C)): x padded with K -
+    1 zero steps on the left, out = the sum over i of xp[:, i:i+S] * w[i],
+    the reference's terms in its order, contracted as XLA CPU contracts
+    them: fma(xp_0, w_0, xp_1 w_1), then fma(xp_i, w_i, acc) for i >= 2
+    (K >= 2)."""
+    k, s = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, k - 1, 0))
+
+    def term(i):
+        return xp[:, i:i + s], w[i].to(x.dtype).expand(x.shape)
+    out = _Fma.apply(*term(0), torch.mul(*term(1)))
+    for i in range(2, k):
+        out = _Fma.apply(*term(i), out)
+    return out, xp[:, -(k - 1):]
+
+
+def _take(x, dim, start, stop=None, step=1):
+    return x[(slice(None),) * dim + (slice(start, stop, step),)]
+
+
+def _interleave(a, b, dim):
+    """a[0], b[0], a[1], b[1], ... along dim; a is as long as b or one
+    longer."""
+    m = b.shape[dim]
+    out = torch.stack([_take(a, dim, 0, m), b], dim + 1).flatten(dim, dim + 1)
+    return torch.cat([out, _take(a, dim, m)], dim) if a.shape[dim] > m \
+        else out
+
+
+def associative_scan(fn, elems, dim):
+    """Inclusive scan of the list of tensors `elems` along `dim` under the
+    associative `fn(earlier, later)` (each a list like `elems`), by the
+    odd/even recursion `lax.associative_scan` runs, so every element comes
+    out of the same tree of combinations: combine adjacent pairs, scan those
+    recursively (the odd outputs), combine each with the next even input
+    (the even outputs), put the first input in front and interleave. The
+    levels hold about twice the input's size in all."""
+    elems = list(elems)
+    n = elems[0].shape[dim]
+    if n < 2:
+        return elems
+    odd = associative_scan(fn, fn([_take(e, dim, 0, -1, 2) for e in elems],
+                                  [_take(e, dim, 1, None, 2) for e in elems]),
+                           dim)
+    nxt = [_take(e, dim, 2, None, 2) for e in elems]
+    even = fn([_take(e, dim, 0, -1) for e in odd] if n % 2 == 0 else odd, nxt)
+    even = [torch.cat([_take(e, dim, 0, 1), r], dim)
+            for e, r in zip(elems, even)]
+    return [_interleave(a, b, dim) for a, b in zip(even, odd)]
+
+
+def ssm_combine(e1, e2):
+    """The linear recurrence's combine, (a1, b1) then (a2, b2): (a1 a2,
+    a2 b1 + b2)."""
+    (a1, b1), (a2, b2) = e1, e2
+    return [a1 * a2, _Fma.apply(a2, b1, b2)]
+
+
+def mamba_mix(cfg, p, x, conv_state=None, ssm_state=None):
+    """Selective SSM, training form. x: (B, S, D). Returns (y, conv_state,
+    ssm_state): the last d_conv - 1 conv inputs and the fp32 state after
+    the last step. Products run in x's dtype; the discretization (abar =
+    exp(dt a), dt B x) and the scan h_t = abar_t h_{t-1} + (dt B x)_t run
+    in fp32 over (B, S, d_inner, d_state), the scan from a zero state."""
+    b, s, d = x.shape
+    if conv_state is not None or ssm_state is not None or s == 1:
+        raise NotImplementedError(f"mamba_mix: {SERVING}")
+    di = cfg.ssm.expand * d
+    dt = x.dtype
+    xz = x @ p["w_in"].to(dt)                               # (B,S,2*di)
+    xi, z = xz[..., :di], xz[..., di:]
+    xi, conv_state = _causal_conv(xi, p["conv_w"])
+    xi = F.silu(xi + p["conv_b"].to(dt))
+    # jax.nn.softplus is logaddexp(x, 0)
+    delta = torch.logaddexp((xi @ p["w_dt_a"].to(dt)) @ p["w_dt_b"].to(dt)
+                            + p["dt_bias"].to(dt), x.new_zeros(()))
+    bmat = xi @ p["w_B"].to(dt)                             # (B,S,N)
+    cmat = xi @ p["w_C"].to(dt)                             # (B,S,N)
+    a = -torch.exp(p["A_log"].float())                      # (di,N)
+    dt32 = delta.float()
+    abar = torch.exp(dt32[..., None] * a)                   # (B,S,di,N)
+    bx = dt32[..., None] * bmat[:, :, None, :].float() * \
+        xi[..., None].float()                               # (B,S,di,N)
+    a_in = torch.cat([abar.new_ones((b, 1) + abar.shape[2:]), abar], 1)
+    b_in = torch.cat([bx.new_zeros((b, 1) + bx.shape[2:]), bx], 1)
+    _, hh = associative_scan(ssm_combine, (a_in, b_in), 1)
+    h = hh[:, 1:]
+    y = torch.einsum("bsdn,bsn->bsd", h, cmat.float())
+    y = y.to(dt) + xi * p["D_skip"].to(dt)
+    y = y * F.silu(z)
+    return y @ p["w_out"].to(dt), conv_state, h[:, -1]

@@ -17,7 +17,8 @@ torch.set_num_threads(1)
 # "+qlora": minicpm3 with a q low-rank projection (wq_a, q_norm, wq_b), which
 # the reference's reduced config drops
 ARCHS = ("bert_large", "stablelm_1_6b", "rwkv6_7b", "mistral_nemo_12b",
-         "minicpm3_4b", "minicpm3_4b+qlora")
+         "minicpm3_4b", "minicpm3_4b+qlora", "deepseek_v2_lite_16b",
+         "hymba_1_5b")
 
 
 def _rand(rng, shape):

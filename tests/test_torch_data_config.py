@@ -83,7 +83,25 @@ def test_bert_large_is_the_papers_workload():
     assert (cfg.arch_type, cfg.norm, cfg.act, cfg.pos_emb) == \
         ("encoder", "layernorm", "gelu", "sinusoidal")
     with pytest.raises(KeyError):
-        get_config("hymba_1_5b")                 # a family not ported yet
+        get_config("whisper_base")               # a family not ported yet
+
+
+def test_hybrid_config_is_the_published_one():
+    """hymba-1.5b (arXiv:2411.13676): 32 layers, d_model 1600, 25 heads
+    on 5 kv heads of 64, d_ff 5504, vocab 32001 (32128 padded), swa with
+    window 1024, Mamba heads of state 16, conv 4, expansion 2 (d_inner
+    3200, dt rank 100). Reduced: window 64, d_inner 512."""
+    cfg = get_config("hymba-1.5b")
+    assert (cfg.arch_type, cfg.num_layers, cfg.d_model, cfg.n_heads,
+            cfg.n_kv_heads, cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size,
+            cfg.padded_vocab(), cfg.attention, cfg.window,
+            cfg.max_seq_len) == ("hybrid", 32, 1600, 25, 5, 64, 5504, 32001,
+                                 32128, "swa", 1024, 8192)
+    sc = cfg.ssm
+    assert (sc.d_state, sc.d_conv, sc.expand, sc.expand * cfg.d_model,
+            max(1, cfg.d_model // 16)) == (16, 4, 2, 3200, 100)
+    red = cfg.reduced()
+    assert (red.window, red.ssm.expand * red.d_model) == (64, 512)
 
 
 def test_optimizer_config_defaults_match_reference():

@@ -5,8 +5,8 @@ models: losses, params and the m/v arenas, and one fold per micro-batch
 (one per step for ga) and one apply per step; with activation
 checkpointing too (the reference's `remat=True` against the port's). The
 swa (mistral-nemo) and mla (minicpm3) families run adama here, the MoE
-family (deepseek-v2-lite) adama and ga, and all three adama_layerwise in
-test_torch_layerwise.py."""
+(deepseek-v2-lite) and hybrid (hymba) families adama and ga, and all
+three adama_layerwise in test_torch_layerwise.py."""
 import dataclasses
 import functools
 
@@ -63,11 +63,14 @@ CASES = {
     "adama-minicpm3": ("minicpm3_4b", "adama", None, None),
     "adama-deepseek": ("deepseek_v2_lite_16b", "adama", None, None),
     "ga-deepseek-cosine": ("deepseek_v2_lite_16b", "ga", "cosine", None),
+    "adama-hymba": ("hymba_1_5b", "adama", None, None),
+    "ga-hymba-cosine": ("hymba_1_5b", "ga", "cosine", None),
 }
-# the swa, mla and MoE families run all steps once, without remat (the
-# remat cases hold the layer loop, which they share with the gqa models)
+# the swa, mla, MoE and hybrid families run all steps once, without remat
+# (the remat cases hold the layer loop, which they share with the gqa
+# models)
 FAMILY_CASES = ("adama-mistral-nemo", "adama-minicpm3", "adama-deepseek",
-                "ga-deepseek-cosine")
+                "ga-deepseek-cosine", "adama-hymba", "ga-hymba-cosine")
 
 
 def _schedules(kind):

@@ -222,8 +222,9 @@ LAYERWISE_RUNS = [
     for remat in (False, True) for arch in ARCHS for arena in (True, False)
 ] + [pytest.param(arch, True, False, id=f"{arch}-arena")
      for arch in ("mistral_nemo_12b", "minicpm3_4b")] + [
-    pytest.param("deepseek_v2_lite_16b", arena, False, id=(
-        "deepseek_v2_lite_16b-" + ("arena" if arena else "per_leaf")))
+    pytest.param(arch, arena, False, id=(
+        f"{arch}-" + ("arena" if arena else "per_leaf")))
+    for arch in ("deepseek_v2_lite_16b", "hymba_1_5b")
     for arena in (True, False)]
 
 

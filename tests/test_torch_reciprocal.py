@@ -1,12 +1,14 @@
 """Division by the micro-batch count N in the port's engines against the
 reference's jitted expressions, at N = 3 where f32(1/N) is inexact: XLA
 CPU rewrites `x / n` by a constant as x * f32(1/N), and contracts ga's
-`acc + pack(g) / n` into one fused multiply-add except on the rest
-region's zero-padded leaves (core/accumulation.py `uncontracted_rows`).
-ga's accumulator and per-leaf adama's scaled gradient are held bit for
-bit; the ga and per-leaf adama engines at N = 3 within the Fp32Codec's
-engine tolerance. (Every other parity test runs N = 2, where 1/N is
-exact.)"""
+`acc + pack(g) / n` into one fused multiply-add except on the zero-padded
+leaves whose pad it fuses into the sum's loop (core/accumulation.py
+`uncontracted_rows`). ga's accumulator, on every reduced model, a narrow
+deepseek whose only padded stacked leaf is kv_norm, and synthetic trees
+around XLA's fusion limit, and per-leaf adama's scaled gradient are held
+bit for bit; the ga and per-leaf adama engines at N = 3 within the
+Fp32Codec's engine tolerance. (Every other parity test runs N = 2, where
+1/N is exact.)"""
 import dataclasses
 import functools
 
@@ -33,14 +35,65 @@ torch.set_num_threads(1)
 
 ENGINE_TOL = 5e-6        # Fp32Codec's declared engine tolerance
 # "+qlora": minicpm3 with its q low-rank projection, which the reduced
-# config drops
+# config drops; "+narrow": deepseek at d_model 1024 and kv_lora_rank 512,
+# where kv_norm is the only padded leaf of each stacked region, as at full
+# width
+VARIANTS = {"qlora": dict(q_lora_rank=96),
+            "narrow": dict(d_model=1024, kv_lora_rank=512)}
 ARCHS = ("bert_large", "stablelm_1_6b", "rwkv6_7b", "mistral_nemo_12b",
-         "minicpm3_4b", "minicpm3_4b+qlora")
+         "minicpm3_4b", "minicpm3_4b+qlora", "deepseek_v2_lite_16b",
+         "deepseek_v2_lite_16b+narrow", "hymba_1_5b")
+
+
+def _f32(*shape):
+    return np.zeros(shape, np.float32)
+
+
+# synthetic trees around XLA CPU's fusion limit (a concatenate of at most 8
+# operands is fused into the sum's loop), with the number of leaf ranges
+# `uncontracted_rows` names in each
+TREES = {
+    # one padded stacked leaf: its region's pack is fused, so its rows
+    # are not contracted, as the rest region's padded leaf's are not
+    "stack-one-padded": ({"blocks": {"n": _f32(2, 512), "w": _f32(2, 2048)},
+                          "embed": _f32(8, 1024),
+                          "final_norm_scale": _f32(600)}, 3),
+    # deepseek's shape: one padded leaf in each of two stacked regions
+    "two-stacks-one-padded-each": (
+        {"blocks": {"n": _f32(3, 512), "w": _f32(3, 2048)},
+         "dense_blocks": {"n": _f32(1, 512), "w": _f32(1, 1024)},
+         "embed": _f32(8, 1024), "final_norm_scale": _f32(1024)}, 4),
+    # padded leaves of several rows, stacked and in the rest region
+    "multi-row-padded": ({"blocks": {"a": _f32(2, 3 * 1024 + 512),
+                                     "b": _f32(2, 1024)},
+                          "embed": _f32(8, 1024),
+                          "final_norm_scale": _f32(2048 + 100)}, 3),
+    # 8 stacked leaves and the region's zero rows: 9 operands, not fused
+    "stack-nine-operands": ({"blocks": dict(
+        {f"w{i}": _f32(2, 1024) for i in range(7)}, n=_f32(2, 512)),
+        "embed": _f32(8, 1024), "final_norm_scale": _f32(600)}, 1),
+    # the arena's own concatenate at 9 operands: nothing is fused
+    "arena-nine-operands": ({"blocks": {"n": _f32(2, 512)},
+                             **{f"r{i}": _f32(1024) for i in range(6)},
+                             "final_norm_scale": _f32(600)}, 0),
+    # ... and at 8, with the tail's zero rows among them: fused
+    "arena-eight-with-tail": (
+        {"blocks": {"a": _f32(2, 100 * 1024), "n": _f32(2, 512)},
+         **{f"r{i}": _f32(1024) for i in range(4)},
+         "final_norm_scale": _f32(600)}, 3),
+}
 
 
 def _jcfg(arch):
     arch, _, variant = arch.partition("+")
-    return tiny(arch, **({"q_lora_rank": 96} if variant else {}))
+    return tiny(arch, **VARIANTS.get(variant, {}))
+
+
+def _tree(arch):
+    if arch in TREES:
+        return TREES[arch][0]
+    return jax.tree.map(np.asarray,
+                        jmodel.init_params(_jcfg(arch), jax.random.key(0)))
 
 
 def _grads_like(tree, seed):
@@ -55,14 +108,13 @@ def _torch_tree(tree):
                                  [torch.from_numpy(x.copy()) for x in leaves])
 
 
-@pytest.mark.parametrize("arch, n", [(a, 3) for a in ARCHS]
+@pytest.mark.parametrize("arch, n", [(a, 3) for a in ARCHS + tuple(TREES)]
                          + [("stablelm_1_6b", 2), ("stablelm_1_6b", 7)])
 def test_ga_accumulate_is_the_reference_expression_bit_for_bit(arch, n):
     """One micro-batch's `acc + pack(g) / n` (src/repro/core/accumulation.py
-    :177), jitted, on the reduced model's tree, against the port's
-    _ga_accumulate on the same acc and g: every element equal."""
-    params = jax.tree.map(np.asarray,
-                          jmodel.init_params(_jcfg(arch), jax.random.key(0)))
+    :177), jitted, on the reduced model's tree (or a synthetic one), against
+    the port's _ga_accumulate on the same acc and g: every element equal."""
+    params = _tree(arch)
     layout = jarena.build_layout(params)
     g = _grads_like(params, n)
     acc = np.random.default_rng(1).standard_normal(
@@ -75,10 +127,24 @@ def test_ga_accumulate_is_the_reference_expression_bit_for_bit(arch, n):
     tacc._ga_accumulate(got, tarena.pack(_torch_tree(g), tlayout),
                         tacc.inv_n(n, "cpu"), tacc.uncontracted_rows(tlayout))
     assert np.array_equal(got.numpy(), want)
-    # the reference's padded rest leaves are the rows it does not contract
-    # (a single rounding there differs from its two on some elements)
     rows = tacc.uncontracted_rows(tlayout)
-    assert rows and all(hi - lo == 1 for lo, hi in rows)
+    if arch in TREES:
+        assert len(rows) == TREES[arch][1]
+    elif arch.endswith("+narrow"):
+        # kv_norm's pads run in fusions of their own; no rest leaf is padded
+        assert rows == []
+    else:
+        # the padded final norm's rows: the rest region's pack is fused
+        assert rows and all(hi - lo == 1 for lo, hi in rows)
+    if not n & (n - 1):
+        return                                 # f32(1/N) exact: one form
+    # on each of those rows the single rounding differs from the two
+    # somewhere, so the rule is needed, not merely harmless
+    r = tacc.inv_n(n, "cpu")
+    slab = tarena.pack(_torch_tree(g), tlayout)
+    fma = tacc._fma32(slab, r, torch.from_numpy(acc))
+    for lo, hi in rows:
+        assert not torch.equal(fma[lo:hi], torch.from_numpy(want[lo:hi].copy()))
 
 
 def test_per_leaf_scaled_gradient_is_the_reference_expression_bit_for_bit():
