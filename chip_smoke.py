@@ -121,8 +121,12 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    the reference's XLA CPU computes it: a fused multiply-add by f32(1/3),
    two roundings on the padded leaves whose pad XLA fuses into the sum,
    `uncontracted_rows`) on the card against the CPU, bit for bit, on the
-   arena layouts of the reduced models and of a deepseek-v2-lite-16b at
-   d_model 1024 whose only padded stacked leaf is kv_norm. Then
+   arena layouts of the reduced models (reduced whisper-base and
+   internvl2-26b too), of a deepseek-v2-lite-16b at d_model 1024 whose
+   only padded stacked leaf is kv_norm and of a whisper-base at its own
+   widths with one layer a stack (its two stacked regions and six rest
+   leaves, four of them half-row norms, past XLA CPU's fusion limit of 8
+   concatenate operands: no row uncontracted). Then
    rope_freqs on the card against the CPU, bit for bit, at head_dim 64
    and 128 and theta 1e4 and 1e6 (how many frequencies torch's float32
    pow on the card would give otherwise is logged). Then the hybrid
@@ -142,8 +146,11 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    (mla, with a q low-rank projection) at seq 128 and reduced
    deepseek-v2-lite-16b (MoE, 3 layers: 2 MoE, 1 dense) at seq 32 and
    reduced hymba-1.5b (hybrid) at seq 128 for adama, adama_layerwise and
-   ga at 3 micro-batches: every param within 2e-5, or within the codecs'
-   declared drift for at most 15% of them.
+   ga at 3 micro-batches, and reduced whisper-base (enc-dec: one encoder
+   and one decoder layer over 64 frames) and internvl2-26b (vlm: 16
+   patches before the text) at seq 32, adama, adama_layerwise and ga,
+   all three at 3 micro-batches: every param within 2e-5, or within the
+   codecs' declared drift for at most 15% of them.
 5. The main paths: bert-large at full width and depth, bf16 compute, fp32
    params and state, seq 128, global batch 256, 8 micro-batches: 5 steps of
    `adama`, of the `ga` baseline and of `adama_layerwise` (Algorithm 2,
@@ -208,7 +215,9 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    window 4096, rope theta 1e6) at full width with its depth cut from 40
    to 2 layers, seq 8192 (past the window) in 8 micro-batches of 1: `ga`
    and `adama` with remat and `adama_layerwise`, 2 steps each: finite
-   losses, step-1 losses within 10% of ln(V_pad) and within 1e-4 of each
+   losses, step-1 losses within 10% of ln(V_pad) + d_model x 0.02^2 / 2
+   (`first_step_loss`: the cross entropy of the init's logits) and within
+   1e-4 of each
    other, the launches per step, ga + remat at least one fp32 arena and
    at most that arena as allocated + 2 MiB above adama + remat (in the
    bytes their tensors request at the peak, beside the allocated peaks),
@@ -243,6 +252,24 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    layers, seq 2048 (past the window) in 8 micro-batches of 1: `ga` and
    `adama` with remat and `adama_layerwise`, 2 steps each, held to
    mistral-nemo-12b's claims (and its window check).
+   Then whisper-base (enc-dec: 6 encoder and 6 decoder layers, d_model
+   512, 8 heads of 64, d_ff 2048, vocab 51865 padded to 51968, 1500 stub
+   frames) at full size, its decoder at its published context of 448,
+   global batch 16 (cut from 256) in 8 micro-batches of 2: `adama`, `ga`
+   and `adama_layerwise` (Algorithm 2's enc-dec form: 8 x (6 decoder + 6
+   encoder + 1 rest) = 104 slice folds a step), 3 steps each, held to
+   bert-large's claims (ga at least one fp32 arena above adama, Algorithm
+   2 at least two below it, equal step-1 losses, launches per step), then
+   rows 1-3 at its arena as at the MoE arch's (a decoder layer's, an
+   encoder layer's and the rest's slices). Last, internvl2-26b (vlm:
+   48 heads on 8 kv heads of 128, d_ff 16384 gated, vocab 92553 padded
+   to 92672) at full width with its depth cut from 48 to 4 layers, 1024
+   text tokens (cut from 32,768) after its 256 stub patches, in 8
+   micro-batches of 1: `ga` and `adama` with remat and `adama_layerwise`,
+   2 steps each, held to mistral-nemo-12b's claims, Algorithm 2 at least
+   the fp32 gradient below adama + remat (MAIN's layerwise_gap, as
+   deepseek's), then rows 1-3 at its arena (2.70e9 elements: a layer's
+   and the rest's slices).
 
 6. Activation checkpointing (RunConfig.remat: each layer under
    torch.utils.checkpoint, recomputed in the backward), each path with
@@ -255,7 +282,8 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    max_seq_len 4096 (the cut to 1024 lifted) with its depth cut to 16 of
    24 layers, global batch 16, 8
    micro-batches: `ga` and `adama` with remat and `adama_layerwise`, 2
-   steps each: finite losses, each step-1 loss within 10% of ln(V_pad) and
+   steps each: finite losses, each step-1 loss within 10% of
+   `first_step_loss` and
    the three within 1e-4 relative. ga + remat peaks at least one fp32
    arena (of the path's own arena), and at most that arena as allocated +
    2 MiB, above adama + remat on bert-large and on stablelm-1.6b (in the
@@ -383,7 +411,36 @@ MAIN = {"bert_large": dict(seq_len=128, global_batch=256, micro_batches=8,
                            arena_rows=481_536,
                            reduced={"num_layers": [32, 8],
                                     "seq_len": [8192, 2048],
-                                    "global_batch": [256, 8]})}
+                                    "global_batch": [256, 8]}),
+        # enc-dec at full size: 6 encoder and 6 decoder layers over 1500
+        # stub frames, the decoder at its published context of 448; only
+        # the batch cut (256 -> 16, 8 micro-batches of 2, for the script's
+        # time: at 64 a run on a slow host came to ~1,165 s). 6 x 4,160
+        # decoder block rows + 6 x 3,136 encoder block rows + 52,032 rest
+        # (embed and lm_head 25,984 each, the encoder's and the final
+        # norms' four leaves 1 row each, aligned) = 95,808 -> 96,000
+        "whisper_base": dict(seq_len=448, global_batch=16, micro_batches=8,
+                             seed=0, arena_rows=96_000,
+                             reduced={"global_batch": [256, 16]}),
+        # vlm at full width: 4 of 48 layers (ga + remat peaks at 64.9 GB,
+        # six arenas of 10.8 GB); 1024 text tokens after the 256 stub
+        # patches; ga and adama with remat, as mistral-nemo's. 4 x 380,992
+        # block rows + 1,112,128 rest (embed and lm_head 556,032 each, the
+        # final norm 6, aligned) = 2,636,096 -> 2,636,288.
+        # layerwise_gap="gradient", as deepseek's: each layer is a seventh
+        # of this arena, so Algorithm 2 peaks at the apply's pack of the
+        # params and adama + remat at its pack of a micro-batch's gradient,
+        # the tree beside it: the gap is the tree. Not cut to 2 layers for
+        # the script's time: there the rest region is 59% of the arena and
+        # Algorithm 2 peaks at its fold (the rest's gradients as a tree and
+        # a slab), 6.21 GB below adama + remat, under the 7.68 GB gradient
+        "internvl2_26b": dict(seq_len=1024, global_batch=8, micro_batches=8,
+                              seed=0, num_layers=4, remat=True,
+                              arena_rows=2_636_288,
+                              layerwise_gap="gradient",
+                              reduced={"num_layers": [48, 4],
+                                       "seq_len": [32768, 1024],
+                                       "global_batch": [256, 8]})}
 FP32 = ("fp32", "fp32")
 # main paths: name -> (arch, engine, arena state, steps, (m codec, v codec))
 PATHS = {"adama": ("bert_large", "adama", True, 5, FP32),
@@ -461,14 +518,35 @@ PATHS = {"adama": ("bert_large", "adama", True, 5, FP32),
          "hymba_ga_remat": ("hymba_1_5b", "ga", True, 2, FP32),
          "hymba_adama_remat": ("hymba_1_5b", "adama", True, 2, FP32),
          "hymba_adama_layerwise": ("hymba_1_5b", "adama_layerwise", True, 2,
-                                   FP32)}
+                                   FP32),
+         "whisper_adama": ("whisper_base", "adama", True, 3, FP32),
+         "whisper_ga": ("whisper_base", "ga", True, 3, FP32),
+         "whisper_adama_layerwise": ("whisper_base", "adama_layerwise", True,
+                                     3, FP32),
+         # MAIN["internvl2_26b"]["remat"]: ga and adama with remat
+         "internvl_ga_remat": ("internvl2_26b", "ga", True, 2, FP32),
+         "internvl_adama_remat": ("internvl2_26b", "adama", True, 2, FP32),
+         "internvl_adama_layerwise": ("internvl2_26b", "adama_layerwise",
+                                      True, 2, FP32)}
 # the MoE phase: the main path whose step 1 is run again from the same
 # seed and must end on the same params, m and v (digests on the card)
 MOE_RERUN = "deepseek_adama"
-# CUDA-event-timed runs of rows 1-3 at the MoE arch's arena, and of their
-# plain versions there (about 0.3-0.7 s a call)
-MOE_TIMED_RUNS = 8
-MOE_PLAIN_RUNS = 3
+# CUDA-event-timed runs of rows 1-3 at the arenas of the MoE, enc-dec and
+# vlm archs, and of their plain versions there (about 0.3-0.8 s a call at
+# the largest)
+ARENA_TIMED_RUNS = 8
+ARENA_PLAIN_RUNS = 3
+# the slices rows 1-3 are timed on at each arch's arena: (label, the
+# stacked region whose layer 0 it is, or None for the rest region)
+ARENA_SLICES = {
+    "deepseek_v2_lite_16b": (("moe layer 0", "blocks"),
+                             ("dense layer 0", "dense_blocks"),
+                             ("rest", None)),
+    "whisper_base": (("decoder layer 0", "blocks"),
+                     ("encoder layer 0", "enc_blocks"), ("rest", None)),
+    "internvl2_26b": (("layer 0", "blocks"), ("rest", None))}
+# each arch's arena layout, recorded by its first arena main path
+LAYOUTS = {}
 # the master-param paths (master_params=True): path -> (work_param_cache,
 # gradient wire, its twin without master params). Each must launch what its
 # twin launches per step, hold its param leaves at exactly bf16(master)
@@ -3205,7 +3283,17 @@ SMALL_PATHS = {"bert_large": (2, (("adama", True, FP32),
                # hybrid at seq 128, past the reduced window of 64
                "hymba_1_5b": (2, (("adama", True, FP32),
                                   ("adama_layerwise", True, FP32),
-                                  ("ga", True, FP32, None, 3)))}
+                                  ("ga", True, FP32, None, 3))),
+               # enc-dec (one encoder and one decoder layer over 64 frames)
+               # and vlm (16 patches before the text), every engine at 3
+               # micro-batches
+               "whisper_base": (2, (("adama", True, FP32, None, 3),
+                                    ("adama_layerwise", True, FP32, None, 3),
+                                    ("ga", True, FP32, None, 3))),
+               "internvl2_26b": (2, (("adama", True, FP32, None, 3),
+                                     ("adama_layerwise", True, FP32, None,
+                                      3),
+                                     ("ga", True, FP32, None, 3)))}
 # the small-input runs' config changes and sizes, by arch (default: seq 32,
 # 2 micro-batches of 2, a constant lr). `first_step_lr_0`: step 1 applies
 # lr 0, as the CPU parity tests of ga do (ROADMAP queue 3 (f)). Adam's
@@ -3220,7 +3308,9 @@ SMALL_SETTINGS = {"mistral_nemo_12b": dict(seq_len=128,
                                       overrides={"q_lora_rank": 96}),
                   "deepseek_v2_lite_16b": dict(first_step_lr_0=True,
                                                overrides={"num_layers": 3}),
-                  "hymba_1_5b": dict(seq_len=128, first_step_lr_0=True)}
+                  "hymba_1_5b": dict(seq_len=128, first_step_lr_0=True),
+                  "whisper_base": dict(first_step_lr_0=True),
+                  "internvl2_26b": dict(first_step_lr_0=True)}
 SMALL_PARAM_TOL = 2e-5
 # the largest share of params beyond SMALL_PARAM_TOL after the steps, from
 # int8 codes that a matmul's other rounding order flipped
@@ -3330,14 +3420,22 @@ def check_small_input(torch):
                                      f"{SMALL_PARAM_TOL}")
 
 
+# whisper-base's own widths at one encoder and one decoder layer, its vocab
+# cut to 1024: four half-row norm leaves among six rest leaves and two
+# stacked regions, at XLA CPU's fusion limit
+WHISPER_WIDTH = dict(d_model=512, n_heads=8, n_kv_heads=8, head_dim=64,
+                     d_ff=2048, vocab_size=1024)
+
+
 def check_ga_accumulate(torch):
     """ga's accumulation step (core/accumulation.py `_ga_accumulate`: acc
     + pack / N as the reference's XLA CPU computes it, a fused
     multiply-add by f32(1/N) but two roundings on the padded leaves whose
     pad XLA fuses into the sum, `uncontracted_rows`) on the card against
     the CPU, bit for bit, at N = 3 on the arena layouts of the reduced
-    models (minicpm3 with and without its q low-rank projection) and of a
-    deepseek at d_model 1024 whose only padded stacked leaf is kv_norm:
+    models (minicpm3 with and without its q low-rank projection), of a
+    deepseek at d_model 1024 whose only padded stacked leaf is kv_norm and
+    of a whisper at its own widths (WHISPER_WIDTH):
     the card's `addcmul_` must be the fused multiply-add that the CPU
     forms exactly."""
     import dataclasses
@@ -3354,7 +3452,9 @@ def check_ga_accumulate(torch):
                        ("deepseek_v2_lite_16b", {}),
                        ("deepseek_v2_lite_16b", {"d_model": 1024,
                                                  "kv_lora_rank": 512}),
-                       ("hymba_1_5b", {})):
+                       ("hymba_1_5b", {}), ("whisper_base", {}),
+                       ("whisper_base", WHISPER_WIDTH),
+                       ("internvl2_26b", {})):
         cfg = dataclasses.replace(get_config(arch).reduced(), **over)
         gen = torch.Generator()
         gen.manual_seed(0)
@@ -3545,7 +3645,7 @@ def check_moe(torch, arch, digests, all_losses):
     those ids, gates and the layer's input gives the same buffers bit for
     bit and the same token and gate maps; the copies dropped past each
     expert's capacity are counted and logged. Returns rows 1-3's times at
-    the arch's arena (`time_moe_arena`)."""
+    the arch's arena (`time_arena`)."""
     from repro_torch.configs.base import OptimizerConfig, RunConfig
     from repro_torch.data import make_data
     from repro_torch.models import modules as md
@@ -3578,10 +3678,9 @@ def check_moe(torch, arch, digests, all_losses):
         out = train(run, device="cuda", log_fn=log, params=params)
     again = _digest(torch, _held_state_tensors(held))
     rerun_loss = out["losses"][0]
-    layout = held["state"]["m"].layout
     held.clear()
     del out, params
-    timed = time_moe_arena(torch, layout)
+    timed = time_arena(torch, arch)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(main["seed"])
@@ -3644,26 +3743,28 @@ def check_moe(torch, arch, digests, all_losses):
     return timed
 
 
-def time_moe_arena(torch, layout):
-    """Rows 1-3 at the MoE arch's arena (two stacked regions; 2.26e9
-    elements, the port's first arena past 2^31), each first held bit for
-    bit against its plain version on copies of the same m, v (and p), over
-    the whole arena, then timed as in phase 3 (CUDA events, MOE_TIMED_RUNS
-    runs of KERNEL_REPS launches; the plain version MOE_PLAIN_RUNS runs of
-    one call) beside its bound: the whole-arena fold (with the fused
-    decay) and apply, and the slice folds of an MoE layer, the dense
-    prefix layer and the rest region at their arena offsets (the rest
-    slice crosses element 2^31). The plain versions work in place on
-    chunks of rows, so a copy of the state is all they need beside the
-    kernel's."""
+def time_arena(torch, arch):
+    """Rows 1-3 at an arch's arena (LAYOUTS[arch], recorded by its main
+    paths): the MoE arch's two stacked regions (2.26e9 elements, the
+    port's first arena past 2^31), the enc-dec arch's decoder and encoder
+    regions and the vlm arch's one region. Each is first
+    held bit for bit against its plain version on copies of the same m, v
+    (and p), over the whole arena, then timed as in phase 3 (CUDA events,
+    ARENA_TIMED_RUNS runs of KERNEL_REPS launches; the plain version
+    ARENA_PLAIN_RUNS runs of one call) beside its bound: the whole-arena
+    fold (with the fused decay) and apply, and the slice folds of
+    ARENA_SLICES[arch] (layer 0 of each stacked region, the rest region)
+    at their arena offsets. The plain versions work in place on chunks of
+    rows, so a copy of the state is all they need beside the kernel's."""
     from repro_torch.kernels import fused_step
+    layout = LAYOUTS[arch]
 
     def same_bits(name, label, pairs):
         for a, b in pairs:
             if not a.view(torch.uint8).equal(b.view(torch.uint8)):
                 raise AssertionError(
-                    f"{name} {label} at the MoE arena: kernel != plain at "
-                    f"{int((a != b).sum())} elements")
+                    f"{name} {label} at the {arch} arena: kernel != plain "
+                    f"at {int((a != b).sum())} elements")
         return 0.0
 
     gc.collect()
@@ -3687,9 +3788,8 @@ def time_moe_arena(torch, layout):
         "arena", err, lambda: fused_step.arena_fold(m, v, g, **fold_kw),
         lambda: fused_step.arena_fold_ref(mr, vr, g, **fold_kw),
         bound_ms(5 * 4 * n, 8 * n), {}))
-    for label, spec in (("moe layer 0", layout.stack("blocks")),
-                        ("dense layer 0", layout.stack("dense_blocks")),
-                        ("rest", layout.rest)):
+    for label, region in ARENA_SLICES[arch]:
+        spec = layout.rest if region is None else layout.stack(region)
         off = spec.row
         rows_g = spec.layer_rows if spec is not layout.rest else spec.rows
         kw = dict(fold_kw, block=layout.slice_block(spec))
@@ -3715,15 +3815,19 @@ def time_moe_arena(torch, layout):
     def run_cases(name):
         out[name] = [dict(_kernel_entry(
             name, label,
-            timed_ms(torch, fn, runs=MOE_TIMED_RUNS, reps=KERNEL_REPS),
-            timed_ms(torch, plain, runs=MOE_PLAIN_RUNS, warmup=1), bound,
+            timed_ms(torch, fn, runs=ARENA_TIMED_RUNS, reps=KERNEL_REPS),
+            timed_ms(torch, plain, runs=ARENA_PLAIN_RUNS, warmup=1), bound,
             {"arena_rows": layout.rows, **shape_info},
             {"max_abs_err": err}), max_abs_err=err)
             for label, err, fn, plain, bound, shape_info in cases[name]]
 
     run_cases("arena_fold")
     run_cases("arena_fold_slice")
-    del g, mr, vr
+    # the timed calls hold g (its slices), mr and vr: drop them, and the
+    # loop's last slice, before p and its copy take their place
+    cases["arena_fold"].clear()
+    cases["arena_fold_slice"].clear()
+    del g, gs, mr, vr
     torch.cuda.empty_cache()
     p = torch.randn(shape, generator=gen, device="cuda") * 0.02
     pr = p.clone()
@@ -3737,9 +3841,9 @@ def time_moe_arena(torch, layout):
         bound_ms(4 * 4 * n, 7 * n), {}))
     run_cases("arena_apply")
     if not all(bool(torch.isfinite(x).all()) for x in (m, v, p, pr)):
-        raise AssertionError("MoE arena: non-finite state after the timed "
-                             "runs")
-    log(json.dumps({"phase": "moe_arena_kernels", **info,
+        raise AssertionError(f"{arch} arena: non-finite state after the "
+                             f"timed runs")
+    log(json.dumps({"phase": "arena_kernels", "arch": arch, **info,
                     "bit_for_bit": {k: [e["case"] for e in x]
                                     for k, x in out.items()}}))
     del m, v, p, pr
@@ -3795,6 +3899,21 @@ def _expected_launches(path, tree):
         want["rwkv6_chunk_scan"] = recompute * n * n_layers
         want["rwkv6_chunk_scan_bwd"] = n * n_layers
     return want
+
+
+# the init's scale of lm_head (models/model.py `_dense`)
+HEAD_INIT_STD = 0.02
+
+
+def first_step_loss(cfg):
+    """The cross entropy a freshly initialised model starts near: the
+    final norm leaves each position's features at unit mean square, so
+    each logit is a sum of d_model products with lm_head's N(0, 0.02^2)
+    weights, N(0, d_model x 0.02^2), and the expected logsumexp over the
+    V_pad logits is ln(V_pad) + that variance / 2 (the gold logit's mean
+    is 0). The variance term is 0.05 at d_model 512 and 1.23 at 6144."""
+    return (math.log(cfg.padded_vocab())
+            + cfg.d_model * HEAD_INIT_STD ** 2 / 2)
 
 
 def _main_config(arch):
@@ -4093,7 +4212,7 @@ def run_main_paths(torch, wrappers, arch):
 
     cfg = _main_config(arch)
     main = MAIN[arch]
-    ln_v = math.log(cfg.padded_vocab())
+    expected = first_step_loss(cfg)
     counts, peaks, all_losses, digests = {}, {}, {}, {}
     work_bytes, n_params_by_path = {}, {}
     paths = [p for p, spec in PATHS.items() if spec[0] == arch]
@@ -4295,6 +4414,8 @@ def run_main_paths(torch, wrappers, arch):
         n_params_by_path[path] = n_params
         state = out["opt_state"]
         rows = state["m"].layout.rows if arena else None
+        if arena:
+            LAYOUTS.setdefault(arch, state["m"].layout)
         state_bytes = (state_store.optimizer_state_bytes(state) if arena
                        else None)
         want = _expected_launches(path, out["params"])
@@ -4309,7 +4430,8 @@ def run_main_paths(torch, wrappers, arch):
                         "max_memory_allocated_bytes": peaks[path],
                         "requested_peak_bytes": REQUESTED_PEAKS[path],
                         "launches": counts[path],
-                        "launches_per_step": want, **guard_info,
+                        "launches_per_step": want,
+                        "expected_step1_loss": expected, **guard_info,
                         **wire_info, **master_info, **fp8_info,
                         "digest": digests.get(path), **main}))
         losses = out["losses"]
@@ -4317,9 +4439,10 @@ def run_main_paths(torch, wrappers, arch):
         first = all_losses[paths[0]][0]
         if not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"{path}: non-finite loss {losses}")
-        if abs(losses[0] - ln_v) > 0.1 * ln_v:
+        if abs(losses[0] - expected) > 0.1 * expected:
             raise AssertionError(f"{path}: step-1 loss {losses[0]} is not "
-                                 f"within 10% of ln(V)={ln_v:.4f}")
+                                 f"within 10% of ln(V) + d_model x "
+                                 f"{HEAD_INIT_STD}^2 / 2 = {expected:.4f}")
         if abs(losses[0] - first) > 1e-4 * first:
             raise AssertionError(f"{path}: step-1 loss {losses[0]} differs "
                                  f"from {paths[0]}'s {first}")
@@ -4373,11 +4496,13 @@ REQUESTED_PEAKS = {}
 
 
 def check_remat_memory(arch, peaks, ga, adama, lw=None, info=None,
-                       arena_rows=None):
+                       arena_rows=None, n_params=None):
     """ga + remat (path `ga`) peaks at least one fp32 arena (of
     `arena_rows`, by default the arch's main paths') above adama + remat
     (`adama`) and at most that arena as allocated + REMAT_GAP_SLACK above
-    it; Algorithm 2 (`lw`), where given, below adama + remat. The gap
+    it; Algorithm 2 (`lw`), where given, below adama + remat, and where
+    MAIN[arch]["layerwise_gap"] is "gradient" at least the whole-model
+    fp32 gradient (`n_params` x 4 B) below it. The gap
     between ga and adama is taken between the bytes their tensors request
     at the peak (REQUESTED_PEAKS): the allocator's slack at the two peaks
     differs by up to MiBs with the order of their allocations (hymba-1.5b:
@@ -4392,8 +4517,13 @@ def check_remat_memory(arch, peaks, ga, adama, lw=None, info=None,
                 ga_minus_adama_limit=limit,
                 requested_peaks={p: REQUESTED_PEAKS[p]
                                  for p in (ga, adama, lw) if p})
+    lw_limit = (n_params * 4 if lw and MAIN.get(arch, {}).get(
+        "layerwise_gap") == "gradient" else None)
     if lw:
         info["adama_minus_adama_layerwise"] = peaks[adama] - peaks[lw]
+        info["adama_minus_adama_layerwise_limit"] = lw_limit
+        info["adama_minus_adama_layerwise_at_least_one_arena"] = (
+            peaks[adama] - peaks[lw] >= arena_bytes)
     log(json.dumps(info))
     if gap < arena_bytes:
         raise AssertionError(f"{arch}: {adama}'s requested peak is only "
@@ -4414,6 +4544,11 @@ def check_remat_memory(arch, peaks, ga, adama, lw=None, info=None,
     if lw and peaks[lw] >= peaks[adama]:
         raise AssertionError(f"{arch}: {lw}'s peak {peaks[lw]} is not "
                              f"below {adama}'s {peaks[adama]}")
+    if lw_limit is not None and peaks[adama] - peaks[lw] < lw_limit:
+        raise AssertionError(f"{arch}: {lw}'s peak {peaks[lw]} is only "
+                             f"{peaks[adama] - peaks[lw]} B below {adama}'s; "
+                             f"expected at least the fp32 gradient "
+                             f"({lw_limit} B)")
 
 
 def check_memory(arch, peaks, n_params):
@@ -4432,7 +4567,8 @@ def check_memory(arch, peaks, n_params):
             and p not in GUARDED and p not in WIRE and p not in MASTER}
     if MAIN[arch].get("remat"):
         check_remat_memory(arch, peaks, path["ga"], path["adama"],
-                           path["adama_layerwise"], {"peaks": peaks})
+                           path["adama_layerwise"], {"peaks": peaks},
+                           n_params=n_params)
         return
     adama, ga, lw = (peaks[path[e]] for e in ("adama", "ga",
                                               "adama_layerwise"))
@@ -4579,12 +4715,13 @@ def check_remat(torch, wrappers, main_runs):
                         main_path_losses=twin[1], main_path_peak=twin[2])
         del out
         log(json.dumps(info))
-        ln_v = math.log(_main_config(arch).padded_vocab())
+        expected = first_step_loss(_main_config(arch))
         if not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"{path}: non-finite loss {losses}")
-        if abs(losses[0] - ln_v) > 0.1 * ln_v:
+        if abs(losses[0] - expected) > 0.1 * expected:
             raise AssertionError(f"{path}: step-1 loss {losses[0]} is not "
-                                 f"within 10% of ln(V)={ln_v:.4f}")
+                                 f"within 10% of ln(V) + d_model x "
+                                 f"{HEAD_INIT_STD}^2 / 2 = {expected:.4f}")
         want = {k: c * steps for k, c in want.items()}
         if counts[path] != want:
             raise AssertionError(f"{path}: kernel launches {counts[path]} "
@@ -4954,8 +5091,13 @@ def main() -> int:
         if _main_config(arch).attention == "swa":
             check_window(torch, arch)
         if _main_config(arch).moe is not None:
-            for name, entries in check_moe(torch, arch, d, losses).items():
-                kernels[name][arch + "_arena"] = entries
+            timed = check_moe(torch, arch, d, losses)
+        elif arch in ARENA_SLICES:
+            timed = time_arena(torch, arch)
+        else:
+            timed = {}
+        for name, entries in timed.items():
+            kernels[name][arch + "_arena"] = entries
         counts.update(c)
         work_bytes.update(w)
         main_runs.update({p: (d.get(p), losses[p], peaks[p]) for p in c})

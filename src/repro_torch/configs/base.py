@@ -35,7 +35,8 @@ class SSMConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str               # dense | encoder | moe | ssm (rwkv6) | hybrid
+    # dense | encoder | moe | ssm (rwkv6) | hybrid | audio (enc-dec) | vlm
+    arch_type: str
     source: str                  # citation for the numbers
     num_layers: int
     d_model: int
@@ -55,6 +56,11 @@ class ModelConfig:
     v_head_dim: Optional[int] = None
     moe: Optional[MoEConfig] = None      # routed experts (DeepSeek-V2)
     ssm: Optional[SSMConfig] = None      # rwkv6's head size; hybrid's Mamba
+    # encoder-decoder (whisper): num_layers = decoder layers
+    encoder_layers: int = 0
+    encoder_seq_len: int = 1500          # whisper frames after the conv stub
+    # vlm: the number of stub patch embeddings prepended to the text
+    n_patch_tokens: int = 0
     norm: str = "rmsnorm"                # rmsnorm | layernorm
     act: str = "silu"                    # silu (gated MLP) | gelu (plain MLP)
     pos_emb: str = "rope"                # rope | sinusoidal (added at embed)
@@ -82,8 +88,9 @@ class ModelConfig:
         """CPU-smoke variant of the same family (<=2 layers, d_model<=256;
         mla's ranks and head sizes cut and its q low-rank projection
         dropped; swa's window 64; MoE at 4 experts of 128, top-2, at most
-        one shared expert and one dense layer). `ssm` is kept: head_dim 32
-        is the attention head size, an rwkv6 model keeps ssm.head_dim 64 (4
+        one shared expert and one dense layer; an enc-dec model at one
+        encoder and one decoder layer over 64 frames; a vlm at 16 patch
+        tokens). `ssm` is kept: head_dim 32 is the attention head size, an rwkv6 model keeps ssm.head_dim 64 (4
         heads at d_model 256), and a hybrid model's Mamba heads keep their
         state, conv width and expansion (d_inner 512 at d_model 256)."""
         d_model = min(self.d_model, 256)
@@ -111,6 +118,10 @@ class ModelConfig:
                                 n_shared=min(self.moe.n_shared, 1), top_k=2,
                                 d_expert=128,
                                 dense_prefix=min(self.moe.dense_prefix, 1))
+        if self.encoder_layers:
+            kw.update(encoder_layers=1, num_layers=1, encoder_seq_len=64)
+        if self.n_patch_tokens:
+            kw.update(n_patch_tokens=16)
         return replace(self, **kw)
 
 
@@ -364,7 +375,8 @@ class RunConfig:
 
 
 ARCH_IDS = ["stablelm_1_6b", "bert_large", "rwkv6_7b", "mistral_nemo_12b",
-            "minicpm3_4b", "deepseek_v2_lite_16b", "hymba_1_5b"]
+            "minicpm3_4b", "deepseek_v2_lite_16b", "hymba_1_5b",
+            "whisper_base", "internvl2_26b", "yi_9b", "deepseek_v2_236b"]
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
 

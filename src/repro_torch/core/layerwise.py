@@ -1,5 +1,5 @@
 """Algorithm 2: interleave the per-LAYER backward with the AdamA fold
-(`repro/core/layerwise.py`, the dense, encoder, MoE and rwkv6 families, one
+(`repro/core/layerwise.py`, every family of the reference's configs, one
 device, the fp32, bf16 or fp8 gradient wire, with or without the finite
 guard).
 
@@ -27,6 +27,11 @@ does:
 Peak gradient memory is therefore one layer's (plus the head's and the
 embedding's), which is the paper's 1/M claim; the recompute in step 3 makes
 the engine activation checkpointing as well.
+
+A vlm runs the same schedule from [patches; text] (the patches a constant
+before the embedding), its head on the text tail. An enc-dec model has a
+form of its own (`_layerwise_audio`): the decoder's layers, each reading
+the encoder's output, then the encoder norm's and the encoder's.
 
 Arena state: each layer's gradient tree is packed into one
 (layer_rows, LANES) slab of the wire's dtype (`grad_dtype`: float32, or
@@ -68,7 +73,7 @@ on the same verdict.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Dict, List
 
 import torch
 
@@ -80,7 +85,8 @@ from repro_torch.core.arena import STACK_KEYS
 from repro_torch.kernels import fp8_wire, fused_step
 from repro_torch.models import modules as md
 from repro_torch.models.model import (apply_block, cross_entropy,
-                                      embed_tokens, stages)
+                                      dec_block, embed_tokens, stages,
+                                      vlm_input)
 
 
 def _fold_tree(m, v, g, beta1, beta2) -> None:
@@ -171,6 +177,90 @@ def _pre_guard(guard, dx, d_rest_post) -> None:
         fused_step.finite_and(leaf, ok)
 
 
+def _head_backward(cfg, rest, x, s, labels, scale):
+    """The head (final norm on the last `s` positions of x: a vlm's text
+    tail, lm_head, cross entropy) and its backward seeded with `scale`:
+    (ce, the gradients of the final norm and lm_head, dx, the seed as a
+    device scalar)."""
+    h = md.apply_norm(cfg, rest, x[:, -s:] if x.shape[1] != s else x,
+                      "final_norm_")
+    logits = (h @ rest["lm_head"].to(h.dtype)).float()
+    ce = cross_entropy(logits, labels)
+    post_keys = [k for k in rest if k.startswith("final_norm_")
+                 or k == "lm_head"]
+    seed = (scale if isinstance(scale, torch.Tensor) else
+            torch.tensor(scale, dtype=torch.float32, device=ce.device))
+    grads = torch.autograd.grad(
+        ce, [rest[k] for k in post_keys] + [x], grad_outputs=seed)
+    return ce.detach(), dict(zip(post_keys, grads[:-1])), grads[-1], seed
+
+
+def _begin(state, fold_kw, dx, d_rest) -> None:
+    """Before the first fold of a micro-batch: the pre-backward guard
+    (guarded), then the shared columns' decay, where-predicated on its
+    verdict."""
+    decay, guard = fold_kw["decay"], fold_kw["guard"]
+    if guard is not None:
+        _pre_guard(guard, dx, d_rest)
+        state_store.begin_micro_state(state, (guard[0], guard[1]),
+                                      guard=guard[2:3])
+    elif decay is not None:
+        state_store.begin_micro_state(state, decay)
+
+
+def _layer_backward(fn, lp, inputs, dx, seed):
+    """Recompute one layer, fn(lp, *inputs) -> (y, aux), on detached leaves
+    and `torch.autograd.grad` of (y, aux) seeded with (dx, seed): (the
+    layer's param gradients, by key, the inputs' gradients)."""
+    keys = sorted(lp)
+    y, a = fn(lp, *inputs)
+    # the aux loss's cotangent is the seed, as the reference's
+    # vjp((dx, scale)); a block without one returns a constant
+    outs, seeds = ([y, a], [dx, seed]) if a.requires_grad else ([y], [dx])
+    g = torch.autograd.grad(outs, [lp[k] for k in keys] + list(inputs),
+                            grad_outputs=seeds)
+    return dict(zip(keys, g[:len(keys)])), g[len(keys):]
+
+
+def _backward_stack(state, params, name, saved, dx, seed, fold_kw, fn,
+                    extra=()):
+    """A stacked region's layers in reverse: each recomputed from its saved
+    input (with `extra`, inputs every layer reads, e.g. the encoder's
+    output, made leaves that require grad), its gradients folded into the
+    region's rows (`_fold_layer`) and dropped before the layer below.
+    Returns (dx at the region's input, the gradients of `extra` summed
+    over the layers, from the last layer down, in their own dtype)."""
+    stack = params[name]
+    keys = sorted(stack)
+    dextra = [torch.zeros_like(e) for e in extra]
+    for j in reversed(range(len(saved))):
+        lp = _requires_grad({k: stack[k][j] for k in keys})
+        inputs = [saved.pop().requires_grad_(True)] + [
+            e.detach().requires_grad_(True) for e in extra]
+        dl, dins = _layer_backward(fn, lp, inputs, dx, seed)
+        dx = dins[0]
+        dextra = [d + e for d, e in zip(dextra, dins[1:])]
+        del inputs, dins
+        _fold_layer(state, dl, j, name, **fold_kw)
+        del dl
+    return dx, dextra
+
+
+def _forward_stack(fn, stack, x, extra=()):
+    """A stacked region's layers under no_grad from x, fn(layer params, h,
+    *extra) -> (y, aux): (the output, each layer's input, the layers' aux
+    losses summed from zero)."""
+    keys = sorted(stack)
+    saved = []
+    with torch.no_grad():
+        auxs = torch.zeros((), dtype=torch.float32, device=x.device)
+        for j in range(stack[keys[0]].shape[0]):
+            saved.append(x)
+            x, a = fn({k: stack[k][j] for k in keys}, x, *extra)
+            auxs = auxs + a
+    return x, saved, auxs
+
+
 def layerwise_loss_and_fold(cfg: ModelConfig, params, batch, state, *,
                             beta1: float, beta2: float, scale, decay=None,
                             grad_dtype=torch.float32, guard=None):
@@ -205,80 +295,130 @@ def layerwise_loss_and_fold(cfg: ModelConfig, params, batch, state, *,
         # S: the encode multiplies by S = 1 / fold_scale, the update divides
         ef_scale = torch.ones_like(guard[3:4]) / guard[3:4]
         grad_dtype = torch.float32
+    fold_kw = dict(beta1=beta1, beta2=beta2, decay=decay, guard=guard,
+                   grad_dtype=grad_dtype, ef_scale=ef_scale)
+    if cfg.arch_type == "audio":
+        return _layerwise_audio(cfg, params, batch, state, scale, fold_kw)
     causal = cfg.arch_type != "encoder"
     tokens = batch["tokens"]
     b, s = tokens.shape
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=tokens.device).expand(b, s)
     plan = stages(cfg, params)
 
     # ---- forward, saving layer inputs ----
     rest = _requires_grad({k: x for k, x in params.items()
                            if k not in STACK_KEYS})
-    x0 = embed_tokens(cfg, rest, tokens, positions)
+    if cfg.arch_type == "vlm":
+        # the constant patches before the text's embedding; the head
+        # reads the text tail
+        x0, positions = vlm_input(cfg, rest, tokens, batch["patches"])
+    else:
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=tokens.device).expand(b, s)
+        x0 = embed_tokens(cfg, rest, tokens, positions)
+
+    def block(kind):
+        return lambda lp, h: apply_block(cfg, lp, h, positions, kind=kind,
+                                         causal=causal)
     saved: Dict[str, List[torch.Tensor]] = {}
-    with torch.no_grad():
-        x = x0.detach()
-        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-        for name, kind in plan:
-            stack = params[name]
-            keys = sorted(stack)
-            saved[name] = []
-            auxs = torch.zeros_like(aux_total)
-            for j in range(stack[keys[0]].shape[0]):
-                saved[name].append(x)
-                x, a = apply_block(cfg, {k: stack[k][j] for k in keys}, x,
-                                   positions, kind=kind, causal=causal)
-                auxs = auxs + a
-            aux_total = aux_total + auxs
+    x = x0.detach()
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for name, kind in plan:
+        x, saved[name], auxs = _forward_stack(block(kind), params[name], x)
+        aux_total = aux_total + auxs
 
     # ---- head, backward seeded with `scale` ----
-    x = x.requires_grad_(True)
-    h = md.apply_norm(cfg, rest, x, "final_norm_")
-    logits = (h @ rest["lm_head"].to(h.dtype)).float()
-    ce = cross_entropy(logits, batch["labels"])
+    ce, d_rest, dx, seed = _head_backward(cfg, rest, x.requires_grad_(True),
+                                          s, batch["labels"], scale)
     loss = ce + aux_total
-    post_keys = [k for k in rest if k != "embed"]
-    seed = (scale if isinstance(scale, torch.Tensor) else
-            torch.tensor(scale, dtype=torch.float32, device=loss.device))
-    grads = torch.autograd.grad(
-        ce, [rest[k] for k in post_keys] + [x], grad_outputs=seed)
-    d_rest: Dict[str, Any] = dict(zip(post_keys, grads[:-1]))
-    dx = grads[-1]
-    del h, logits, grads, x
+    del x
 
     # ---- backward, one layer at a time, folding as it goes ----
-    if guard is not None:
-        _pre_guard(guard, dx, d_rest)
-        state_store.begin_micro_state(state, (guard[0], guard[1]),
-                                      guard=guard[2:3])
-    elif decay is not None:
-        state_store.begin_micro_state(state, decay)
+    _begin(state, fold_kw, dx, d_rest)
     for name, kind in reversed(plan):
-        stack = params[name]
-        keys = sorted(stack)
-        for j in reversed(range(len(saved[name]))):
-            lp = _requires_grad({k: stack[k][j] for k in keys})
-            xin = saved[name].pop().requires_grad_(True)
-            y, a = apply_block(cfg, lp, xin, positions, kind=kind,
-                               causal=causal)
-            # the aux loss's cotangent is the seed, as the reference's
-            # vjp((dx, scale)); a block without one returns a constant
-            outs, seeds = ([y, a], [dx, seed]) if a.requires_grad else (
-                [y], [dx])
-            *dl, dx = torch.autograd.grad(outs, [lp[k] for k in keys] + [xin],
-                                          grad_outputs=seeds)
-            del y, a, xin, outs
-            _fold_layer(state, dict(zip(keys, dl)), j, name, beta1, beta2,
-                        decay, guard, grad_dtype, ef_scale)
-            del dl
+        dx, _ = _backward_stack(state, params, name, saved[name], dx, seed,
+                                fold_kw, block(kind))
 
     # ---- embedding backward, rest-region fold ----
+    return _finish(state, rest, d_rest, x0, dx, loss, fold_kw)
+
+
+def _finish(state, rest, d_rest, x0, dx, loss, fold_kw):
+    """The embedding's backward from dx at its output x0, the rest region's
+    fold; returns (loss, state[, the guard's verdict])."""
     (d_rest["embed"],) = torch.autograd.grad(x0, [rest["embed"]],
                                              grad_outputs=dx)
     del x0, dx
-    _fold_rest(state, d_rest, beta1, beta2, decay, guard, grad_dtype,
-               ef_scale)
+    _fold_rest(state, d_rest, **fold_kw)
+    guard = fold_kw["guard"]
     if guard is not None:
         return loss.detach(), state, guard[2:3]
     return loss.detach(), state
+
+
+def _layerwise_audio(cfg, params, batch, state, scale, fold_kw):
+    """Algorithm 2 for an enc-dec model (the reference's
+    `_layerwise_audio`): the decoder's layers, then the encoder's.
+
+      1. the encoder's forward under no_grad from the stub frames plus
+         their sinusoidal positions, saving each layer's input;
+      2. the encoder's norm with autograd: enc_out;
+      3. the decoder's forward under no_grad, saving each layer's input;
+      4. the head's backward seeded with `scale`;
+      5. the decoder's layers in reverse, each recomputed (its cross keys
+         and values from enc_out, a leaf that requires grad) and folded
+         into the `blocks` rows; d(enc_out) is summed over them from the
+         last layer down in enc_out's own dtype (bf16 under bf16 compute,
+         as the reference's zeros_like(enc_out) carry);
+      6. the encoder norm's backward from it, then the encoder's layers in
+         reverse, folded into the `enc_blocks` rows;
+      7. the embedding's backward, and one fold of the rest region: the
+         final norm's and lm_head's gradients from the head, the encoder
+         norm's from step 6, the embedding's from step 7 (each leaf has
+         one of them: the reference's (post + enc_norm) + pre adds zeros
+         to it).
+
+    The loss returned is the cross entropy (the blocks have no aux loss)."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    rest = _requires_grad({k: x for k, x in params.items()
+                           if k not in STACK_KEYS})
+    frames = batch["frames"].to(getattr(torch, cfg.compute_dtype))
+    se = frames.shape[1]
+    epos = torch.arange(se, dtype=torch.int32,
+                        device=tokens.device).expand(b, se)
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=tokens.device).expand(b, s)
+
+    def enc_block(lp, h):
+        return apply_block(cfg, lp, h, epos, kind="dense", causal=False)
+
+    def dec(lp, h, eo):
+        return dec_block(cfg, lp, h, eo, positions)
+
+    # ---- encoder forward, its norm with autograd, decoder forward ----
+    e0 = frames + md.sinusoidal_positions(epos, cfg.d_model).to(frames.dtype)
+    e, enc_saved, _ = _forward_stack(enc_block, params["enc_blocks"], e0)
+    e = e.requires_grad_(True)
+    enc_out = md.apply_norm(cfg, rest, e, "enc_norm_")
+    x0 = embed_tokens(cfg, rest, tokens, positions)
+    x, dec_saved, _ = _forward_stack(dec, params["blocks"], x0.detach(),
+                                     (enc_out.detach(),))
+
+    # ---- head, backward seeded with `scale` ----
+    ce, d_rest, dx, seed = _head_backward(cfg, rest, x.requires_grad_(True),
+                                          s, batch["labels"], scale)
+    del x
+
+    # ---- decoder backward, then the encoder's ----
+    _begin(state, fold_kw, dx, d_rest)
+    dx, (denc,) = _backward_stack(state, params, "blocks", dec_saved, dx,
+                                  seed, fold_kw, dec, (enc_out.detach(),))
+    norm_keys = [k for k in rest if k.startswith("enc_norm_")]
+    *dnorm, de = torch.autograd.grad(enc_out, [rest[k] for k in norm_keys]
+                                     + [e], grad_outputs=denc)
+    d_rest.update(zip(norm_keys, dnorm))
+    del enc_out, e, denc, dnorm
+    _backward_stack(state, params, "enc_blocks", enc_saved, de, seed,
+                    fold_kw, enc_block)
+    del de
+    return _finish(state, rest, d_rest, x0, dx, ce, fold_kw)

@@ -5,7 +5,11 @@ reference's `repro/data/pipeline.py`: batch i is a pure function of
 A hidden-state Markov generator (power-law unigram mix + per-state boosted
 tokens) so cross-entropy actually decreases during training. Encoder
 configs get MLM-style masking: 15% of positions are replaced by token
-`vocab_size - 1` and carry labels; every other label is -1.
+`vocab_size - 1` and carry labels; every other label is -1. The stub
+frontends draw from the same generator after the tokens: an audio (enc-dec)
+config's "frames" (batch, encoder_seq_len, d_model) and a vlm config's
+"patches" (batch, n_patch_tokens, d_model), float32 standard normals times
+0.02.
 """
 from __future__ import annotations
 
@@ -23,6 +27,9 @@ class DataConfig:
     seed: int = 0
     n_states: int = 64          # hidden Markov states
     arch_type: str = "dense"
+    d_model: int = 0            # for the stub frontends (audio, vlm)
+    encoder_seq_len: int = 0
+    n_patch_tokens: int = 0
 
 
 class SyntheticLM:
@@ -53,14 +60,23 @@ class SyntheticLM:
         use_boost = rng.random((b, nseg, seg)) < 0.3
         toks = np.where(use_boost, boosted, base_draw).reshape(b, nseg * seg)
         toks = toks[:, :s].astype(np.int32)
+        out = {"tokens": toks,
+               "labels": np.concatenate([toks[:, 1:],
+                                         np.full((b, 1), -1, np.int32)], 1)}
+        if cfg.arch_type == "audio":
+            out["frames"] = rng.standard_normal(
+                (b, cfg.encoder_seq_len, cfg.d_model)).astype(
+                    np.float32) * 0.02
+        if cfg.arch_type == "vlm":
+            out["patches"] = rng.standard_normal(
+                (b, cfg.n_patch_tokens, cfg.d_model)).astype(
+                    np.float32) * 0.02
         if cfg.arch_type == "encoder":
             mask = rng.random((b, s)) < 0.15
             labels = np.where(mask, toks, -1).astype(np.int32)
             tokens = np.where(mask, cfg.vocab_size - 1, toks).astype(np.int32)
             return {"tokens": tokens, "labels": labels}
-        return {"tokens": toks,
-                "labels": np.concatenate([toks[:, 1:],
-                                          np.full((b, 1), -1, np.int32)], 1)}
+        return out
 
     def iterate(self, start: int = 0) -> Iterator[Dict[str, np.ndarray]]:
         i = start
@@ -71,6 +87,9 @@ class SyntheticLM:
 
 def make_data(model_cfg, seq_len: int, global_batch: int,
               seed: int = 0) -> SyntheticLM:
-    return SyntheticLM(DataConfig(vocab_size=model_cfg.vocab_size,
-                                  seq_len=seq_len, global_batch=global_batch,
-                                  seed=seed, arch_type=model_cfg.arch_type))
+    return SyntheticLM(DataConfig(
+        vocab_size=model_cfg.vocab_size, seq_len=seq_len,
+        global_batch=global_batch, seed=seed, arch_type=model_cfg.arch_type,
+        d_model=model_cfg.d_model,
+        encoder_seq_len=model_cfg.encoder_seq_len,
+        n_patch_tokens=model_cfg.n_patch_tokens))

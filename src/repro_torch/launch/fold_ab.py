@@ -58,6 +58,19 @@ V_BYTES = {"fp32": 4, "int8": 1, "factored": 0, "rowcol": 0}
 ROW_COLS = {"int8": 1, "factored": 1, "rowcol": 1, "fp32": 0}
 
 
+def bound_ms(pair: str, wire: str, n_rows: int) -> float:
+    """The least time a fold of `pair` ("m/v") on `wire` over `n_rows`
+    arena rows can take on the card: g read once at its wire's width (the
+    e4m3 wire's (rows, 1) scale column too), the slice's state columns
+    read and written once, over HBM_BYTES_PER_S."""
+    m_codec, v_codec = pair.split("/")
+    n = n_rows * LANES
+    state = 2 * (n * (M_BYTES[m_codec] + V_BYTES[v_codec]) +
+                 4 * n_rows * (ROW_COLS[m_codec] + ROW_COLS[v_codec]))
+    return (WIRE_BYTES[wire] * n + state +
+            (4 * n_rows if wire == "e4m3" else 0)) / HBM_BYTES_PER_S * 1e3
+
+
 def _compile(src: Path, tag: str):
     """nvcc `src` with the port's flags into build/; (library, ptxas
     output)."""
@@ -329,13 +342,7 @@ def main(argv=None) -> int:
                          for tag, lib in libs.items()}
                 t = [timed_ms(calls[tag], RUNS)
                      for tag in ("other", "this", "this", "other")]
-                n = n_rows * LANES
-                state = 2 * (n * (M_BYTES[m_codec] + V_BYTES[v_codec]) +
-                             4 * n_rows * (ROW_COLS[m_codec] +
-                                           ROW_COLS[v_codec]))
-                bound = (WIRE_BYTES[wire] * n + state +
-                         (4 * n_rows if wire == "e4m3" else 0)) \
-                    / HBM_BYTES_PER_S * 1e3
+                bound = bound_ms(pair, wire, n_rows)
                 this_ms = statistics.median(t[1:3])
                 other_ms = statistics.median([t[0], t[3]])
                 emit({"pair": pair, "wire": wire, "case": case,

@@ -44,6 +44,11 @@ m and v do not fit one 80 GB card):
       --arch minicpm3-4b --num-layers 24 --seq-len 1024 --micro-batch 2
   PYTHONPATH=src python -m repro_torch.launch.memory_split \
       --arch hymba-1.5b --num-layers 8 --seq-len 2048 --micro-batch 1
+  PYTHONPATH=src python -m repro_torch.launch.memory_split \
+      --arch whisper-base --seq-len 448 --micro-batch 8
+  PYTHONPATH=src python -m repro_torch.launch.memory_split \
+      --arch internvl2-26b --num-layers 4 --seq-len 1024 --micro-batch 1 \
+      --runs ckpt layerwise
 """
 from __future__ import annotations
 

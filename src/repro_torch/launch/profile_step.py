@@ -24,6 +24,11 @@ card with their fp32 params, m and v; chip_smoke.py trains it at 4):
   PYTHONPATH=src python -m repro_torch.launch.profile_step \
       --arch hymba-1.5b --num-layers 8 --seq-len 2048 --global-batch 8 \
       --micro-batches 8 --remat
+  PYTHONPATH=src python -m repro_torch.launch.profile_step \
+      --arch whisper-base --seq-len 448 --global-batch 16 --micro-batches 8
+  PYTHONPATH=src python -m repro_torch.launch.profile_step \
+      --arch internvl2-26b --num-layers 4 --seq-len 1024 --global-batch 8 \
+      --micro-batches 8 --remat
 
 `--remat` profiles the step under RunConfig(remat=True): ga and adama
 checkpoint each layer (adama_layerwise already recomputes every layer).
@@ -34,8 +39,12 @@ backward) into classes: "ssm" (any input of the Mamba heads' fp32 (...,
 d_inner, d_state) shape or its broadcast (..., d_inner, 1) and (..., 1,
 d_state) operands: the discretization, the selective scan and its
 readout), "attention" (any input of shape (..., heads, S, x): the fp32
-scores, softmax and products of the blockwise attention), "gemm" (the
-other matrix products) and "other"; "unattributed" is device time no
+scores, softmax and products of the blockwise attention, and the
+(micro-batch x heads, S, x) operands of their batched products; S any
+length the
+model's attention runs at: an enc-dec model's decoder and encoder lengths,
+so its cross-attention counts too, and a vlm's patches and text together),
+"gemm" (the other matrix products) and "other"; "unattributed" is device time no
 operator launched (the port's own CUDA kernels).
 """
 from __future__ import annotations
@@ -64,8 +73,9 @@ def _device_us(evt) -> float:
 GEMM_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")
 
 
-def shape_class(name, shapes, cfg, seq_len):
-    """The class of an operator with these input shapes."""
+def shape_class(name, shapes, cfg, seq_len, micro_batch=1):
+    """The class of an operator with these input shapes (`micro_batch`:
+    the einsums' batched products run over micro-batch x heads)."""
     shapes = [tuple(x) for x in shapes if isinstance(x, (list, tuple))]
     if cfg.arch_type == "hybrid":
         di, n = cfg.ssm.expand * cfg.d_model, cfg.ssm.d_state
@@ -75,20 +85,28 @@ def shape_class(name, shapes, cfg, seq_len):
                for x in shapes if len(x) >= 2):
             return "ssm"
     heads = {cfg.n_heads, cfg.n_kv_heads}
-    if any(len(x) >= 3 and x[-3] in heads and x[-2] == seq_len
-           for x in shapes):
+    # the batched products' (micro-batch x heads, S, x) operands
+    flat = {h * micro_batch for h in heads}
+    lengths = {seq_len}
+    if cfg.arch_type == "audio":
+        lengths.add(cfg.encoder_seq_len)
+    if cfg.arch_type == "vlm":
+        lengths = {seq_len + cfg.n_patch_tokens}
+    if any(x[-2] in lengths and x[-3] in (heads if len(x) >= 4 else flat)
+           for x in shapes if len(x) >= 3):
         return "attention"
     return "gemm" if name in GEMM_OPS else "other"
 
 
-def by_shape(prof, cfg, seq_len):
+def by_shape(prof, cfg, seq_len, micro_batch=1):
     """Self device ms of the profiled operators by `shape_class`."""
     out = {}
     for e in prof.key_averages(group_by_input_shape=True):
         us = _device_us(e)
         if us <= 0 or str(getattr(e, "device_type", "")).endswith("CUDA"):
             continue
-        cls = shape_class(e.key, e.input_shapes or [], cfg, seq_len)
+        cls = shape_class(e.key, e.input_shapes or [], cfg, seq_len,
+                          micro_batch)
         out[cls] = out.get(cls, 0.0) + us / 1e3
     return out
 
@@ -136,7 +154,8 @@ def main(argv=None):
                and str(getattr(e, "device_type", "")).endswith("CUDA")]
     busy_us = sum(_device_us(e) for e in kernels)
     kernels.sort(key=_device_us, reverse=True)
-    split = by_shape(prof, cfg, args.seq_len)
+    split = by_shape(prof, cfg, args.seq_len,
+                     args.global_batch // args.micro_batches)
     split["unattributed"] = busy_us / 1e3 - sum(split.values())
     print(json.dumps({
         "arch": cfg.name, "num_layers": cfg.num_layers,

@@ -57,6 +57,22 @@
       --num-layers 8 --steps 2 --global-batch 8 --micro-batches 8 \
       --seq-len 2048 --accumulation adama_layerwise
 
+  # the enc-dec family: whisper-base at full size (6 + 6 layers, 1500
+  # stub frames, its decoder context of 448 tokens); --num-layers sets the
+  # decoder's depth
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-base \
+      --steps 3 --global-batch 16 --micro-batches 8 --seq-len 448 \
+      --accumulation adama_layerwise
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-base \
+      --reduced --steps 2 --global-batch 4 --micro-batches 2 --seq-len 16 \
+      --log-every 1 --device cpu
+
+  # the vlm family: internvl2-26b at full width, 4 of its 48 layers, 1024
+  # text tokens after its 256 stub patches (ga + remat peaks at 64.9 GB)
+  PYTHONPATH=src python -m repro_torch.launch.train --arch internvl2-26b \
+      --num-layers 4 --steps 2 --global-batch 8 --micro-batches 8 \
+      --seq-len 1024 --accumulation adama_layerwise
+
   # saves every step; run again with more --steps to resume
   # ("[train] restored step 2")
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \

@@ -1,16 +1,22 @@
 """Model assembly for the dense (gqa, swa and mla attention), encoder, MoE,
-rwkv6 (ssm) and hybrid (attention and Mamba heads side by side) families:
-parameter init, the training forward pass and the loss
-(`repro/models/model.py`).
+rwkv6 (ssm), hybrid (attention and Mamba heads side by side), audio
+(enc-dec) and vlm families: parameter init, the training forward pass and
+the loss (`repro/models/model.py`).
 
 Param tree layout, the reference's key for key:
   {"embed": (V_pad, D), "lm_head": (D, V_pad),
    "final_norm_scale"/"final_norm_bias": (D,),
    "blocks": {leaf: (L, ...)},              # stacked, leading layer axis
-   "dense_blocks": {leaf: (P, ...)}}        # MoE: the P dense-prefix layers
+   "dense_blocks": {leaf: (P, ...)},        # MoE: the P dense-prefix layers
+   "enc_blocks": {leaf: (E, ...)},          # enc-dec: the E encoder layers
+   "enc_norm_scale"/"enc_norm_bias": (D,)}  # enc-dec: the encoder's norm
 
 An MoE model's main stack holds its num_layers - dense_prefix MoE layers;
-the forward runs `dense_blocks` first.
+the forward runs `dense_blocks` first. An enc-dec model's main stack is
+its num_layers decoder blocks (self-attention, cross-attention to the
+encoder's output, MLP); the forward runs the encoder stack over the stub
+frames first. A vlm runs the main stack over [patches; text] and takes the
+logits on the text tail.
 
 `Model` is an nn.Module whose parameters are exactly these leaves, so the
 arena layout built from `Model.tree()` is the reference's. The forward is a
@@ -54,16 +60,19 @@ def _dense(gen, shape, scale=0.02):
                                device=gen.device)
 
 
-def _attn_params(cfg, gen, lead):
+def _attn_params(cfg, gen, lead, cross=False):
+    """The attention's leaves; `cross`: an enc-dec decoder's
+    cross-attention, named wq_x, wk_x, wv_x and wo_x."""
     d, h, kv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     hd = cfg.resolved_head_dim
     out_scale = 0.02 / math.sqrt(2 * cfg.num_layers)
-    if cfg.attention == "mla":
+    if cfg.attention == "mla" and not cross:
         return _mla_params(cfg, gen, lead, out_scale)
-    return {"wq": _dense(gen, lead + (d, h, hd)),
-            "wk": _dense(gen, lead + (d, kv, hd)),
-            "wv": _dense(gen, lead + (d, kv, hd)),
-            "wo": _dense(gen, lead + (h, hd, d), out_scale)}
+    sfx = "_x" if cross else ""
+    return {f"wq{sfx}": _dense(gen, lead + (d, h, hd)),
+            f"wk{sfx}": _dense(gen, lead + (d, kv, hd)),
+            f"wv{sfx}": _dense(gen, lead + (d, kv, hd)),
+            f"wo{sfx}": _dense(gen, lead + (h, hd, d), out_scale)}
 
 
 def _mla_params(cfg, gen, lead, out_scale):
@@ -149,9 +158,10 @@ def _mamba_params(cfg, gen, lead):
 
 
 def _block_params(cfg, gen, n_layers, kind="dense"):
-    """A dense, MoE or hybrid block's params for all layers at once
-    (leading L axis); a hybrid block adds the Mamba heads' leaves and the
-    two fuse norms to a dense one's."""
+    """A dense, MoE, hybrid or enc-dec decoder ("dec") block's params for
+    all layers at once (leading L axis); a hybrid block adds the Mamba
+    heads' leaves and the two fuse norms to a dense one's, a decoder block
+    the cross-attention's leaves and its norm."""
     lead = (n_layers,)
     p = {}
     for prefix in ("attn_norm_", "mlp_norm_"):
@@ -165,6 +175,11 @@ def _block_params(cfg, gen, n_layers, kind="dense"):
         for name in ("fuse_norm_a", "fuse_norm_m"):
             p[name] = torch.ones(lead + (cfg.d_model,), dtype=torch.float32,
                                  device=gen.device)
+    if kind == "dec":
+        p.update(_attn_params(cfg, gen, lead, cross=True))
+        for k, x in _norm_params(cfg, cfg.d_model, "cross_norm_",
+                                 gen.device).items():
+            p[k] = x.expand(lead + x.shape).clone()
     return p
 
 
@@ -201,8 +216,9 @@ def _rwkv_block_params(cfg, gen, n_layers):
 
 def main_stack_kind(cfg) -> str:
     """The block kind of the main stack, as the reference names it."""
-    return {"dense": "dense", "encoder": "dense", "moe": "moe",
-            "ssm": "rwkv", "hybrid": "hybrid"}[cfg.arch_type]
+    return {"dense": "dense", "encoder": "dense", "vlm": "dense",
+            "moe": "moe", "ssm": "rwkv", "hybrid": "hybrid",
+            "audio": "dec"}[cfg.arch_type]
 
 
 def n_main_layers(cfg) -> int:
@@ -214,24 +230,26 @@ def n_main_layers(cfg) -> int:
 
 
 def stages(cfg, params):
-    """The stacked regions in forward order, (name, block kind) each: an MoE
-    model's dense_blocks, then the main stack."""
+    """The stacked regions of the plain layer loop in forward order, (name,
+    block kind) each: an MoE model's dense_blocks, then the main stack (an
+    enc-dec model's encoder and decoder stacks run through `forward`'s and
+    Algorithm 2's own enc-dec forms)."""
     out = [("dense_blocks", "dense")] if "dense_blocks" in params else []
     return out + [("blocks", main_stack_kind(cfg))]
 
 
+# the (arch_type, attention) pairs of the reference's configs
+FAMILIES = {("dense", "gqa"), ("encoder", "gqa"), ("dense", "swa"),
+            ("dense", "mla"), ("moe", "mla"), ("ssm", "none"),
+            ("hybrid", "swa"), ("audio", "gqa"), ("vlm", "gqa")}
+
+
 def _check_family(cfg: ModelConfig):
-    if not ((cfg.arch_type in ("dense", "encoder") and cfg.attention == "gqa")
-            or (cfg.arch_type == "dense" and cfg.attention in ("swa", "mla"))
-            or (cfg.arch_type == "moe" and cfg.attention == "mla")
-            or (cfg.arch_type == "ssm" and cfg.attention == "none")
-            or (cfg.arch_type == "hybrid" and cfg.attention == "swa")):
+    if (cfg.arch_type, cfg.attention) not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: arch_type={cfg.arch_type!r} attention="
-            f"{cfg.attention!r} is not ported yet (ROADMAP queue 1, item 9: "
-            f"other model families); this port runs dense and encoder gqa "
-            f"models, dense swa and mla models, mla MoE models, the "
-            f"rwkv6 (ssm) family and swa hybrid models")
+            f"{cfg.attention!r} is no family of the reference's configs; "
+            f"this port runs {sorted(FAMILIES)}")
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
@@ -250,6 +268,10 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
         params["blocks"] = _block_params(cfg, gen, n_main_layers(cfg), kind)
     if cfg.moe is not None and cfg.moe.dense_prefix:
         params["dense_blocks"] = _block_params(cfg, gen, cfg.moe.dense_prefix)
+    if cfg.encoder_layers:
+        params["enc_blocks"] = _block_params(cfg, gen, cfg.encoder_layers)
+        params.update(_norm_params(cfg, cfg.d_model, "enc_norm_",
+                                   gen.device))
     return params
 
 
@@ -266,7 +288,8 @@ def params_from_jax(tree_of_numpy, device) -> Params:
 class Model(nn.Module):
     """Holds a param tree as nn.Parameters under the reference's names:
     top-level leaves directly, each stacked region (`blocks`, an MoE
-    model's `dense_blocks`) in an nn.ParameterDict of that name."""
+    model's `dense_blocks`, an enc-dec model's `enc_blocks`) in an
+    nn.ParameterDict of that name."""
 
     def __init__(self, cfg: ModelConfig, params: Params):
         super().__init__()
@@ -294,14 +317,16 @@ class Model(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def apply_block(cfg, p, x, positions, *, kind, causal=True):
+def apply_block(cfg, p, x, positions, *, kind, causal=True, enc_kv=None):
     """One block on (B, S, D), of `kind`: a dense transformer block, an MoE
     one (its FFN routed, `moe_ffn`), a hybrid one (attention and the Mamba
     heads on the same normed input, each output rms-normed, their mean
-    added), or an RWKV-6 block (time-mix, then channel-mix, each from a
-    zero token-shift carry and, for the time-mix, a zero fp32 state).
-    Returns (x, aux loss): the MoE FFN's load-balance loss, a zero fp32
-    scalar for the other kinds."""
+    added), an enc-dec decoder one ("dec": cross-attention to `enc_kv`, the
+    encoder's keys and values, between the self-attention and the MLP), or
+    an RWKV-6 block (time-mix, then channel-mix, each from a zero
+    token-shift carry and, for the time-mix, a zero fp32 state). Returns
+    (x, aux loss): the MoE FFN's load-balance loss, a zero fp32 scalar for
+    the other kinds."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "rwkv":
         b, _, d = x.shape
@@ -323,6 +348,9 @@ def apply_block(cfg, p, x, positions, *, kind, causal=True):
         attn = 0.5 * (md.rmsnorm(attn, p["fuse_norm_a"]) +
                       md.rmsnorm(mam, p["fuse_norm_m"]))
     x = x + attn
+    if kind == "dec":
+        c_in = md.apply_norm(cfg, p, x, "cross_norm_")
+        x = x + md.cross_attention(cfg, p, c_in, enc_kv, positions)
     m_in = md.apply_norm(cfg, p, x, "mlp_norm_")
     if kind == "moe":
         y, aux = md.moe_ffn(cfg, p, m_in)
@@ -331,11 +359,22 @@ def apply_block(cfg, p, x, positions, *, kind, causal=True):
     return x + y, aux
 
 
-def run_blocks(cfg, stack, x, positions, *, kind, causal=True, remat=False):
+def dec_block(cfg, p, x, enc_out, positions):
+    """An enc-dec decoder layer: its cross keys and values projected from
+    the encoder's output, then the block (the reference's `_scan_dec`
+    body)."""
+    return apply_block(cfg, p, x, positions, kind="dec", causal=True,
+                       enc_kv=md.encode_cross_kv(p, enc_out))
+
+
+def run_blocks(cfg, stack, x, positions, *, kind, causal=True, remat=False,
+               enc_out=None):
     """The layer loop over a stacked subtree of blocks of `kind` (the
     reference scans it). Returns (x, the layers' aux losses summed in
     layer order from zero). `unbind` splits each stacked leaf once, so the
-    backward writes each leaf's gradient as one stacked tensor.
+    backward writes each leaf's gradient as one stacked tensor. Decoder
+    blocks ("dec") take the encoder's output `enc_out` and project their
+    cross keys and values inside the layer (`dec_block`).
 
     With `remat`, each layer runs under non-reentrant
     torch.utils.checkpoint (the reference's `jax.checkpoint` of the scan
@@ -348,15 +387,17 @@ def run_blocks(cfg, stack, x, positions, *, kind, causal=True, remat=False):
     keys = sorted(stack)
     per_leaf = [torch.unbind(stack[k], 0) for k in keys]
 
-    def block(h, *layer):
-        return apply_block(cfg, dict(zip(keys, layer)), h, positions,
-                           kind=kind, causal=causal)
+    def block(h, eo, *layer):
+        p = dict(zip(keys, layer))
+        if kind == "dec":
+            return dec_block(cfg, p, h, eo, positions)
+        return apply_block(cfg, p, h, positions, kind=kind, causal=causal)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in zip(*per_leaf):
         if remat:
-            x, a = checkpoint(block, x, *layer, use_reentrant=False)
+            x, a = checkpoint(block, x, enc_out, *layer, use_reentrant=False)
         else:
-            x, a = block(x, *layer)
+            x, a = block(x, enc_out, *layer)
         aux = aux + a
     return x, aux
 
@@ -372,21 +413,61 @@ def embed_tokens(cfg, params, tokens, positions):
     return x
 
 
+def _positions(n, b, device):
+    return torch.arange(n, dtype=torch.int32, device=device).expand(b, n)
+
+
+def encode(cfg, params, frames, *, remat=False):
+    """An enc-dec model's encoder: the stub frames (in the compute dtype)
+    plus sinusoidal positions 0..Se-1, the encoder stack (dense blocks,
+    non-causal; rope on top of the sinusoids, as every gqa block applies
+    it), the encoder's norm. Returns (enc_out, the stack's aux loss)."""
+    frames = frames.to(_cdt(cfg))
+    b, se = frames.shape[:2]
+    epos = _positions(se, b, frames.device)
+    e = frames + md.sinusoidal_positions(epos, cfg.d_model).to(frames.dtype)
+    e, aux = run_blocks(cfg, params["enc_blocks"], e, epos, kind="dense",
+                        causal=False, remat=remat)
+    return md.apply_norm(cfg, params, e, "enc_norm_"), aux
+
+
+def vlm_input(cfg, params, tokens, patches):
+    """A vlm's input: the stub patches (in the compute dtype) before the
+    text's embedding, and positions 0..P+S-1 over both. Returns (x,
+    positions)."""
+    patches = patches.to(_cdt(cfg))
+    b, s = tokens.shape
+    p = patches.shape[1]
+    positions = _positions(p + s, b, tokens.device)
+    xt = embed_tokens(cfg, params, tokens, positions[:, p:])
+    return torch.cat([patches, xt], dim=1), positions
+
+
 def forward(cfg: ModelConfig, params: Params, batch, *, remat: bool = False):
     """Training forward. Returns (logits fp32 (B, S, V_pad), aux loss: the
     stages' aux losses summed from zero in forward order). `remat`
-    checkpoints each layer (`run_blocks`)."""
+    checkpoints each layer (`run_blocks`), an enc-dec decoder layer's
+    cross keys and values included. An enc-dec model runs the encoder
+    first; a vlm takes the logits on the text tail."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     causal = cfg.arch_type != "encoder"
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=tokens.device).expand(b, s)
-    x = embed_tokens(cfg, params, tokens, positions)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    enc_out = None
+    if cfg.arch_type == "audio":
+        enc_out, a = encode(cfg, params, batch["frames"], remat=remat)
+        aux = aux + a
+    if cfg.arch_type == "vlm":
+        x, positions = vlm_input(cfg, params, tokens, batch["patches"])
+    else:
+        positions = _positions(s, b, tokens.device)
+        x = embed_tokens(cfg, params, tokens, positions)
     for name, kind in stages(cfg, params):
         x, a = run_blocks(cfg, params[name], x, positions, kind=kind,
-                          causal=causal, remat=remat)
+                          causal=causal, remat=remat, enc_out=enc_out)
         aux = aux + a
+    if cfg.arch_type == "vlm":
+        x = x[:, -s:]                                   # the text tail
     x = md.apply_norm(cfg, params, x, "final_norm_")
     logits = (x @ params["lm_head"].to(x.dtype)).float()
     return logits, aux

@@ -1,7 +1,8 @@
-"""Model building blocks (dense, encoder, MoE, rwkv6 and hybrid families;
-the dense decoder's gqa, sliding-window (swa) and multi-head latent (mla)
-attention; the routed experts' FFN, `moe_ffn`; the hybrid block's Mamba
-heads, `mamba_mix`), plain functions on tensors with the reference's
+"""Model building blocks (dense, encoder, MoE, rwkv6, hybrid, enc-dec and
+vlm families; the dense decoder's gqa, sliding-window (swa) and multi-head
+latent (mla) attention; the enc-dec decoder's cross-attention; the routed
+experts' FFN, `moe_ffn`; the hybrid block's Mamba heads, `mamba_mix`),
+plain functions on tensors with the reference's
 layouts and operation order (`repro/models/modules.py`).
 
 Params are dicts of tensors. Attention is the blockwise online-softmax
@@ -182,6 +183,30 @@ def gqa_attention(cfg, p, x, positions, *, causal=True):
     out = blockwise_attention(q, k, v, causal=causal, q_positions=positions,
                               kv_positions=positions, window=window)
     return torch.einsum("bhsk,hkd->bsd", out, p["wo"].to(x.dtype))
+
+
+def cross_attention(cfg, p, x, enc_kv, positions):
+    """The enc-dec decoder's cross-attention: queries from x through wq_x,
+    keys and values the encoder's (`encode_cross_kv`), at positions
+    0..Se-1, non-causal, no rope on either side. enc_kv = (k, v), each
+    (B, Hkv, Se, hd); at Se = 1500 the 1024-key blocks pad 548 keys, which
+    add exact zeros."""
+    q = torch.einsum("bsd,dhk->bhsk", x, p["wq_x"].to(x.dtype))
+    k, v = enc_kv
+    se = k.shape[2]
+    kv_pos = torch.arange(se, dtype=torch.int32,
+                          device=x.device).expand(x.shape[0], se)
+    out = blockwise_attention(q, k, v, causal=False, q_positions=positions,
+                              kv_positions=kv_pos)
+    return torch.einsum("bhsk,hkd->bsd", out, p["wo_x"].to(x.dtype))
+
+
+def encode_cross_kv(p, enc_out):
+    """A decoder layer's cross keys and values from the encoder's output,
+    (B, Hkv, Se, hd) each."""
+    k = torch.einsum("bsd,dhk->bhsk", enc_out, p["wk_x"].to(enc_out.dtype))
+    v = torch.einsum("bsd,dhk->bhsk", enc_out, p["wv_x"].to(enc_out.dtype))
+    return k, v
 
 
 # ---------------------------------------------------------------------------

@@ -7,6 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from repro.configs import ARCH_IDS as JAX_ARCH_IDS
 from repro.configs import OptimizerConfig as JaxOptimizerConfig
 from repro.configs import get_config as jax_get_config
 from repro.configs.base import InputShape
@@ -83,7 +84,7 @@ def test_bert_large_is_the_papers_workload():
     assert (cfg.arch_type, cfg.norm, cfg.act, cfg.pos_emb) == \
         ("encoder", "layernorm", "gelu", "sinusoidal")
     with pytest.raises(KeyError):
-        get_config("whisper_base")               # a family not ported yet
+        get_config("no_such_arch")               # not a config of the repo
 
 
 def test_hybrid_config_is_the_published_one():
@@ -102,6 +103,29 @@ def test_hybrid_config_is_the_published_one():
             max(1, cfg.d_model // 16)) == (16, 4, 2, 3200, 100)
     red = cfg.reduced()
     assert (red.window, red.ssm.expand * red.d_model) == (64, 512)
+
+
+def test_last_two_configs_are_the_published_ones():
+    """yi-9b (arXiv:2403.04652): 48 layers, d_model 4096, 32 heads on 4 kv
+    heads of 128, d_ff 11008, vocab 64000; deepseek-v2-236b
+    (arXiv:2405.04434): 60 layers, d_model 5120, 128 heads, mla (q low
+    rank 1536, kv latent 512, q/k 128 + 64, v 128), 160 routed experts of
+    1536 + 2 shared, top-6, the first block dense (d_ff 12288)."""
+    yi, ds = get_config("yi-9b"), get_config("deepseek-v2-236b")
+    assert (yi.arch_type, yi.num_layers, yi.d_model, yi.n_heads,
+            yi.n_kv_heads, yi.resolved_head_dim, yi.d_ff, yi.vocab_size,
+            yi.attention, yi.max_seq_len) == ("dense", 48, 4096, 32, 4, 128,
+                                              11008, 64000, "gqa", 4096)
+    assert (ds.arch_type, ds.num_layers, ds.d_model, ds.n_heads, ds.d_ff,
+            ds.vocab_size, ds.attention, ds.q_lora_rank, ds.kv_lora_rank,
+            ds.qk_nope_head_dim, ds.qk_rope_head_dim,
+            ds.resolved_v_head_dim) == ("moe", 60, 5120, 128, 12288, 102400,
+                                        "mla", 1536, 512, 128, 64, 128)
+    mc = ds.moe
+    assert (mc.n_experts, mc.n_shared, mc.top_k, mc.d_expert,
+            mc.dense_prefix) == (160, 2, 6, 1536, 1)
+    assert len(ARCH_IDS) == 11
+    assert sorted(ARCH_IDS) == sorted(JAX_ARCH_IDS)
 
 
 def test_optimizer_config_defaults_match_reference():

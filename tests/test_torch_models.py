@@ -2,8 +2,9 @@
 (repro.models): each module, then logits, loss and packed gradient arenas of
 the reduced bert_large, stablelm_1_6b, rwkv6_7b, mistral_nemo_12b (swa,
 past its window) and minicpm3_4b (mla, with and without its q low-rank
-projection), deepseek_v2_lite_16b (MoE with mla, a dense prefix layer)
-and hymba_1_5b (hybrid: swa attention and Mamba heads, past its window)
+projection), deepseek_v2_lite_16b (MoE with mla, a dense prefix layer),
+hymba_1_5b (hybrid: swa attention and Mamba heads, past its window),
+whisper_base (enc-dec), internvl2_26b (vlm), yi_9b and deepseek_v2_236b
 from the reference's own params."""
 import dataclasses
 
@@ -35,7 +36,8 @@ VARIANTS = {"qlora": dict(q_lora_rank=96)}
 # whole-model tests also cover the rwkv6 family (its own module tests are in
 # test_torch_rwkv6.py) and mla
 ALL_ARCHS = ARCHS + ("rwkv6_7b", "minicpm3_4b", "minicpm3_4b+qlora",
-                     "deepseek_v2_lite_16b", "hymba_1_5b")
+                     "deepseek_v2_lite_16b", "hymba_1_5b", "whisper_base",
+                     "internvl2_26b", "yi_9b", "deepseek_v2_236b")
 # the swa models run past their reduced window of 64
 SEQ = {"mistral_nemo_12b": 96, "hymba_1_5b": 96}
 
@@ -254,9 +256,19 @@ def test_init_params_have_the_reference_tree(arch):
 
 
 def test_other_families_raise_not_implemented():
-    cfg = dataclasses.replace(_tcfg("stablelm_1_6b"), arch_type="audio")
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
+    """Every (arch_type, attention) pair of the reference's configs is
+    ported; a pair none of them has (an enc-dec model with mla attention)
+    is refused."""
+    cfg = dataclasses.replace(_tcfg("stablelm_1_6b"), arch_type="audio",
+                              attention="mla")
+    with pytest.raises(NotImplementedError,
+                       match="no family of the reference's configs"):
         tmodel.init_params(cfg, torch.Generator())
+    from repro.configs.base import ARCH_IDS as JAX_ARCH_IDS
+    from repro.configs import get_config as jax_get_config
+    for arch in JAX_ARCH_IDS:
+        cfg = jax_get_config(arch)
+        assert (cfg.arch_type, cfg.attention) in tmodel.FAMILIES, arch
 
 
 @pytest.mark.parametrize("arch", ["mistral-nemo-12b", "minicpm3-4b"])

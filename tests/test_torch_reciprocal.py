@@ -4,8 +4,8 @@ CPU rewrites `x / n` by a constant as x * f32(1/N), and contracts ga's
 `acc + pack(g) / n` into one fused multiply-add except on the zero-padded
 leaves whose pad it fuses into the sum's loop (core/accumulation.py
 `uncontracted_rows`). ga's accumulator, on every reduced model, a narrow
-deepseek whose only padded stacked leaf is kv_norm, and synthetic trees
-around XLA's fusion limit, and per-leaf adama's scaled gradient are held
+deepseek whose only padded stacked leaf is kv_norm, a whisper-base at its
+own widths, and synthetic trees around XLA's fusion limit, and per-leaf adama's scaled gradient are held
 bit for bit; the ga and per-leaf adama engines at N = 3 within the
 Fp32Codec's engine tolerance. (Every other parity test runs N = 2, where
 1/N is exact.)"""
@@ -38,11 +38,19 @@ ENGINE_TOL = 5e-6        # Fp32Codec's declared engine tolerance
 # config drops; "+narrow": deepseek at d_model 1024 and kv_lora_rank 512,
 # where kv_norm is the only padded leaf of each stacked region, as at full
 # width
+# "+width": whisper-base at its own widths (d_model 512, 8 heads of 64,
+# d_ff 2048), one layer a stack, vocab cut to 1024: two stacked regions
+# and six rest leaves, four of them half-row norms, so the arena's
+# concatenate (with its zero rows) is past XLA's fusion limit
 VARIANTS = {"qlora": dict(q_lora_rank=96),
-            "narrow": dict(d_model=1024, kv_lora_rank=512)}
+            "narrow": dict(d_model=1024, kv_lora_rank=512),
+            "width": dict(d_model=512, n_heads=8, n_kv_heads=8, head_dim=64,
+                          d_ff=2048, vocab_size=1024)}
 ARCHS = ("bert_large", "stablelm_1_6b", "rwkv6_7b", "mistral_nemo_12b",
          "minicpm3_4b", "minicpm3_4b+qlora", "deepseek_v2_lite_16b",
-         "deepseek_v2_lite_16b+narrow", "hymba_1_5b")
+         "deepseek_v2_lite_16b+narrow", "hymba_1_5b", "whisper_base",
+         "whisper_base+width", "internvl2_26b", "yi_9b",
+         "deepseek_v2_236b")
 
 
 def _f32(*shape):
@@ -133,6 +141,10 @@ def test_ga_accumulate_is_the_reference_expression_bit_for_bit(arch, n):
     elif arch.endswith("+narrow"):
         # kv_norm's pads run in fusions of their own; no rest leaf is padded
         assert rows == []
+    elif arch.startswith("whisper_base"):
+        # 2 stacked regions + 6 rest leaves + the rest's zero rows + the
+        # tail: more than 8 operands, nothing fused
+        assert rows == []
     else:
         # the padded final norm's rows: the rest region's pack is fused
         assert rows and all(hi - lo == 1 for lo, hi in rows)
@@ -169,7 +181,8 @@ N3, GB3, SEQ3, STEPS3 = 3, 6, 16, 2
 # schedule (test_torch_engines: ga's first step is ill-conditioned across
 # frameworks), per-leaf adama at a constant lr
 N3_CASES = {"ga-stablelm": ("stablelm_1_6b", "ga", True),
-            "adama-per-leaf-bert": ("bert_large", "adama", False)}
+            "adama-per-leaf-bert": ("bert_large", "adama", False),
+            "ga-whisper": ("whisper_base", "ga", True)}
 
 
 def _schedules(engine):
