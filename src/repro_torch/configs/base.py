@@ -130,6 +130,7 @@ ACCUM_ENGINES = ("ga", "adama", "adama_layerwise")
 # core/state_store.py's registry
 STATE_CODECS = ("fp32", "int8", "factored", "rowcol")    # second moment (v)
 M_CODECS = ("fp32", "int8")                              # first moment (m)
+ZERO_STAGES = (0, 1)
 GRAD_DTYPES = ("fp32", "bf16", "fp8_e4m3")               # gradient wire
 
 
@@ -186,6 +187,21 @@ class OptimizerConfig:
     state_codec: str = "fp32"            # second-moment codec
     m_codec: str = "fp32"                # first-moment codec
     arena: bool = True                   # False: per-leaf state
+    # ZeRO-1 (the reference's P_os): with zero_stage=1 the data-parallel
+    # engine (core/dp_shardmap.py) shards every row-indexed state column by
+    # row range, each rank owning rows [k*R/M, (k+1)*R/M) of the arena.
+    # Inert outside that engine, as in the reference.
+    zero_stage: int = 0                  # 0 | 1
+    # the reference's bucketed ZeRO-1 schedule (per-layer and size-capped
+    # gradient buckets). The port runs the full-pack schedule only
+    # (zero_bucketed=False: the whole gradient arena packed, then one
+    # reduce-scatter a micro-batch); the DP engine refuses True under
+    # zero_stage=1 (ROADMAP queue 1, item 10.2). Default True, as there.
+    zero_bucketed: bool = True
+    # rest-region bucket cap in arena rows (0 = the reference's default)
+    zero_bucket_rows: int = 0
+    # the reference's double-buffered bucket pipeline (item 10.3)
+    zero_async: bool = False
     # the gradient wire: the dtype each micro-batch's (or each layer's)
     # gradient is packed in (core/arena.py). "bf16" halves the packed slab;
     # the fold kernels upcast it to fp32 in-pass, so the moments still
@@ -256,13 +272,47 @@ class OptimizerConfig:
                 raise ValueError(f"{field}={name!r} requires arena=True: "
                                  f"codecs are columns of the flat state "
                                  f"arena (core/state_store.py)")
+        self._check_zero_fields()
         self._check_wire_and_guard_fields()
         # the port's own refusals, after every check the reference makes
         if self.accumulation == "ga" and not self.arena:
             raise NotImplementedError(
-                "ga with arena=False runs the reference's plain optim/adam.py "
-                "(no kernel), which is not ported (ROADMAP queue 1, item 12: "
-                "the optim/ baselines); use arena=True")
+                "ga with arena=False (the reference's single-device ga over "
+                "per-leaf state) is not ported (ROADMAP queue 1, item 12.1: "
+                "the optim/ baselines; optim/adam.py is, for the DP engine's "
+                "'ga' variant); use arena=True")
+
+    def _check_zero_fields(self):
+        """The reference's checks of the ZeRO fields, in its order and with
+        its messages."""
+        if self.zero_stage not in ZERO_STAGES:
+            raise ValueError(
+                f"zero_stage={self.zero_stage} unsupported; expected one of "
+                f"{ZERO_STAGES} (ZeRO-2/3 shard gradients/params, which "
+                f"AdamA already makes transient)")
+        if self.zero_bucket_rows < 0:
+            raise ValueError(f"zero_bucket_rows must be >= 0 (0 = default "
+                             f"cap), got {self.zero_bucket_rows}")
+        if self.zero_async:
+            if self.zero_stage != 1:
+                raise ValueError(
+                    "zero_async=True requires zero_stage=1: the double-"
+                    "buffered pipeline overlaps per-bucket gradient "
+                    "reduce-scatters against slice folds, which only exist "
+                    "in the ZeRO-1 row-range schedule; pass zero_stage=1")
+            if not self.arena:
+                raise ValueError(
+                    "zero_async=True requires arena=True (use_pallas=True): "
+                    "the bucket pipeline streams slices of the flat state "
+                    "arena; pass arena=True use_pallas=True")
+            if not self.zero_bucketed and \
+                    self.accumulation != "adama_layerwise":
+                raise ValueError(
+                    "zero_async=True requires the bucketed ZeRO-1 schedule "
+                    "(zero_bucketed=True, or the adama_layerwise stream): "
+                    "the full-pack schedule has a single monolithic "
+                    "psum_scatter — there is no second bucket to double-"
+                    "buffer; drop zero_bucketed=False or zero_async")
 
     def _check_wire_and_guard_fields(self):
         """The reference's checks of the wire, master-param, guard and

@@ -107,10 +107,14 @@ from repro_torch.train import faults as fault_mod
 from repro_torch.train import scaler as scaler_mod
 
 
-def _fold_decay(i: int, beta1: float, beta2: float):
+def _fold_decay(i: int, beta1: float, beta2: float, m_devices: int = 1):
     """Decay pair for fold i of a mini-batch: the begin-minibatch pass
-    (m *= b1, v *= b2) fused into the FIRST fold, identity afterwards."""
-    return (beta1, beta2) if i == 0 else (1.0, 1.0)
+    (m *= b1, v *= M*b2, Eq. 6's pre-scale with M = `m_devices`) fused
+    into the FIRST fold, identity afterwards. M*b2 is the double product,
+    rounded to float32 once where it is used (the kernels' scalars, torch's
+    float32 arithmetic): the reference's `jnp.float32(m_devices * beta2)`,
+    not f32(M) * f32(b2)."""
+    return (beta1, m_devices * beta2) if i == 0 else (1.0, 1.0)
 
 
 def _split_micro(batch: Dict[str, Any], n: int):
@@ -227,21 +231,24 @@ def _lr(lr_schedule, opt: OptimizerConfig, step: int):
 
 class _Guard:
     """A guarded engine's device constants, copied from the host once per
-    device, and the guard vectors built from them on the device."""
+    device, and the guard vectors built from them on the device.
+    `m_devices` (the data-parallel engine's M) makes the first fold's
+    decay (b1, M*b2), Eq. 6's pre-scale."""
 
-    def __init__(self, opt: OptimizerConfig):
+    def __init__(self, opt: OptimizerConfig, m_devices: int = 1):
         self.opt = opt
+        self.m_devices = m_devices
         self._consts = {}
 
     def consts(self, device) -> torch.Tensor:
         c = self._consts.get(device)
         if c is None:
             o = self.opt
-            # [b1, b2 | 1, 1 | ok False, ok True | f32(1/N) | 1]
+            # [b1, M*b2 | 1, 1 | ok False, ok True | f32(1/N) | 1]
             c = self._consts[device] = torch.tensor(
-                [o.beta1, o.beta2, 1.0, 1.0, 0.0, 1.0,
-                 1.0 / o.micro_batches, 1.0], dtype=torch.float32,
-                device=device)
+                [*_fold_decay(0, o.beta1, o.beta2, self.m_devices), 1.0,
+                 1.0, 0.0, 1.0, 1.0 / o.micro_batches, 1.0],
+                dtype=torch.float32, device=device)
         return c
 
     def flag(self, device, ok: bool) -> torch.Tensor:
@@ -279,11 +286,12 @@ class _Guard:
 
 
 def make_ga_step(cfg: ModelConfig, opt: OptimizerConfig, *, remat=False,
-                 lr_schedule=None, fault=None):
+                 lr_schedule=None, fault=None, state_shards: int = 1):
     loss_of = make_loss(cfg, remat=remat)
     n = opt.micro_batches
     if opt.finite_guard:
-        return _make_guarded_ga_step(loss_of, opt, lr_schedule, fault)
+        return _make_guarded_ga_step(loss_of, opt, lr_schedule, fault,
+                                     state_shards)
 
     def step(params, opt_state, batch):
         adama.load_working_params(params, opt_state)
@@ -316,10 +324,10 @@ def make_ga_step(cfg: ModelConfig, opt: OptimizerConfig, *, remat=False,
             eps=opt.eps, weight_decay=opt.weight_decay)
         return params, opt_state, {"loss": lsum * r}
 
-    return step, _init(opt)
+    return step, _init(opt, state_shards)
 
 
-def _make_guarded_ga_step(loss_of, opt, lr_schedule, fault):
+def _make_guarded_ga_step(loss_of, opt, lr_schedule, fault, state_shards=1):
     """ga's whole-step guard: one verdict over the accumulated slab (checked
     before the clip) predicates the single fold, the apply and the step
     counter. The step does not advance on a skip, so a fault selecting
@@ -367,17 +375,18 @@ def _make_guarded_ga_step(loss_of, opt, lr_schedule, fault):
         good, metrics = guard.read_back(vec[2], sc, lsum * guard.inv_n(dev))
         return params, dict(opt_state, step=st0 + good, scaler=sc), metrics
 
-    return step, _init(opt)
+    return step, _init(opt, state_shards)
 
 
 def make_adama_step(cfg: ModelConfig, opt: OptimizerConfig, *, remat=False,
-                    lr_schedule=None, fault=None):
+                    lr_schedule=None, fault=None, state_shards: int = 1):
     loss_of = make_loss(cfg, remat=remat)
     n = opt.micro_batches
     b1, b2 = opt.beta1, opt.beta2
     wire = grad_wire_dtype(opt.grad_dtype)
     if opt.finite_guard:
-        return _make_guarded_adama_step(loss_of, opt, lr_schedule, fault)
+        return _make_guarded_adama_step(loss_of, opt, lr_schedule, fault,
+                                        state_shards)
 
     def step(params, opt_state, batch):
         adama.load_working_params(params, opt_state)
@@ -404,7 +413,7 @@ def make_adama_step(cfg: ModelConfig, opt: OptimizerConfig, *, remat=False,
             weight_decay=opt.weight_decay)
         return params, state, {"loss": lsum * r}
 
-    return step, _init(opt)
+    return step, _init(opt, state_shards)
 
 
 def _fold_fp8(state, slab, vec, sc, b1, b2):
@@ -423,7 +432,8 @@ def _fold_fp8(state, slab, vec, sc, b1, b2):
     return state
 
 
-def _make_guarded_adama_step(loss_of, opt, lr_schedule, fault):
+def _make_guarded_adama_step(loss_of, opt, lr_schedule, fault,
+                             state_shards=1):
     """Algorithm 1 guarded: per micro-batch, the loss times the live scale,
     the gradient packed at the wire's dtype, the slab's finite flag ANDed
     into a fresh guard vector [dm, dv, ok, scale_into_fold(1/N, sc)], the
@@ -475,11 +485,12 @@ def _make_guarded_adama_step(loss_of, opt, lr_schedule, fault):
             good, sc, lsum / torch.clamp(good, min=1).float())
         return params, dict(state, step=st0 + (good > 0), scaler=sc), metrics
 
-    return step, _init(opt)
+    return step, _init(opt, state_shards)
 
 
 def make_adama_layerwise_step(cfg: ModelConfig, opt: OptimizerConfig, *,
-                              remat=False, lr_schedule=None, fault=None):
+                              remat=False, lr_schedule=None, fault=None,
+                              state_shards: int = 1):
     """Algorithm 2. `remat` is accepted and unused, as in the reference:
     the engine already recomputes every layer from its saved input
     (core/layerwise.py), which is activation checkpointing."""
@@ -487,7 +498,8 @@ def make_adama_layerwise_step(cfg: ModelConfig, opt: OptimizerConfig, *,
     b1, b2 = opt.beta1, opt.beta2
     wire = grad_wire_dtype(opt.grad_dtype)
     if opt.finite_guard:
-        return _make_guarded_layerwise_step(cfg, opt, lr_schedule, fault)
+        return _make_guarded_layerwise_step(cfg, opt, lr_schedule, fault,
+                                            state_shards)
 
     def step(params, opt_state, batch):
         adama.load_working_params(params, opt_state)
@@ -512,10 +524,11 @@ def make_adama_layerwise_step(cfg: ModelConfig, opt: OptimizerConfig, *,
             weight_decay=opt.weight_decay)
         return params, state, {"loss": lsum * r}
 
-    return step, _init(opt)
+    return step, _init(opt, state_shards)
 
 
-def _make_guarded_layerwise_step(cfg, opt, lr_schedule, fault):
+def _make_guarded_layerwise_step(cfg, opt, lr_schedule, fault,
+                                 state_shards=1):
     """Algorithm 2 guarded: the backward is seeded with (1/N) * S (a
     nan/inf fault lands on the seed, and so reaches every slab), the guard
     vector [dm, dv, ok, 1/S] starts from the forced-skip verdict, and
@@ -557,10 +570,13 @@ def _make_guarded_layerwise_step(cfg, opt, lr_schedule, fault):
             good, sc, lsum / torch.clamp(good, min=1).float())
         return params, dict(state, step=st0 + (good > 0), scaler=sc), metrics
 
-    return step, _init(opt)
+    return step, _init(opt, state_shards)
 
 
-def _init(opt: OptimizerConfig):
+def _init(opt: OptimizerConfig, state_shards: int = 1):
+    """The engines' state init; arena state padded for `state_shards`
+    equal row ranges (the reference's `_arena_init`: a single-device state
+    whose layout a ZeRO-1 run of that many ranks shares)."""
     init = adama.init_arena if opt.arena else adama.init
 
     def init_state(params):
@@ -568,7 +584,8 @@ def _init(opt: OptimizerConfig):
             state = init(params, codec=opt.state_codec, m_codec=opt.m_codec,
                          master_params=opt.master_params,
                          work_param_cache=opt.work_param_cache,
-                         error_feedback=use_error_feedback(opt))
+                         error_feedback=use_error_feedback(opt),
+                         n_shards=max(1, state_shards))
         else:
             state = init(params, codec=opt.state_codec, m_codec=opt.m_codec)
         if opt.finite_guard:

@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import arena as arena_mod
-from repro_torch.core import state_store
+from repro_torch.core import collectives, state_store
 from repro_torch.kernels import ops
 
 State = Dict[str, Any]
@@ -77,7 +77,8 @@ def init(params, codec: str = "fp32", m_codec: str = "fp32") -> State:
 
 def init_arena(params, codec: str = "fp32", m_codec: str = "fp32",
                master_params: bool = False, work_param_cache: bool = False,
-               error_feedback: bool = False) -> State:
+               error_feedback: bool = False, n_shards: int = 1,
+               tp_shards: int = 1, rows=None) -> State:
     """Arena-backed state on the params' device, laid out as the reference
     lays it out: m in `m_codec`, v in `codec` (fp32 moments are Arenas,
     the others MomentStates of the reference's column shapes), zeroed;
@@ -85,13 +86,17 @@ def init_arena(params, codec: str = "fp32", m_codec: str = "fp32",
     state["p"] = pack(params); `work_param_cache` the bf16 working-param
     cache state["wp"] = pack(params, dtype=bfloat16) (the reference's
     regions, bit for bit); `error_feedback` the fp8 wire's residual
-    state["ef"], a zeroed fp32 arena."""
+    state["ef"], a zeroed fp32 arena. `n_shards` (and `tp_shards`) pad
+    the layout for ZeRO-1's row ranges (core/zero.py::shard_rows); `rows`
+    is the rows each row-indexed moment column holds (default: the
+    layout's; a ZeRO-1 rank's shard, rows / n_shards)."""
     mc = state_store.get_codec(m_codec, "m")
     vc = state_store.get_codec(codec, "v")
-    layout = arena_mod.build_layout(params)
+    layout = arena_mod.build_layout(params, n_shards=n_shards,
+                                    tp_shards=tp_shards)
     device = arena_mod.tree_flatten(params)[0][0].device
-    state = {"m": mc.init(layout, device), "v": vc.init(layout, device),
-             "step": 0}
+    state = {"m": mc.init(layout, device, rows),
+             "v": vc.init(layout, device, rows), "step": 0}
     with torch.no_grad():
         if master_params:
             state["p"] = arena_mod.Arena(arena_mod.pack(params, layout),
@@ -142,8 +147,12 @@ def _scale_tree_(tree, factor: float) -> None:
 
 
 @torch.no_grad()
-def begin_minibatch(state: State, beta1: float, beta2: float) -> State:
-    """Per-leaf state: m *= beta1, v *= beta2 (in place) and count the
+def begin_minibatch(state: State, beta1: float, beta2: float,
+                    m_devices: int = 1) -> State:
+    """Per-leaf state: m *= beta1, v *= M*beta2 (Eq. 6's pre-scale, M =
+    `m_devices`, 1 on one device; the double product, which torch's
+    float32 multiply rounds to float32 once, as the reference's weak-typed
+    product is), in place, and count the
     mini-batch. Arena state raises: the arena engines fuse this decay into
     the mini-batch's first fold."""
     if is_arena_state(state):
@@ -151,8 +160,42 @@ def begin_minibatch(state: State, beta1: float, beta2: float) -> State:
                          "state the decay rides in the first fold "
                          "(accumulate(..., decay=(beta1, beta2)))")
     _scale_tree_(state["m"], beta1)
-    _scale_tree_(state["v"], beta2)
+    _scale_tree_(state["v"], m_devices * beta2)
     return dict(state, step=state["step"] + 1)
+
+
+@torch.no_grad()
+def allreduce_states(state: State, group, m_devices: int,
+                     applied=None) -> State:
+    """The data-parallel sync of Eqs. 7-8, in place: m <- sum over ranks
+    / M, v <- sum over ranks / M^2 (one all-reduce each, per arena or per
+    leaf). The other keys pass through unsummed. `applied` (the guarded
+    engine's (1,) device flag, 0 when every micro-batch was skipped): v
+    then took no M*b2 pre-scale on any rank, so its sum is divided by M,
+    which leaves the replicated v as it was (the reference divides by M^2
+    there too, shrinking v M-fold).
+
+    Codec-encoded moments cannot take this path: a sum of int8 codes means
+    nothing, and a sum of factored row maxima is not the maximum of the
+    summed gradients. Row-range ZeRO-1 reduce-scatters the fp32 gradient
+    instead, which composes with every codec."""
+    for k in ("m", "v"):
+        if isinstance(state[k], state_store.MomentState):
+            raise TypeError(
+                f"allreduce_states cannot psum {state[k].codec}-coded "
+                f"{'first' if k == 'm' else 'second'} moments (the sum of "
+                f"codec state is not the state of the summed moments); run "
+                f"the shard_map DP engine with zero_stage=1 (row-range "
+                f"ZeRO-1 reduce-scatters fp32 gradients instead of states)")
+    v_div = m_devices ** 2
+    if applied is not None:
+        v_div = torch.where(applied != 0, float(v_div), float(m_devices))
+    for k, div in (("m", m_devices), ("v", v_div)):
+        xs = ([state[k].data] if is_arena_state(state)
+              else arena_mod.tree_flatten(state[k])[0])
+        for x in xs:
+            collectives.all_reduce(x, group).div_(div)
+    return state
 
 
 @torch.no_grad()

@@ -18,7 +18,8 @@ the same rows:
   a stack lives at rows `row + j * layer_rows`.
 - Each leaf starts on a fresh row; the tail lanes of its last row are zero.
 - Every region is padded to `region_grain()` rows, and the total to a
-  BLOCK_ROWS multiple once it exceeds BLOCK_ROWS.
+  BLOCK_ROWS multiple once it exceeds BLOCK_ROWS; a layout built for
+  ZeRO-1's `n_shards` row ranges is padded further (`build_layout`).
 
 A tree is a nested dict of tensors; a bare tensor is a tree of one leaf.
 """
@@ -50,11 +51,16 @@ def _align(n: int, mult: int) -> int:
     return _cdiv(n, mult) * mult
 
 
-def region_grain() -> int:
-    """Row granularity of every region boundary and stride: the lcm of the
-    slice-fold block minimum and the row alignment (the reference's
-    `region_grain(n_shards=1)`; one device, no shards)."""
-    return MIN_SLICE_BLOCK * ROW_ALIGN // math.gcd(MIN_SLICE_BLOCK, ROW_ALIGN)
+def _lcm(a: int, b: int) -> int:
+    return a * b // math.gcd(a, b)
+
+
+def region_grain(n_shards: int = 1) -> int:
+    """Row granularity of every region boundary and stride in a layout
+    built with `build_layout(tree, n_shards=...)`: the lcm of the
+    slice-fold block minimum and the ZeRO-1 scatter unit, n_shards x
+    ROW_ALIGN (the reference's `region_grain`)."""
+    return _lcm(MIN_SLICE_BLOCK, ROW_ALIGN * max(1, n_shards))
 
 
 # ---------------------------------------------------------------------------
@@ -183,8 +189,20 @@ def split_tree(tree):
     return [], tree
 
 
-def build_layout(tree) -> ArenaLayout:
-    grain = region_grain()
+def build_layout(tree, n_shards: int = 1, tp_shards: int = 1) -> ArenaLayout:
+    """The packed layout of `tree`, the reference's row for row.
+    `n_shards > 1` pads it for ZeRO-1 (core/zero.py::shard_rows): every
+    region to `region_grain(n_shards)` rows, and the total so that it
+    splits into `n_shards` equal ROW_ALIGN-multiple ranges, each a
+    BLOCK_ROWS multiple once the total passes BLOCK_ROWS, so that every
+    range is an arena the fold and apply kernels take on their own. The
+    layout depends only on the product n_shards x `tp_shards` (the
+    reference's dp x tp arithmetic; no engine of the port takes tp > 1)."""
+    if n_shards < 1 or tp_shards < 1:
+        raise ValueError(f"n_shards and tp_shards must be >= 1, got "
+                         f"{n_shards} and {tp_shards}")
+    n_shards *= tp_shards
+    grain = region_grain(n_shards)
     stack_items, rest_tree = split_tree(tree)
     row = 0
     stacks = []
@@ -206,6 +224,11 @@ def build_layout(tree) -> ArenaLayout:
     rest = RestSpec(rpaths, rspecs, row, rest_rows)
     row += rest_rows
     total = _align(row, BLOCK_ROWS) if row > BLOCK_ROWS else max(row, ROW_ALIGN)
+    if n_shards > 1:
+        per = _align(_cdiv(total, n_shards), ROW_ALIGN)
+        if per * n_shards > BLOCK_ROWS:
+            per = _align(per, BLOCK_ROWS)
+        total = per * n_shards
     return ArenaLayout(tuple(stacks), rest, total)
 
 
@@ -317,6 +340,9 @@ class Arena:
     layout: ArenaLayout
 
     @classmethod
-    def zeros(cls, layout: ArenaLayout, device) -> "Arena":
-        return cls(torch.zeros((layout.rows, LANES), dtype=torch.float32,
+    def zeros(cls, layout: ArenaLayout, device, rows=None) -> "Arena":
+        """A zeroed fp32 arena of `rows` rows (default layout.rows; a ZeRO-1
+        rank holds its shard of them, core/zero.py)."""
+        rows = layout.rows if rows is None else rows
+        return cls(torch.zeros((rows, LANES), dtype=torch.float32,
                                device=device), layout)

@@ -67,6 +67,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import collectives
 from repro_torch.core.arena import Arena, ArenaLayout
 from repro_torch.kernels import fused_step
 from repro_torch.kernels.adama_accum import ftz
@@ -126,11 +127,14 @@ class MomentCodec:
     def kernel(self) -> fused_step.KernelCodec:
         return fused_step.kernel_codec(self.moment, self.name)
 
-    def init(self, layout: ArenaLayout, device):
+    def init(self, layout: ArenaLayout, device, rows: Optional[int] = None):
         """Zeroed state on `device`, the reference's column shapes: (rows,
-        width) for a row-indexed column, (1, width) for a shared one."""
+        width) for a row-indexed column, (1, width) for a shared one.
+        `rows` (default layout.rows) is the rows each row-indexed column
+        holds: a ZeRO-1 rank's shard of them (core/zero.py)."""
+        rows = layout.rows if rows is None else rows
         return MomentState(tuple(torch.zeros(
-            (layout.rows if c.row_indexed else 1, c.width), dtype=c.dtype,
+            (rows if c.row_indexed else 1, c.width), dtype=c.dtype,
             device=device) for c in self.kernel.cols),
             layout, self.name, self.moment)
 
@@ -158,6 +162,12 @@ class MomentCodec:
         subnormal under the flush). Nothing for a row-local codec."""
         return parts
 
+    def psum_replicated(self, parts, group=None):
+        """Sum the shared columns' per-rank partials over a process group,
+        in place (ZeRO-1, once a mini-batch). Nothing for a row-local
+        codec."""
+        return parts
+
 
 def _scale_(x: torch.Tensor, c, ok=None) -> None:
     y = ftz(x * c)
@@ -175,8 +185,8 @@ class Fp32Codec(MomentCodec):
     def __init__(self, moment: str):
         self.moment = moment
 
-    def init(self, layout, device):
-        return Arena.zeros(layout, device)
+    def init(self, layout, device, rows=None):
+        return Arena.zeros(layout, device, rows)
 
     def parts_of(self, state):
         return (state.data,)
@@ -238,6 +248,10 @@ class RowColCodec(MomentCodec):
 
     def begin_micro(self, parts, decay, ok=None):
         _scale_(parts[1], decay, ok)
+        return parts
+
+    def psum_replicated(self, parts, group=None):
+        collectives.all_reduce(parts[1], group)
         return parts
 
 
@@ -310,33 +324,41 @@ def _guarded_begin_micro(codec, parts, decay, flag):
 
 
 def fold(m_codec, v_codec, m_parts, v_parts, g, *, beta1, beta2, scale=1.0,
-         decay=None, grad_scale=None, guard=None):
+         decay=None, replicated_decay=None, grad_scale=None, guard=None):
     """Whole-arena fold of one micro-batch's gradient arena into both
     moments, in place: one fused kernel. `g` is the wire's slab (float32,
     bfloat16 upcast in the kernel, or e4m3 codes decoded in it by their
     scale column `grad_scale`). `decay=(dm, dv)` fuses the
     begin-minibatch decay into it for the row-indexed columns; the shared
     ones are decayed here first (`begin_micro`), as the reference's `fold`
-    does. `guard` (True, or a guard vector, `_resolve_guard`) makes the
-    whole fold, that decay included, a bitwise no-op when its ok is 0; the
-    vector's (dm, dv) then decay the shared columns (True without a decay
+    does. `replicated_decay` (host numbers or device scalars) replaces the
+    shared columns' decay only: ZeRO-1 passes dv/M, so that the ranks'
+    partial column sums add up to the whole arena's
+    (`psum_replicated_state`). `guard` (True, or a guard vector,
+    `_resolve_guard`) makes the whole fold, that decay included, a bitwise
+    no-op when its ok is 0; the vector's (dm, dv) then decay the shared
+    columns unless `replicated_decay` is given (True without a decay
     decays nothing, as unguarded). Returns (m_parts, v_parts), and the
     guard vector as a third item when guarded."""
     mc, vc = get_codec(m_codec, "m"), get_codec(v_codec, "v")
     vec = _resolve_guard(guard, g, scale, decay)
     if vec is not None:
-        if decay is not None or guard is not True:
+        if replicated_decay is not None or decay is not None \
+                or guard is not True:
+            rdm, rdv = (vec[0], vec[1]) if replicated_decay is None \
+                else replicated_decay
             ok = vec[2] != 0
-            _guarded_begin_micro(mc, m_parts, vec[0], ok)
-            _guarded_begin_micro(vc, v_parts, vec[1], ok)
+            _guarded_begin_micro(mc, m_parts, rdm, ok)
+            _guarded_begin_micro(vc, v_parts, rdv, ok)
         m, v = fused_step.arena_fold(tuple(m_parts), tuple(v_parts), g,
                                      beta1=beta1, beta2=beta2,
                                      m_codec=mc.kernel, v_codec=vc.kernel,
                                      grad_scale=grad_scale, guard=vec)
         return m, v, vec
-    if decay is not None:
-        mc.begin_micro(tuple(m_parts), decay[0])
-        vc.begin_micro(tuple(v_parts), decay[1])
+    if decay is not None or replicated_decay is not None:
+        rdm, rdv = replicated_decay or decay
+        mc.begin_micro(tuple(m_parts), rdm)
+        vc.begin_micro(tuple(v_parts), rdv)
     return fused_step.arena_fold(tuple(m_parts), tuple(v_parts), g,
                                  beta1=beta1, beta2=beta2, scale=scale,
                                  decay=decay, m_codec=mc.kernel,
@@ -397,14 +419,16 @@ def has_master(state) -> bool:
 
 
 def fold_state(state, g, *, beta1, beta2, scale=1.0, decay=None,
-               grad_scale=None, guard=None):
+               replicated_decay=None, grad_scale=None, guard=None):
     """One fused fold of a packed gradient arena into the state dict, in
-    place (`grad_scale`: the e4m3 wire's scale column). With `guard` the
-    return is (state, guard vector) — see `fold`."""
+    place (`grad_scale`: the e4m3 wire's scale column; `replicated_decay`:
+    the shared columns' own decay, see `fold`). With `guard` the return is
+    (state, guard vector) — see `fold`."""
     mc, vc = state_codecs(state)
     out = fold(mc, vc, mc.parts_of(state["m"]), vc.parts_of(state["v"]), g,
                beta1=beta1, beta2=beta2, scale=scale, decay=decay,
-               grad_scale=grad_scale, guard=guard)
+               replicated_decay=replicated_decay, grad_scale=grad_scale,
+               guard=guard)
     return (state, out[2]) if len(out) == 3 else state
 
 
@@ -464,6 +488,26 @@ def apply_master_state(state, *, lr, bc1, bc2, eps=1e-8, weight_decay=0.0,
                     work=state["wp"].data if "wp" in state else None,
                     guard=guard)
     return work, state
+
+
+def row_indexed_mask(state):
+    """{"m": ..., "v": ...}: a bool per codec column of each moment, True
+    where the column is row-indexed (it shards and slices with the arena
+    rows), False for a shared accumulator (rowcol's column sums). From
+    each codec's declared kernel columns, as the reference derives it."""
+    mc, vc = state_codecs(state)
+    return {"m": tuple(c.row_indexed for c in mc.kernel.cols),
+            "v": tuple(c.row_indexed for c in vc.kernel.cols)}
+
+
+def psum_replicated_state(state, group=None):
+    """Sum the per-rank partials of the shared codec columns over the
+    process group, in place (nothing for a row-local pair): ZeRO-1 calls
+    it once a mini-batch, before the apply. Returns the state."""
+    mc, vc = state_codecs(state)
+    mc.psum_replicated(mc.parts_of(state["m"]), group)
+    vc.psum_replicated(vc.parts_of(state["v"]), group)
+    return state
 
 
 def _bytes(t: torch.Tensor) -> int:

@@ -73,6 +73,15 @@
       --num-layers 4 --steps 2 --global-batch 8 --micro-batches 8 \
       --seq-len 1024 --accumulation adama_layerwise
 
+  # data parallel over torch.distributed (core/dp_shardmap.py): under
+  # torchrun, which sets WORLD_SIZE, the CLI opens the process group (NCCL
+  # on CUDA, gloo with --device cpu) and runs the DP engine; rank 0 logs.
+  # ZeRO-1 runs the full-pack schedule (--zero-full-pack)
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+      --arch stablelm-1.6b --reduced --steps 2 --global-batch 8 \
+      --micro-batches 2 --seq-len 32 --zero-stage 1 --zero-full-pack \
+      --log-every 1 --device cpu
+
   # saves every step; run again with more --steps to resume
   # ("[train] restored step 2")
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \
@@ -84,8 +93,10 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import (ACCUM_ENGINES, GRAD_DTYPES, M_CODECS,
                                       STATE_CODECS, OptimizerConfig,
@@ -105,6 +116,26 @@ def add_codec_args(ap: argparse.ArgumentParser) -> None:
                          "(core/state_store.py)")
 
 
+def _quiet(_msg) -> None:
+    pass
+
+
+def _open_group(device):
+    """(group, device, log) of this process. Under torchrun (WORLD_SIZE
+    set) it opens the default process group from torchrun's environment:
+    gloo for a run asked onto the CPU, NCCL otherwise, on the card of
+    LOCAL_RANK; only rank 0 logs. Otherwise (None, device, print)."""
+    if "WORLD_SIZE" not in os.environ:
+        return None, device, print
+    cpu = device is not None and torch.device(device).type == "cpu"
+    if not cpu:
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+        torch.cuda.set_device(device)
+    dist.init_process_group("gloo" if cpu else "nccl")
+    return (dist.group.WORLD, device,
+            print if dist.get_rank() == 0 else _quiet)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -122,6 +153,20 @@ def main(argv=None):
                     help="per-leaf optimizer state (arena=False): adama and "
                          "adama_layerwise fold and apply leaf by leaf")
     add_codec_args(ap)
+    ap.add_argument("--zero-stage", type=int, default=0, choices=[0, 1],
+                    help="ZeRO-1 optimizer-state sharding by arena row range "
+                         "(the data-parallel engine, under torchrun; a "
+                         "single-process run has one shard)")
+    ap.add_argument("--zero-full-pack", action="store_true",
+                    help="the full-arena pack + one reduce-scatter ZeRO-1 "
+                         "schedule, the one the port runs (the default "
+                         "bucketed schedule is ROADMAP item 10.2)")
+    ap.add_argument("--zero-bucket-rows", type=int, default=0,
+                    help="rest-region bucket cap in arena rows of the "
+                         "bucketed ZeRO-1 schedule (0 = default cap)")
+    ap.add_argument("--zero-async", action="store_true",
+                    help="the reference's double-buffered bucket pipeline "
+                         "(ROADMAP item 10.3); requires --zero-stage 1")
     ap.add_argument("--grad-dtype", default="fp32",
                     choices=list(GRAD_DTYPES),
                     help="gradient wire dtype of the arena folds (bf16 "
@@ -187,6 +232,10 @@ def main(argv=None):
                                   lr=args.lr, arena=not args.per_leaf,
                                   state_codec=args.state_codec,
                                   m_codec=args.m_codec,
+                                  zero_stage=args.zero_stage,
+                                  zero_bucketed=not args.zero_full_pack,
+                                  zero_bucket_rows=args.zero_bucket_rows,
+                                  zero_async=args.zero_async,
                                   grad_dtype=args.grad_dtype,
                                   error_feedback=not args.no_error_feedback,
                                   master_params=args.master_params,
@@ -201,7 +250,15 @@ def main(argv=None):
         checkpoint_every=args.checkpoint_every,
         keep_last_n=args.keep_last_n, inject_fault=args.inject_fault)
     lr_fn = sched.warmup_cosine(args.lr, args.warmup, args.steps)
-    out = train(run, lr_schedule=lr_fn, device=args.device)
+    group, device, log = _open_group(args.device)
+    try:
+        out = train(run, lr_schedule=lr_fn, device=device, log_fn=log,
+                    group=group)
+    finally:
+        if group is not None:
+            dist.destroy_process_group()
+    if log is not print:
+        return
     peak = ""
     if out["params"]["embed"].is_cuda:
         peak = (f"; peak device memory {torch.cuda.max_memory_allocated()} B "

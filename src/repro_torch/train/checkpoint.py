@@ -51,8 +51,9 @@ import torch
 from repro_torch.core import arena as arena_mod
 from repro_torch.core import state_store
 
-ITEM_10 = ("waits for the distributed engines (ROADMAP queue 1, item 10: "
-           "ZeRO-1 layouts, bucketed residency and elastic restore)")
+ITEM_10 = ("waits for checkpoints of sharded state (ROADMAP queue 1, item "
+           "10.2: ZeRO-1 layouts and bucketed residency; item 10.4: elastic "
+           "restore)")
 
 
 class CheckpointCorruptError(RuntimeError):

@@ -18,7 +18,9 @@ A `FaultSpec` names what goes wrong and where:
 Selectors default to -1, every value. The engines pass the micro-batch
 index and their step counter as host ints, so a hit is decided on the host
 and the injection itself is a device write where a real NaN would appear.
-The `device` selector raises: the port has no multi-device engine yet.
+The data-parallel engine (core/dp_shardmap.py) also passes its rank as
+`device`, so `nan@micro=1,device=0` poisons one rank's gradient only;
+without a rank (the single-device engines) a `device` selector raises.
 
 `corrupt_checkpoint_array` and `truncate_checkpoint` damage a checkpoint
 on disk (train/checkpoint.py) as a failing disk or a torn write would, for
@@ -79,29 +81,32 @@ def parse_fault(spec: Optional[str]) -> Optional[FaultSpec]:
     return FaultSpec(kind=kind.strip(), **kw)
 
 
-def _hit(spec: FaultSpec, micro: int, step: Optional[int]) -> bool:
-    """Does this (micro-batch, step) match? Host ints."""
+def _hit(spec: FaultSpec, micro: int, step: Optional[int],
+         device: Optional[int] = None) -> bool:
+    """Does this (micro-batch, step, rank) match? Host ints."""
     if spec.step >= 0 and step is None:
         raise ValueError(f"fault {spec} selects a step but the engine did "
                          f"not thread the step counter")
-    if spec.device >= 0:
+    if spec.device >= 0 and device is None:
         raise ValueError(f"fault {spec} selects a device but the engine is "
                          f"not running under shard_map")
     return ((spec.micro_batch < 0 or micro == spec.micro_batch)
-            and (spec.step < 0 or step == spec.step))
+            and (spec.step < 0 or step == spec.step)
+            and (spec.device < 0 or device == spec.device))
 
 
 @torch.no_grad()
 def corrupt_tree(spec: Optional[FaultSpec], tree, *, micro: int,
-                 step: Optional[int] = None):
+                 step: Optional[int] = None, device: Optional[int] = None):
     """Inject the fault into a gradient tree, in place: nan/inf poison
     element [0, ..., 0] of the first leaf in the reference's flatten order
     (sorted keys), enough for any finite flag; zero multiplies that leaf by
     0 (finite: the guards must not fire). Other kinds and None leave the
-    tree alone. Returns the tree."""
+    tree alone. `device` is the caller's rank (the DP engine's). Returns
+    the tree."""
     if spec is None or spec.kind not in ("nan", "inf", "zero"):
         return tree
-    if not _hit(spec, micro, step):
+    if not _hit(spec, micro, step, device):
         return tree
     leaf = arena_mod.tree_flatten(tree)[0][0]
     if spec.kind == "zero":
@@ -113,13 +118,14 @@ def corrupt_tree(spec: Optional[FaultSpec], tree, *, micro: int,
 
 
 def corrupt_loss(spec: Optional[FaultSpec], loss: torch.Tensor, *,
-                 micro: int, step: Optional[int] = None) -> torch.Tensor:
+                 micro: int, step: Optional[int] = None,
+                 device: Optional[int] = None) -> torch.Tensor:
     """Inject nan/inf at the loss or the backward's seed (a tensor): the
     realistic failure, which reaches every layer's gradient. Returns a new
     tensor on a hit, `loss` otherwise."""
     if spec is None or spec.kind not in ("nan", "inf"):
         return loss
-    if not _hit(spec, micro, step):
+    if not _hit(spec, micro, step, device):
         return loss
     return torch.full_like(loss, float("nan" if spec.kind == "nan"
                                        else "inf"))

@@ -16,7 +16,13 @@ step's update and before its save: the worst-case kill the resume must
 survive. With `finite_guard=True` the loop logs the loss scale and the
 skipped micro-batches, and raises once `scaler_abort_after` (> 0)
 consecutive micro-batches were skipped: a run that only skips is not
-training."""
+training.
+
+With a `torch.distributed` process group (`train(..., group=...)`) the
+step is the data-parallel engine's (core/dp_shardmap.py; its variant is
+`run.optimizer.accumulation`): every rank runs this loop on the same
+global batches and params, and takes its own rows of each batch.
+Checkpoints of such a run are refused (train/checkpoint.py ITEM_10)."""
 from __future__ import annotations
 
 import contextlib
@@ -27,6 +33,7 @@ import torch
 
 from repro_torch.configs.base import RunConfig
 from repro_torch.core.accumulation import make_train_step
+from repro_torch.core.dp_shardmap import make_dp_train_step
 from repro_torch.data import make_data
 from repro_torch.models.model import Model, init_params
 from repro_torch.train import checkpoint as ckpt
@@ -54,7 +61,8 @@ def _sync(device: torch.device) -> None:
 
 
 def train(run: RunConfig, *, lr_schedule=None, log_fn=print, params=None,
-          data=None, device=None, step_context=None) -> Dict[str, Any]:
+          data=None, device=None, step_context=None,
+          group=None) -> Dict[str, Any]:
     """Train up to step `run.steps`, from the newest checkpoint in
     `run.checkpoint_dir` if there is one. `params` (a tree on `device`)
     defaults to `init_params` from a generator seeded with `run.seed`.
@@ -62,8 +70,12 @@ def train(run: RunConfig, *, lr_schedule=None, log_fn=print, params=None,
     wall-clock seconds of the steps this call ran (each step ends in a
     device synchronize), and the last step's metrics ({} if it ran none).
     `step_context(i)`, if given, returns a context manager entered around
-    step i's timed region (e.g. a profiler)."""
+    step i's timed region (e.g. a profiler). `group`, an initialised
+    process group, runs the data-parallel engine over it."""
     device = resolve_device(device)
+    if group is not None and run.checkpoint_dir:
+        raise NotImplementedError(f"checkpoints of a data-parallel run "
+                                  f"{ckpt.ITEM_10}")
     cfg = run.model
     if params is None:
         gen = torch.Generator(device=device)
@@ -73,8 +85,12 @@ def train(run: RunConfig, *, lr_schedule=None, log_fn=print, params=None,
     tree = model.tree()
     opt = run.optimizer
     fault = faults_mod.parse_fault(run.inject_fault)
-    step_fn, opt_init = make_train_step(cfg, opt, remat=run.remat,
-                                        lr_schedule=lr_schedule, fault=fault)
+    kw = dict(remat=run.remat, lr_schedule=lr_schedule, fault=fault)
+    if group is None:
+        step_fn, opt_init = make_train_step(cfg, opt, **kw)
+    else:
+        step_fn, opt_init = make_dp_train_step(cfg, opt, group,
+                                               opt.accumulation, **kw)
     opt_state = opt_init(tree)
     start = 0
     if run.checkpoint_dir:
