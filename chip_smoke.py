@@ -158,28 +158,44 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    `adama_layerwise` and `adama`, with per-step loss, step time and peak
    device memory. Then the data-parallel phase (core/dp_shardmap.py) on
    a one-rank NCCL group opened in this process (`file://` rendezvous):
-   `dp_ga`, `dp_adama` (replicated, arena) and `zero1_adama` (row-range
-   ZeRO-1, full pack) in bert-large's setting, 2 steps each, with every
-   launch and collective count set to 0 just before each and read just
-   after (8 folds + 1 apply a step, none for ga's plain Adam; the
-   collectives' calls and bytes as the schedule gives them): `dp_adama`
-   and `zero1_adama` must end on `adama`'s params, m and v after 2 steps
-   bit for bit (digests) with its losses; guarded `zero1_adama` with a NaN
-   on rank 0's gradient at micro-batch 1 (`nan@micro=1,device=0`) must
-   equal its `skip@micro=1` twin bit for bit, and ZeRO-1 int8/rowcol run,
-   both at 8 of 24 layers; `zero1_adama` must peak at most the owned
-   gradient rows + 2 MiB above `adama`, and `dp_ga` (in requested bytes)
-   at least one fp32 gradient tree less twice the arena's row padding
-   above `zero1_adama` (ga's m and v are per-leaf trees, the arenas' rows
-   padded; the one-tree claim is logged beside it). Then
-   ZeRO-1 emulated at 4 ranks over bert-large's arena laid out for 4 row
-   ranges (358,400 rows): for fp32/fp32, int8/int8, int8/factored,
+   `dp_ga`, `dp_adama` (replicated, arena), `zero1_adama` (row-range
+   ZeRO-1, full pack), `zero1_adama_bucketed` (the bucketed schedule)
+   and `zero1_adama_layerwise` (Algorithm 2's ZeRO-1 stream) in
+   bert-large's setting, 2 steps each, with every launch and collective
+   count set to 0 just before each and read just after (8 folds + 1
+   apply a step, none for ga's plain Adam; bucketed and streamed, 8 x 39
+   slice folds + 1 apply; the collectives' calls and bytes as the
+   schedule gives them: 312 reduce-scatters of 11,720,982,528 B a step
+   bucketed, the padding bucket never sent): `dp_adama`, `zero1_adama`
+   and `zero1_adama_bucketed` must end on `adama`'s params, m and v after
+   2 steps bit for bit (digests) with its losses, `zero1_adama_layerwise`
+   on `adama_layerwise`'s; guarded `zero1_adama` and the guarded stream
+   with a NaN on rank 0's gradient (its backward's seed) at micro-batch 1
+   (`nan@micro=1,device=0`) must equal their `skip@micro=1` twins bit for
+   bit, ZeRO-1 int8/rowcol runs, and bucketed int8/rowcol after one step
+   must equal the full pack's in every row-indexed column (digests), its
+   column sums within the float32 bound of the two orders, all at 8 of 24
+   layers; `zero1_adama` must peak at most the owned gradient rows + 2
+   MiB above `adama`, `zero1_adama_bucketed` at most 2 MiB above
+   `zero1_adama`, `zero1_adama_layerwise` at most the owned rows + 2 MiB
+   above `adama_layerwise` and at least two fp32 arenas below both
+   ZeRO-1 `adama` paths (the bucketed pair's and the stream's peak sites,
+   from the allocator's history, logged), and `dp_ga` (in requested
+   bytes) at least one fp32 gradient tree less twice the arena's row
+   padding above `zero1_adama` (ga's m and v are per-leaf trees, the
+   arenas' rows padded; the one-tree claim is logged beside it). Then
+   ZeRO-1 emulated at 4 ranks over bert-large's arena laid out for 4
+   ranks (358,400 rows): for fp32/fp32, int8/int8, int8/factored,
    fp32/rowcol and int8/rowcol, the first fold of a mini-batch and the
-   apply on every rank's row-range view against the whole arena's, bit
-   for bit on every row-indexed column and p, rowcol's column sums (the
-   ranks' partials summed in rank order) within the float32 bound of the
-   two summation orders (queue 3 (j)'s 1e-6 logged beside it); each
-   rank's fold and apply timed beside the whole arena's. Then rwkv6-7b at full width (d_model 4096, 64 heads of
+   apply on every rank's row-range view, and on its owned rows of the
+   bucketed schedule (its slice of every bucket folded at its
+   own_offset, then unpermuted), against the whole arena's, bit for bit
+   on every row-indexed column and p, rowcol's column sums (the ranks'
+   partials summed in rank order) within the float32 bound of the two
+   summation orders (queue 3 (j)'s 1e-6 logged beside it); each rank's
+   fold and apply timed beside the whole arena's, and the slice fold on
+   a 4,096-row rest bucket, a 12,352-row layer bucket and their 4-rank
+   slices (1,024 and 3,088 rows). Then rwkv6-7b at full width (d_model 4096, 64 heads of
    64, d_ff 14336, vocab 65536) with its depth cut from 32 to 4 layers,
    seq 4096 (train_4k) and global batch 16 (cut from 256), 8 micro-batches:
    3 steps each of `adama`, `ga` and `adama_layerwise`. Then stablelm-1.6b
@@ -358,10 +374,11 @@ FP32_OPS_PER_S = 67e12           # H100 SXM data sheet, non-tensor fp32
 TF32_OPS_PER_S = 495e12          # H100 SXM data sheet, dense TF32 tensor
 LANES = 1024                     # arena row width
 SMALL_ROWS = 8
-TIMED_RUNS = 12
+# timed runs of a kernel (cut from 25 to 12 for the dp phase, and to 10
+# for its bucketed paths, to keep the script's time; ROADMAP queue 3 (w))
+TIMED_RUNS = 10
 # runs of phase 3's plain versions, each 1-2 orders of magnitude slower
-# than its kernel (cut with TIMED_RUNS, from 25, to make room for the dp
-# phase in the script's time; ROADMAP queue 3 (w))
+# than its kernel (cut with TIMED_RUNS, from 25)
 PLAIN_TIMED_RUNS = 5
 KERNEL_REPS = 20                 # back-to-back launches per timed kernel run
 # each arch's main-path settings and the rows of its arena; the cuts of
@@ -851,7 +868,13 @@ REMAT_SPLIT = {"bert-large": dict(seq_len=128, micro_batch=32),
 DP_ARCH = "bert_large"
 DP_STEPS = 2
 DP_TWIN = "adama"
+# the main paths whose params, m and v after DP_STEPS steps the DP paths
+# must end on (digests): adama's, and adama_layerwise's for the stream
+DP_TWINS = (DP_TWIN, "adama_layerwise")
 DP_ZERO1 = dict(zero_stage=1, zero_bucketed=False)
+# the bucketed ZeRO-1 schedule (the default) and Algorithm 2's stream
+DP_BUCKETED = dict(zero_stage=1)
+DP_INT8_ROWCOL = dict(m_codec="int8", state_codec="rowcol")
 DP_PATHS = {
     "dp_ga": ("ga", {}, None, None),
     "dp_adama": ("adama", {}, None, None),
@@ -860,12 +883,38 @@ DP_PATHS = {
                                 CKPT_LAYERS, "nan@micro=1,device=0"),
     "zero1_adama_guarded_skip": ("adama", dict(DP_ZERO1, finite_guard=True),
                                  CKPT_LAYERS, "skip@micro=1"),
-    "zero1_adama_int8_rowcol": ("adama", dict(DP_ZERO1, m_codec="int8",
-                                              state_codec="rowcol"),
-                                CKPT_LAYERS, None)}
+    "zero1_adama_int8_rowcol": ("adama", dict(DP_ZERO1, **DP_INT8_ROWCOL),
+                                CKPT_LAYERS, None),
+    "zero1_adama_bucketed": ("adama", DP_BUCKETED, None, None),
+    "zero1_adama_layerwise": ("adama_layerwise", DP_BUCKETED, None, None),
+    "zero1_adama_layerwise_guarded_nan": (
+        "adama_layerwise", dict(DP_BUCKETED, finite_guard=True), CKPT_LAYERS,
+        "nan@micro=1,device=0"),
+    "zero1_adama_layerwise_guarded_skip": (
+        "adama_layerwise", dict(DP_BUCKETED, finite_guard=True), CKPT_LAYERS,
+        "skip@micro=1"),
+    # one step each: after it the rowcol params differ by the column sums'
+    # order, and so would every column after a second step
+    "zero1_adama_int8_rowcol_step1": ("adama", dict(DP_ZERO1,
+                                                    **DP_INT8_ROWCOL),
+                                      CKPT_LAYERS, None),
+    "zero1_adama_bucketed_int8_rowcol": ("adama", dict(DP_BUCKETED,
+                                                       **DP_INT8_ROWCOL),
+                                         CKPT_LAYERS, None)}
+DP_ONE_STEP = ("zero1_adama_int8_rowcol_step1",
+               "zero1_adama_bucketed_int8_rowcol")
+# the paths whose allocator history is kept, to name where each peaks
+# (launch/memory_split.py `peak_sites`)
+DP_PEAK_SITES = ("zero1_adama_bucketed", "zero1_adama_layerwise")
+DP_PEAK_SITES_TOP = 6
 # zero1_adama's peak over DP_TWIN's: at most the owned gradient rows
-# (rows / M x 4,096 B; the scatter's output beside the packed slab) + this
+# (rows / M x 4,096 B; the scatter's output beside the packed slab) + this;
+# the bucketed schedule's over the full pack's: at most this; the stream's
+# over adama_layerwise's: at most the owned rows + this
 DP_PEAK_SLACK = 2 << 20
+# the stream's peak under zero1_adama's: at least two fp32 arenas
+# (Algorithm 2's claim under ZeRO-1)
+DP_STREAM_ARENAS = 2
 # ZeRO-1 emulated at M = DP_SHARDS over bert-large's full arena (laid out
 # for DP_SHARDS row ranges): each pair's fold and apply on every rank's
 # row-range view against the whole-arena kernels
@@ -879,6 +928,13 @@ DP_SHARD_PAIRS = (FP32, ("int8", "int8"), ("int8", "factored"),
 # at 358,400 rows the ordered chains run 830 additions long and the card
 # measured 1.23e-6 (ROADMAP queue 3 (aa))
 DP_COLSUM_REL = 1e-6
+# the bucketed schedule emulated at DP_SHARDS ranks over the same arena:
+# each rank's slice of every bucket folded at its own_offset, and the
+# slice fold timed on a rest bucket (4,096 rows) and a layer bucket
+# (12,352) and on their slices at DP_SHARDS ranks (1,024 and 3,088 rows)
+DP_BUCKET_TIMED = (("rest bucket", "rest", 1), ("layer bucket", "stack", 1),
+                   ("rest bucket slice", "rest", DP_SHARDS),
+                   ("layer bucket slice", "stack", DP_SHARDS))
 
 
 def log(msg) -> None:
@@ -4332,7 +4388,7 @@ def run_main_paths(torch, wrappers, arch):
         if (engine == "ga" and path in GUARDED) or path in WIRE or \
                 path in wire_twins or path in MASTER or \
                 path in master_twins or path in FP8 or path == MOE_RERUN \
-                or path == DP_TWIN:
+                or (arch == DP_ARCH and path in DP_TWINS):
             # the params train() would make, which it updates in place
             gen = torch.Generator(device="cuda")
             gen.manual_seed(main["seed"])
@@ -4392,7 +4448,7 @@ def run_main_paths(torch, wrappers, arch):
                     digests[path + ":step1"] = _digest(
                         torch, _held_state_tensors(held))
             actions.append(rerun_digest)
-        if path == DP_TWIN:
+        if arch == DP_ARCH and path in DP_TWINS:
             def dp_digest(i, path=path):
                 if i == DP_STEPS - 1:
                     digests[f"{path}:step{DP_STEPS}"] = _digest(
@@ -4410,7 +4466,8 @@ def run_main_paths(torch, wrappers, arch):
         for fn in wrappers.values():
             fn.launches = 0
         with (_holding_state(held)
-              if path in MASTER or path in (MOE_RERUN, DP_TWIN)
+              if path in MASTER or path == MOE_RERUN or
+              (arch == DP_ARCH and path in DP_TWINS)
               else contextlib.nullcontext()):
             out = train(run, device="cuda", log_fn=log, params=params,
                         step_context=_after_steps(actions) if actions
@@ -5089,14 +5146,19 @@ def check_checkpoints(torch, wrappers):
 # ---------------------------------------------------------------------------
 
 
-def _dp_expected(path, n_params, n_leaves, rows):
+def _dp_expected(path, n_params, n_leaves, rows, plan=None, n_rest=0):
     """(launches per step, collectives per step as {name: (calls, bytes)})
     of a DP path at M = 1: N folds and one apply for the adama variants
     (and N finite flags when guarded), none for ga (plain Adam); ga
     all-reduces its gradient leaves, replicated adama its two moment
     arenas, ZeRO-1 scatters the gradient arena N times and gathers the
     params once (and all-reduces rowcol's column sums); each all-reduces
-    its 4-byte loss."""
+    its 4-byte loss. The bucketed schedule and the stream (`plan`, the
+    bucket plan) fold and scatter each gradient bucket a micro-batch
+    instead, never the padding bucket; guarded, the bucketed schedule
+    checks every received slice and agrees once a micro-batch, the stream
+    checks dx and the head's gradients (the `n_rest` rest leaves but the
+    embedding) and agrees, then checks and agrees each received slice."""
     variant, kw, _, _ = DP_PATHS[path]
     n = MAIN[DP_ARCH]["micro_batches"]
     want = {k: 0 for k in KERNELS}
@@ -5104,27 +5166,43 @@ def _dp_expected(path, n_params, n_leaves, rows):
         return want, {"all_reduce": (n_leaves + 1, n_params * 4 + 4),
                       "reduce_scatter": (0, 0), "all_gather": (0, 0)}
     arena = rows * LANES * 4
-    want["arena_fold"], want["arena_apply"] = n, 1
-    if kw.get("finite_guard"):
-        want["finite_and"] = n
+    guarded = bool(kw.get("finite_guard"))
+    want["arena_apply"] = 1
+    if plan is None:
+        want["arena_fold"] = n
+        if guarded:
+            want["finite_and"] = n
     if not kw.get("zero_stage"):
         return want, {"all_reduce": (3, 2 * arena + 4),
                       "reduce_scatter": (0, 0), "all_gather": (0, 0)}
     colsums = kw.get("state_codec") == "rowcol"
-    # the guard's agreement: one 4-byte all-reduce a micro-batch
-    flags = n if kw.get("finite_guard") else 0
+    if plan is None:
+        # the guard's agreement: one 4-byte all-reduce a micro-batch
+        flags = n if guarded else 0
+        scatters = (n, n * arena)
+    else:
+        g = len(plan.grad_buckets())
+        want["arena_fold_slice"] = n * g
+        if guarded:
+            stream = variant == "adama_layerwise"
+            want["finite_and"] = n * (g + n_rest if stream else g)
+        flags = (n * (1 + g) if variant == "adama_layerwise" else n) \
+            if guarded else 0
+        scatters = (n * g, n * sum(b.rows for b in plan.grad_buckets())
+                    * LANES * 4)
     return want, {"all_reduce": (1 + colsums + flags,
                                  4 + 4 * LANES * colsums + 4 * flags),
-                  "reduce_scatter": (n, n * arena),
-                  "all_gather": (1, arena)}
+                  "reduce_scatter": scatters, "all_gather": (1, arena)}
 
 
 def check_dp(torch, wrappers, digests, all_losses, peaks):
     """The data-parallel phase: each DP_PATHS path through train() on a
     one-rank NCCL group, with every launch and collective count set to 0
-    just before it and read just after; then ZeRO-1 emulated at
-    DP_SHARDS ranks over the full arena (`check_zero1_shards`). Returns
-    (each path's launch counts, the shard entries by kernel)."""
+    just before it and read just after (DP_PEAK_SITES under the
+    allocator's history, to name where they peak); then ZeRO-1 emulated at
+    DP_SHARDS ranks over the full arena, row ranges
+    (`check_zero1_shards`) and buckets (`check_zero1_buckets`). Returns
+    (each path's launch counts, the shard and bucket entries by kernel)."""
     import dataclasses
     import tempfile
 
@@ -5132,17 +5210,21 @@ def check_dp(torch, wrappers, digests, all_losses, peaks):
 
     from repro_torch.configs.base import OptimizerConfig, RunConfig
     from repro_torch.core import collectives, state_store
-    from repro_torch.models.model import init_params
+    from repro_torch.core.arena import STACK_KEYS
+    from repro_torch.core.zero import zero1_bucket_plan
+    from repro_torch.kernels import fused_step
+    from repro_torch.launch.memory_split import peak_sites
     from repro_torch.train.loop import train
 
     t0 = time.perf_counter()
     main = MAIN[DP_ARCH]
-    counts, info, dp_digests = {}, {}, {}
+    counts, info, dp_digests, one_step = {}, {}, {}, {}
     with tempfile.TemporaryDirectory() as rdv:
         dist.init_process_group("nccl", init_method=f"file://{rdv}/rdv",
                                 world_size=1, rank=0)
         try:
             for path, (variant, kw, layers, fault) in DP_PATHS.items():
+                steps = 1 if path in DP_ONE_STEP else DP_STEPS
                 cfg = _main_config(DP_ARCH)
                 if layers is not None:
                     cfg = dataclasses.replace(cfg, num_layers=layers)
@@ -5151,14 +5233,20 @@ def check_dp(torch, wrappers, digests, all_losses, peaks):
                     micro_batches=main["micro_batches"], **kw),
                     seq_len=main["seq_len"],
                     global_batch=main["global_batch"], seed=main["seed"],
-                    steps=DP_STEPS, log_every=1, inject_fault=fault)
+                    steps=steps, log_every=1, inject_fault=fault)
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats()
                 for fn in wrappers.values():
                     fn.launches = 0
                 collectives.reset_counts()
-                out = train(run, device="cuda", log_fn=log,
-                            group=dist.group.WORLD)
+                ran = {}
+
+                def go(run=run, ran=ran):
+                    ran["out"] = train(run, device="cuda", log_fn=log,
+                                       group=dist.group.WORLD)
+                sites = (peak_sites(go, DP_PEAK_SITES_TOP)
+                         if path in DP_PEAK_SITES else go())
+                out = ran.pop("out")
                 counts[path] = {k: fn.launches for k, fn in wrappers.items()}
                 moved = {fn.__name__: (fn.calls, fn.bytes)
                          for fn in collectives.COLLECTIVES}
@@ -5169,10 +5257,18 @@ def check_dp(torch, wrappers, digests, all_losses, peaks):
                 state = out["opt_state"]
                 arena = variant != "ga"
                 rows = state["m"].layout.rows if arena else None
+                plan = (zero1_bucket_plan(state["m"].layout, 1)
+                        if kw.get("zero_stage") and (
+                            kw.get("zero_bucketed", True)
+                            or variant == "adama_layerwise") else None)
                 if arena:
                     dp_digests[path] = _digest(torch, _state_tensors(out))
+                n_rest = sum(k not in STACK_KEYS for k in out["params"])
                 want, want_moved = _dp_expected(path, n_params, len(leaves),
-                                                rows)
+                                                rows, plan, n_rest)
+                if path in DP_ONE_STEP:
+                    one_step[path] = _one_step_columns(torch, fused_step,
+                                                       out, kw)
                 info[path] = {
                     "phase": "dp", "path": path, "variant": variant,
                     "fields": kw, "fault": fault, "num_layers":
@@ -5181,6 +5277,8 @@ def check_dp(torch, wrappers, digests, all_losses, peaks):
                     "arena_rows": rows, "state_bytes": (
                         state_store.optimizer_state_bytes(state)
                         if arena else None),
+                    "grad_buckets": (len(plan.grad_buckets()) if plan
+                                     else None),
                     "losses": out["losses"],
                     "step_seconds": out["step_seconds"],
                     "metrics": out["metrics"],
@@ -5189,41 +5287,46 @@ def check_dp(torch, wrappers, digests, all_losses, peaks):
                     "launches": counts[path], "launches_per_step": want,
                     "collectives": moved,
                     "collectives_per_step": want_moved,
-                    "digest": dp_digests.get(path)}
+                    "digest": dp_digests.get(path),
+                    "peak_sites": sites}
                 log(json.dumps(info[path]))
                 if not all(math.isfinite(x) for x in out["losses"]):
                     raise AssertionError(f"{path}: non-finite loss "
                                          f"{out['losses']}")
-                if counts[path] != {k: c * DP_STEPS for k, c in want.items()}:
+                if counts[path] != {k: c * steps for k, c in want.items()}:
                     raise AssertionError(f"{path}: launches {counts[path]} "
-                                         f"!= {DP_STEPS} x {want}")
-                if moved != {k: (c * DP_STEPS, b * DP_STEPS)
+                                         f"!= {steps} x {want}")
+                if moved != {k: (c * steps, b * steps)
                              for k, (c, b) in want_moved.items()}:
                     raise AssertionError(f"{path}: collectives {moved} != "
-                                         f"{DP_STEPS} x {want_moved}")
+                                         f"{steps} x {want_moved}")
                 del out, state, leaves
         finally:
             dist.destroy_process_group()
-    twin = f"{DP_TWIN}:step{DP_STEPS}"
-    for path in ("dp_adama", "zero1_adama"):
+    for path, twin_path in (("dp_adama", DP_TWIN), ("zero1_adama", DP_TWIN),
+                            ("zero1_adama_bucketed", DP_TWIN),
+                            ("zero1_adama_layerwise", "adama_layerwise")):
+        twin = f"{twin_path}:step{DP_STEPS}"
         if dp_digests[path] != digests[twin] or \
-                info[path]["losses"] != all_losses[DP_TWIN][:DP_STEPS]:
+                info[path]["losses"] != all_losses[twin_path][:DP_STEPS]:
             raise AssertionError(
                 f"{path}: params, m and v (digest {dp_digests[path]}) or "
-                f"losses {info[path]['losses']} are not the {DP_TWIN} main "
-                f"path's after {DP_STEPS} steps ({digests[twin]}, "
-                f"{all_losses[DP_TWIN][:DP_STEPS]})")
+                f"losses {info[path]['losses']} are not the {twin_path} "
+                f"main path's after {DP_STEPS} steps ({digests[twin]}, "
+                f"{all_losses[twin_path][:DP_STEPS]})")
     if info["dp_ga"]["losses"][0] != all_losses[DP_TWIN][0]:
         raise AssertionError(f"dp_ga: step-1 loss {info['dp_ga']['losses']}"
                              f" != {DP_TWIN}'s {all_losses[DP_TWIN][0]}")
-    nan, skip = "zero1_adama_guarded_nan", "zero1_adama_guarded_skip"
-    for path in (nan, skip):
-        if info[path]["metrics"]["skipped_micro_batches"] != DP_STEPS:
-            raise AssertionError(f"{path}: {info[path]['metrics']}; one "
-                                 f"skip a step expected")
-    if dp_digests[nan] != dp_digests[skip]:
-        raise AssertionError(f"{nan} != {skip}: params, m and v "
-                             f"{dp_digests[nan]} vs {dp_digests[skip]}")
+    for label in ("zero1_adama", "zero1_adama_layerwise"):
+        nan, skip = f"{label}_guarded_nan", f"{label}_guarded_skip"
+        for path in (nan, skip):
+            if info[path]["metrics"]["skipped_micro_batches"] != DP_STEPS:
+                raise AssertionError(f"{path}: {info[path]['metrics']}; one "
+                                     f"skip a step expected")
+        if dp_digests[nan] != dp_digests[skip]:
+            raise AssertionError(f"{nan} != {skip}: params, m and v "
+                                 f"{dp_digests[nan]} vs {dp_digests[skip]}")
+    rowcol = _check_bucketed_rowcol(fused_step, one_step)
     z, ga = info["zero1_adama"], info["dp_ga"]
     own_rows = z["arena_rows"] // info["zero1_adama"]["ranks"]
     zero1_limit = peaks[DP_TWIN] + own_rows * LANES * 4 + DP_PEAK_SLACK
@@ -5235,6 +5338,15 @@ def check_dp(torch, wrappers, digests, all_losses, peaks):
     # padding twice, and the one-tree claim is logged, not asserted
     # (ROADMAP queue 3 (bb))
     padding = (z["arena_rows"] * LANES - ga["params"]) * 4
+    zb, zs = info["zero1_adama_bucketed"], info["zero1_adama_layerwise"]
+    arena_bytes = zs["arena_rows"] * LANES * 4
+    bucketed_limit = z["max_memory_allocated_bytes"] + DP_PEAK_SLACK
+    stream_limit = (peaks["adama_layerwise"]
+                    + zs["arena_rows"] // zs["ranks"] * LANES * 4
+                    + DP_PEAK_SLACK)
+    stream_below = min(z["max_memory_allocated_bytes"],
+                       zb["max_memory_allocated_bytes"]) \
+        - zs["max_memory_allocated_bytes"]
     memory = {"phase": "dp_memory", "twin": DP_TWIN,
               "twin_peak": peaks[DP_TWIN],
               "zero1_peak": z["max_memory_allocated_bytes"],
@@ -5243,11 +5355,29 @@ def check_dp(torch, wrappers, digests, all_losses, peaks):
               "ga_minus_zero1_requested": gap,
               "fp32_gradient_tree_bytes": tree,
               "arena_padding_bytes": padding,
+              "zero1_bucketed_peak": zb["max_memory_allocated_bytes"],
+              "bucketed_minus_full_pack": zb["max_memory_allocated_bytes"]
+              - z["max_memory_allocated_bytes"],
+              "bucketed_limit": bucketed_limit,
+              "layerwise_twin_peak": peaks["adama_layerwise"],
+              "zero1_layerwise_peak": zs["max_memory_allocated_bytes"],
+              "stream_minus_layerwise_twin": zs["max_memory_allocated_bytes"]
+              - peaks["adama_layerwise"], "stream_limit": stream_limit,
+              "stream_below_zero1": stream_below,
+              "stream_below_zero1_at_least": DP_STREAM_ARENAS * arena_bytes,
+              "peak_sites": {p: info[p]["peak_sites"]
+                             for p in DP_PEAK_SITES},
               "met": {"zero1_within_twin_plus_owned_rows":
                       z["max_memory_allocated_bytes"] <= zero1_limit,
                       "ga_at_least_zero1_plus_gradient_tree": gap >= tree,
                       "ga_at_least_zero1_plus_tree_less_two_paddings":
-                      gap >= tree - 2 * padding}}
+                      gap >= tree - 2 * padding,
+                      "bucketed_within_full_pack":
+                      zb["max_memory_allocated_bytes"] <= bucketed_limit,
+                      "stream_within_layerwise_plus_owned_rows":
+                      zs["max_memory_allocated_bytes"] <= stream_limit,
+                      "stream_two_arenas_below_zero1":
+                      stream_below >= DP_STREAM_ARENAS * arena_bytes}}
     log(json.dumps(memory))
     if not memory["met"]["zero1_within_twin_plus_owned_rows"]:
         raise AssertionError(f"zero1_adama peaks at "
@@ -5258,11 +5388,77 @@ def check_dp(torch, wrappers, digests, all_losses, peaks):
                              f"zero1_adama's, under the fp32 gradient tree "
                              f"less two arena paddings, "
                              f"{tree - 2 * padding} B")
+    for claim in ("bucketed_within_full_pack",
+                  "stream_within_layerwise_plus_owned_rows",
+                  "stream_two_arenas_below_zero1"):
+        if not memory["met"][claim]:
+            raise AssertionError(f"dp memory: {claim} not met: "
+                                 f"{json.dumps(memory)}")
     shards = check_zero1_shards(torch)
+    shards["arena_fold_slice"] = check_zero1_buckets(torch)
     log(json.dumps({"phase": "dp_done", "digest_claims": [
-        ["dp_adama", twin, "equal"], ["zero1_adama", twin, "equal"],
-        [nan, skip, "equal"]], "seconds": time.perf_counter() - t0}))
+        ["dp_adama", f"{DP_TWIN}:step{DP_STEPS}", "equal"],
+        ["zero1_adama", f"{DP_TWIN}:step{DP_STEPS}", "equal"],
+        ["zero1_adama_bucketed", f"{DP_TWIN}:step{DP_STEPS}", "equal"],
+        ["zero1_adama_layerwise", f"adama_layerwise:step{DP_STEPS}",
+         "equal"],
+        ["zero1_adama_guarded_nan", "zero1_adama_guarded_skip", "equal"],
+        ["zero1_adama_layerwise_guarded_nan",
+         "zero1_adama_layerwise_guarded_skip", "equal"]],
+        "bucketed_int8_rowcol": rowcol,
+        "seconds": time.perf_counter() - t0}))
     return counts, shards
+
+
+def _one_step_columns(torch, fused_step, out, kw):
+    """What the int8/rowcol one-step comparison reads of a run: a digest
+    of each row-indexed column of m and v, the column sums and the params
+    (on the host)."""
+    from repro_torch.core import state_store
+    state = out["opt_state"]
+    cols = [(c.row_indexed, x) for mo, name in (("m", kw["m_codec"]),
+                                                ("v", kw["state_codec"]))
+            for x, c in zip(state_store.codec_of(state[mo], mo)
+                            .parts_of(state[mo]),
+                            fused_step.kernel_codec(mo, name).cols)]
+    return {"rows": state["m"].layout.rows,
+            "layout": state["m"].layout,
+            "row_digests": [_digest(torch, [x]) for ri, x in cols if ri],
+            "colsums": [x.detach().double().cpu() for ri, x in cols
+                        if not ri],
+            "params": [x.detach().to("cpu", copy=True)
+                       for x in _tree_leaves(out["params"])]}
+
+
+def _check_bucketed_rowcol(fused_step, one_step):
+    """Bucketed int8/rowcol against the full pack after one step (8
+    layers, one rank): every row-indexed column bit for bit (digests),
+    the column sums, added bucket by bucket, within the float32 bound of
+    the two orders (`_bucket_colsum_bound`; queue 3 (j)'s DP_COLSUM_REL
+    logged); the params' largest difference logged."""
+    from repro_torch.core.zero import zero1_bucket_plan
+    a = one_step["zero1_adama_bucketed_int8_rowcol"]
+    b = one_step["zero1_adama_int8_rowcol_step1"]
+    rel = max(float((x - y).abs().max() / y.abs().max())
+              for x, y in zip(a["colsums"], b["colsums"]))
+    plan = zero1_bucket_plan(a["layout"], 1)
+    bound = _bucket_colsum_bound(fused_step, a["rows"], plan)
+    param_diff = max(float((x - y).abs().max())
+                     for x, y in zip(a["params"], b["params"]))
+    line = {"phase": "zero1_bucketed_int8_rowcol",
+            "row_indexed_equal": a["row_digests"] == b["row_digests"],
+            "colsum_rel": rel, "bound": bound,
+            "within_queue3_j": rel <= DP_COLSUM_REL,
+            "max_param_diff": param_diff}
+    log(json.dumps(line))
+    if not line["row_indexed_equal"]:
+        raise AssertionError(f"bucketed int8/rowcol: row-indexed columns "
+                             f"differ from the full pack's: {line}")
+    if not rel <= bound:
+        raise AssertionError(f"bucketed int8/rowcol: column sums {rel} "
+                             f"relative from the full pack's, past {bound}")
+    one_step.clear()
+    return line
 
 
 def _shard_state(torch, gen, m_codec, v_codec, rows):
@@ -5283,19 +5479,166 @@ def _shard_state(torch, gen, m_codec, v_codec, rows):
     return m, v
 
 
+def _colsum_chain(fused_step, n):
+    """The float32 additions that chain into one column sum of rowcol's
+    fold over n rows: a warp's rows of a range, the CTA's tree over its
+    warps, the ranges in order (`rowcol_partition`)."""
+    ranges, range_rows = fused_step.rowcol_partition(n)
+    return (-(-range_rows // fused_step.RC_WARPS)
+            + fused_step.RC_WARPS.bit_length() - 1 + ranges)
+
+
 def _colsum_bound(fused_step, rows, shards):
     """The relative bound of rowcol's column sums over `rows` rows against
     their `shards` ranks' partials summed in rank order: every term is
     positive, so a float32 chain of L additions is within L x 2^-24 of the
     exact sum (relative), and the two computations within the sum of their
-    bounds. A chain: a warp's rows of a range, the CTA's tree over its
-    warps, the ranges in order (`rowcol_partition`); the partials add
-    `shards` more."""
-    def chain(n):
-        ranges, range_rows = fused_step.rowcol_partition(n)
-        return (-(-range_rows // fused_step.RC_WARPS)
-                + fused_step.RC_WARPS.bit_length() - 1 + ranges)
-    return (chain(rows) + chain(rows // shards) + shards) * 2.0 ** -24
+    bounds (`_colsum_chain`); the partials add `shards` more."""
+    return (_colsum_chain(fused_step, rows)
+            + _colsum_chain(fused_step, rows // shards) + shards) * 2.0 ** -24
+
+
+def _bucket_colsum_bound(fused_step, rows, plan):
+    """As `_colsum_bound`, for the bucketed schedule against the whole
+    arena's fold: a rank adds each bucket's slice partial (its own chain)
+    into the column sums in bucket order, and the ranks' partials add in
+    rank order."""
+    buckets = plan.grad_buckets()
+    return (_colsum_chain(fused_step, rows)
+            + max(_colsum_chain(fused_step, b.slice_rows) for b in buckets)
+            + len(buckets) + plan.n_shards) * 2.0 ** -24
+
+
+def check_zero1_buckets(torch):
+    """The bucketed ZeRO-1 schedule emulated at DP_SHARDS ranks over
+    bert-large's full arena, laid out for DP_SHARDS ranks, for each pair of
+    DP_SHARD_PAIRS: each rank's owned rows (partition order) of the same
+    state, its slice of every gradient bucket folded at the bucket's
+    own_offset with the slice-fold kernel (the first fold of a mini-batch,
+    the decay fused, scale 1/8; a shared column: the rank's own copy,
+    decayed by b2 / M), then the apply on its owned param rows; the ranks'
+    rows unpermuted to arena order against the whole arena's fold and
+    apply. Every row-indexed column and p bit for bit; rowcol's column
+    sums, the ranks' partials in rank order, within the float32 bound of
+    the orders (`_bucket_colsum_bound`; DP_COLSUM_REL logged). Then the
+    slice fold timed on DP_BUCKET_TIMED's buckets and slices beside its
+    bound. Returns the timed entries."""
+    from repro_torch.core import buckets, state_store
+    from repro_torch.core.zero import zero1_bucket_plan
+    from repro_torch.kernels import fused_step
+
+    layout = full_layout(torch, DP_ARCH, n_shards=DP_SHARDS)
+    plan = zero1_bucket_plan(layout, DP_SHARDS)
+    rows, m_ = layout.rows, DP_SHARDS
+    perm = torch.from_numpy(buckets.partition_index(plan).astype(
+        "int64")).to("cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(32)
+    g = torch.randn((rows, LANES), generator=gen, device="cuda")
+    p = torch.randn((rows, LANES), generator=gen, device="cuda") * 0.02
+    # the padding bucket's rows hold zeros, as in training: no rank folds
+    # them, and the whole arena's fold leaves zeros zero
+    pad = layout.rest.row + layout.rest.rows
+    g[pad:] = 0.0
+    b1, b2 = 0.9, 0.999
+    fold_kw = dict(beta1=b1, beta2=b2, scale=1.0 / 8, decay=(b1, b2))
+    apply_kw = dict(lr=1e-3, bc1=0.19, bc2=0.001999, eps=1e-8)
+    out = []
+
+    def owned(parts, codec, k, shared=None):
+        """Rank k's owned rows of each row-indexed column (a copy, in
+        partition order); a shared column: `shared`, or a copy."""
+        return tuple(buckets.gather_owned_rows(x, plan, k) if c.row_indexed
+                     else (shared if shared is not None else x.clone())
+                     for x, c in zip(parts, codec.kernel.cols))
+
+    def arena_order(cols):
+        return torch.cat(cols).index_select(0, perm)
+
+    for m_codec, v_codec in DP_SHARD_PAIRS:
+        pair = f"{m_codec}/{v_codec}"
+        mc, vc = (state_store.get_codec(m_codec, "m"),
+                  state_store.get_codec(v_codec, "v"))
+        m0, v0 = _shard_state(torch, gen, m_codec, v_codec, rows)
+        for x in _row_cols(fused_step, m_codec, v_codec, m0, v0):
+            x[pad:] = 0
+        mw, vw = _clone(m0), _clone(v0)
+        state_store.fold(mc, vc, mw, vw, g, **fold_kw)
+        pw = p.clone()
+        state_store.apply(mc, vc, pw, mw, vw, **apply_kw)
+        ranks_m, ranks_v, ranks_p = [], [], []
+        for k in range(m_):
+            mk, vk = owned(m0, mc, k), owned(v0, vc, k)
+            mc.begin_micro(mk, b1)
+            vc.begin_micro(vk, b2 / m_)
+            for b in plan.grad_buckets():
+                lo = b.start + k * b.slice_rows
+                state_store.fold_slice(mc, vc, mk, vk,
+                                       g[lo:lo + b.slice_rows],
+                                       b.own_offset, beta1=b1, beta2=b2,
+                                       block=b.fold_block, scale=1.0 / 8,
+                                       decay=(b1, b2))
+            pk = buckets.gather_owned_rows(p, plan, k)
+            state_store.apply(mc, vc, pk, owned(mw, mc, k),
+                              owned(vw, vc, k, vw[-1]), **apply_kw)
+            ranks_m.append(mk)
+            ranks_v.append(vk)
+            ranks_p.append(pk)
+        torch.cuda.synchronize()
+        row_w = _row_cols(fused_step, m_codec, v_codec, mw, vw)
+        row_s = [arena_order(list(cols)) for cols in zip(*[
+            _row_cols(fused_step, m_codec, v_codec, a, b)
+            for a, b in zip(ranks_m, ranks_v)])]
+        _compare_bits(torch, "zero1 buckets", f"{pair} fold",
+                      list(zip(row_s, row_w)))
+        _compare_bits(torch, "zero1 buckets", f"{pair} apply",
+                      [(arena_order(ranks_p), pw)])
+        colsum_rel = None
+        if v_codec == "rowcol":
+            total = ranks_v[0][-1].clone()
+            for x in ranks_v[1:]:
+                total += x[-1]
+            colsum_rel = float((total - vw[-1]).abs().max()
+                               / vw[-1].abs().max())
+            bound = _bucket_colsum_bound(fused_step, rows, plan)
+            log(json.dumps({"phase": "zero1_bucket_colsums", "pair": pair,
+                            "relative": colsum_rel, "bound": bound,
+                            "within_queue3_j": colsum_rel <= DP_COLSUM_REL}))
+            if not colsum_rel <= bound:
+                raise AssertionError(f"zero1 buckets {pair}: column sums "
+                                     f"{colsum_rel} relative from the whole "
+                                     f"arena's, past {bound}")
+        del mw, vw, pw, ranks_m, ranks_v, ranks_p, row_w, row_s
+        ops = 2 + _FOLD_OPS[m_codec] + _FOLD_OPS[v_codec]
+        for label, kind, shards in DP_BUCKET_TIMED:
+            b = next(x for x in plan.buckets if x.kind == kind)
+            n_rows = b.rows // shards
+            off = b.start if shards == 1 else b.own_offset
+            block = (math.gcd(math.gcd(fused_step.BLOCK_ROWS, n_rows), off)
+                     if shards == 1 else b.fold_block)
+            n = n_rows * LANES
+            gs = g[b.start:b.start + n_rows]
+            fold_t = dict(beta1=b1, beta2=b2, block=block, scale=1.0 / 8,
+                          m_codec=m_codec, v_codec=v_codec)
+            per_step = MAIN[DP_ARCH]["micro_batches"] * sum(
+                x.kind == kind for x in plan.grad_buckets())
+            out.append(_kernel_entry(
+                "arena_fold_slice", f"zero1 buckets {pair} {label}",
+                timed_ms(torch, lambda: fused_step.arena_fold_slice(
+                    m0, v0, gs, off, **fold_t), runs=WIRE_TIMED_RUNS,
+                    reps=KERNEL_REPS),
+                timed_ms(torch, lambda: fused_step.arena_fold_slice_ref(
+                    m0, v0, gs, off, **fold_t), runs=1, warmup=0),
+                bound_ms(4 * n + 2 * _codec_bytes(m_codec, v_codec, n_rows),
+                         ops * n),
+                {"pair": pair, "rows": n_rows, "row_offset": off,
+                 "block": block, "ranks": shards, "max_abs_err": 0.0,
+                 "colsum_rel": colsum_rel,
+                 "launches_per_step_at_this_kind": per_step}))
+        del m0, v0
+    del g, p, perm
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_zero1_shards(torch):
@@ -5509,7 +5852,8 @@ def main() -> int:
                                             peaks)
             counts.update(dp_counts)
             for name, entries in dp_shards.items():
-                kernels[name]["zero1_shards"] = entries
+                kernels[name]["zero1_buckets" if name == "arena_fold_slice"
+                             else "zero1_shards"] = entries
         if _main_config(arch).attention == "swa":
             check_window(torch, arch)
         if _main_config(arch).moe is not None:

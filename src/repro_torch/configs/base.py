@@ -188,15 +188,14 @@ class OptimizerConfig:
     m_codec: str = "fp32"                # first-moment codec
     arena: bool = True                   # False: per-leaf state
     # ZeRO-1 (the reference's P_os): with zero_stage=1 the data-parallel
-    # engine (core/dp_shardmap.py) shards every row-indexed state column by
-    # row range, each rank owning rows [k*R/M, (k+1)*R/M) of the arena.
-    # Inert outside that engine, as in the reference.
+    # engine (core/dp_shardmap.py) shards every row-indexed state column,
+    # each rank owning 1/M of the arena's rows. Inert outside that engine,
+    # as in the reference.
     zero_stage: int = 0                  # 0 | 1
-    # the reference's bucketed ZeRO-1 schedule (per-layer and size-capped
-    # gradient buckets). The port runs the full-pack schedule only
-    # (zero_bucketed=False: the whole gradient arena packed, then one
-    # reduce-scatter a micro-batch); the DP engine refuses True under
-    # zero_stage=1 (ROADMAP queue 1, item 10.2). Default True, as there.
+    # the bucketed ZeRO-1 schedule (core/buckets.py: a reduce-scatter a
+    # layer and a size-capped rest bucket, rank k owning slice k of each);
+    # False: the full pack (the whole gradient arena, one reduce-scatter a
+    # micro-batch, contiguous row ranges). Default True, as there
     zero_bucketed: bool = True
     # rest-region bucket cap in arena rows (0 = the reference's default)
     zero_bucket_rows: int = 0

@@ -310,6 +310,78 @@ def pack_rest(rest_tree, layout: ArenaLayout,
                         rest.rows, dtype)
 
 
+def pack_stack_layers(stack_tree, spec: StackSpec, j0: int, j1: int,
+                      dtype=torch.float32) -> torch.Tensor:
+    """Layers [j0, j1) of a stacked subtree -> new ((j1-j0)*layer_rows,
+    LANES) `dtype` slab: rows [spec.row + j0*layer_rows, spec.row +
+    j1*layer_rows) of `pack`, bit for bit, without the other layers."""
+    if not 0 <= j0 < j1 <= spec.n_layers:
+        raise ValueError(f"layers [{j0}, {j1}) outside the stack's "
+                         f"{spec.n_layers}")
+    _check_pack_dtype(dtype)
+    leaves = [x[j0:j1] for x in flatten_up_to(stack_tree, spec.paths)]
+    region = torch.zeros((j1 - j0, spec.layer_rows * LANES), dtype=dtype,
+                         device=leaves[0].device)
+    _fill_region(region, leaves, spec.leaves)
+    return region.view(-1, LANES)
+
+
+def _rest_cuts(layout: ArenaLayout, row_lo: int, row_hi: int):
+    """(leaf index, leaf element range, range row offset) of each rest leaf
+    that arena rows [row_lo, row_hi) of the rest region cut: the leaf's
+    elements [e0, e1) lie at element (a - row_lo) * LANES of the range,
+    a its first row inside it. A cut may fall inside a leaf."""
+    rest = layout.rest
+    lo, hi = row_lo - rest.row, row_hi - rest.row
+    if not 0 <= lo < hi <= rest.rows:
+        raise ValueError(f"rows [{row_lo}, {row_hi}) outside the rest "
+                         f"region [{rest.row}, {rest.row + rest.rows})")
+    for i, ls in enumerate(rest.leaves):
+        a, b = max(ls.row, lo), min(ls.row + ls.rows, hi)
+        e0, e1 = (a - ls.row) * LANES, min(ls.size, (b - ls.row) * LANES)
+        if a < b and e0 < e1:
+            yield i, e0, e1, (a - lo) * LANES
+
+
+def pack_rest_rows(rest_tree, layout: ArenaLayout, row_lo: int, row_hi: int,
+                   dtype=torch.float32) -> torch.Tensor:
+    """Arena rows [row_lo, row_hi) of the rest region's pack -> new
+    (row_hi - row_lo, LANES) `dtype` slab, bit for bit those rows of
+    `pack_rest`, touching only the leaves the range cuts (the bucketed
+    ZeRO-1 schedule packs the rest region one size-capped bucket at a
+    time)."""
+    _check_pack_dtype(dtype)
+    leaves = flatten_up_to(rest_tree, layout.rest.paths)
+    out = torch.zeros((row_hi - row_lo, LANES), dtype=dtype,
+                      device=leaves[0].device)
+    flat = out.view(-1)
+    for i, e0, e1, at in _rest_cuts(layout, row_lo, row_hi):
+        flat[at:at + e1 - e0].copy_(leaves[i].reshape(-1)[e0:e1])
+    return out
+
+
+def unpack_stack_layers_(stack_tree, spec: StackSpec, j0: int,
+                         rows: torch.Tensor) -> None:
+    """The inverse of `pack_stack_layers`, in place: layers [j0, j0 + n) of
+    the stacked leaves <- their slots of the (n * layer_rows, LANES)
+    `rows`."""
+    n = rows.shape[0] // spec.layer_rows
+    region = rows.reshape(n, spec.layer_rows * LANES)
+    for x, ls in zip(flatten_up_to(stack_tree, spec.paths), spec.leaves):
+        x[j0:j0 + n].copy_(region[:, ls.row * LANES:ls.row * LANES + ls.size]
+                           .reshape((n,) + ls.shape))
+
+
+def unpack_rest_rows_(rest_tree, layout: ArenaLayout, row_lo: int,
+                      rows: torch.Tensor) -> None:
+    """The inverse of `pack_rest_rows`, in place: every rest leaf's
+    elements that arena rows [row_lo, row_lo + len(rows)) hold <- them."""
+    leaves = flatten_up_to(rest_tree, layout.rest.paths)
+    flat = rows.reshape(-1)
+    for i, e0, e1, at in _rest_cuts(layout, row_lo, row_lo + rows.shape[0]):
+        leaves[i].view(-1)[e0:e1].copy_(flat[at:at + e1 - e0])
+
+
 def unpack(arena: torch.Tensor, layout: ArenaLayout, dtype=None):
     """Arena -> tree. Leaves take their recorded dtypes (or a forced
     `dtype`); a leaf whose dtype is the arena's is a VIEW of `arena`."""

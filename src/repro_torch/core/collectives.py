@@ -52,6 +52,16 @@ def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
     return out
 
 
+def agree(ok: torch.Tensor, group=None) -> torch.Tensor:
+    """ok <- 1.0 if every rank's ok is 1.0, else 0.0, in place (a (1,)
+    float32 device flag, a guard vector's verdict): one 4-byte all-reduce
+    of 1 - ok, whose sum is 0 only if no rank saw a fault. Returns ok."""
+    bad = 1.0 - ok
+    all_reduce(bad, group)
+    ok.copy_((bad == 0).to(ok.dtype))
+    return ok
+
+
 COLLECTIVES = (all_reduce, reduce_scatter, all_gather)
 
 

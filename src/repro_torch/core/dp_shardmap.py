@@ -27,27 +27,51 @@ Variants (collectives/moved_bytes counts each one's volume, Fig. 7):
          (every rank skips, or none does, or the state sum would mix
          folded and unfolded ranks).
 
-With OptimizerConfig(zero_stage=1, zero_bucketed=False) `adama` runs
-ROW-RANGE ZeRO-1, full pack (the paper's Table-3 "ZeRO-S1 + AdamA"): rank k
-owns rows [k*R/M, (k+1)*R/M) of every row-indexed state column
-(core/zero.py), for every (m_codec, v_codec) pair. Each micro-batch's
-gradient is packed whole and reduce-scattered into the owned rows, then
-folded there at scale 1/(N*M): fully reduced before it enters v, so no
-M*b2 pre-scale. Rowcol's column sums, the one shared column, take the
-decay b2/M on every rank and are summed once a mini-batch
+With OptimizerConfig(zero_stage=1) `adama` runs ROW-RANGE ZeRO-1 (the
+paper's Table-3 "ZeRO-S1 + AdamA"), for every (m_codec, v_codec) pair:
+each rank owns 1/M of every row-indexed state column (core/zero.py), each
+micro-batch's gradient is reduce-scattered into the owned rows and folded
+there at scale 1/(N*M): fully reduced before it enters v, so no M*b2
+pre-scale. Rowcol's column sums, the one shared column, take the decay
+b2/M on every rank and are summed once a mini-batch
 (state_store.psum_replicated_state). The apply updates the owned param
 rows, which one all-gather spreads. Nothing quantized is ever summed, so
 every codec composes. Guarded, the verdict is taken on the received rows
-and agreed before the fold. Volume N*P + P (the scatters and the gather).
+and agreed before any fold. Two schedules (`zero_bucketed`):
 
-Still refused, each naming its ROADMAP queue-1 item: the bucketed ZeRO-1
-schedule (zero_bucketed=True, the default) and the adama_layerwise
-stream, the bf16 wire and master params under DP (10.2); zero_async and
-the fp8 wire (10.3); a tensor-parallel group (10.4).
+  bucketed   (the default) the gradient goes one BUCKET at a time
+             (core/buckets.py: a bucket per layer, size-capped buckets over
+             the rest region): pack the bucket's rows, reduce-scatter, fold
+             the received slice at its `own_offset` with one slice fold.
+             The live packed gradient is one bucket; rank k owns slice k of
+             every bucket, so its state is in partition order
+             (buckets.unpermute_state). Guarded, every bucket is scattered
+             and checked first, the verdict agreed once, then all fold.
+             The apply packs the owned param rows bucket by bucket,
+             gathers them and unpermutes them into the leaves bucket by
+             bucket: no arena-order copy of the params.
+  full pack  (zero_bucketed=False) contiguous row ranges [k*R/M,
+             (k+1)*R/M); the whole gradient arena packed, one
+             reduce-scatter a micro-batch.
+
+Volume N*P + P a mini-batch either way (the bucketed schedule never sends
+the padding bucket).
+
+`adama_layerwise` (zero_stage=1 and arena state only, as in the
+reference) is Algorithm 2 under ZeRO-1, the bucketed stream: each layer's
+gradient is reduce-scattered out of the backward into the owned rows
+(core/layerwise.py's ZeroStream), so no whole-model gradient exists on
+any rank; then the bucketed apply.
+
+Still refused, each naming its ROADMAP queue-1 item: the bf16 wire and
+master params under DP (10.2); zero_async and the fp8 wire (10.3); a
+tensor-parallel group (10.4).
 
 Every collective runs whatever M is: at M = 1 the scatter and the gather
 copy, /1 is exact and f32(1*b2) = f32(b2), so `adama` and ZeRO-1 equal the
-single-device adama engine bit for bit.
+single-device adama engine bit for bit (the bucketed schedule on every
+row-local pair: rowcol's column sums are added bucket by bucket), and the
+stream the single-device adama_layerwise.
 """
 from __future__ import annotations
 
@@ -61,11 +85,12 @@ from repro_torch.configs.base import (ModelConfig, OptimizerConfig,
                                       is_fp8_wire)
 from repro_torch.core import adama
 from repro_torch.core import arena as arena_mod
-from repro_torch.core import collectives, state_store
+from repro_torch.core import buckets, collectives, state_store
 from repro_torch.core.accumulation import (_fold_decay, _grads, _Guard, _lr,
                                            _split_micro, inv_n, make_loss,
                                            scale_leaves)
-from repro_torch.core.zero import shard_rows
+from repro_torch.core.layerwise import ZeroStream, layerwise_loss_and_fold
+from repro_torch.core.zero import shard_rows, zero1_bucket_plan
 from repro_torch.kernels import fused_step
 from repro_torch.kernels.adama_accum import _fma32
 from repro_torch.optim import adam
@@ -131,16 +156,14 @@ def _refuse(opt: OptimizerConfig, variant: str, tp_group) -> None:
         raise ValueError(
             f"zero_stage=1 row-range sharding is defined for the 'adama' "
             f"and 'adama_layerwise' variants only, got variant={variant!r}")
-    if variant == "adama_layerwise":
-        raise NotImplementedError(
-            f"the shard_map 'adama_layerwise' variant IS the bucketed "
-            f"ZeRO-1 stream (each layer's gradient reduce-scatters out of "
-            f"the backward into the owned row range): {_item('10.2')}")
-    if zero1 and opt.zero_bucketed:
-        raise NotImplementedError(
-            f"the bucketed ZeRO-1 schedule (zero_bucketed=True, the "
-            f"default) is {_item('10.2')}; pass zero_bucketed=False "
-            f"(--zero-full-pack) for the full-pack schedule")
+    if variant == "adama_layerwise" and not (zero1 and opt.arena):
+        raise ValueError(
+            "the shard_map 'adama_layerwise' variant IS the bucketed ZeRO-1 "
+            "stream (each layer's gradient reduce-scatters out of the "
+            "backward into the owned row range): it requires zero_stage=1 "
+            "with the arena state store (arena=True, use_pallas=True). For "
+            "replicated-state DP use variant='adama', or run "
+            "adama_layerwise in the pjit engine")
     if opt.arena and not zero1 and variant == "adama" and \
             (opt.state_codec != "fp32" or opt.m_codec != "fp32"):
         raise ValueError(
@@ -149,14 +172,6 @@ def _refuse(opt: OptimizerConfig, variant: str, tp_group) -> None:
             f"mini-batch-end state psum (Eqs. 7-8) cannot sum codec-encoded "
             f"moments, while the row-range ZeRO-1 schedule reduce-scatters "
             f"fp32 gradients instead")
-
-
-def _agree(ok: torch.Tensor, group) -> None:
-    """ok <- 1.0 if every rank's ok is 1.0, else 0.0, in place (a (1,)
-    float32 device flag): the sum of the ranks' 1 - ok is 0."""
-    bad = 1.0 - ok
-    collectives.all_reduce(bad, group)
-    ok.copy_((bad == 0).to(ok.dtype))
 
 
 def _pmean(x: torch.Tensor, group, m: int) -> torch.Tensor:
@@ -284,17 +299,35 @@ def make_dp_train_step(cfg: ModelConfig, opt: OptimizerConfig, group=None,
     guard = _Guard(opt, 1 if zero1 else m_dev)
     dyn = scaler_mod.is_dynamic(opt)
     gi = opt.scaler_growth_interval
+    bucketed = zero1 and (opt.zero_bucketed or variant == "adama_layerwise")
+    plans = {}
+
+    def plan_of(lay):
+        """The bucket plan of the state's layout (None: the full pack)."""
+        if not bucketed:
+            return None
+        if lay not in plans:
+            plans[lay] = zero1_bucket_plan(lay, m_dev, opt.zero_bucket_rows)
+        return plans[lay]
+
+    def scatter_bucket(g, lay, bk):
+        """A bucket's gradient slab packed and reduce-scattered: this
+        rank's fully reduced slice (the slab dies here)."""
+        return collectives.reduce_scatter(buckets.pack_bucket(g, lay, bk),
+                                          group)
 
     def guarded_step(params, opt_state, batch):
-        """Guarded replicated adama or ZeRO-1: per micro-batch the slab's
-        (ZeRO-1: the received rows') finite flag, agreed over the group,
-        predicates the fold; `good` moves the decay to the first committed
-        fold and the step counts only if one committed."""
+        """Guarded replicated adama, ZeRO-1 or the stream: per micro-batch
+        the slab's (ZeRO-1: the received rows'; the stream: dx's, the
+        head's and each received slice's) finite flag, agreed over the
+        group, predicates the folds; `good` moves the decay to the first
+        committed fold and the step counts only if one committed."""
         leaves, _ = arena_mod.tree_flatten(params)
         dev = leaves[0].device
         st0 = opt_state["step"]
         state, sc = opt_state, opt_state["scaler"]
         lay = state["m"].layout
+        plan = plan_of(lay)
         base = torch.tensor(np.float32(1.0 / (n * m_dev)) if zero1
                             else np.float32(1.0 / n), device=dev)
         rdv = torch.tensor([np.float32(b2 / m_dev), 1.0],
@@ -302,26 +335,56 @@ def make_dp_train_step(cfg: ModelConfig, opt: OptimizerConfig, group=None,
         good = torch.zeros((), dtype=torch.int32, device=dev)
         lsum = torch.zeros((), dtype=torch.float32, device=dev)
         for i, mb in enumerate(local_micro(batch)):
-            loss, g = _grads(loss_of, params, leaves, mb, sc)
-            fault_mod.corrupt_tree(fault, g, micro=i, step=st0, device=rank)
-            slab = arena_mod.pack(g, lay)
-            del g
-            if zero1:
-                slab = collectives.reduce_scatter(slab, group)
             decay = guard.fold_decay(good)
-            vec = guard.vector(decay, fault_mod.apply_skip(
-                fault, True, micro=i, step=st0),
-                scaler_mod.scale_into_fold(base, sc))
-            fused_step.finite_and(slab, vec[2:3])
-            _agree(vec[2:3], group)
             rdecay = ((decay[0], torch.where(good == 0, rdv[0], rdv[1]))
                       if zero1 else None)
-            state, _ = state_store.fold_state(
-                state, slab, beta1=b1, beta2=b2, replicated_decay=rdecay,
-                guard=vec)
-            del slab
+            skip = fault_mod.apply_skip(fault, True, micro=i, step=st0)
+            if variant == "adama_layerwise":
+                # the scale S seeds the backward (a nan/inf fault lands on
+                # the seed), the folds divide it out; the loss is the ce
+                seed = fault_mod.corrupt_loss(fault, base * sc["scale"],
+                                              micro=i, step=st0, device=rank)
+                vec = guard.vector(decay, skip, guard.one(dev) / sc["scale"])
+                loss, state, _ = layerwise_loss_and_fold(
+                    cfg, params, mb, state, beta1=b1, beta2=b2, scale=seed,
+                    guard=vec, zero=ZeroStream(plan, group, rdecay))
+            else:
+                loss, g = _grads(loss_of, params, leaves, mb, sc)
+                fault_mod.corrupt_tree(fault, g, micro=i, step=st0,
+                                       device=rank)
+                vec = guard.vector(decay, skip,
+                                   scaler_mod.scale_into_fold(base, sc))
+                if plan is None:
+                    slab = arena_mod.pack(g, lay)
+                    del g
+                    if zero1:
+                        slab = collectives.reduce_scatter(slab, group)
+                    fused_step.finite_and(slab, vec[2:3])
+                    collectives.agree(vec[2:3], group)
+                    state, _ = state_store.fold_state(
+                        state, slab, beta1=b1, beta2=b2,
+                        replicated_decay=rdecay, guard=vec)
+                    del slab
+                else:
+                    # every bucket scattered and checked before the one
+                    # agreement: folding first would commit a micro-batch
+                    # whose later bucket turns out bad
+                    owns = []
+                    for bk in plan.grad_buckets():
+                        owns.append(scatter_bucket(g, lay, bk))
+                        fused_step.finite_and(owns[-1], vec[2:3])
+                    del g
+                    collectives.agree(vec[2:3], group)
+                    state_store.begin_micro_state(state, rdecay,
+                                                  guard=vec[2:3])
+                    for bk, own in zip(plan.grad_buckets(), owns):
+                        state_store.fold_slice_state(
+                            state, own, bk.own_offset, beta1=b1, beta2=b2,
+                            block=bk.fold_block, guard=vec)
+                    del owns
+                loss = loss / sc["scale"]
             ok = vec[2] != 0
-            lsum = lsum + torch.where(ok, loss, 0.0) / sc["scale"]
+            lsum = lsum + torch.where(ok, loss, 0.0)
             sc = scaler_mod.scaler_update(sc, ok, dynamic=dyn,
                                           growth_interval=gi)
             good = good + ok.to(torch.int32)
@@ -329,7 +392,7 @@ def make_dp_train_step(cfg: ModelConfig, opt: OptimizerConfig, group=None,
         state = dict(state, step=st0 + 1)
         lr = _lr(lr_schedule, opt, st0 + 1)
         if zero1:
-            zero1_apply(params, state, lr, applied)
+            zero1_apply(params, state, lr, plan, applied)
         else:
             state = adama.allreduce_states(state, group, m_dev, applied)
             params, _ = adama.finalize(
@@ -339,42 +402,71 @@ def make_dp_train_step(cfg: ModelConfig, opt: OptimizerConfig, group=None,
         good, metrics = guard.read_back(good, sc, loss)
         return params, dict(state, step=st0 + (good > 0), scaler=sc), metrics
 
-    def zero1_apply(params, state, lr, applied=None):
+    def zero1_apply(params, state, lr, plan, applied=None):
         """psum the shared columns, apply on the owned param rows, gather
-        them and unpack into the leaves (in place)."""
+        them and copy them into the leaves (in place). Bucketed: the owned
+        rows are packed bucket by bucket and the gathered partition-order
+        rows unpermuted into the leaves bucket by bucket, so no arena of
+        the params is built beside them."""
         state_store.psum_replicated_state(state, group)
         lay = state["m"].layout
-        own = shard_rows(lay, m_dev)[rank]
         bc1, bc2 = adama.bias_corrections(state["step"], b1, b2)
+        kw = dict(lr=lr, bc1=bc1, bc2=bc2, eps=opt.eps,
+                  weight_decay=opt.weight_decay, guard=applied)
         with torch.no_grad():
+            if plan is not None:
+                p_own = buckets.pack_owned_rows(params, plan, rank)
+                state_store.apply_state(p_own, state, **kw)
+                p_full = collectives.all_gather(p_own, group)
+                del p_own
+                buckets.unpermute_into_(params, p_full, plan)
+                return
+            own = shard_rows(lay, m_dev)[rank]
             p_arena = arena_mod.pack(params, lay)
-            p_own = state_store.apply_state(
-                p_arena[own.start:own.stop], state, lr=lr, bc1=bc1, bc2=bc2,
-                eps=opt.eps, weight_decay=opt.weight_decay, guard=applied)
+            p_own = state_store.apply_state(p_arena[own.start:own.stop],
+                                            state, **kw)
             p_full = collectives.all_gather(p_own, group)
             del p_arena, p_own
             adama._copy_leaves(params, p_full, lay)
 
     def zero1_step(params, opt_state, batch):
+        """ZeRO-1 (full pack or bucketed) and the stream, unguarded."""
         leaves, _ = arena_mod.tree_flatten(params)
         dev = leaves[0].device
         lay = opt_state["m"].layout
+        plan = plan_of(lay)
         state = dict(opt_state, step=opt_state["step"] + 1)
         scale = 1.0 / (n * m_dev)
         lsum = torch.zeros((), dtype=torch.float32, device=dev)
         for i, mb in enumerate(local_micro(batch)):
-            loss, g = _grads(loss_of, params, leaves, mb)
-            slab = arena_mod.pack(g, lay)
-            del g
-            g_own = collectives.reduce_scatter(slab, group)
-            del slab
             decay = _fold_decay(i, b1, b2)
-            state = state_store.fold_state(
-                state, g_own, beta1=b1, beta2=b2, scale=scale, decay=decay,
-                replicated_decay=(decay[0], b2 / m_dev if i == 0 else 1.0))
-            del g_own
+            rdecay = (decay[0], b2 / m_dev if i == 0 else 1.0)
+            if variant == "adama_layerwise":
+                loss, state = layerwise_loss_and_fold(
+                    cfg, params, mb, state, beta1=b1, beta2=b2, scale=scale,
+                    decay=decay, zero=ZeroStream(plan, group, rdecay))
+            elif plan is None:
+                loss, g = _grads(loss_of, params, leaves, mb)
+                slab = arena_mod.pack(g, lay)
+                del g
+                g_own = collectives.reduce_scatter(slab, group)
+                del slab
+                state = state_store.fold_state(
+                    state, g_own, beta1=b1, beta2=b2, scale=scale,
+                    decay=decay, replicated_decay=rdecay)
+                del g_own
+            else:
+                loss, g = _grads(loss_of, params, leaves, mb)
+                state_store.begin_micro_state(state, rdecay)
+                for bk in plan.grad_buckets():
+                    state_store.fold_slice_state(
+                        state, scatter_bucket(g, lay, bk), bk.own_offset,
+                        beta1=b1, beta2=b2, block=bk.fold_block, scale=scale,
+                        decay=decay)
+                del g
             lsum = lsum + loss
-        zero1_apply(params, state, _lr(lr_schedule, opt, state["step"]))
+        zero1_apply(params, state, _lr(lr_schedule, opt, state["step"]),
+                    plan)
         return params, state, {"loss": _pmean(lsum * inv_n(n, dev), group,
                                               m_dev)}
 

@@ -70,16 +70,33 @@ device, as the reference's `ef_scale = 1.0 / fold_scale`) and ANDs the
 slab's finite flag into the running verdict in place of `finite_and`; the
 slice fold decodes the codes in-pass; the residual's update is predicated
 on the same verdict.
+
+ZeRO-1 streaming (`zero=ZeroStream(...)`, driven by the data-parallel
+engine, core/dp_shardmap.py; arena state, the fp32 wire): the state is the
+rank's OWNED rows (partition order, core/buckets.py), and each layer's
+packed slab is reduce-scattered over the stream's process group the moment
+its backward gives it; the received, fully reduced slice folds into the
+owned block at the layer's partition offset (`BucketPlan.stack_slice`:
+layer 0's offset + j x slice rows) and the slab is dropped. The rest
+region streams the same way, one size-capped bucket at a time: pack its
+rows, reduce-scatter, fold the slice at its `own_offset`. No gradient
+tree of more than a layer and no gradient arena is ever live. The shared
+columns decay by the stream's `replicated_decay` (dv / M, so that the
+ranks' partial column sums add up to the whole arena's). Guarded, the
+pre-backward verdict and each received slice's finite flag are agreed
+over the group (`collectives.agree`) before the fold they predicate: every
+rank folds, or none does.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import arena as arena_mod
-from repro_torch.core import state_store
+from repro_torch.core import collectives, state_store
 from repro_torch.core.adama import accumulate_leaf, is_arena_state
 from repro_torch.core.arena import STACK_KEYS
 from repro_torch.kernels import fp8_wire, fused_step
@@ -87,6 +104,18 @@ from repro_torch.models import modules as md
 from repro_torch.models.model import (apply_block, cross_entropy,
                                       dec_block, embed_tokens, stages,
                                       vlm_input)
+
+
+@dataclass(frozen=True)
+class ZeroStream:
+    """The ZeRO-1 stream's context (the reference's `ZeroStream`): the
+    bucket plan (core/buckets.py), the process group to reduce-scatter
+    over (None: the default group), and the shared columns' decay pair,
+    dv pre-divided by the group's size (host numbers or device scalars;
+    None: the fold's own decay)."""
+    plan: Any
+    group: Any = None
+    replicated_decay: Optional[Tuple] = None
 
 
 def _fold_tree(m, v, g, beta1, beta2) -> None:
@@ -100,11 +129,13 @@ def _fold_tree(m, v, g, beta1, beta2) -> None:
 
 
 def _fold_slab(state, g2, row_offset, block, beta1, beta2, decay,
-               guard, ef_scale=None) -> None:
+               guard, ef_scale=None, zero=None) -> None:
     """One slice fold of a packed slab; guarded, the slab's finite flag is
-    ANDed into the guard vector's ok first. `ef_scale` (the fp8 wire: S, a
-    (1,) device tensor) encodes the fp32 slab with the residual's rows
-    injected first, folds the codes and updates the residual's rows."""
+    ANDed into the guard vector's ok first, and agreed over the stream's
+    group under `zero` (g2 then the received slice). `ef_scale` (the fp8
+    wire: S, a (1,) device tensor) encodes the fp32 slab with the
+    residual's rows injected first, folds the codes and updates the
+    residual's rows."""
     if guard is None:
         state_store.fold_slice_state(state, g2, row_offset, beta1=beta1,
                                      beta2=beta2, block=block, decay=decay)
@@ -112,6 +143,8 @@ def _fold_slab(state, g2, row_offset, block, beta1, beta2, decay,
     ok = guard[2:3]
     if ef_scale is None:
         fused_step.finite_and(g2, ok)
+        if zero is not None:
+            collectives.agree(ok, zero.group)
         state_store.fold_slice_state(state, g2, row_offset, beta1=beta1,
                                      beta2=beta2, block=block, guard=guard)
         return
@@ -126,18 +159,27 @@ def _fold_slab(state, g2, row_offset, block, beta1, beta2, decay,
 
 
 def _fold_layer(state, dlp, j: int, name: str, beta1, beta2, decay,
-                guard=None, grad_dtype=torch.float32, ef_scale=None) -> None:
+                guard=None, grad_dtype=torch.float32, ef_scale=None,
+                zero=None) -> None:
     """Fold layer j's gradient tree. Arena state: pack it into one slab of
     the wire's dtype (`grad_dtype`: the pack's; fp32 on the fp8 wire) and
     fold it into the layer's arena rows with one slice fold (guarded: the
-    running verdict ANDed with the slab's; `ef_scale` as in `_fold_slab`).
-    Per-leaf state: fold each leaf into row j of the stacked moments."""
+    running verdict ANDed with the slab's; `ef_scale` as in `_fold_slab`);
+    under `zero` the slab is reduce-scattered first and this rank's slice
+    folds at the layer's partition offset. Per-leaf state: fold each leaf
+    into row j of the stacked moments."""
     if is_arena_state(state):
         lay = state["m"].layout
         spec = lay.stack(name)
-        _fold_slab(state, arena_mod.pack_layer(dlp, spec, dtype=grad_dtype),
-                   spec.row + j * spec.layer_rows, lay.slice_block(spec),
-                   beta1, beta2, decay, guard, ef_scale)
+        g2 = arena_mod.pack_layer(dlp, spec, dtype=grad_dtype)
+        if zero is None:
+            off, block = spec.row + j * spec.layer_rows, lay.slice_block(spec)
+        else:
+            g2 = collectives.reduce_scatter(g2, zero.group)
+            base, lslice, block = zero.plan.stack_slice(name)
+            off = base + j * lslice
+        _fold_slab(state, g2, off, block, beta1, beta2, decay, guard,
+                   ef_scale, zero)
         return
     m_j = {k: x[j] for k, x in state["m"][name].items()}
     v_j = {k: x[j] for k, x in state["v"][name].items()}
@@ -145,18 +187,30 @@ def _fold_layer(state, dlp, j: int, name: str, beta1, beta2, decay,
 
 
 def _fold_rest(state, d_rest, beta1, beta2, decay, guard=None,
-               grad_dtype=torch.float32, ef_scale=None) -> None:
+               grad_dtype=torch.float32, ef_scale=None, zero=None) -> None:
     """Fold the non-stacked leaves' gradients. Arena state: one slice fold
     over the contiguous rest region, its slab of the wire's dtype (guarded,
-    and on the fp8 wire, as `_fold_layer`). Per-leaf state: leaf by
-    leaf."""
+    and on the fp8 wire, as `_fold_layer`); under `zero` one rest bucket
+    at a time: pack its rows, reduce-scatter, fold the slice at its
+    `own_offset`. Per-leaf state: leaf by leaf."""
     if is_arena_state(state):
         lay = state["m"].layout
         if not lay.rest.rows:
             return
-        _fold_slab(state, arena_mod.pack_rest(d_rest, lay, dtype=grad_dtype),
-                   lay.rest.row, lay.slice_block(lay.rest), beta1, beta2,
-                   decay, guard, ef_scale)
+        if zero is None:
+            _fold_slab(state, arena_mod.pack_rest(d_rest, lay,
+                                                  dtype=grad_dtype),
+                       lay.rest.row, lay.slice_block(lay.rest), beta1, beta2,
+                       decay, guard, ef_scale)
+            return
+        for b in zero.plan.grad_buckets():
+            if b.kind == "rest":
+                own = collectives.reduce_scatter(arena_mod.pack_rest_rows(
+                    d_rest, lay, b.start, b.stop, dtype=grad_dtype),
+                    zero.group)
+                _fold_slab(state, own, b.own_offset, b.fold_block, beta1,
+                           beta2, decay, guard, ef_scale, zero)
+                del own
         return
     for k, g in d_rest.items():
         _fold_tree(state["m"][k], state["v"][k], g, beta1, beta2)
@@ -167,14 +221,17 @@ def _requires_grad(tree):
     return {k: x.detach().requires_grad_(True) for k, x in tree.items()}
 
 
-def _pre_guard(guard, dx, d_rest_post) -> None:
+def _pre_guard(guard, dx, d_rest_post, zero=None) -> None:
     """The pre-backward guard: AND the finiteness of the backward's seed dx
     and of the head's gradients into the guard vector's ok, before any fold
-    or shared-column decay commits."""
+    or shared-column decay commits; agreed over the stream's group under
+    `zero`."""
     ok = guard[2:3]
     fused_step.finite_and(dx, ok)
     for leaf in arena_mod.tree_flatten(d_rest_post)[0]:
         fused_step.finite_and(leaf, ok)
+    if zero is not None:
+        collectives.agree(ok, zero.group)
 
 
 def _head_backward(cfg, rest, x, s, labels, scale):
@@ -197,15 +254,16 @@ def _head_backward(cfg, rest, x, s, labels, scale):
 
 def _begin(state, fold_kw, dx, d_rest) -> None:
     """Before the first fold of a micro-batch: the pre-backward guard
-    (guarded), then the shared columns' decay, where-predicated on its
-    verdict."""
-    decay, guard = fold_kw["decay"], fold_kw["guard"]
+    (guarded), then the shared columns' decay (the stream's replicated
+    decay under `zero`), where-predicated on its verdict."""
+    decay, guard, zero = fold_kw["decay"], fold_kw["guard"], fold_kw["zero"]
+    rdecay = None if zero is None else zero.replicated_decay
     if guard is not None:
-        _pre_guard(guard, dx, d_rest)
-        state_store.begin_micro_state(state, (guard[0], guard[1]),
-                                      guard=guard[2:3])
+        _pre_guard(guard, dx, d_rest, zero)
+        state_store.begin_micro_state(
+            state, rdecay or (guard[0], guard[1]), guard=guard[2:3])
     elif decay is not None:
-        state_store.begin_micro_state(state, decay)
+        state_store.begin_micro_state(state, rdecay or decay)
 
 
 def _layer_backward(fn, lp, inputs, dx, seed):
@@ -263,7 +321,8 @@ def _forward_stack(fn, stack, x, extra=()):
 
 def layerwise_loss_and_fold(cfg: ModelConfig, params, batch, state, *,
                             beta1: float, beta2: float, scale, decay=None,
-                            grad_dtype=torch.float32, guard=None):
+                            grad_dtype=torch.float32, guard=None,
+                            zero: Optional[ZeroStream] = None):
     """One micro-batch: forward, then layer-by-layer backward folding each
     layer's gradients into (m, v) in place. Gradients are scaled by `scale`
     (1/N, Algorithm 1 line 6; a host number or a 0-d float32 device tensor)
@@ -279,10 +338,19 @@ def layerwise_loss_and_fold(cfg: ModelConfig, params, batch, state, *,
     into it (see the module's docstring); every fold reads the vector, the
     slabs being scaled by `scale` (the seed, which may carry the loss
     scale S) and un-scaled by fold_scale (1/S). Returns (loss, state, ok),
-    ok the vector's (1,) verdict."""
-    if (decay is not None or guard is not None) and not is_arena_state(state):
-        raise ValueError("a fused decay or a finite guard requires arena "
-                         "state")
+    ok the vector's (1,) verdict.
+
+    `zero` (a ZeroStream; arena state, the fp32 wire): the ZeRO-1 stream
+    (see the module's docstring); `state` then holds this rank's owned
+    rows, in partition order, and `scale` is 1/(N x M)."""
+    if (decay is not None or guard is not None or zero is not None) and \
+            not is_arena_state(state):
+        raise ValueError("a fused decay, a finite guard or the ZeRO-1 "
+                         "stream requires arena state")
+    if zero is not None and grad_dtype != torch.float32:
+        raise NotImplementedError(
+            f"grad_dtype={grad_dtype} under the ZeRO-1 stream is not ported "
+            f"(ROADMAP queue 1, item 10.2 for bf16, 10.3 for fp8)")
     if guard is not None and decay is not None:
         raise ValueError("with guard=, the decay rides in the guard vector")
     ef_scale = None
@@ -296,7 +364,7 @@ def layerwise_loss_and_fold(cfg: ModelConfig, params, batch, state, *,
         ef_scale = torch.ones_like(guard[3:4]) / guard[3:4]
         grad_dtype = torch.float32
     fold_kw = dict(beta1=beta1, beta2=beta2, decay=decay, guard=guard,
-                   grad_dtype=grad_dtype, ef_scale=ef_scale)
+                   grad_dtype=grad_dtype, ef_scale=ef_scale, zero=zero)
     if cfg.arch_type == "audio":
         return _layerwise_audio(cfg, params, batch, state, scale, fold_kw)
     causal = cfg.arch_type != "encoder"

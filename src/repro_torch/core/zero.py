@@ -6,12 +6,19 @@ payload and every codec's scale column, core/state_store.py), so the
 collectives are one gradient reduce-scatter per fold and one param
 all-gather per apply over the same ranges (core/dp_shardmap.py).
 
+The bucketed form (`zero1_bucket_plan`, core/buckets.py; the engine's
+default): instead of packing the whole gradient arena for one
+reduce-scatter, the schedule streams per-layer and size-capped buckets;
+rank k then owns slice k of every bucket rather than one contiguous range,
+and the live packed gradient drops from the arena to one bucket. The
+buckets tile the same rows, so the volume is the same, less the padding
+bucket, which is never sent.
+
 With AdamA this is the paper's Table-3 "ZeRO-S1 + AdamA": activations
 1/N (micro-batching), gradients transient (the fold), optimizer state 1/M.
 
-The reference's bucketed plan (`zero1_bucket_plan`) is ROADMAP queue 1,
-item 10.2; its GSPMD helpers (`zero1_state_sharding`,
-`zero1_arena_pspec`) are item 10.4.
+The reference's GSPMD helpers (`zero1_state_sharding`,
+`zero1_arena_pspec`) are ROADMAP queue 1, item 10.4.
 """
 from __future__ import annotations
 
@@ -58,3 +65,17 @@ def shard_rows(layout, n_shards: int) -> Tuple[RowShard, ...]:
             f"(ROW_ALIGN={ROW_ALIGN}, BLOCK_ROWS={BLOCK_ROWS}); rebuild the "
             f"layout with build_layout(tree, n_shards={n_shards})")
     return tuple(RowShard(k, k * per, per) for k in range(n_shards))
+
+
+def zero1_bucket_plan(layout, n_shards: int, max_bucket_rows: int = 0,
+                      tp_shards: int = 1):
+    """The bucket schedule over a layout built for `n_shards` (x
+    `tp_shards`) ranks: a bucket per layer of each stacked region, size-
+    capped buckets over the rest region (`max_bucket_rows=0`: the default
+    cap, core/buckets.py). Raises ValueError, as `shard_rows` does, when
+    the layout was not built with build_layout(tree, n_shards=...,
+    tp_shards=...)."""
+    from repro_torch.core.buckets import plan_buckets
+    return plan_buckets(layout, n_shards,
+                        max_bucket_rows=max_bucket_rows or None,
+                        tp_shards=tp_shards)

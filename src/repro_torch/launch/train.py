@@ -76,11 +76,17 @@
   # data parallel over torch.distributed (core/dp_shardmap.py): under
   # torchrun, which sets WORLD_SIZE, the CLI opens the process group (NCCL
   # on CUDA, gloo with --device cpu) and runs the DP engine; rank 0 logs.
-  # ZeRO-1 runs the full-pack schedule (--zero-full-pack)
+  # ZeRO-1 runs the bucketed schedule (--zero-bucket-rows caps the rest
+  # region's buckets), or the full pack with --zero-full-pack;
+  # --accumulation adama_layerwise --zero-stage 1 is Algorithm 2's stream
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
       --arch stablelm-1.6b --reduced --steps 2 --global-batch 8 \
-      --micro-batches 2 --seq-len 32 --zero-stage 1 --zero-full-pack \
-      --log-every 1 --device cpu
+      --micro-batches 2 --seq-len 32 --zero-stage 1 --log-every 1 \
+      --device cpu
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+      --arch stablelm-1.6b --reduced --steps 2 --global-batch 8 \
+      --micro-batches 2 --seq-len 32 --zero-stage 1 \
+      --accumulation adama_layerwise --log-every 1 --device cpu
 
   # saves every step; run again with more --steps to resume
   # ("[train] restored step 2")
@@ -158,12 +164,14 @@ def main(argv=None):
                          "(the data-parallel engine, under torchrun; a "
                          "single-process run has one shard)")
     ap.add_argument("--zero-full-pack", action="store_true",
-                    help="the full-arena pack + one reduce-scatter ZeRO-1 "
-                         "schedule, the one the port runs (the default "
-                         "bucketed schedule is ROADMAP item 10.2)")
+                    help="the full-arena pack + one reduce-scatter a "
+                         "micro-batch ZeRO-1 schedule, in place of the "
+                         "default bucketed one (a reduce-scatter a layer "
+                         "and a rest-region bucket); adama_layerwise "
+                         "streams its buckets whatever this flag says")
     ap.add_argument("--zero-bucket-rows", type=int, default=0,
                     help="rest-region bucket cap in arena rows of the "
-                         "bucketed ZeRO-1 schedule (0 = default cap)")
+                         "bucketed ZeRO-1 schedule (0 = default cap, 4096)")
     ap.add_argument("--zero-async", action="store_true",
                     help="the reference's double-buffered bucket pipeline "
                          "(ROADMAP item 10.3); requires --zero-stage 1")

@@ -20,7 +20,8 @@ training.
 
 With a `torch.distributed` process group (`train(..., group=...)`) the
 step is the data-parallel engine's (core/dp_shardmap.py; its variant is
-`run.optimizer.accumulation`): every rank runs this loop on the same
+`run.optimizer.accumulation`, so adama_layerwise with zero_stage=1 runs
+Algorithm 2's ZeRO-1 stream): every rank runs this loop on the same
 global batches and params, and takes its own rows of each batch.
 Checkpoints of such a run are refused (train/checkpoint.py ITEM_10)."""
 from __future__ import annotations

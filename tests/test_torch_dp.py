@@ -6,13 +6,22 @@ this process over a one-rank gloo group:
   single-device adama engine bit for bit: params, every state column, the
   losses, the kernels launched. At M = 1 the reduce-scatter and the
   all-gather copy, /1 is exact and f32(1 * b2) = f32(b2).
+- the bucketed ZeRO-1 schedule (the default) equals the single-device
+  adama bit for bit on the row-local pairs (rowcol: its row-indexed
+  columns bit for bit, its column sums, added bucket by bucket, within
+  1e-6 relative, the params within ENGINE_TOL), and the ZeRO-1 stream
+  (adama_layerwise) the single-device adama_layerwise bit for bit (the
+  reduced models' rest regions are one bucket), on five pairs (every codec
+  of each moment), guarded and not; a reduce-scatter a gradient bucket a
+  micro-batch.
 - every variant (ga, naive, adama arena and per leaf, ZeRO-1, the guarded
   ones) within ENGINE_TOL of the reference's `make_dp_train_step` on a
   one-device mesh, from the same params and batches. ga and naive run
   per-leaf Adam arithmetic, which no single-device engine of the port
   computes, so the reference is their oracle; ga runs the reference's
   warmup schedule (queue 3 (f)).
-- every combination the engine refuses raises and names its ROADMAP item.
+- every combination the engine refuses raises and names its ROADMAP item;
+  adama_layerwise without ZeRO-1 raises the reference's ValueError.
 
 Multi-rank runs (M = 2 and 4) are tests/test_torch_zero.py's."""
 import dataclasses
@@ -35,6 +44,7 @@ from repro.train import faults as jfaults
 from repro_torch.configs.base import OptimizerConfig
 from repro_torch.core import arena as tarena
 from repro_torch.core.dp_shardmap import make_dp_train_step
+from repro_torch.core.zero import zero1_bucket_plan
 from test_torch_engines import ENGINE_TOL
 
 torch.set_num_threads(1)
@@ -42,7 +52,7 @@ torch.set_num_threads(1)
 PAIRS = [(m, v) for m in ("fp32", "int8")
          for v in ("fp32", "int8", "factored", "rowcol")]
 N_MICRO = 2
-# ZeRO-1 full pack (the port runs no other ZeRO-1 schedule yet)
+# ZeRO-1 full pack (zero_stage=1 alone is the bucketed schedule)
 ZERO1 = dict(zero_stage=1, zero_bucketed=False)
 
 
@@ -137,6 +147,61 @@ def _reference_dp(opt_kw, variant, *, warmup, fault, steps=2, gb=8):
             moment(state["m"]), moment(state["v"]), metrics)
 
 
+# the bucketed schedule and the stream against the single-device engines:
+# name -> (the variant and engine, OptimizerConfig fields, fault), one
+# step each, on a pair of each codec of each moment; the guarded ones skip
+# micro-batch 1
+BUCKETED = {}
+for _m, _v in (("fp32", "fp32"), ("int8", "int8"), ("int8", "factored"),
+               ("fp32", "rowcol"), ("int8", "rowcol")):
+    for _label, _variant in (("bucketed", "adama"),
+                             ("stream", "adama_layerwise")):
+        BUCKETED[f"{_label}-{_m}-{_v}"] = (
+            _variant, dict(m_codec=_m, state_codec=_v), None)
+for _m, _v in (("fp32", "fp32"), ("int8", "rowcol")):
+    for _label, _variant in (("bucketed", "adama"),
+                             ("stream", "adama_layerwise")):
+        BUCKETED[f"{_label}-{_m}-{_v}-guarded"] = (
+            _variant, dict(m_codec=_m, state_codec=_v, finite_guard=True),
+            "nan@micro=1,step=0")
+# rowcol's column sums, added bucket by bucket (queue 3 (j))
+COLSUM_REL = 1e-6
+
+
+@pytest.mark.parametrize("case", sorted(BUCKETED))
+def test_m1_bucketed_and_stream_equal_single_device(case, one_rank):
+    variant, kw, fault = BUCKETED[case]
+    kw = dict(kw, micro_batches=N_MICRO)
+    want = run(dict(kw, accumulation=variant), fault=fault, steps=1)
+    got = run(dict(kw, zero_stage=1), variant, fault=fault, steps=1)
+    colsums = variant == "adama" and kw["state_codec"] == "rowcol"
+    if colsums:
+        assert got["losses"] == want["losses"]
+        np.testing.assert_allclose(got["params"], want["params"], rtol=0,
+                                   atol=ENGINE_TOL)
+    else:
+        assert got["losses"] == want["losses"]
+        assert np.array_equal(got["params"], want["params"])
+    for k in ("m", "v"):
+        assert len(got[k]) == len(want[k])
+        for a, b in zip(got[k], want[k]):
+            assert a.dtype == b.dtype and a.shape == b.shape, k
+            if colsums and a.shape[0] == 1:
+                rel = np.abs(a - b).max() / np.abs(b).max()
+                assert rel <= COLSUM_REL, rel
+            else:
+                assert np.array_equal(a, b), k
+    assert got["step"] == want["step"] == 1
+    assert got.get("scaler") == want.get("scaler")
+    if fault:
+        assert got["scaler"]["skipped"] == 1
+    layout = tarena.build_layout(init_tree(model_config()))
+    plan = zero1_bucket_plan(layout, 1)
+    assert got["collectives"]["reduce_scatter"][0] == \
+        N_MICRO * len(plan.grad_buckets())
+    assert got["collectives"]["all_gather"][0] == 1
+
+
 # name -> (variant, OptimizerConfig fields, warmup schedule, fault). A
 # guarded case skips micro-batch 1 of step 2: a step that folds a single
 # micro-batch is ill-conditioned across frameworks, as ga's first step is
@@ -175,9 +240,9 @@ def test_m1_variants_match_reference_dp_engine(case, one_rank):
 
 # (OptimizerConfig fields, variant, a tp group?, the ROADMAP item named)
 REFUSED = [
-    (dict(zero_stage=1), "adama", False, "10.2"),     # bucketed: the default
-    ({}, "adama_layerwise", False, "10.2"),
     (dict(grad_dtype="bf16"), "adama", False, "10.2"),
+    (dict(grad_dtype="bf16", zero_stage=1), "adama_layerwise", False,
+     "10.2"),
     (dict(master_params=True), "adama", False, "10.2"),
     (dict(zero_stage=1, zero_async=True), "adama", False, "10.3"),
     (dict(grad_dtype="fp8_e4m3", finite_guard=True, **ZERO1), "adama", False,
@@ -206,6 +271,7 @@ def test_reference_refusals_keep_their_messages(one_rank):
         (dict(zero_stage=1, zero_bucketed=False), "naive",
          "defined for the 'adama'"),
         (dict(m_codec="int8"), "adama", "requires zero_stage=1"),
+        ({}, "adama_layerwise", "IS the bucketed ZeRO-1 stream"),
         ({}, "sgd", "unknown DP variant"),
     ]
     for kw, variant, msg in cases:

@@ -20,8 +20,9 @@
   - one bad rank (`nan@micro=1,device=1`) makes both ranks skip the
     micro-batch, and the run equals `skip@micro=1` bit for bit;
   - the bytes each schedule moves a step at N = 4 (§3.3, Fig. 7);
-  - at M = 2, ZeRO-1 fp32/fp32 and replicated adama against the
-    reference's DP engine on two fake XLA devices, in a subprocess.
+  - at M = 2, ZeRO-1 fp32/fp32 (full pack and bucketed), the ZeRO-1
+    stream and replicated adama against the reference's DP engine on two
+    fake XLA devices, in a subprocess.
   Moments are held relative to the largest |value| of the oracle's, and
   params under the reference's warmup schedule (queue 3 (f)).
 """
@@ -174,6 +175,12 @@ def _two_rank_cases():
             out.append((f"{label}-{fault.partition('@')[0]}", dict(
                 opt_kw=kw, variant="adama", arch=DP_ARCH, gb=GB,
                 fault=fault)))
+    # the bucketed schedule and the stream, against the reference's below
+    for label, variant in (("bucketed", "adama"),
+                           ("stream", "adama_layerwise")):
+        out.append((f"{label}-fp32-fp32", dict(
+            opt_kw=dict(micro_batches=N_MICRO, zero_stage=1),
+            variant=variant, warmup=True, arch=DP_ARCH, gb=GB)))
     # step 2 skipped whole: the state must stay as step 1 left it
     out += [("replicated-skip-step-2", dict(opt_kw=g, variant="adama",
                                             arch=DP_ARCH, gb=GB,
@@ -382,13 +389,16 @@ REFERENCE_M2 = """
     steps = len(data.files) // 2
     mesh = make_mesh((2,), ('data',))
     out = {}
-    for name, kw in (('zero1', dict(zero_stage=1, zero_bucketed=False)),
-                     ('replicated', {})):
+    for name, variant, kw in (
+            ('zero1', 'adama', dict(zero_stage=1, zero_bucketed=False)),
+            ('replicated', 'adama', {}),
+            ('bucketed', 'adama', dict(zero_stage=1)),
+            ('stream', 'adama_layerwise', dict(zero_stage=1))):
         oc = OptimizerConfig(name='adama', accumulation='adama',
                              micro_batches=2, use_pallas=True, arena=True,
                              **kw)
         step, init = make_dp_train_step(
-            cfg, oc, mesh, ('data',), 'adama',
+            cfg, oc, mesh, ('data',), variant,
             lr_schedule=jsched.warmup_cosine(1e-3, 1, steps + 1))
         p, st = params, init(params)
         losses = []
@@ -410,9 +420,11 @@ REFERENCE_M2 = """
 
 
 def test_two_ranks_match_the_reference_dp_engine(ranks, tmp_path):
-    """ZeRO-1 full pack fp32/fp32 and replicated adama on two gloo ranks
-    against the reference's make_dp_train_step on two fake devices, from
-    the same params and batches, within ENGINE_TOL."""
+    """ZeRO-1 full pack and bucketed fp32/fp32, the ZeRO-1 stream
+    (adama_layerwise) and replicated adama on two gloo ranks against the
+    reference's make_dp_train_step on two fake devices, from the same
+    params and batches, within ENGINE_TOL (the bucketed states in
+    partition order on both sides)."""
     cfg = model_config(DP_ARCH)
     leaves, paths = tarena.tree_flatten(init_tree(cfg))
     np.savez(tmp_path / "params.npz", **{"/".join(p): x.detach().numpy()
@@ -429,13 +441,15 @@ def test_two_ranks_match_the_reference_dp_engine(ranks, tmp_path):
     ref = np.load(tmp_path / "reference.npz")
     res = ranks[2]
     for name, dp in (("zero1", "zero1-fp32-fp32"),
-                     ("replicated", "replicated")):
+                     ("replicated", "replicated"),
+                     ("bucketed", "bucketed-fp32-fp32"),
+                     ("stream", "stream-fp32-fp32")):
         got = res[0][dp]
         np.testing.assert_allclose(got["losses"], ref[name + "-losses"],
                                    rtol=0, atol=1e-5)
         np.testing.assert_allclose(got["params"], ref[name + "-params"],
                                    rtol=0, atol=ENGINE_TOL)
         for k in ("m", "v"):
-            mine = _whole(res, dp, k) if name == "zero1" else got[k]
+            mine = got[k] if name == "replicated" else _whole(res, dp, k)
             np.testing.assert_allclose(mine[0], ref[f"{name}-{k}"], rtol=0,
                                        atol=ENGINE_TOL)
