@@ -152,9 +152,9 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    all three at 3 micro-batches: every param within 2e-5, or within the
    codecs' declared drift for at most 15% of them.
 5. The main paths: bert-large at full width and depth, bf16 compute, fp32
-   params and state, seq 128, global batch 256, 8 micro-batches: 5 steps of
+   params and state, seq 128, global batch 256, 8 micro-batches: 3 steps of
    `adama`, of the `ga` baseline and of `adama_layerwise` (Algorithm 2,
-   arena state), and 3 steps each of the per-leaf forms of
+   arena state), and 2 steps each of the per-leaf forms of
    `adama_layerwise` and `adama`, with per-step loss, step time and peak
    device memory. Then the data-parallel phase (core/dp_shardmap.py) on
    a one-rank NCCL group opened in this process (`file://` rendezvous):
@@ -195,8 +195,21 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    summation orders (queue 3 (j)'s 1e-6 logged beside it); each rank's
    fold and apply timed beside the whole arena's, and the slice fold on
    a 4,096-row rest bucket, a 12,352-row layer bucket and their 4-rank
-   slices (1,024 and 3,088 rows). Then rwkv6-7b at full width (d_model 4096, 64 heads of
-   64, d_ff 14336, vocab 65536) with its depth cut from 32 to 4 layers,
+   slices (1,024 and 3,088 rows). ROADMAP 10.2's second half, at 8
+   layers (`DP_WIRE_MASTER`): bucketed ZeRO-1 on the bf16 wire with
+   master params, beside the fp32-wire bucketed path, and the guarded
+   stream on the bf16 wire with a master and dynamic scaling (a NaN on
+   rank 0 in step 1), each ending on its single-device twin (`adama` /
+   `adama_layerwise` with the same fields) bit for bit (params, master,
+   m and v by digests; losses), peaking at most its fp32-wire DP twin
+   without a master + the owned master rows + 1 MiB, its gradient
+   reduce-scatters and param all-gather moving exactly half its DP
+   twin's bytes (the step at most 0.55x); then the bucketed master path
+   crashed after step 2's update (`crash@step=1`) and resumed from its
+   step-1 checkpoint over the group, ending on the clean run bit for
+   bit, at most 1 MiB above its peak. Then rwkv6-7b at full width
+   (d_model 4096, 64 heads of 64, d_ff 14336, vocab 65536) with its
+   depth cut from 32 to 4 layers,
    seq 4096 (train_4k) and global batch 16 (cut from 256), 8 micro-batches:
    3 steps each of `adama`, `ga` and `adama_layerwise`. Then stablelm-1.6b
    at full width and depth (24 layers, d_model 2048), seq 1024 (cut from
@@ -265,7 +278,7 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    its loss with the window. Then minicpm3-4b (mla: q low rank 768, kv
    latent 256, q/k heads of 64 + 32, v of 64) at full width with its
    depth cut from 62 to 24 layers, seq 1024, 8 micro-batches of 2:
-   `adama`, `ga` and `adama_layerwise`, 3 steps each, held to the claims
+   `adama`, `ga` and `adama_layerwise`, 2 steps each, held to the claims
    of the other models. Last, deepseek-v2-lite-16b (MoE: 64 routed
    experts of 1408 + 2 shared, top-6, capacity 120 a row; mla without a
    q low-rank projection) at full width with its depth cut from 27 to 4
@@ -296,7 +309,7 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    frames) at full size, its decoder at its published context of 448,
    global batch 16 (cut from 256) in 8 micro-batches of 2: `adama`, `ga`
    and `adama_layerwise` (Algorithm 2's enc-dec form: 8 x (6 decoder + 6
-   encoder + 1 rest) = 104 slice folds a step), 3 steps each, held to
+   encoder + 1 rest) = 104 slice folds a step), 2 steps each, held to
    bert-large's claims (ga at least one fp32 arena above adama, Algorithm
    2 at least two below it, equal step-1 losses, launches per step), then
    rows 1-3 at its arena as at the MoE arch's (a decoder layer's, an
@@ -313,7 +326,7 @@ Phases, in order; the first failure ends the run with a non-zero exit:
 6. Activation checkpointing (RunConfig.remat: each layer under
    torch.utils.checkpoint, recomputed in the backward), each path with
    every launch count set to 0 just before it: bert-large `adama` and `ga`
-   with remat (5 steps) and rwkv6-7b `adama` with remat (3 steps), as in
+   with remat (3 steps) and rwkv6-7b `adama` with remat (3 steps), as in
    phase 5, each equal to its phase-5 twin bit for bit (losses; params, m
    and v by digests on the card), launching its twin's kernels per step
    (rwkv6: the forward scan twice per layer and micro-batch, the backward
@@ -487,12 +500,15 @@ MAIN = {"bert_large": dict(seq_len=128, global_batch=256, micro_batches=8,
                                        "global_batch": [256, 8]})}
 FP32 = ("fp32", "fp32")
 # main paths: name -> (arch, engine, arena state, steps, (m codec, v codec))
-PATHS = {"adama": ("bert_large", "adama", True, 5, FP32),
-         "ga": ("bert_large", "ga", True, 5, FP32),
-         "adama_layerwise": ("bert_large", "adama_layerwise", True, 5, FP32),
+# (bert-large's paths cut from 5 steps to 3, the per-leaf ones, minicpm3's
+# and whisper's from 3 to 2, for the time of the data-parallel phase's
+# bf16-wire, master and checkpoint paths: no check reads a step past 2)
+PATHS = {"adama": ("bert_large", "adama", True, 3, FP32),
+         "ga": ("bert_large", "ga", True, 3, FP32),
+         "adama_layerwise": ("bert_large", "adama_layerwise", True, 3, FP32),
          "adama_layerwise_per_leaf": ("bert_large", "adama_layerwise", False,
-                                      3, FP32),
-         "adama_per_leaf": ("bert_large", "adama", False, 3, FP32),
+                                      2, FP32),
+         "adama_per_leaf": ("bert_large", "adama", False, 2, FP32),
          "rwkv6_adama": ("rwkv6_7b", "adama", True, 3, FP32),
          "rwkv6_ga": ("rwkv6_7b", "ga", True, 3, FP32),
          "rwkv6_adama_layerwise": ("rwkv6_7b", "adama_layerwise", True, 3,
@@ -550,10 +566,10 @@ PATHS = {"adama": ("bert_large", "adama", True, 5, FP32),
          "mistral_adama_remat": ("mistral_nemo_12b", "adama", True, 2, FP32),
          "mistral_adama_layerwise": ("mistral_nemo_12b", "adama_layerwise",
                                      True, 2, FP32),
-         "minicpm_adama": ("minicpm3_4b", "adama", True, 3, FP32),
-         "minicpm_ga": ("minicpm3_4b", "ga", True, 3, FP32),
+         "minicpm_adama": ("minicpm3_4b", "adama", True, 2, FP32),
+         "minicpm_ga": ("minicpm3_4b", "ga", True, 2, FP32),
          "minicpm_adama_layerwise": ("minicpm3_4b", "adama_layerwise", True,
-                                     3, FP32),
+                                     2, FP32),
          "deepseek_adama": ("deepseek_v2_lite_16b", "adama", True, 3, FP32),
          "deepseek_ga": ("deepseek_v2_lite_16b", "ga", True, 3, FP32),
          "deepseek_adama_layerwise": ("deepseek_v2_lite_16b",
@@ -563,10 +579,10 @@ PATHS = {"adama": ("bert_large", "adama", True, 5, FP32),
          "hymba_adama_remat": ("hymba_1_5b", "adama", True, 2, FP32),
          "hymba_adama_layerwise": ("hymba_1_5b", "adama_layerwise", True, 2,
                                    FP32),
-         "whisper_adama": ("whisper_base", "adama", True, 3, FP32),
-         "whisper_ga": ("whisper_base", "ga", True, 3, FP32),
+         "whisper_adama": ("whisper_base", "adama", True, 2, FP32),
+         "whisper_ga": ("whisper_base", "ga", True, 2, FP32),
          "whisper_adama_layerwise": ("whisper_base", "adama_layerwise", True,
-                                     3, FP32),
+                                     2, FP32),
          # MAIN["internvl2_26b"]["remat"]: ga and adama with remat
          "internvl_ga_remat": ("internvl2_26b", "ga", True, 2, FP32),
          "internvl_adama_remat": ("internvl2_26b", "adama", True, 2, FP32),
@@ -838,8 +854,8 @@ CKPT_DIR = "chip_smoke_ckpt"
 # the gradient tree); the 8 layers cut take 1.65 GB of gradient from that
 # gap, at 12 they would take 2.47. adama_layerwise recomputes every layer
 # without remat
-REMAT = {"adama_remat": ("adama", True, None, None, 5),
-         "ga_remat": ("ga", True, None, None, 5),
+REMAT = {"adama_remat": ("adama", True, None, None, 3),
+         "ga_remat": ("ga", True, None, None, 3),
          "stablelm_4096_ga_remat": ("stablelm_ga", True, 4096, 16, 2),
          "stablelm_4096_adama_remat": ("stablelm_adama", True, 4096, 16,
                                        2),
@@ -875,6 +891,29 @@ DP_ZERO1 = dict(zero_stage=1, zero_bucketed=False)
 # the bucketed ZeRO-1 schedule (the default) and Algorithm 2's stream
 DP_BUCKETED = dict(zero_stage=1)
 DP_INT8_ROWCOL = dict(m_codec="int8", state_codec="rowcol")
+# the bf16 gradient wire with master params (ROADMAP 10.2, second half)
+DP_BF16_MASTER = dict(grad_dtype="bf16", master_params=True)
+# DP path -> (its fp32-wire DP twin without a master, its single-device
+# twin: engine and fault). At M = 1 each ends on its single-device twin's
+# params, master, m and v (digests) with its losses; it peaks at most its
+# DP twin's peak + its owned master rows (one arena at M = 1, as the
+# allocator holds it) + DP_PEAK_SLACK / 2 (the bf16 wire costs nothing),
+# its gradient reduce-scatters move exactly half the DP twin's bytes and
+# its param all-gather half, the step's collectives at most
+# DP_WIRE_BYTES_RATIO of the twin's (the reference's bound); the guarded
+# stream's NaN backs the dynamic scale off once (2^15 -> 2^14)
+DP_WIRE_MASTER = {
+    "zero1_bucketed_bf16_master": ("zero1_bucketed_8l", "adama", None),
+    "zero1_layerwise_bf16_master_guarded_nan": (
+        "zero1_adama_layerwise_guarded_nan", "adama_layerwise",
+        "nan@micro=1,step=0")}
+DP_WIRE_BYTES_RATIO = 0.55
+DP_WIRE_LOSS_SCALE = 2.0 ** 14
+# the crash and resume of the bucketed bf16-wire master path: crashed by
+# CKPT_CRASH after step 2's update (its step-1 checkpoint kept), resumed
+# from it, it must end on the run that never stopped (digests, losses)
+# and peak at most DP_PEAK_SLACK / 2 above it
+DP_RESUMED = "zero1_bucketed_bf16_master"
 DP_PATHS = {
     "dp_ga": ("ga", {}, None, None),
     "dp_adama": ("adama", {}, None, None),
@@ -900,7 +939,17 @@ DP_PATHS = {
                                       CKPT_LAYERS, None),
     "zero1_adama_bucketed_int8_rowcol": ("adama", dict(DP_BUCKETED,
                                                        **DP_INT8_ROWCOL),
-                                         CKPT_LAYERS, None)}
+                                         CKPT_LAYERS, None),
+    # ROADMAP 10.2's second half (DP_WIRE_MASTER): the fp32-wire bucketed
+    # schedule at 8 layers, the twin of the bf16-wire master path beside it
+    "zero1_bucketed_8l": ("adama", DP_BUCKETED, CKPT_LAYERS, None),
+    "zero1_bucketed_bf16_master": ("adama", dict(DP_BUCKETED,
+                                                 **DP_BF16_MASTER),
+                                   CKPT_LAYERS, None),
+    "zero1_layerwise_bf16_master_guarded_nan": (
+        "adama_layerwise", dict(DP_BUCKETED, finite_guard=True,
+                                loss_scale="dynamic", **DP_BF16_MASTER),
+        CKPT_LAYERS, "nan@micro=1,step=0,device=0")}
 DP_ONE_STEP = ("zero1_adama_int8_rowcol_step1",
                "zero1_adama_bucketed_int8_rowcol")
 # the paths whose allocator history is kept, to name where each peaks
@@ -5161,6 +5210,10 @@ def _dp_expected(path, n_params, n_leaves, rows, plan=None, n_rest=0):
     embedding) and agrees, then checks and agrees each received slice."""
     variant, kw, _, _ = DP_PATHS[path]
     n = MAIN[DP_ARCH]["micro_batches"]
+    # the gradient wire's and the gathered params' bytes an element: bf16
+    # for the bf16 wire and for a master's working rows
+    wire = 2 if kw.get("grad_dtype") == "bf16" else 4
+    gather = 2 if kw.get("master_params") else 4
     want = {k: 0 for k in KERNELS}
     if variant == "ga":
         return want, {"all_reduce": (n_leaves + 1, n_params * 4 + 4),
@@ -5179,7 +5232,7 @@ def _dp_expected(path, n_params, n_leaves, rows, plan=None, n_rest=0):
     if plan is None:
         # the guard's agreement: one 4-byte all-reduce a micro-batch
         flags = n if guarded else 0
-        scatters = (n, n * arena)
+        scatters = (n, n * arena * wire // 4)
     else:
         g = len(plan.grad_buckets())
         want["arena_fold_slice"] = n * g
@@ -5189,10 +5242,11 @@ def _dp_expected(path, n_params, n_leaves, rows, plan=None, n_rest=0):
         flags = (n * (1 + g) if variant == "adama_layerwise" else n) \
             if guarded else 0
         scatters = (n * g, n * sum(b.rows for b in plan.grad_buckets())
-                    * LANES * 4)
+                    * LANES * wire)
     return want, {"all_reduce": (1 + colsums + flags,
                                  4 + 4 * LANES * colsums + 4 * flags),
-                  "reduce_scatter": scatters, "all_gather": (1, arena)}
+                  "reduce_scatter": scatters,
+                  "all_gather": (1, arena * gather // 4)}
 
 
 def check_dp(torch, wrappers, digests, all_losses, peaks):
@@ -5262,7 +5316,8 @@ def check_dp(torch, wrappers, digests, all_losses, peaks):
                             kw.get("zero_bucketed", True)
                             or variant == "adama_layerwise") else None)
                 if arena:
-                    dp_digests[path] = _digest(torch, _state_tensors(out))
+                    dp_digests[path] = _digest(torch, _state_tensors(out) + (
+                        [state["p"].data] if "p" in state else []))
                 n_rest = sum(k not in STACK_KEYS for k in out["params"])
                 want, want_moved = _dp_expected(path, n_params, len(leaves),
                                                 rows, plan, n_rest)
@@ -5301,6 +5356,8 @@ def check_dp(torch, wrappers, digests, all_losses, peaks):
                     raise AssertionError(f"{path}: collectives {moved} != "
                                          f"{steps} x {want_moved}")
                 del out, state, leaves
+            wire_master = check_dp_wire_master(torch, wrappers, info,
+                                               dp_digests)
         finally:
             dist.destroy_process_group()
     for path, twin_path in (("dp_adama", DP_TWIN), ("zero1_adama", DP_TWIN),
@@ -5405,9 +5462,135 @@ def check_dp(torch, wrappers, digests, all_losses, peaks):
         ["zero1_adama_guarded_nan", "zero1_adama_guarded_skip", "equal"],
         ["zero1_adama_layerwise_guarded_nan",
          "zero1_adama_layerwise_guarded_skip", "equal"]],
-        "bucketed_int8_rowcol": rowcol,
+        "bucketed_int8_rowcol": rowcol, "wire_master": wire_master,
         "seconds": time.perf_counter() - t0}))
     return counts, shards
+
+
+def check_dp_wire_master(torch, wrappers, info, dp_digests):
+    """ROADMAP 10.2's second half on the one-rank group: each
+    DP_WIRE_MASTER path against its single-device twin (run here without
+    the group, at the same depth and steps) and its DP twin's peak and
+    collective bytes; then DP_RESUMED crashed by CKPT_CRASH after step 2's
+    update and resumed from its step-1 checkpoint (written and read over
+    the group). Raises on a claim not met; returns the phase's lines."""
+    import dataclasses
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import OptimizerConfig, RunConfig
+    from repro_torch.train.faults import InjectedCrash
+    from repro_torch.train.loop import train
+
+    t0 = time.perf_counter()
+    main = MAIN[DP_ARCH]
+    cfg = dataclasses.replace(_main_config(DP_ARCH), num_layers=CKPT_LAYERS)
+
+    def go(variant, kw, fault=None, group=None, ckpt=None):
+        run = RunConfig(model=cfg, optimizer=OptimizerConfig(
+            accumulation=variant, micro_batches=main["micro_batches"],
+            **kw), seq_len=main["seq_len"],
+            global_batch=main["global_batch"], seed=main["seed"],
+            steps=DP_STEPS, log_every=1, inject_fault=fault,
+            checkpoint_dir=ckpt, checkpoint_every=1)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in wrappers.values():
+            fn.launches = 0
+        out = train(run, device="cuda", log_fn=log, group=group)
+        state = out["opt_state"]
+        return {"digest": _digest(torch, _state_tensors(out)
+                                  + [state["p"].data]),
+                "losses": out["losses"], "metrics": out["metrics"],
+                "peak": torch.cuda.max_memory_allocated(),
+                "launches": {k: fn.launches for k, fn in wrappers.items()},
+                "step_seconds": out["step_seconds"]}
+
+    lines = {}
+    for path, (dp_twin, engine, fault) in DP_WIRE_MASTER.items():
+        _, kw, _, _ = DP_PATHS[path]
+        twin = go(engine, {k: x for k, x in kw.items()
+                           if k not in ("zero_stage", "zero_bucketed")},
+                  fault)
+        got, base = info[path], info[dp_twin]
+        master = _allocator_bytes(got["arena_rows"] * LANES * 4)
+        limit = base["max_memory_allocated_bytes"] + master \
+            + DP_PEAK_SLACK // 2
+        moved, base_moved = got["collectives"], base["collectives"]
+        rs, ag = moved["reduce_scatter"], moved["all_gather"]
+        brs, bag = base_moved["reduce_scatter"], base_moved["all_gather"]
+        ratio = (sum(b for _, b in moved.values())
+                 / sum(b for _, b in base_moved.values()))
+        scale = got["metrics"].get("loss_scale")
+        line = {"phase": "dp_wire_master", "path": path,
+                "fields": DP_PATHS[path][1], "num_layers": CKPT_LAYERS,
+                "dp_twin": dp_twin, "single_device_twin": engine,
+                "twin_fault": fault, "digest": dp_digests[path],
+                "twin_digest": twin["digest"], "losses": got["losses"],
+                "twin_losses": twin["losses"],
+                "twin_step_seconds": twin["step_seconds"],
+                "peak": got["max_memory_allocated_bytes"],
+                "twin_peak": twin["peak"],
+                "dp_twin_peak": base["max_memory_allocated_bytes"],
+                "owned_master_as_allocated": master, "peak_limit": limit,
+                "reduce_scatter": rs, "dp_twin_reduce_scatter": brs,
+                "all_gather": ag, "dp_twin_all_gather": bag,
+                "bytes_ratio": ratio, "loss_scale": scale,
+                "met": {"equal_to_single_device":
+                        dp_digests[path] == twin["digest"]
+                        and got["losses"] == twin["losses"]
+                        and got["metrics"] == twin["metrics"],
+                        "peak_within_dp_twin_plus_master":
+                        got["max_memory_allocated_bytes"] <= limit,
+                        "reduce_scatter_half":
+                        rs == (brs[0], brs[1] // 2) and brs[1] % 2 == 0,
+                        "all_gather_half":
+                        ag == (bag[0], bag[1] // 2) and bag[1] % 2 == 0,
+                        "bytes_within_ratio":
+                        ratio <= DP_WIRE_BYTES_RATIO}}
+        if got["fault"]:
+            line["met"]["scale_backed_off_once"] = \
+                scale == DP_WIRE_LOSS_SCALE \
+                and got["metrics"]["skipped_micro_batches"] == 1
+        log(json.dumps(line))
+        lines[path] = line
+        if not all(line["met"].values()):
+            raise AssertionError(f"{path}: {line['met']}")
+    root = Path(__file__).resolve().parent / CKPT_DIR / "dp"
+    shutil.rmtree(root, ignore_errors=True)
+    variant, kw, _, _ = DP_PATHS[DP_RESUMED]
+    try:
+        go(variant, kw, CKPT_CRASH, dist.group.WORLD, str(root))
+        crashed = False
+    except InjectedCrash:
+        crashed = True
+    kept = sorted(p.name for p in root.glob("step_*"))
+    resumed = go(variant, kw, None, dist.group.WORLD, str(root))
+    shutil.rmtree(root.parent, ignore_errors=True)
+    clean = info[DP_RESUMED]
+    line = {"phase": "dp_resume", "path": DP_RESUMED, "fault": CKPT_CRASH,
+            "crashed": crashed, "checkpoints_after_crash": kept,
+            "digest": resumed["digest"], "clean_digest":
+            dp_digests[DP_RESUMED], "losses": resumed["losses"],
+            "clean_losses": clean["losses"], "peak": resumed["peak"],
+            "clean_peak": clean["max_memory_allocated_bytes"],
+            "launches": resumed["launches"],
+            "step_seconds": resumed["step_seconds"],
+            "met": {"crashed_after_step_1_save": crashed
+                    and kept == ["step_00000001"],
+                    "equal_to_clean":
+                    resumed["digest"] == dp_digests[DP_RESUMED]
+                    and resumed["losses"] == clean["losses"][1:],
+                    "peak_within_clean": resumed["peak"]
+                    <= clean["max_memory_allocated_bytes"]
+                    + DP_PEAK_SLACK // 2}}
+    log(json.dumps(line))
+    if not all(line["met"].values()):
+        raise AssertionError(f"dp resume: {line['met']}")
+    lines["resume"] = line
+    lines["seconds"] = time.perf_counter() - t0
+    return lines
 
 
 def _one_step_columns(torch, fused_step, out, kw):

@@ -275,7 +275,7 @@ def partition_index(plan: BucketPlan) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=32)
-def _arena_index(plan: BucketPlan) -> np.ndarray:
+def arena_index(plan: BucketPlan) -> np.ndarray:
     """inv[partition_row] = arena row: the inverse of partition_index."""
     inv = np.argsort(partition_index(plan)).astype(np.int32)
     inv.flags.writeable = False
@@ -297,7 +297,7 @@ def permute_rows(x: torch.Tensor, plan: BucketPlan) -> torch.Tensor:
     """Arena-order (rows, ...) tensor -> partition order, the exact inverse
     of `unpermute_rows`: the resident order of every row-indexed column of
     a bucketed run's state."""
-    return _take(x, _arena_index(plan))
+    return _take(x, arena_index(plan))
 
 
 def _map_rows(state, plan: BucketPlan, row_fn):

@@ -63,9 +63,27 @@ gradient is reduce-scattered out of the backward into the owned rows
 (core/layerwise.py's ZeroStream), so no whole-model gradient exists on
 any rank; then the bucketed apply.
 
-Still refused, each naming its ROADMAP queue-1 item: the bf16 wire and
-master params under DP (10.2); zero_async and the fp8 wire (10.3); a
-tensor-parallel group (10.4).
+The bf16 gradient wire (`grad_dtype="bf16"`, the arena variants): every
+gradient slab above, the replicated fold's, the full pack, each bucket and
+each of the stream's layer slabs, is packed as bf16, so every gradient
+reduce-scatter moves half the bytes; the fold kernels upcast the received
+rows in-pass and the moments accumulate in fp32 as on the fp32 wire.
+Guarded, the finite flag is taken on the bf16 rows. Each rank's addend
+is rounded to bf16 before the sum, and the backend rounds the bf16 sum as
+it adds, so at M > 1 the wire matches the fp32 wire within tolerance, not
+bit for bit (at M = 1 the single-device bf16 wire, bit for bit).
+
+Master params (`master_params=True`): the state holds the fp32 master
+region "p". Replicated, the whole master, as on one device. Under ZeRO-1
+each rank holds its owned rows of it, in partition order under the
+bucketed schedule (packed so at init, the reference's pre-permute); the
+apply runs the master form on the owned rows only, updating them in place
+and emitting their bf16 working rows, and the all-gather moves those bf16
+rows (half the bytes) into the leaves, bucket by bucket: the params are
+never packed. The leaves then hold bf16 of the master.
+
+Still refused, each naming its ROADMAP queue-1 item: zero_async and the
+fp8 wire (10.3); a tensor-parallel group (10.4).
 
 Every collective runs whatever M is: at M = 1 the scatter and the gather
 copy, /1 is exact and f32(1*b2) = f32(b2), so `adama` and ZeRO-1 equal the
@@ -82,7 +100,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import (ModelConfig, OptimizerConfig,
-                                      is_fp8_wire)
+                                      grad_wire_dtype, is_fp8_wire)
 from repro_torch.core import adama
 from repro_torch.core import arena as arena_mod
 from repro_torch.core import buckets, collectives, state_store
@@ -130,14 +148,6 @@ def _refuse(opt: OptimizerConfig, variant: str, tp_group) -> None:
         raise NotImplementedError(
             f"zero_async=True (the double-buffered bucket pipeline) is "
             f"{_item('10.3')}")
-    if opt.grad_dtype != "fp32":
-        raise NotImplementedError(
-            f"grad_dtype={opt.grad_dtype!r} under DP (bf16 gradient "
-            f"collectives) is {_item('10.2')}")
-    if opt.master_params:
-        raise NotImplementedError(
-            f"master_params=True under DP (the owned master rows and the "
-            f"bf16 working-row all-gather) is {_item('10.2')}")
     if opt.grad_clip:
         raise ValueError("grad_clip is not applied by the DP engine (nor by "
                          "the reference's); drop grad_clip")
@@ -172,6 +182,23 @@ def _refuse(opt: OptimizerConfig, variant: str, tp_group) -> None:
             f"mini-batch-end state psum (Eqs. 7-8) cannot sum codec-encoded "
             f"moments, while the row-range ZeRO-1 schedule reduce-scatters "
             f"fp32 gradients instead")
+
+
+def _bucketed(opt: OptimizerConfig, variant: str) -> bool:
+    """Whether the run is ZeRO-1's bucketed schedule (or the stream), whose
+    state is in partition order."""
+    return opt.zero_stage == 1 and (opt.zero_bucketed
+                                    or variant == "adama_layerwise")
+
+
+def state_plan(opt: OptimizerConfig, variant: str, state, group=None):
+    """The bucket plan whose partition order a run's state is in (the
+    bucketed schedule and the stream over `group`), else None: what
+    train/checkpoint.py's `bucket_plan=` takes."""
+    if not _bucketed(opt, variant):
+        return None
+    return zero1_bucket_plan(state["m"].layout, dist.get_world_size(group),
+                             opt.zero_bucket_rows)
 
 
 def _pmean(x: torch.Tensor, group, m: int) -> torch.Tensor:
@@ -216,6 +243,7 @@ def make_dp_train_step(cfg: ModelConfig, opt: OptimizerConfig, group=None,
     n = opt.micro_batches
     b1, b2 = opt.beta1, opt.beta2
     zero1 = opt.zero_stage == 1
+    wire = grad_wire_dtype(opt.grad_dtype)
 
     def local_micro(batch):
         gb = batch["tokens"].shape[0]
@@ -288,7 +316,8 @@ def make_dp_train_step(cfg: ModelConfig, opt: OptimizerConfig, group=None,
             loss, g = _grads(loss_of, params, leaves, mb)
             if opt.arena:
                 state = adama.accumulate(state, g, b1, b2, scale=1.0 / n,
-                                         decay=_fold_decay(i, b1, b2, m_dev))
+                                         decay=_fold_decay(i, b1, b2, m_dev),
+                                         grad_dtype=wire)
             else:
                 state = adama.accumulate(state, scale_leaves(g, r), b1, b2)
             del g
@@ -299,7 +328,7 @@ def make_dp_train_step(cfg: ModelConfig, opt: OptimizerConfig, group=None,
     guard = _Guard(opt, 1 if zero1 else m_dev)
     dyn = scaler_mod.is_dynamic(opt)
     gi = opt.scaler_growth_interval
-    bucketed = zero1 and (opt.zero_bucketed or variant == "adama_layerwise")
+    bucketed = _bucketed(opt, variant)
     plans = {}
 
     def plan_of(lay):
@@ -313,8 +342,8 @@ def make_dp_train_step(cfg: ModelConfig, opt: OptimizerConfig, group=None,
     def scatter_bucket(g, lay, bk):
         """A bucket's gradient slab packed and reduce-scattered: this
         rank's fully reduced slice (the slab dies here)."""
-        return collectives.reduce_scatter(buckets.pack_bucket(g, lay, bk),
-                                          group)
+        return collectives.reduce_scatter(
+            buckets.pack_bucket(g, lay, bk, dtype=wire), group)
 
     def guarded_step(params, opt_state, batch):
         """Guarded replicated adama, ZeRO-1 or the stream: per micro-batch
@@ -347,7 +376,8 @@ def make_dp_train_step(cfg: ModelConfig, opt: OptimizerConfig, group=None,
                 vec = guard.vector(decay, skip, guard.one(dev) / sc["scale"])
                 loss, state, _ = layerwise_loss_and_fold(
                     cfg, params, mb, state, beta1=b1, beta2=b2, scale=seed,
-                    guard=vec, zero=ZeroStream(plan, group, rdecay))
+                    grad_dtype=wire, guard=vec,
+                    zero=ZeroStream(plan, group, rdecay))
             else:
                 loss, g = _grads(loss_of, params, leaves, mb, sc)
                 fault_mod.corrupt_tree(fault, g, micro=i, step=st0,
@@ -355,7 +385,7 @@ def make_dp_train_step(cfg: ModelConfig, opt: OptimizerConfig, group=None,
                 vec = guard.vector(decay, skip,
                                    scaler_mod.scale_into_fold(base, sc))
                 if plan is None:
-                    slab = arena_mod.pack(g, lay)
+                    slab = arena_mod.pack(g, lay, dtype=wire)
                     del g
                     if zero1:
                         slab = collectives.reduce_scatter(slab, group)
@@ -407,13 +437,25 @@ def make_dp_train_step(cfg: ModelConfig, opt: OptimizerConfig, group=None,
         them and copy them into the leaves (in place). Bucketed: the owned
         rows are packed bucket by bucket and the gathered partition-order
         rows unpermuted into the leaves bucket by bucket, so no arena of
-        the params is built beside them."""
+        the params is built beside them. With the master region the
+        params are not packed at all: the master form updates the owned
+        master rows in place and emits their bf16 working rows, which the
+        all-gather moves (half the bytes) into the leaves."""
         state_store.psum_replicated_state(state, group)
         lay = state["m"].layout
         bc1, bc2 = adama.bias_corrections(state["step"], b1, b2)
         kw = dict(lr=lr, bc1=bc1, bc2=bc2, eps=opt.eps,
                   weight_decay=opt.weight_decay, guard=applied)
         with torch.no_grad():
+            if state_store.has_master(state):
+                work, _ = state_store.apply_master_state(state, **kw)
+                p_full = collectives.all_gather(work, group)
+                del work
+                if plan is not None:
+                    buckets.unpermute_into_(params, p_full, plan)
+                else:
+                    adama._copy_leaves(params, p_full, lay, p_full.dtype)
+                return
             if plan is not None:
                 p_own = buckets.pack_owned_rows(params, plan, rank)
                 state_store.apply_state(p_own, state, **kw)
@@ -428,6 +470,18 @@ def make_dp_train_step(cfg: ModelConfig, opt: OptimizerConfig, group=None,
             p_full = collectives.all_gather(p_own, group)
             del p_arena, p_own
             adama._copy_leaves(params, p_full, lay)
+
+    @torch.no_grad()
+    def owned_params(params, lay, plan):
+        """This rank's rows of the packed params, the master's initial
+        value: its slice of every bucket in partition order (packed one
+        bucket at a time, as the reference pre-permutes its master), or
+        its contiguous row range under the full pack."""
+        if plan is not None:
+            return buckets.pack_owned_rows(params, plan, rank)
+        own = shard_rows(lay, m_dev)[rank]
+        p = arena_mod.pack(params, lay)
+        return p if m_dev == 1 else p[own.start:own.stop].clone()
 
     def zero1_step(params, opt_state, batch):
         """ZeRO-1 (full pack or bucketed) and the stream, unguarded."""
@@ -444,10 +498,11 @@ def make_dp_train_step(cfg: ModelConfig, opt: OptimizerConfig, group=None,
             if variant == "adama_layerwise":
                 loss, state = layerwise_loss_and_fold(
                     cfg, params, mb, state, beta1=b1, beta2=b2, scale=scale,
-                    decay=decay, zero=ZeroStream(plan, group, rdecay))
+                    decay=decay, grad_dtype=wire,
+                    zero=ZeroStream(plan, group, rdecay))
             elif plan is None:
                 loss, g = _grads(loss_of, params, leaves, mb)
-                slab = arena_mod.pack(g, lay)
+                slab = arena_mod.pack(g, lay, dtype=wire)
                 del g
                 g_own = collectives.reduce_scatter(slab, group)
                 del slab
@@ -493,9 +548,14 @@ def make_dp_train_step(cfg: ModelConfig, opt: OptimizerConfig, group=None,
             state = adama.init_arena(params, codec=opt.state_codec,
                                      m_codec=opt.m_codec, n_shards=m_dev,
                                      rows=rows // m_dev)
+            if opt.master_params:
+                lay = state["m"].layout
+                state["p"] = arena_mod.Arena(
+                    owned_params(params, lay, plan_of(lay)), lay)
         else:
             state = adama.init_arena(params, codec=opt.state_codec,
-                                     m_codec=opt.m_codec)
+                                     m_codec=opt.m_codec,
+                                     master_params=opt.master_params)
         if opt.finite_guard:
             state["scaler"] = scaler_mod.init_scaler(
                 opt, arena_mod.tree_flatten(params)[0][0].device)

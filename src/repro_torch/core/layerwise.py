@@ -72,7 +72,8 @@ slice fold decodes the codes in-pass; the residual's update is predicated
 on the same verdict.
 
 ZeRO-1 streaming (`zero=ZeroStream(...)`, driven by the data-parallel
-engine, core/dp_shardmap.py; arena state, the fp32 wire): the state is the
+engine, core/dp_shardmap.py; arena state, the fp32 or bf16 wire, each slab
+reduce-scattered in the wire's dtype): the state is the
 rank's OWNED rows (partition order, core/buckets.py), and each layer's
 packed slab is reduce-scattered over the stream's process group the moment
 its backward gives it; the received, fully reduced slice folds into the
@@ -340,17 +341,17 @@ def layerwise_loss_and_fold(cfg: ModelConfig, params, batch, state, *,
     scale S) and un-scaled by fold_scale (1/S). Returns (loss, state, ok),
     ok the vector's (1,) verdict.
 
-    `zero` (a ZeroStream; arena state, the fp32 wire): the ZeRO-1 stream
-    (see the module's docstring); `state` then holds this rank's owned
-    rows, in partition order, and `scale` is 1/(N x M)."""
+    `zero` (a ZeroStream; arena state, the fp32 or bf16 wire): the ZeRO-1
+    stream (see the module's docstring); `state` then holds this rank's
+    owned rows, in partition order, and `scale` is 1/(N x M)."""
     if (decay is not None or guard is not None or zero is not None) and \
             not is_arena_state(state):
         raise ValueError("a fused decay, a finite guard or the ZeRO-1 "
                          "stream requires arena state")
-    if zero is not None and grad_dtype != torch.float32:
+    if zero is not None and grad_dtype == torch.float8_e4m3fn:
         raise NotImplementedError(
-            f"grad_dtype={grad_dtype} under the ZeRO-1 stream is not ported "
-            f"(ROADMAP queue 1, item 10.2 for bf16, 10.3 for fp8)")
+            "the fp8 wire under the ZeRO-1 stream is not ported (ROADMAP "
+            "queue 1, item 10.3)")
     if guard is not None and decay is not None:
         raise ValueError("with guard=, the decay rides in the guard vector")
     ef_scale = None

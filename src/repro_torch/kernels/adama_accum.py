@@ -32,6 +32,7 @@ compute exactly these, so they agree bit for bit.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -46,8 +47,56 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
+# elements per block of `_fma32` on the CPU, so that its float64
+# temporaries stay in cache (results do not depend on it)
+_FMA_BLOCK = 1 << 16
+# a float64 value lies on a float32 rounding tie when its 29 bits below
+# float32's precision are a one and 28 zeros (float32's normal range), or
+# when it is an odd multiple of half float32's least subnormal, 2^-150
+# (below float32's least normal, 2^-126)
+_LOW29, _TIE29 = (1 << 29) - 1, 1 << 28
+_TINY32, _SUB32 = 2.0 ** -126, 2.0 ** 149
+
+
 def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """float32 a*b + c with ONE rounding, like a fused multiply-add.
+    """float32 a*b + c with ONE rounding, like a fused multiply-add
+    (`_fma32_exact`). On the CPU the operands are taken a block of
+    `_FMA_BLOCK` elements at a time (an operand of one element broadcast
+    to every block), each by `_fma32_cpu`."""
+    shape = torch.broadcast_shapes(a.shape, b.shape, c.shape)
+    if any(x.device.type != "cpu" for x in (a, b, c)):
+        return _fma32_exact(a, b, c)
+    n = math.prod(shape)
+    flat = [x.reshape(()) if x.numel() == 1 and n > 1
+            else x.expand(shape).reshape(-1) for x in (a, b, c)]
+    out = torch.empty(n, dtype=torch.float32)
+    for lo in range(0, n, _FMA_BLOCK):
+        out[lo:lo + _FMA_BLOCK] = _fma32_cpu(
+            *(x if x.ndim == 0 else x[lo:lo + _FMA_BLOCK] for x in flat))
+    return out.reshape(shape)
+
+
+def _fma32_cpu(a: torch.Tensor, b: torch.Tensor,
+               c: torch.Tensor) -> torch.Tensor:
+    """`_fma32_exact` of 1-D operands (or 0-d ones), bit for bit, its
+    common case first: the float64 sum s of the exact product and c
+    rounds to float32 as the exact sum does unless s lies on a float32
+    rounding tie (`_fma32_exact` moves s by one float64 ulp only when
+    inexact, which changes its float32 rounding only at a tie); the
+    elements on a tie take `_fma32_exact`."""
+    s = a.double() * b.double() + c.double()
+    out = s.float()
+    t = s * _SUB32
+    tie = (s.view(torch.int64) & _LOW29) == _TIE29
+    tie |= (s.abs() < _TINY32) & (t - t.floor() == 0.5)
+    i = tie.nonzero().squeeze(1)
+    out[i] = _fma32_exact(*(x if x.ndim == 0 else x[i] for x in (a, b, c)))
+    return out
+
+
+def _fma32_exact(a: torch.Tensor, b: torch.Tensor,
+                 c: torch.Tensor) -> torch.Tensor:
+    """float32 a*b + c with ONE rounding.
 
     a*b is exact in float64 (24+24 significant bits). The float64 sum is
     kept exact as s + err (TwoSum), rounded to odd (if inexact, the last

@@ -87,6 +87,14 @@
       --arch stablelm-1.6b --reduced --steps 2 --global-batch 8 \
       --micro-batches 2 --seq-len 32 --zero-stage 1 \
       --accumulation adama_layerwise --log-every 1 --device cpu
+  # the bf16 gradient wire and fp32 master params under ZeRO-1, with
+  # checkpoints of the sharded state (rank 0 writes the canonical state;
+  # run again with more --steps to resume at the same rank count)
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+      --arch stablelm-1.6b --reduced --steps 2 --global-batch 8 \
+      --micro-batches 2 --seq-len 32 --zero-stage 1 --grad-dtype bf16 \
+      --master-params --checkpoint-dir /tmp/ckpt-dp --checkpoint-every 1 \
+      --log-every 1 --device cpu
 
   # saves every step; run again with more --steps to resume
   # ("[train] restored step 2")

@@ -29,10 +29,37 @@ the reference's message; the leaf count; each leaf's shape and dtype; the
 Arena leaves' region boundaries; the moments' codecs and the key paths,
 where the checkpoint records them. Then it copies each leaf in place into
 the target's tensor, on its device (allocating nothing there), and returns
-the tree with its host ints restored. Elastic restores and bucketed
-residency (`elastic=`, `bucket_plan=`) wait for the distributed engines
-(ROADMAP queue 1, item 10), as does a checkpoint of a layout padded for
-more than one shard.
+the tree with its host ints restored.
+
+Sharded state (core/dp_shardmap.py's ZeRO-1): on disk a checkpoint is
+always the CANONICAL state, every row-indexed column (an Arena's data, a
+MomentState's row-indexed parts) whole and in arena row order, as one
+device or a full-pack run writes it, whatever schedule and rank count
+produced it; the reference reads it into its own `init_arena(n_shards=M)`
+state. `bucket_plan=` (core/buckets.py) says the tree's row-indexed
+columns are in the bucketed schedule's partition order: `save`
+unpermutes them, `restore` permutes what it reads, as the reference's
+`bucket_plan` does. `group=` (a torch.distributed process group of M
+ranks, every rank calling) says each rank's tree holds its own rows of
+those columns, rows / M of them (rank k's range under the full pack, its
+slice of every bucket under a plan). Only the group's rank 0 touches the
+files, so the other ranks need not see its file system:
+- `save` gathers one column at a time over the group, moves it to the
+  host on rank 0 and drops it, so a save adds at most one whole column to
+  a rank's live device bytes; rank 0 writes the file, the columns every
+  rank holds whole (the params, the step, the scaler, rowcol's summed
+  column sums) once, and every rank waits for the rename;
+- `restore` reads the file and runs every check on rank 0 alone (the
+  other ranks raise what it raised); rank 0 then sends each rank its own
+  rows of a row-indexed column, one rank's rows at a time, which the rank
+  receives straight into its live tensor, and broadcasts the columns
+  every rank holds whole into theirs, so one host copy of the file is
+  made and no rank but rank 0 stages anything;
+- `latest_step(group=)` is rank 0's.
+These transfers go through torch.distributed directly, not through
+core/collectives.py, whose counters count a step's traffic only. A
+checkpoint of a layout padded for another rank count, and
+`elastic=True`, wait for elastic restore (ROADMAP queue 1, item 10.4).
 """
 from __future__ import annotations
 
@@ -47,13 +74,12 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import arena as arena_mod
-from repro_torch.core import state_store
+from repro_torch.core import buckets, state_store
 
-ITEM_10 = ("waits for checkpoints of sharded state (ROADMAP queue 1, item "
-           "10.2: ZeRO-1 layouts and bucketed residency; item 10.4: elastic "
-           "restore)")
+ITEM_10_4 = "waits for elastic restore (ROADMAP queue 1, item 10.4)"
 
 
 class CheckpointCorruptError(RuntimeError):
@@ -199,6 +225,38 @@ def _codecs(tree, path=()) -> dict:
     return out
 
 
+def _world(group) -> Tuple[int, int]:
+    """(M, this rank) of `group`; (1, 0) without one."""
+    if group is None:
+        return 1, 0
+    return dist.get_world_size(group), dist.get_rank(group)
+
+
+def _is_rows(leaf, owner, m: int) -> bool:
+    """Whether a leaf is a row-indexed column of arena state held as one
+    of `m` ranks' equal shares: an Arena's data or a MomentState part
+    with layout.rows / m rows (m = 1: the whole column)."""
+    return (owner is not None and isinstance(leaf, torch.Tensor)
+            and leaf.ndim >= 1 and leaf.shape[0] * m == owner.layout.rows)
+
+
+def _own_rows(arr: np.ndarray, m: int, plan) -> List[np.ndarray]:
+    """Each rank's rows of a canonical column, in rank order: the ranks'
+    ranges of `m` equal ones, taken under a bucket plan from the column
+    permuted into partition order (so at the plan's M, each rank's slice
+    of every bucket)."""
+    if plan is not None:
+        arr = arr[buckets.arena_index(plan)]
+    per = arr.shape[0] // m
+    return [np.ascontiguousarray(arr[k * per:(k + 1) * per])
+            for k in range(m)]
+
+
+def _src(group) -> int:
+    """The global rank of the group's rank 0."""
+    return dist.get_global_rank(group, 0)
+
+
 def _fsync_path(path) -> None:
     fd = os.open(path, os.O_RDONLY)
     try:
@@ -212,20 +270,52 @@ def _fsync_path(path) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _canonical(leaf, owner, m: int, rank: int, plan, group):
+    """A leaf as the checkpoint holds it, on rank 0 (None elsewhere): a
+    row-indexed column gathered whole over the group (one column live at
+    a time) and unpermuted from partition order under a plan."""
+    if _is_rows(leaf, owner, m):
+        if m > 1:
+            part = leaf.detach().contiguous()
+            leaf = part.new_empty((m * part.shape[0],)
+                                  + tuple(part.shape[1:]))
+            dist.all_gather_into_tensor(leaf, part, group=group)
+        if rank:
+            return None
+        arr = _to_numpy(leaf)
+        return arr if plan is None else arr[buckets.partition_index(plan)]
+    return None if rank else _to_numpy(leaf)
+
+
 def save(ckpt_dir, step: int, tree: Any, *, keep: int = 3,
-         bucket_plan=None) -> str:
+         bucket_plan=None, group=None) -> str:
     """Atomically save `tree` under <ckpt_dir>/step_%08d/ and keep the
-    newest `keep` steps. Returns the step's directory."""
-    if bucket_plan is not None:
-        raise NotImplementedError(f"save(bucket_plan=) {ITEM_10}")
+    newest `keep` steps. Returns the step's directory. `bucket_plan`: the
+    tree's row-indexed columns are in partition order (unpermuted before
+    writing); `group`: each rank's tree holds its own rows of them, every
+    rank calls and rank 0 writes (see the module's docstring)."""
+    m, rank = _world(group)
     ckpt_dir = Path(ckpt_dir)
-    ckpt_dir.mkdir(parents=True, exist_ok=True)
     nodes = _flatten(tree)
     arrays, meta = {}, []
-    for i, (_, leaf, _) in enumerate(nodes):
-        arr = _to_numpy(leaf)
-        meta.append({"dtype": _dtype_name(leaf), "crc32": _crc32(arr)})
-        arrays[f"a{i}"] = arr
+    for i, (_, leaf, owner) in enumerate(nodes):
+        arr = _canonical(leaf, owner, m, rank, bucket_plan, group)
+        if arr is not None:
+            meta.append({"dtype": _dtype_name(leaf), "crc32": _crc32(arr)})
+            arrays[f"a{i}"] = arr
+    final = ckpt_dir / f"step_{step:08d}"
+    if rank == 0:
+        _write(ckpt_dir, final, step, tree, nodes, arrays, meta, keep)
+    if group is not None:
+        dist.barrier(group)
+    return str(final)
+
+
+def _write(ckpt_dir: Path, final: Path, step: int, tree, nodes, arrays,
+           meta, keep: int) -> None:
+    """Write one step's files into a `.tmp_` directory, fsync them and
+    rename it to `final`, then drop the steps past the newest `keep`."""
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
     info = {"step": int(step), "n_leaves": len(nodes), "treedef": None,
             "meta": meta}
     table = _arena_region_table(nodes)
@@ -246,7 +336,6 @@ def save(ckpt_dir, step: int, tree: Any, *, keep: int = 3,
         # publishes them
         _fsync_path(os.path.join(tmp, "arrays.npz"))
         _fsync_path(tmp)
-        final = ckpt_dir / f"step_{step:08d}"
         if final.exists():
             shutil.rmtree(final)
         os.rename(tmp, final)
@@ -255,7 +344,6 @@ def save(ckpt_dir, step: int, tree: Any, *, keep: int = 3,
         shutil.rmtree(tmp, ignore_errors=True)
         raise
     _gc(ckpt_dir, keep)
-    return str(final)
 
 
 def _gc(ckpt_dir: Path, keep: int) -> None:
@@ -264,12 +352,20 @@ def _gc(ckpt_dir: Path, keep: int) -> None:
         shutil.rmtree(p, ignore_errors=True)
 
 
-def latest_step(ckpt_dir) -> Optional[int]:
+def latest_step(ckpt_dir, group=None) -> Optional[int]:
+    """The newest step saved under `ckpt_dir` (None if none); with a
+    group, what rank 0 finds there, on every rank."""
+    m, rank = _world(group)
+    last = None
     p = Path(ckpt_dir)
-    if not p.exists():
-        return None
-    steps = sorted(p.glob("step_*"))
-    return int(steps[-1].name.split("_")[1]) if steps else None
+    if rank == 0 and p.exists():
+        steps = sorted(p.glob("step_*"))
+        last = int(steps[-1].name.split("_")[1]) if steps else None
+    if m > 1:
+        box = [last]
+        dist.broadcast_object_list(box, src=_src(group), group=group)
+        last = box[0]
+    return last
 
 
 # ---------------------------------------------------------------------------
@@ -346,8 +442,9 @@ def _same_model(saved_tbl, target_tbl) -> bool:
     return False
 
 
-def _check_leaves(step, info, data, nodes, target_tbl) -> None:
-    """Leaf count, then each leaf's shape and dtype exactly."""
+def _check_leaves(step, info, data, nodes, target_tbl, m) -> None:
+    """Leaf count, then each leaf's shape (a row-indexed column of an
+    M-rank share: the whole column's) and dtype exactly."""
     if len(nodes) != info["n_leaves"]:
         raise ValueError(f"leaf count mismatch: tree {len(nodes)} vs "
                          f"checkpoint {info['n_leaves']}")
@@ -355,6 +452,8 @@ def _check_leaves(step, info, data, nodes, target_tbl) -> None:
     for i, (path, leaf, owner) in enumerate(nodes):
         arr = data[f"a{i}"]
         want = _shape(leaf)
+        if _is_rows(leaf, owner, m):
+            want = (owner.layout.rows,) + want[1:]
         if tuple(arr.shape) != want:
             if (owner is not None and arr.ndim == len(want) >= 1
                     and arr.shape[1:] == want[1:]
@@ -363,7 +462,7 @@ def _check_leaves(step, info, data, nodes, target_tbl) -> None:
                     f"restoring step {step}: leaf {i} ({'/'.join(path)}) "
                     f"holds {arr.shape[0]} arena rows where the target's "
                     f"layout has {want[0]}: a layout padded for another "
-                    f"shard count. Restoring it {ITEM_10}")
+                    f"shard count. Restoring it {ITEM_10_4}")
             raise ValueError(f"shape mismatch at leaf {i} "
                              f"({'/'.join(path)}): {arr.shape} vs {want}")
         saved_dt, want_dt = info["meta"][i]["dtype"], _dtype_name(leaf)
@@ -405,32 +504,73 @@ def _from_numpy(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
 
 @torch.no_grad()
 def restore(ckpt_dir, step: int, tree: Any, bucket_plan=None,
-            elastic: bool = False) -> Any:
+            elastic: bool = False, group=None) -> Any:
     """Restore step `step` into the live `tree` (its structure, shapes and
     dtypes validated first, as the module docstring lists): every tensor
     is overwritten in place on its device, and the tree is returned with
-    its host ints set to the checkpoint's."""
+    its host ints set to the checkpoint's. `bucket_plan`: the tree's
+    row-indexed columns are in partition order (the canonical rows are
+    permuted into it); `group`: each rank's tree holds its own rows of
+    them, and takes those rows of the file (see the module's
+    docstring)."""
     if elastic:
-        raise NotImplementedError(f"restore(elastic=True) {ITEM_10}")
-    if bucket_plan is not None:
-        raise NotImplementedError(f"restore(bucket_plan=) {ITEM_10}")
-    d = Path(ckpt_dir) / f"step_{step:08d}"
-    info, data = _read(d)
-    _check_checksums(d, info, data)
-    _check_regions(step, info, tree)
+        raise NotImplementedError(f"restore(elastic=True) {ITEM_10_4}")
+    m, rank = _world(group)
     nodes = _flatten(tree)
-    target_tbl = _arena_region_table(nodes)
-    _check_leaves(step, info, data, nodes, target_tbl)
-    _check_structure(step, info, tree, nodes, target_tbl)
+    info = data = failure = None
+    if rank == 0:
+        try:
+            d = Path(ckpt_dir) / f"step_{step:08d}"
+            info, data = _read(d)
+            _check_checksums(d, info, data)
+            _check_regions(step, info, tree)
+            target_tbl = _arena_region_table(nodes)
+            _check_leaves(step, info, data, nodes, target_tbl, m)
+            _check_structure(step, info, tree, nodes, target_tbl)
+        except Exception as e:      # every rank raises it, below
+            failure = e
+    if m > 1:
+        box = [failure]
+        dist.broadcast_object_list(box, src=_src(group), group=group)
+        failure = box[0]
+    if failure is not None:
+        raise failure
     values = []
-    for i, (_, leaf, _) in enumerate(nodes):
-        arr = data.pop(f"a{i}")
+    for i, (_, leaf, owner) in enumerate(nodes):
+        arr = data.pop(f"a{i}") if rank == 0 else None
+        dtype = info["meta"][i]["dtype"] if rank == 0 else None
         if _is_host_int(leaf):
-            values.append(int(arr))
+            box = [None if arr is None else int(arr)]
+            if m > 1:
+                dist.broadcast_object_list(box, src=_src(group),
+                                           group=group)
+            values.append(box[0])
+            continue
+        if _is_rows(leaf, owner, m) and (m > 1 or bucket_plan is not None):
+            _scatter_rows(leaf, arr, dtype, m, rank, bucket_plan, group)
         else:
-            leaf.copy_(_from_numpy(arr, info["meta"][i]["dtype"]))
-            values.append(leaf)
+            if rank == 0:
+                leaf.copy_(_from_numpy(arr, dtype))
+            if m > 1:
+                dist.broadcast(leaf, src=_src(group), group=group)
+        values.append(leaf)
     return _rebuild(tree, iter(values))
+
+
+def _scatter_rows(leaf, arr, dtype, m, rank, plan, group) -> None:
+    """Each rank's own rows of a canonical column (`arr`, on rank 0) into
+    its live `leaf`: rank 0 copies its own and sends each other rank its
+    rows, one rank's at a time; the rank receives them into the leaf."""
+    if rank:
+        dist.recv(leaf, src=_src(group), group=group)
+        return
+    for k, rows in enumerate(_own_rows(arr, m, plan)):
+        rows = _from_numpy(rows, dtype)
+        if k == 0:
+            leaf.copy_(rows)
+        else:
+            dist.send(rows.to(leaf.device),
+                      dst=dist.get_global_rank(group, k), group=group)
 
 
 def export_working_params(ckpt_dir, step: Optional[int], tree: Any, *,

@@ -22,8 +22,12 @@ With a `torch.distributed` process group (`train(..., group=...)`) the
 step is the data-parallel engine's (core/dp_shardmap.py; its variant is
 `run.optimizer.accumulation`, so adama_layerwise with zero_stage=1 runs
 Algorithm 2's ZeRO-1 stream): every rank runs this loop on the same
-global batches and params, and takes its own rows of each batch.
-Checkpoints of such a run are refused (train/checkpoint.py ITEM_10)."""
+global batches and params, and takes its own rows of each batch. Its
+checkpoints are written and resumed at the same rank count: rank 0 writes
+the canonical state gathered from every rank's rows, finds the step to
+resume from, reads it and sends each rank its own rows
+(train/checkpoint.py, `group=` and the bucket plan of the state's
+partition order)."""
 from __future__ import annotations
 
 import contextlib
@@ -34,7 +38,7 @@ import torch
 
 from repro_torch.configs.base import RunConfig
 from repro_torch.core.accumulation import make_train_step
-from repro_torch.core.dp_shardmap import make_dp_train_step
+from repro_torch.core.dp_shardmap import make_dp_train_step, state_plan
 from repro_torch.data import make_data
 from repro_torch.models.model import Model, init_params
 from repro_torch.train import checkpoint as ckpt
@@ -74,9 +78,6 @@ def train(run: RunConfig, *, lr_schedule=None, log_fn=print, params=None,
     step i's timed region (e.g. a profiler). `group`, an initialised
     process group, runs the data-parallel engine over it."""
     device = resolve_device(device)
-    if group is not None and run.checkpoint_dir:
-        raise NotImplementedError(f"checkpoints of a data-parallel run "
-                                  f"{ckpt.ITEM_10}")
     cfg = run.model
     if params is None:
         gen = torch.Generator(device=device)
@@ -93,14 +94,20 @@ def train(run: RunConfig, *, lr_schedule=None, log_fn=print, params=None,
         step_fn, opt_init = make_dp_train_step(cfg, opt, group,
                                                opt.accumulation, **kw)
     opt_state = opt_init(tree)
+    # a data-parallel run's sharded state: the ranks' rows, and the
+    # bucket plan of their partition order
+    sharded = {} if group is None else dict(
+        group=group, bucket_plan=state_plan(opt, opt.accumulation,
+                                            opt_state, group))
     start = 0
     if run.checkpoint_dir:
-        last = ckpt.latest_step(run.checkpoint_dir)
+        last = ckpt.latest_step(run.checkpoint_dir, group=group)
         if last is not None:
             # no name keeps the restored tree: the step replaces the
             # scaler's tensors, and the old ones would stay allocated
             opt_state = ckpt.restore(run.checkpoint_dir, last,
-                                     {"params": tree, "opt": opt_state})["opt"]
+                                     {"params": tree, "opt": opt_state},
+                                     **sharded)["opt"]
             start = last
             log_fn(f"[train] restored step {last}")
     if data is None:
@@ -141,10 +148,11 @@ def train(run: RunConfig, *, lr_schedule=None, log_fn=print, params=None,
         if run.checkpoint_dir and (i + 1) % every == 0:
             ckpt.save(run.checkpoint_dir, i + 1,
                       {"params": tree, "opt": opt_state},
-                      keep=run.keep_last_n)
+                      keep=run.keep_last_n, **sharded)
     if run.checkpoint_dir:
         ckpt.save(run.checkpoint_dir, run.steps,
-                  {"params": tree, "opt": opt_state}, keep=run.keep_last_n)
+                  {"params": tree, "opt": opt_state}, keep=run.keep_last_n,
+                  **sharded)
     return {"model": model, "params": tree, "opt_state": opt_state,
             "losses": losses, "step_seconds": step_s,
             "metrics": {k: float(x) for k, x in metrics.items()}}

@@ -16,9 +16,15 @@ the CPU at reduced stablelm-1.6b:
     resumes bit for bit the run that never stopped (ga, adama,
     adama_layerwise, guarded fp8 int8/rowcol with master params and the
     cache, per-leaf adama), with the same kernel calls per step;
+  - bucketed residency: `save(bucket_plan=)` of a state in partition
+    order writes the canonical state's bytes (the reference's own
+    `save(bucket_plan=)` of it), and `restore(bucket_plan=)` puts it back
+    in partition order; a layout padded for 4 shards restores into the
+    port's state laid out alike (DP runs' checkpoints on ranks are
+    tests/test_torch_dp.py's and tests/test_torch_zero.py's);
   - refusals: every cross-pair restore on both sides, a missing or stale
-    "ef", `elastic` / `bucket_plan` and a layout padded for ZeRO-1 (ROADMAP
-    item 10);
+    "ef", `elastic` and a layout padded for another shard count (ROADMAP
+    item 10.4);
   - damage (bit flip, trailer, truncation) raises CheckpointCorruptError
     before anything is copied, and the port's damage helpers write what the
     reference's do, byte for byte;
@@ -514,38 +520,121 @@ def test_missing_or_stale_ef_region_is_refused(tmp_path):
     tckpt.restore(tmp_path / "jef", 1, st_ef)
 
 
-def test_elastic_bucket_plan_and_zero_layouts_wait_for_item_10(tmp_path):
-    """elastic=True and bucket_plan= raise NotImplementedError citing
-    ROADMAP item 10, as does a reference checkpoint of a layout padded for
-    4 shards (ZeRO-1) restored into the port's one-device layout."""
-    st, _ = _ef_trees()
-    tckpt.save(tmp_path, 1, st)
-    for kw in (dict(elastic=True), dict(bucket_plan=object())):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            tckpt.restore(tmp_path, 1, st, **kw)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tckpt.save(tmp_path, 2, st, bucket_plan=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tckpt.export_working_params(tmp_path, 1, st, elastic=True)
+def _padded_trees():
+    """A two-region tree (numpy, jax, the port's) whose layout at 4 shards
+    has more rows than at one."""
     vals = {"blocks": {"w": np.arange(4 * 96 * 33, dtype=np.float32)
                        .reshape(4, 96, 33)},
             "head": np.arange(1000, dtype=np.float32)}
-    jvals = jax.tree.map(jnp.asarray, vals)
-    tvals = tmodel.params_from_jax(vals, "cpu")
-    lay1 = tarena.build_layout(tvals)
-    target = {"m": tarena.Arena.zeros(lay1, "cpu"), "step": 0}
+    return vals, jax.tree.map(jnp.asarray, vals), \
+        tmodel.params_from_jax(vals, "cpu")
+
+
+def _save_reference_arenas(tmp_path, jvals):
     for n_shards in (1, 4):
         lay = jarena.build_layout(jvals, n_shards=n_shards)
-        assert (lay.rows == lay1.rows) == (n_shards == 1)
         jckpt.save(str(tmp_path / f"zero{n_shards}"), 3, {
             "m": jarena.Arena(jarena.pack(jvals, lay), lay),
             "step": jnp.asarray(3, jnp.int32)})
-    with pytest.raises(NotImplementedError, match="another shard count.*"
-                                                  "item 10"):
+
+
+def test_elastic_and_padded_layouts_wait_for_item_10_4(tmp_path):
+    """elastic=True (restore and export) and a reference checkpoint of a
+    layout padded for 4 shards restored into the port's one-shard layout
+    raise NotImplementedError naming ROADMAP item 10.4; the one-shard
+    checkpoint restores."""
+    st, _ = _ef_trees()
+    tckpt.save(tmp_path, 1, st)
+    with pytest.raises(NotImplementedError, match=r"item 10\.4\)"):
+        tckpt.restore(tmp_path, 1, st, elastic=True)
+    with pytest.raises(NotImplementedError, match=r"item 10\.4\)"):
+        tckpt.export_working_params(tmp_path, 1, st, elastic=True)
+    _, jvals, tvals = _padded_trees()
+    lay1 = tarena.build_layout(tvals)
+    target = {"m": tarena.Arena.zeros(lay1, "cpu"), "step": 0}
+    _save_reference_arenas(tmp_path, jvals)
+    assert jarena.build_layout(jvals, n_shards=4).rows != lay1.rows
+    with pytest.raises(NotImplementedError, match=r"another shard count.*"
+                                                  r"item 10\.4\)"):
         tckpt.restore(tmp_path / "zero4", 3, target)
     out = tckpt.restore(tmp_path / "zero1", 3, target)
     assert out["step"] == 3 and torch.equal(out["m"].data,
                                             tarena.pack(tvals, lay1))
+
+
+def test_a_layout_padded_for_4_shards_restores_into_one_laid_out_alike(
+        tmp_path):
+    """The reference's checkpoint of a layout padded for 4 shards (ZeRO-1's
+    canonical state) restores into the port's state laid out for 4 shards,
+    bit for bit, and the port's save of it is the reference's bytes."""
+    _, jvals, tvals = _padded_trees()
+    _save_reference_arenas(tmp_path, jvals)
+    lay4 = tarena.build_layout(tvals, n_shards=4)
+    target = {"m": tarena.Arena.zeros(lay4, "cpu"), "step": 0}
+    out = tckpt.restore(tmp_path / "zero4", 3, target)
+    assert out["step"] == 3
+    assert torch.equal(out["m"].data, tarena.pack(tvals, lay4))
+    tckpt.save(tmp_path / "port4", 3, out)
+    a = np.load(tmp_path / "zero4/step_00000003/arrays.npz")
+    b = np.load(tmp_path / "port4/step_00000003/arrays.npz")
+    assert a.files == b.files
+    assert all(np.array_equal(a[k], b[k]) for k in a.files)
+
+
+@pytest.mark.parametrize("pair", (("fp32", "fp32"), ("int8", "rowcol")),
+                         ids="-".join)
+def test_bucket_plan_saves_canonical_rows_and_restores_partition_order(
+        pair, tmp_path):
+    """A 2-shard state (every row-indexed column whole, the master too) in
+    the bucketed schedule's partition order: `save(bucket_plan=)` writes
+    what `save` writes of the canonical state and what the reference's
+    `save(bucket_plan=)` writes of the same partition-order state, array
+    for array; `restore(bucket_plan=)` of it gives the partition-order
+    state back, bit for bit (shared columns as they were)."""
+    from repro.core import buckets as jbuckets
+    from repro.core import zero as jzero
+    from repro_torch.core import buckets as tbuckets
+    from repro_torch.core import zero as tzero
+    tree = _port_tree()
+    rng = np.random.default_rng(3)
+
+    def fill(state):
+        for x in tckpt.tree_leaves(state):
+            if isinstance(x, torch.Tensor):
+                x.copy_(torch.from_numpy(rng.integers(
+                    -100, 100, x.shape).astype(np.float32)).to(x.dtype))
+        return state
+    canon = fill(tadama.init_arena(tree, m_codec=pair[0], codec=pair[1],
+                                   master_params=True, n_shards=2))
+    plan = tzero.zero1_bucket_plan(canon["m"].layout, 2)
+    perm_state = tbuckets.permute_state(canon, plan)
+    tckpt.save(tmp_path / "canon", 1, canon)
+    tckpt.save(tmp_path / "plan", 1, perm_state, bucket_plan=plan)
+    jparams = jax.tree.map(jnp.asarray, _init_params())
+    jstate = jadama.init_arena(jparams, m_codec=pair[0], codec=pair[1],
+                               master_params=True, n_shards=2)
+    jstate = jax.tree.unflatten(
+        jax.tree.structure(jstate),
+        [jnp.asarray(_port_np(x)) for x in tckpt.tree_leaves(perm_state)])
+    jplan = jzero.zero1_bucket_plan(jstate["m"].layout, 2)
+    assert np.array_equal(tbuckets.partition_index(plan),
+                          jbuckets.partition_index(jplan))
+    jckpt.save(str(tmp_path / "ref"), 1, jstate, bucket_plan=jplan)
+    files = [np.load(tmp_path / f"{d}/step_00000001/arrays.npz")
+             for d in ("canon", "plan", "ref")]
+    for z in files[1:]:
+        assert z.files == files[0].files
+        assert all(np.array_equal(z[k], files[0][k]) for k in z.files)
+    target = fill(tadama.init_arena(tree, m_codec=pair[0], codec=pair[1],
+                                    master_params=True, n_shards=2))
+    back = tckpt.restore(tmp_path / "plan", 1, target, bucket_plan=plan)
+    for a, b in zip(tckpt.tree_leaves(back), tckpt.tree_leaves(perm_state)):
+        assert _port_bytes(a) == _port_bytes(b)
+
+
+def _port_np(x):
+    return np.asarray(x, np.int32) if isinstance(x, int) else \
+        x.detach().numpy()
 
 
 def test_shape_and_layout_mismatches_are_refused(tmp_path):

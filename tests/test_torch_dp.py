@@ -14,6 +14,16 @@ this process over a one-rank gloo group:
   reduced models' rest regions are one bucket), on five pairs (every codec
   of each moment), guarded and not; a reduce-scatter a gradient bucket a
   micro-batch.
+- the bf16 gradient wire and master params, alone and together, through
+  the replicated schedule, the full pack, the bucketed schedule and the
+  stream (together also guarded, with dynamic scaling and a NaN), bit for
+  bit the single-device engine with the same fields: params, master,
+  moments, losses, scaler; each reduce-scatter moves the wire's bytes,
+  the master's all-gather half the fp32 gather's, and the leaves are bf16
+  of the master;
+- a DP run's checkpoints (full pack on the bf16 wire with a master, the
+  guarded stream): crashed after step 2 and resumed, bit for bit the run
+  that never stopped; every step saved is the single-device run's file;
 - every variant (ga, naive, adama arena and per leaf, ZeRO-1, the guarded
   ones) within ENGINE_TOL of the reference's `make_dp_train_step` on a
   one-device mesh, from the same params and batches. ga and naive run
@@ -33,7 +43,8 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from _dp_worker import ARCH, SEQ, batches, init_tree, model_config, run
+from _dp_worker import (ARCH, GUARDED_BF16_MASTER, SEQ, WIRES, batches,
+                        init_tree, model_config, run, run_checkpointed)
 from repro.configs import OptimizerConfig as JaxOptimizerConfig
 from repro.configs import get_config as jax_get_config
 from repro.core import arena as jarena
@@ -41,10 +52,11 @@ from repro.core.dp_shardmap import make_dp_train_step as jax_make_dp
 from repro.launch.mesh import make_mesh
 from repro.optim import schedule as jsched
 from repro.train import faults as jfaults
-from repro_torch.configs.base import OptimizerConfig
+from repro_torch.configs.base import OptimizerConfig, RunConfig
 from repro_torch.core import arena as tarena
 from repro_torch.core.dp_shardmap import make_dp_train_step
 from repro_torch.core.zero import zero1_bucket_plan
+from repro_torch.train.loop import train
 from test_torch_engines import ENGINE_TOL
 
 torch.set_num_threads(1)
@@ -238,12 +250,66 @@ def test_m1_variants_match_reference_dp_engine(case, one_rank):
             [x["skipped_micro_batches"] for x in metrics]
 
 
+# the bf16 wire and master params, alone and together, through every
+# schedule: name -> (variant, OptimizerConfig fields, fault); two steps
+# each (the second runs on the leaves the first's master apply wrote),
+# the guarded ones with dynamic scaling and a NaN in micro-batch 1 of
+# step 1, which backs the scale off once
+SCHEDULES = (("replicated", "adama", {}), ("full", "adama", ZERO1),
+             ("bucketed", "adama", dict(zero_stage=1)),
+             ("stream", "adama_layerwise", dict(zero_stage=1)))
+WIRE_MASTER = {}
+for _label, _variant, _kw in SCHEDULES:
+    for _name, _extra in WIRES:
+        WIRE_MASTER[f"{_label}-{_name}"] = (_variant, dict(_kw, **_extra),
+                                            None)
+    WIRE_MASTER[f"{_label}-bf16-master-guarded"] = (
+        _variant, dict(_kw, **GUARDED_BF16_MASTER), "nan@micro=1,step=0")
+
+
+@pytest.mark.parametrize("case", sorted(WIRE_MASTER))
+def test_m1_bf16_wire_and_master_equal_single_device(case, one_rank):
+    """Bit for bit the single-device engine with the same grad_dtype and
+    master_params: params, master, every state column, losses, scaler.
+    Each gradient reduce-scatter moves the wire's bytes (bf16: 2 B an
+    element) and the param all-gather the master's bf16 working rows
+    (half the fp32 gather's bytes); the leaves are bf16 of the master."""
+    variant, kw, fault = WIRE_MASTER[case]
+    kw = dict(kw, micro_batches=N_MICRO)
+    single = {k: v for k, v in kw.items()
+              if k not in ("zero_stage", "zero_bucketed")}
+    want = run(dict(single, accumulation=variant), fault=fault)
+    got = run(kw, variant, fault=fault)
+    assert got["losses"] == want["losses"]
+    assert np.array_equal(got["params"], want["params"])
+    for k in ("m", "v"):
+        assert all(a.dtype == b.dtype and np.array_equal(a, b)
+                   for a, b in zip(got[k], want[k])), k
+    assert got.get("scaler") == want.get("scaler")
+    if fault:
+        assert got["scaler"]["skipped"] == 1
+        assert got["scaler"]["scale"] == 2.0 ** 14
+    master = kw.get("master_params", False)
+    assert ("p" in got) == master
+    if master:
+        assert got["p"].dtype == np.float32
+        assert np.array_equal(got["p"], want["p"])
+        assert got["work_is_bf16_master"]
+    rs, ag = got["collectives"]["reduce_scatter"], \
+        got["collectives"]["all_gather"]
+    if not kw.get("zero_stage"):
+        assert rs == ag == (0, 0)
+        return
+    layout = tarena.build_layout(init_tree(model_config()))
+    rows = (sum(b.rows for b in zero1_bucket_plan(layout, 1).grad_buckets())
+            if kw.get("zero_bucketed", True) else layout.rows)
+    wire = 2 if kw.get("grad_dtype") == "bf16" else 4
+    assert rs == (rs[0], 2 * N_MICRO * rows * tarena.LANES * wire)
+    assert ag == (2, 2 * layout.rows * tarena.LANES * (2 if master else 4))
+
+
 # (OptimizerConfig fields, variant, a tp group?, the ROADMAP item named)
 REFUSED = [
-    (dict(grad_dtype="bf16"), "adama", False, "10.2"),
-    (dict(grad_dtype="bf16", zero_stage=1), "adama_layerwise", False,
-     "10.2"),
-    (dict(master_params=True), "adama", False, "10.2"),
     (dict(zero_stage=1, zero_async=True), "adama", False, "10.3"),
     (dict(grad_dtype="fp8_e4m3", finite_guard=True, **ZERO1), "adama", False,
      "10.3"),
@@ -279,12 +345,48 @@ def test_reference_refusals_keep_their_messages(one_rank):
             make_dp_train_step(cfg, OptimizerConfig(**kw), None, variant)
 
 
-def test_checkpoints_of_a_dp_run_refuse(one_rank, tmp_path):
-    from repro_torch.configs.base import RunConfig
-    from repro_torch.train.loop import train
-    run_cfg = RunConfig(model=model_config(), seq_len=SEQ, global_batch=4,
-                        steps=1, optimizer=OptimizerConfig(micro_batches=2),
-                        checkpoint_dir=str(tmp_path / "ck"))
-    with pytest.raises(NotImplementedError, match=r"item 10\.2"):
-        train(run_cfg, device="cpu", group=dist.group.WORLD,
-              log_fn=lambda _: None)
+
+# a DP run's checkpoints at M = 1: name -> (variant, OptimizerConfig fields)
+CHECKPOINTED = {
+    "full-bf16-master": ("adama", dict(ZERO1, grad_dtype="bf16",
+                                       master_params=True)),
+    "stream-bf16-master-guarded": ("adama_layerwise", dict(
+        zero_stage=1, grad_dtype="bf16", master_params=True,
+        finite_guard=True, loss_scale="dynamic")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CHECKPOINTED))
+def test_m1_dp_run_resumes_bit_for_bit_and_saves_one_devices_bytes(
+        case, one_rank, tmp_path):
+    """train() over the one-rank group, crashed after step 2's update and
+    resumed from step 1, equals the run that never stopped bit for bit;
+    every step it saved is the single-device run's checkpoint, array for
+    array (canonical rows whatever the schedule)."""
+    variant, kw = CHECKPOINTED[case]
+    kw = dict(kw, micro_batches=N_MICRO)
+    out = run_checkpointed(kw, variant, tmp_path / "dp",
+                           group=dist.group.WORLD)
+    assert out["crashed"]
+    clean, resumed = out["clean"], out["resumed"]
+    assert resumed["losses"] == clean["losses"][1:]
+    assert np.array_equal(resumed["params"], clean["params"])
+    for k in ("m", "v"):
+        assert all(np.array_equal(a, b)
+                   for a, b in zip(resumed[k], clean[k])), k
+    assert resumed.get("scaler") == clean.get("scaler")
+    if "p" in clean:
+        assert np.array_equal(resumed["p"], clean["p"])
+    single = {k: v for k, v in kw.items()
+              if k not in ("zero_stage", "zero_bucketed")}
+    run_cfg = RunConfig(model=model_config(), seq_len=SEQ, global_batch=8,
+                        steps=2, optimizer=OptimizerConfig(
+                            accumulation=variant, **single),
+                        checkpoint_dir=str(tmp_path / "one"),
+                        checkpoint_every=1)
+    train(run_cfg, device="cpu", log_fn=lambda _: None)
+    for step in (1, 2):
+        a = np.load(tmp_path / f"dp/clean/step_{step:08d}/arrays.npz")
+        b = np.load(tmp_path / f"one/step_{step:08d}/arrays.npz")
+        assert a.files == b.files
+        assert all(np.array_equal(a[f], b[f]) for f in a.files), step

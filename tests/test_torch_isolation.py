@@ -44,7 +44,11 @@ def test_no_port_file_imports_jax_or_the_reference():
 
 
 def _env(**extra):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **extra)
+    """The subprocesses' environment: the port on the path, one OpenMP
+    thread (beside the other tests on the machine's cores, more threads
+    wait on one another)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1", **extra)
     return env
 
 

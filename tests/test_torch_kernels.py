@@ -12,6 +12,7 @@ import torch
 
 from repro.kernels import fused_step as jfs
 from repro_torch.core import adama, state_store
+from repro_torch.kernels import adama_accum as tacc
 from repro_torch.kernels import build
 from repro_torch.kernels import fused_step as tfs
 
@@ -90,11 +91,28 @@ def test_fma32_is_a_correctly_rounded_fused_multiply_add():
     a[:6] = [1.0, 1.0 + 2 ** -23, 3.0, 1e-20, -2.0, 1.5]
     b[:6] = [1.0, 1.0 - 2 ** -23, 1.0 / 3, 1e-20, 2.0 ** -24, 2.0 ** -130]
     c[:6] = [-1.0, -1.0, 2 ** -40, 1e-45, 1.0, 0.0]
+    # double-rounding cases: a*b = +-(2^-24 - 2^-60) onto c = 1 + 2^-23,
+    # and +-(2^-150 - 2^-186) onto the subnormal c = (2^22 + 1) 2^-149;
+    # the exact sum lies 2^-60 (2^-186) off a float32 midpoint, the
+    # float64 sum on it, and float32 ties to even round it the wrong way
+    # (the CPU path's tie branch)
+    near = (1 + 2 ** -18, 1 - 2 ** -18)
+    for i, (scale, z) in enumerate(((2.0 ** -12, 1 + 2 ** -23),
+                                    (2.0 ** -75, (2 ** 22 + 1) * 2.0 ** -149))):
+        a[6 + 2 * i:8 + 2 * i] = [scale * near[0], -scale * near[0]]
+        b[6 + 2 * i:8 + 2 * i] = scale * near[1]
+        c[6 + 2 * i:8 + 2 * i] = z
     got = tfs._fma32(_t(a), _t(b), _t(c)).numpy()
     want = np.array([_round_to_f32(Fraction(float(x)) * Fraction(float(y))
                                    + Fraction(float(z)))
                      for x, y, z in zip(a, b, c)], dtype=np.float32)
     assert np.array_equal(got, want)
+    assert np.array_equal(tacc._fma32_exact(_t(a), _t(b), _t(c)).numpy(),
+                          want)
+    # the float64 sum rounded once more is wrong on each of them
+    twice = (a.astype(np.float64) * b + c).astype(np.float32)
+    assert (twice[6:10] != want[6:10]).all()
+    assert np.abs(want[8:10]).max() < np.finfo(np.float32).tiny
     # and it is not the twice-rounded a*b + c
     assert not np.array_equal(got, a * b + c)
 

@@ -360,7 +360,8 @@ def test_cli_trains_adama_layerwise_on_the_cpu(flags):
          "bert-large", "--reduced", "--steps", "2", "--global-batch", "4",
          "--micro-batches", "2", "--seq-len", "16", "--log-every", "1",
          "--accumulation", "adama_layerwise", "--device", "cpu", *flags],
-        env=dict(os.environ, PYTHONPATH=str(root / "src")),
+        env=dict(os.environ, PYTHONPATH=str(root / "src"),
+                 OMP_NUM_THREADS="1"),
         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.count("[train] step") == 2

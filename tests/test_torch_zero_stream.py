@@ -22,7 +22,12 @@ why):
 - each rank's row-indexed columns hold rows / M rows;
 - at N = 4, the bucketed schedule's and the stream's collectives a step:
   N x (gradient buckets) reduce-scatters + 1 all-gather, moving the full
-  pack's bytes less N x the padding bucket's.
+  pack's bytes less N x the padding bucket's;
+- the bf16 wire with master params at the constant lr, bucketed for the
+  seven pairs and streamed for three, against the single-device engines
+  with the same fields (test_torch_zero.py's check_wire_master, which
+  holds the master's update), and guarded (a clean run, dynamic scaling)
+  equal to unguarded bit for bit.
 """
 import numpy as np
 import pytest
@@ -36,9 +41,10 @@ from repro_torch.core import zero as tzero
 from repro_torch.kernels import fused_step
 from test_torch_engines import ENGINE_TOL
 from test_torch_zero import (CODE_REL, DP_ARCH, FP32_REL, GB,
-                             LOSSY_LOSS_TOL, N_MICRO, PAIRS7, ZERO1,
-                             ZERO1_STEPS, _assert_same_params_on_every_rank,
-                             _decoded, _whole)
+                             GUARDED_BF16_MASTER, LOSSY_LOSS_TOL, N_MICRO,
+                             PAIRS7, ZERO1, ZERO1_STEPS,
+                             _assert_same_params_on_every_rank, _decoded,
+                             _whole, check_wire_master)
 
 STREAM_PAIRS = (("fp32", "fp32"), ("int8", "int8"), ("int8", "rowcol"))
 # a rest cap that cuts the reduced stablelm's rest region inside leaves
@@ -68,6 +74,20 @@ def _cases(m, steps):
                 opt_kw=dict(kw, zero_stage=1))))
     out.append(("capped", dict(base, opt_kw=dict(
         micro_batches=N_MICRO, zero_stage=1, zero_bucket_rows=SMALL_CAP))))
+    # the bf16 wire with master params at the constant lr, unguarded and
+    # guarded (a clean run, dynamic scaling)
+    both = dict(grad_dtype="bf16", master_params=True)
+    for mc, vc in PAIRS7:
+        kw = dict(micro_batches=N_MICRO, m_codec=mc, state_codec=vc,
+                  zero_stage=1)
+        variants = [("bucketed", "adama")] + (
+            [("stream", "adama_layerwise")] if (mc, vc) in STREAM_PAIRS
+            else [])
+        for label, variant in variants:
+            for tag, extra in (("", both), ("-guarded", GUARDED_BF16_MASTER)):
+                out.append((f"{label}-{mc}-{vc}-bf16-master{tag}", dict(
+                    base, warmup=False, variant=variant,
+                    opt_kw=dict(kw, **extra))))
     if m == 2:
         g = dict(micro_batches=N_MICRO, finite_guard=True, zero_stage=1)
         for variant in ("adama", "adama_layerwise"):
@@ -200,7 +220,7 @@ def _check_one_device(res, m, name, pair, engine):
 def test_one_bad_rank_equals_the_forced_skip(ranks, label):
     for r in ranks[2]:
         a, b = r[f"guarded-{label}-nan"], r[f"guarded-{label}-skip"]
-        assert np.array_equal(a["params"], b["params"])
+        assert a["params_digest"] == b["params_digest"]
         assert a["losses"] == b["losses"]
         for k in ("m", "v"):
             assert all(np.array_equal(x, y) for x, y in zip(a[k], b[k])), k
@@ -245,3 +265,39 @@ def test_collectives_a_step(ranks, label):
     calls = coll["reduce_scatter"][0] + coll["all_gather"][0]
     moved = coll["reduce_scatter"][1] + coll["all_gather"][1]
     assert (calls, moved) == (4 * n_b + 1, 4 * a + a - 4 * pad)
+
+
+WIRE_CASES = [(m, "bucketed", p) for m in (2, 4) for p in PAIRS7] + \
+    [(m, "stream", p) for m in (2, 4) for p in STREAM_PAIRS]
+
+
+@pytest.mark.parametrize("m, label, pair", WIRE_CASES,
+                         ids=lambda x: "-".join(x) if isinstance(x, tuple)
+                         else str(x))
+def test_bf16_wire_and_master_match_single_device(ranks, m, label, pair):
+    """The bucketed schedule and the stream on the bf16 wire with master
+    params against the single-device adama / adama_layerwise with the
+    same fields on the reordered batch (tests/test_torch_zero.py's
+    check_wire_master: the master fp32, rows / M of it on each rank in
+    partition order, the leaves bf16 of it unpermuted)."""
+    engine = "adama_layerwise" if label == "stream" else "adama"
+    check_wire_master(ranks[m], m, f"{label}-{pair[0]}-{pair[1]}-bf16-master",
+                      pair, "bf16-master", engine, perm=_perm(m))
+
+
+@pytest.mark.parametrize("m", (2, 4))
+def test_guarded_bf16_master_equals_unguarded(ranks, m):
+    """A clean guarded run with dynamic scaling equals the unguarded one
+    bit for bit, bucketed and streamed, on every pair they take."""
+    names = [f"bucketed-{mc}-{vc}-bf16-master" for mc, vc in PAIRS7] + [
+        f"stream-{mc}-{vc}-bf16-master" for mc, vc in STREAM_PAIRS]
+    for name in names:
+        for r in ranks[m]:
+            a, b = r[name], r[name + "-guarded"]
+            assert a["params_digest"] == b["params_digest"], name
+            assert np.array_equal(a["p"], b["p"]), name
+            assert a["losses"] == b["losses"], name
+            for k in ("m", "v"):
+                assert all(np.array_equal(x, y)
+                           for x, y in zip(a[k], b[k])), (name, k)
+            assert b["scaler"]["skipped"] == 0
